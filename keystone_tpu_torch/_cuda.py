@@ -22,6 +22,8 @@ import subprocess
 import threading
 from typing import Dict, Iterable, Optional
 
+import torch
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -148,3 +150,32 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when every tensor is on one CUDA device, False when all are on
+    the CPU; raises otherwise."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on more than one device: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {dev}")
+
+
+def check_arg(t: torch.Tensor, name: str, ndim: int) -> None:
+    """Raise unless ``t`` is a contiguous ``ndim``-D float32 tensor."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as a raw handle."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -18,7 +18,6 @@ import math
 import torch
 
 from keystone_tpu_torch import _cuda
-from keystone_tpu_torch.ops.images.kernels import _check, _on_cuda, _stream
 
 ROWS_PER_BLOCK = 1024  # descriptors per block of the kernel's first pass
 MAX_K = 64
@@ -57,7 +56,7 @@ def fisher_vector_stats(x, means, variances, weights, weight_threshold=1e-4):
     """x: (B, d, m) descriptors -> (s0 (B, k), s1 (B, d, k), s2 (B, d, k)),
     each already divided by m, with the GMM's posterior thresholding."""
     for t, name, nd in ((x, "x", 3), (means, "means", 2), (variances, "variances", 2), (weights, "weights", 1)):
-        _check(t, name, nd)
+        _cuda.check_arg(t, name, nd)
     B, d, m = x.shape
     k = means.shape[1]
     if means.shape != (d, k) or variances.shape != (d, k) or weights.shape != (k,):
@@ -68,7 +67,7 @@ def fisher_vector_stats(x, means, variances, weights, weight_threshold=1e-4):
         )
     if m < 1:
         raise ValueError("x holds no descriptors")
-    if not _on_cuda(x, means, variances, weights):
+    if not _cuda.on_cuda(x, means, variances, weights):
         return fisher_vector_stats_plain(x, means, variances, weights, weight_threshold)
     if k > MAX_K:
         raise ValueError(f"the kernel takes k <= {MAX_K}, got {k}")
@@ -81,7 +80,7 @@ def fisher_vector_stats(x, means, variances, weights, weight_threshold=1e-4):
         err = lib.ks_fv_stats(
             x.data_ptr(), inv_var.data_ptr(), proj.data_ptr(), const.data_ptr(),
             float(weight_threshold), partial.data_ptr(), out.data_ptr(),
-            B, d, m, k, ROWS_PER_BLOCK, _stream(x),
+            B, d, m, k, ROWS_PER_BLOCK, _cuda.stream(x),
         )
     _cuda.check(err, "ks_fv_stats")
     _cuda.LAUNCHES["fisher_vector_stats"] += 1

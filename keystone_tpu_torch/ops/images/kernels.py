@@ -20,44 +20,6 @@ from keystone_tpu_torch import _cuda
 
 NUM_ORIENTATIONS = 8
 
-# shared memory a block may use on sm_90, and the kernel's tile sizes
-# (csrc/sandwich.cu: BM, BW, BK, BN)
-_SMEM_LIMIT = 232448
-_BM, _BW, _BK, _BN = 64, 128, 8, 128
-
-
-def _sandwich_smem(W: int) -> int:
-    wr = -(-W // _BW) * _BW
-    return 4 * (wr * _BM + _BK * _BM + _BK * _BW + _BK * _BN)
-
-
-def _on_cuda(*tensors: torch.Tensor) -> bool:
-    """True when every tensor is on one CUDA device, False when all are on
-    the CPU; raises otherwise."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on more than one device: {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type == "cuda":
-        return True
-    if dev.type == "cpu":
-        return False
-    raise ValueError(f"no kernel or plain version for device {dev}")
-
-
-def _check(t: torch.Tensor, name: str, ndim: int) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if t.ndim != ndim:
-        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def orientation_planes(mag: torch.Tensor, orient: torch.Tensor) -> torch.Tensor:
     """(B, H, W) magnitude and continuous orientation in [0, 8) ->
     (B, 8, H, W) trilinear orientation planes (the vl_dsift binning)."""
@@ -91,7 +53,7 @@ def sift_bin_sample(
     sampling matrix; ``ax``: (W, N) x-axis sampling matrix. Returns
     (B, 8, M, N)."""
     for t, name, nd in ((mag, "mag", 3), (orient, "orient", 3), (ayt, "ayt", 2), (ax, "ax", 2)):
-        _check(t, name, nd)
+        _cuda.check_arg(t, name, nd)
     B, H, W = mag.shape
     M, N = ayt.shape[0], ax.shape[1]
     if orient.shape != mag.shape or ayt.shape[1] != H or ax.shape[0] != W:
@@ -99,18 +61,16 @@ def sift_bin_sample(
             f"shapes disagree: mag {tuple(mag.shape)}, orient "
             f"{tuple(orient.shape)}, ayt {tuple(ayt.shape)}, ax {tuple(ax.shape)}"
         )
-    if not _on_cuda(mag, orient, ayt, ax):
+    if not _cuda.on_cuda(mag, orient, ayt, ax):
         return sift_bin_sample_plain(mag, orient, ayt, ax)
-    if _sandwich_smem(W) > _SMEM_LIMIT:
-        raise ValueError(f"W={W} needs more shared memory than a block has")
     out = torch.empty((B, NUM_ORIENTATIONS, M, N), dtype=torch.float32, device=mag.device)
     lib = _cuda.lib("sandwich")
     with torch.cuda.device(mag.device):
         err = lib.ks_sift_bin_sample(
             mag.data_ptr(), orient.data_ptr(), ayt.data_ptr(), ax.data_ptr(),
-            out.data_ptr(), B, H, W, M, N, _stream(mag),
+            out.data_ptr(), B, H, W, M, N, _cuda.stream(mag),
         )
-    _cuda.check(err, "ks_sift_bin_sample")
+    _cuda.check(err, f"ks_sift_bin_sample (W={W})")
     _cuda.LAUNCHES["sift_bin_sample"] += 1
     return out
 
@@ -119,9 +79,9 @@ def plane_sandwich(planes: torch.Tensor, at: torch.Tensor, b: torch.Tensor) -> t
     """(B, P, M, N) GEMM sandwich ``out[i, p] = at @ planes[i, p] @ b`` —
     the LCS box-filter→sample stage over the stacked image/image² channel
     planes (``at``: (M, H), ``b``: (W, N))."""
-    _check(planes, "planes", 4)
-    _check(at, "at", 2)
-    _check(b, "b", 2)
+    _cuda.check_arg(planes, "planes", 4)
+    _cuda.check_arg(at, "at", 2)
+    _cuda.check_arg(b, "b", 2)
     B, P, H, W = planes.shape
     M, N = at.shape[0], b.shape[1]
     if at.shape[1] != H or b.shape[0] != W:
@@ -129,17 +89,15 @@ def plane_sandwich(planes: torch.Tensor, at: torch.Tensor, b: torch.Tensor) -> t
             f"shapes disagree: planes {tuple(planes.shape)}, at "
             f"{tuple(at.shape)}, b {tuple(b.shape)}"
         )
-    if not _on_cuda(planes, at, b):
+    if not _cuda.on_cuda(planes, at, b):
         return plane_sandwich_plain(planes, at, b)
-    if _sandwich_smem(W) > _SMEM_LIMIT:
-        raise ValueError(f"W={W} needs more shared memory than a block has")
     out = torch.empty((B, P, M, N), dtype=torch.float32, device=planes.device)
     lib = _cuda.lib("sandwich")
     with torch.cuda.device(planes.device):
         err = lib.ks_plane_sandwich(
             planes.data_ptr(), at.data_ptr(), b.data_ptr(), out.data_ptr(),
-            B, P, H, W, M, N, _stream(planes),
+            B, P, H, W, M, N, _cuda.stream(planes),
         )
-    _cuda.check(err, "ks_plane_sandwich")
+    _cuda.check(err, f"ks_plane_sandwich (W={W})")
     _cuda.LAUNCHES["plane_sandwich"] += 1
     return out

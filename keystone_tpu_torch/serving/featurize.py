@@ -97,7 +97,7 @@ def flagship_pipeline(
     desc_dim: int = 64,
     vocab: int = 16,
     *,
-    device: Union[str, torch.device] = "cpu",
+    device: Optional[Union[str, torch.device]] = None,
     sift_step: int = 3,
     sift_bin: int = 4,
     sift_scales: int = 4,
@@ -107,7 +107,9 @@ def flagship_pipeline(
     lcs_patch: int = 6,
 ):
     """The unfitted warm-start featurize chain: seeded random PCA
-    projections and unit GMMs stand in for fitted parameters."""
+    projections and unit GMMs stand in for fitted parameters, placed on
+    ``device`` (``None`` means ``cuda``)."""
+    dev = resolve_device(device)
 
     def draw(in_dim):
         pca = rng.standard_normal((desc_dim, in_dim)).astype(np.float32) * 0.1
@@ -126,7 +128,7 @@ def flagship_pipeline(
         sift_scale_step=sift_scale_step, lcs_stride=lcs_stride,
         lcs_border=lcs_border, lcs_patch=lcs_patch,
     )
-    return flagship_branches(sift, lcs, sift_params, lcs_params, device)
+    return flagship_branches(sift, lcs, sift_params, lcs_params, dev)
 
 
 def build_flagship_featurize_pipeline(

@@ -60,11 +60,15 @@ def test_entry_points_need_cuda_unless_given_the_cpu(monkeypatch):
     from keystone_tpu_torch.serving.engine import CompiledPipeline
     from keystone_tpu_torch.serving.featurize import (
         build_flagship_featurize_pipeline,
+        flagship_pipeline,
     )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_flagship_featurize_pipeline(img=40, desc_dim=4, vocab=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        flagship_pipeline(np.random.default_rng(0), 4, 2)
+    flagship_pipeline(np.random.default_rng(0), 4, 2, device="cpu")
     feat, _ = build_flagship_featurize_pipeline(
         img=40, desc_dim=4, vocab=2, device="cpu"
     )
