@@ -5,12 +5,15 @@
 Phases, in order; any failure exits non-zero:
 
 1. check that a CUDA card is there, and print its name and power limit;
-2. build the CUDA kernels from ``keystone_tpu_torch/csrc`` (nvcc, sm_90a);
+2. build the CUDA kernels from ``keystone_tpu_torch/csrc`` (nvcc, sm_90a)
+   and print what ptxas reports of each: registers, shared memory, spills;
 3. hold each kernel against its plain PyTorch version on the card, at
-   ragged shapes and at the full-width shapes of the serving path
-   (B = 64 images of 256x256), and
-   time the kernel, the plain version and a one-call PyTorch yardstick
-   with CUDA events;
+   ragged shapes (random dense operators, and real SIFT operators cropped
+   so their bands straddle the kernel's tiles, with a zero row and column)
+   and at the full-width shapes of the serving path (B = 64 images of
+   256x256), and time the kernel, the plain version and a one-call
+   PyTorch yardstick with CUDA events; each bound counts the FLOPs of the
+   operators' nonzero bands (the dense count is kept beside it);
 4. serve the ImageNetSiftLcsFV configuration (SIFT step 3 / bin 4 /
    4 scales, LCS 4/16/6, desc_dim 64, vocab 32 → 8,192 features, a
    seeded 8,192 x 1,000 linear head, top-5) through buckets (8, 64),
@@ -121,9 +124,19 @@ def sift_inputs(imgs_u8, dev):
         t = (ang / (2.0 * np.pi) * 8).contiguous()
         nf = (IMG - 1 - bnd - 3 * bin_size) // step + 1
         a = sift._sampling_matrix(IMG, nf, bin_size, step, bnd)
-        out.append((mag, t, torch.as_tensor(a.T.copy(), device=dev),
-                    torch.as_tensor(a, device=dev)))
+        ayt, ax = torch.as_tensor(a.T.copy(), device=dev), torch.as_tensor(a, device=dev)
+        out.append((mag, t, ayt, ax, kernels.sift_bands(ayt, ax)))
     return out
+
+
+def band_flops(row_bands, col_bands, z_cols, t1_rows, reps):
+    """FLOPs of ``reps`` sandwiches ``At · Z · B`` over the operators'
+    bands: 2 · (Σ band widths) · (other extent) per product, with the row
+    bands of At, the column bands of B, Z's column count and T1 = At · Z's
+    row count."""
+    wr = int((row_bands[1] - row_bands[0]).sum())
+    wc = int((col_bands[1] - col_bands[0]).sum())
+    return 2 * reps * (wr * z_cols + wc * t1_rows)
 
 
 def lcs_inputs(imgs_u8, dev):
@@ -152,24 +165,42 @@ def fv_library(x, means, variances, weights, thresh):
 
 def check_ragged(dev, gen):
     """Each kernel against its plain version at shapes that are no
-    multiple of any tile (edges of M, N, H, W, m and k < 32)."""
+    multiple of any tile (edges of M, N, H, W, m and k < 32), and on the
+    paths the serving shapes do not take: W over one column chunk of B1's
+    stage 1, a tile of all-zero rows and a group of all-zero columns, k
+    over 32 in B3."""
     def r(*shape):
         return torch.randn(*shape, device=dev, generator=gen)
 
+    for h, w, m, n in ((50, 70, 37, 45), (40, 300, 21, 37)):
+        mag, t = r(3, h, w).abs(), r(3, h, w).abs() * 3
+        ayt, ax = r(m, h), r(w, n)
+        max_abs_err(kernels.sift_bin_sample(mag, t, ayt, ax),
+                    kernels.sift_bin_sample_plain(mag, t, ayt, ax),
+                    RTOL_SANDWICH, ATOL_SANDWICH, f"sift_bin_sample ragged W={w}")
+    # real SIFT operators, cropped so the bands straddle the kernel's row
+    # and column tiles, with 10 all-zero rows (a whole tile once sorted)
+    # and 8 all-zero columns (a whole column group)
     mag, t = r(3, 50, 70).abs(), r(3, 50, 70).abs() * 3
-    ayt, ax = r(37, 50), r(70, 45)
-    max_abs_err(kernels.sift_bin_sample(mag, t, ayt, ax),
-                kernels.sift_bin_sample_plain(mag, t, ayt, ax),
-                RTOL_SANDWICH, ATOL_SANDWICH, "sift_bin_sample ragged")
+    ayt = sift._sampling_matrix(50, 10, 4, 3, 9).T[3:38].copy()
+    ax = sift._sampling_matrix(70, 17, 4, 3, 9)[:, 2:47].copy()
+    ayt[5:15], ax[:, 8:16] = 0.0, 0.0
+    ayt, ax = torch.as_tensor(ayt, device=dev), torch.as_tensor(ax, device=dev)
+    bands = kernels.sift_bands(ayt, ax)
+    want = kernels.sift_bin_sample_plain(mag, t, ayt, ax)
+    for b in (bands, None):
+        max_abs_err(kernels.sift_bin_sample(mag, t, ayt, ax, b), want,
+                    RTOL_SANDWICH, ATOL_SANDWICH, "sift_bin_sample ragged banded")
     planes, at, bm = r(2, 5, 131, 133), r(67, 131), r(133, 129)
     max_abs_err(kernels.plane_sandwich(planes, at, bm),
                 kernels.plane_sandwich_plain(planes, at, bm),
                 RTOL_SANDWICH, ATOL_SANDWICH, "plane_sandwich ragged")
-    x, means = r(2, 8, 1500), r(8, 7)
-    variances, weights = 0.5 + r(8, 7).abs(), torch.full((7,), 1 / 7, device=dev)
-    for g, w in zip(fv_kernel.fisher_vector_stats(x, means, variances, weights),
-                    fv_kernel.fisher_vector_stats_plain(x, means, variances, weights)):
-        max_abs_err(g, w, RTOL_FV, ATOL_FV, "fisher_vector_stats ragged")
+    for d, k, m in ((8, 7, 1500), (8, 40, 500)):
+        x, means = r(2, d, m), r(d, k)
+        variances, weights = 0.5 + r(d, k).abs(), torch.full((k,), 1 / k, device=dev)
+        for g, w in zip(fv_kernel.fisher_vector_stats(x, means, variances, weights),
+                        fv_kernel.fisher_vector_stats_plain(x, means, variances, weights)):
+            max_abs_err(g, w, RTOL_FV, ATOL_FV, f"fisher_vector_stats ragged k={k}")
 
 
 def check_kernels(dev, gen):
@@ -181,30 +212,33 @@ def check_kernels(dev, gen):
     # B1 — all four SIFT scales, as one dispatch runs them
     scales = sift_inputs(imgs, dev)
     err = 0.0
-    for mag, t, ayt, ax in scales:
-        got = kernels.sift_bin_sample(mag, t, ayt, ax)
+    for mag, t, ayt, ax, bands in scales:
+        got = kernels.sift_bin_sample(mag, t, ayt, ax, bands)
         want = kernels.sift_bin_sample_plain(mag, t, ayt, ax)
         err = max(err, max_abs_err(got, want, RTOL_SANDWICH, ATOL_SANDWICH,
                                    f"sift_bin_sample M={ayt.shape[0]}"))
-    flops = sum(2 * B * 8 * ayt.shape[0] * IMG * (IMG + ax.shape[1])
-                for _, _, ayt, ax in scales)
+    flops = sum(band_flops(bands[0], bands[1], IMG, ayt.shape[0], B * 8)
+                for _, _, ayt, _, bands in scales)
+    dense_flops = sum(2 * B * 8 * ayt.shape[0] * IMG * (IMG + ax.shape[1])
+                      for _, _, ayt, ax, _ in scales)
     nbytes = sum(4 * (2 * B * IMG * IMG + ayt.numel() + ax.numel()
                       + B * 8 * ayt.shape[0] * ax.shape[1])
-                 for _, _, ayt, ax in scales)
-    planes = [kernels.orientation_planes(m, t) for m, t, _, _ in scales]
+                 for _, _, ayt, ax, _ in scales)
+    planes = [kernels.orientation_planes(m, t) for m, t, *_ in scales]
     b_ms, b_by = bound(flops, nbytes)
     rows.append(dict(
         name="sift_bin_sample", route="cuda",
-        source="keystone_tpu_torch/csrc/sandwich.cu",
+        source="keystone_tpu_torch/csrc/sift_bin.cu",
         replaces="keystone_tpu/ops/images/pallas_kernels.py:76",
         max_abs_err=err,
         ms=time_ms(lambda: [kernels.sift_bin_sample(*s) for s in scales]),
-        plain_ms=time_ms(lambda: [kernels.sift_bin_sample_plain(*s) for s in scales]),
+        plain_ms=time_ms(lambda: [kernels.sift_bin_sample_plain(*s[:4]) for s in scales]),
         library_ms=time_ms(lambda: [
             torch.einsum("mh,bohw,wn->bomn", s[2], p, s[3])
             for s, p in zip(scales, planes)
         ]),
-        bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+        bound_ms=b_ms, bound_by=b_by, flops=flops, dense_flops=dense_flops,
+        bytes=nbytes,
         shapes=f"B={B} H=W={IMG} M=N in {[s[2].shape[0] for s in scales]}",
     ))
     del planes
@@ -215,7 +249,9 @@ def check_kernels(dev, gen):
     want = kernels.plane_sandwich_plain(z, at, bm)
     err = max_abs_err(got, want, RTOL_SANDWICH, ATOL_SANDWICH, "plane_sandwich")
     M = at.shape[0]
-    flops = 2 * B * 6 * M * IMG * (IMG + M)
+    flops = band_flops(kernels.band_extents(at, 1), kernels.band_extents(bm, 0),
+                       IMG, M, B * 6)
+    dense_flops = 2 * B * 6 * M * IMG * (IMG + M)
     nbytes = 4 * (z.numel() + at.numel() + bm.numel() + B * 6 * M * M)
     b_ms, b_by = bound(flops, nbytes)
     rows.append(dict(
@@ -226,7 +262,8 @@ def check_kernels(dev, gen):
         ms=time_ms(lambda: kernels.plane_sandwich(z, at, bm)),
         plain_ms=time_ms(lambda: kernels.plane_sandwich_plain(z, at, bm)),
         library_ms=time_ms(lambda: torch.einsum("mh,bphw,wn->bpmn", at, z, bm)),
-        bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+        bound_ms=b_ms, bound_by=b_by, flops=flops, dense_flops=dense_flops,
+        bytes=nbytes,
         shapes=f"B={B} P=6 H=W={IMG} M=N={M}",
     ))
     del z
@@ -382,6 +419,12 @@ def main():
     t0 = time.perf_counter()
     _cuda.build()
     log(f"built {sorted(_cuda.SOURCES)} in {time.perf_counter() - t0:.3f} s")
+    ptxas = {name: [ln.strip() for ln in text.splitlines()
+                    if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
+             for name, text in _cuda.BUILD_LOGS.items()}
+    for name, lines in ptxas.items():
+        for ln in lines:
+            log(f"ptxas {name}: {ln}")
 
     # -- 3. kernels against their plain versions ------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -389,9 +432,12 @@ def main():
     log("kernels match their plain versions at ragged shapes")
     rows = check_kernels(dev, gen)
     for r in rows:
+        r["bound_share"] = r["bound_ms"] / r["ms"]
         log(f"{r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
-            f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by "
-            f"{r['bound_by']}), max abs err {r['max_abs_err']:.3g} [{r['shapes']}]")
+            f"library {r['library_ms']:.3f} = {r['library_ms'] / r['ms']:.2f}x, "
+            f"bound {r['bound_ms']:.3f} by {r['bound_by']}, share "
+            f"{r['bound_share']:.3f}), max abs err {r['max_abs_err']:.3g} "
+            f"[{r['shapes']}] on {smi}")
     torch.cuda.empty_cache()
 
     # -- 4, 5. serve ----------------------------------------------------
@@ -402,7 +448,7 @@ def main():
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": rows, "serve": served,
-                   "ptxas": _cuda.BUILD_LOGS}, f, indent=1)
+                   "ptxas": ptxas}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

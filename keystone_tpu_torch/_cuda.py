@@ -30,6 +30,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 
 # library name -> source file under csrc/
 SOURCES: Dict[str, str] = {
+    "sift_bin": "sift_bin.cu",
     "sandwich": "sandwich.cu",
     "fv_stats": "fv_stats.cu",
 }
@@ -50,16 +51,19 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every exported function; each returns a cudaError_t
 SIGNATURES = {
+    "sift_bin": {
+        # mag, orient, ayt, ax, ay_lo, ay_hi, ax_lo, ax_hi, row_order, out, B,
+        # H, W, M, N, stream
+        "ks_sift_bin_sample": [_P] * 10 + [_I] * 5 + [_P],
+    },
     "sandwich": {
-        # mag, orient, ayt, ax, out, B, H, W, M, N, stream
-        "ks_sift_bin_sample": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         # planes, at, b, out, B, P, H, W, M, N, stream
         "ks_plane_sandwich": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "fv_stats": {
-        # x, inv_var, proj, cst, thresh, partial, out, B, d, m, k,
-        # rows_per_block, stream
-        "ks_fv_stats": [_P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P],
+        # x, means, variances, weights, thresh, terms, partial, out, B, d, m,
+        # k, rows_per_block, stream
+        "ks_fv_stats": [_P] * 4 + [_F] + [_P] * 3 + [_I] * 5 + [_P],
     },
 }
 

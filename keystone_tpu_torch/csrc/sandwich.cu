@@ -1,34 +1,35 @@
-// GEMM sandwich kernels of the flagship featurize path: out = At · Z · B
-// over a stack of (H, W) planes Z, in float32 FMA (no TF32).
+// GEMM sandwich kernel of the LCS extractor: out = At · Z · B over a stack
+// of (H, W) planes Z, in float32 FMA (no TF32).
 //
-// Replaces the Pallas TPU kernels in keystone_tpu/ops/images/pallas_kernels.py:
-//   ks_sift_bin_sample  <- sift_bin_sample (:76, body _sift_bin_sample_kernel :53)
+// Replaces the Pallas TPU kernel in keystone_tpu/ops/images/pallas_kernels.py:
 //   ks_plane_sandwich   <- plane_sandwich  (:129, body _plane_sandwich_kernel :121)
 //
-// Bound on the H100: operations. At 256x256 a SIFT scale-0 plane costs
-// 2·M·H·W + 2·M·W·N ≈ 93 MFLOP against 0.5 MB of input, far above the
-// card's float32 ops-per-byte balance (67 TFLOP/s / 3.35 TB/s ≈ 20), so the
-// float32 FMA rate bounds these kernels. Both products run on the CUDA cores
-// in float32: tensor cores would mean TF32, which misses the JAX package's
+// Bound on the H100: bytes, counting only the operators' bands (an LCS
+// column holds 6 nonzeros): about 0.5 GFLOP against 178 MB at B = 64. This
+// kernel multiplies the operators dense: at 256x256 a plane costs
+// 2·M·H·W + 2·M·W·N ≈ 55 MFLOP against 0.25 MB of input, far above the
+// card's float32 ops-per-byte balance (67 TFLOP/s / 3.35 TB/s ≈ 20), so its
+// float32 FMA rate sets its pace. Both products run on the CUDA cores in
+// float32: tensor cores would mean TF32, which misses the JAX package's
 // 1e-4 tolerances.
 //
 // Design. The TPU kernel holds a whole (H, W) plane in VMEM; at 256² that is
 // 256 KiB, more than the 227 KB of shared memory a block may use. So one
 // block takes (image b, plane p, a tile of BM = 64 rows of M) and:
 //   1. for each BW = 128-wide column tile of W, streams H in BK-deep chunks:
-//      the chunk of the plane is built in shared memory straight from the
-//      inputs (for SIFT: the trilinear orientation share of the gradient
-//      magnitude), and T1 = At[tile, :] · Z[:, wtile] accumulates in
-//      registers; each finished T1 tile is stored, transposed, to a
-//      shared-memory buffer of W × BM;
+//      the chunk of the plane is staged in shared memory, and
+//      T1 = At[tile, :] · Z[:, wtile] accumulates in registers; each
+//      finished T1 tile is stored, transposed, to a shared-memory buffer of
+//      W × BM;
 //   2. computes T1 · B tile by tile (BN = 128 columns) into the output.
 // Neither the plane stack nor T1 reaches device memory, which is the point of
 // the TPU kernel. 128 threads each own an 8x8 register tile (rows
 // ty*4+{0..3} and 32+ty*4+{0..3}, columns tx*4+{0..3} and 64+tx*4+{0..3}), so
 // every shared-memory read is a float4 and feeds 64 FMAs per 4 loads.
 // Each output sums its products in ascending order of the reduction index.
-// The operators At and B are banded (SIFT's triangular kernel spans 2·bin;
-// LCS's box spans the patch), but are multiplied dense here, as on the TPU.
+// The operators At and B are banded (LCS's box spans the patch), but are
+// multiplied dense here, as on the TPU; the SIFT kernel (sift_bin.cu) walks
+// only the bands.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -40,32 +41,6 @@ constexpr int BW = 128;  // W tile of the first product
 constexpr int BN = 128;  // N tile of the second product
 constexpr int BK = 8;    // reduction chunk
 constexpr int TPB = 128; // 8 x 16 threads, 8 x 8 outputs each
-constexpr int NUM_ORIENTATIONS = 8;
-
-// Plane p of image b of the SIFT orientation stack, in two steps so the
-// global loads can be issued a chunk ahead: load(b, p, h, w) fetches
-// (magnitude, orientation) of a pixel; value(raw, p) is the share of the
-// magnitude that the trilinear binning gives orientation p. Same
-// arithmetic, in the same order, as the TPU kernel.
-struct SiftPlane {
-  const float* mag;
-  const float* orient;
-  int H, W;
-  using Raw = float2;
-  __device__ __forceinline__ Raw load(int b, int, int h, int w) const {
-    size_t i = ((size_t)b * H + h) * W + w;
-    return make_float2(mag[i], orient[i]);
-  }
-  __device__ __forceinline__ float value(Raw r, int p) const {
-    float b0f = floorf(r.y);
-    float frac = r.y - b0f;
-    int b0 = ((int)b0f) % NUM_ORIENTATIONS;
-    if (b0 < 0) b0 += NUM_ORIENTATIONS;
-    int b1 = (b0 + 1) % NUM_ORIENTATIONS;
-    float share = (b0 == p ? 1.0f - frac : 0.0f) + (b1 == p ? frac : 0.0f);
-    return r.x * share;
-  }
-};
 
 // Plane p of image b of a (B, P, H, W) stack.
 struct StackPlane {
@@ -235,14 +210,6 @@ int launch(Plane plane, const float* at, const float* bm, float* out, int B,
 }  // namespace
 
 extern "C" {
-
-// mag, orient: (B, H, W); ayt: (M, H); ax: (W, N); out: (B, 8, M, N).
-int ks_sift_bin_sample(const float* mag, const float* orient, const float* ayt,
-                       const float* ax, float* out, int B, int H, int W, int M,
-                       int N, void* stream) {
-  SiftPlane plane{mag, orient, H, W};
-  return launch(plane, ayt, ax, out, B, NUM_ORIENTATIONS, H, W, M, N, stream);
-}
 
 // planes: (B, P, H, W); at: (M, H); b: (W, N); out: (B, P, M, N).
 int ks_plane_sandwich(const float* planes, const float* at, const float* b,

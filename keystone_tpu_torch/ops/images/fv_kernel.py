@@ -5,10 +5,10 @@
     q      = softmax(logits), thresholded at ``weight_threshold``, renormalized
     s0 = Σ_rows q ;  s1 = Xᵀ q ;  s2 = (X²)ᵀ q,   each / m
 
-On CUDA tensors this is the kernel in ``csrc/fv_stats.cu``, which never
-writes the (m, k) posterior to device memory and reduces its per-block
-partial sums in a fixed order (run-to-run identical output); on CPU
-tensors it is the plain PyTorch version below.
+On CUDA tensors this is the kernel in ``csrc/fv_stats.cu``, which forms
+the GMM terms on the card, never writes the (m, k) posterior to device
+memory and reduces its per-block partial sums in a fixed order (run-to-run
+identical output); on CPU tensors it is the plain PyTorch version below.
 """
 
 from __future__ import annotations
@@ -19,7 +19,12 @@ import torch
 
 from keystone_tpu_torch import _cuda
 
-ROWS_PER_BLOCK = 1024  # descriptors per block of the kernel's first pass
+# Descriptors per block of the kernel's first pass, a multiple of its
+# 128-descriptor chunk. Two blocks fit on an SM, so a wave of the H100 is
+# 264 blocks; at B = 64 both serving descriptor counts give at least two:
+# m = 3,136 -> 9 slabs (576 blocks), m = 13,165 -> 35 slabs (2,240).
+ROWS_PER_BLOCK = 384
+MAX_D = 64
 MAX_K = 64
 
 
@@ -69,17 +74,17 @@ def fisher_vector_stats(x, means, variances, weights, weight_threshold=1e-4):
         raise ValueError("x holds no descriptors")
     if not _cuda.on_cuda(x, means, variances, weights):
         return fisher_vector_stats_plain(x, means, variances, weights, weight_threshold)
-    if k > MAX_K:
-        raise ValueError(f"the kernel takes k <= {MAX_K}, got {k}")
-    inv_var, proj, const = (t.contiguous() for t in gmm_terms(means, variances, weights))
+    if k > MAX_K or d > MAX_D:
+        raise ValueError(f"the kernel takes d <= {MAX_D} and k <= {MAX_K}, got d={d}, k={k}")
     n_blocks = -(-m // ROWS_PER_BLOCK)
+    terms = torch.empty((2 * d + 1) * k, dtype=torch.float32, device=x.device)
     partial = torch.empty((B, n_blocks, 1 + 2 * d, k), dtype=torch.float32, device=x.device)
     out = torch.empty((B, 1 + 2 * d, k), dtype=torch.float32, device=x.device)
     lib = _cuda.lib("fv_stats")
     with torch.cuda.device(x.device):
         err = lib.ks_fv_stats(
-            x.data_ptr(), inv_var.data_ptr(), proj.data_ptr(), const.data_ptr(),
-            float(weight_threshold), partial.data_ptr(), out.data_ptr(),
+            x.data_ptr(), means.data_ptr(), variances.data_ptr(), weights.data_ptr(),
+            float(weight_threshold), terms.data_ptr(), partial.data_ptr(), out.data_ptr(),
             B, d, m, k, ROWS_PER_BLOCK, _cuda.stream(x),
         )
     _cuda.check(err, "ks_fv_stats")

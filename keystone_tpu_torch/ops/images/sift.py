@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from keystone_tpu_torch.ops.images.kernels import sift_bin_sample
+from keystone_tpu_torch.ops.images.kernels import sift_bands, sift_bin_sample
 from keystone_tpu_torch.parallel.dataset import Dataset
 from keystone_tpu_torch.workflow.api import Transformer
 
@@ -88,10 +88,10 @@ def _sampling_matrix(
     return m
 
 
-def _dsift_one_scale(img: torch.Tensor, ayt, ax):
+def _dsift_one_scale(img: torch.Tensor, ayt, ax, bands):
     """Dense SIFT at one scale over pre-smoothed (B, H, W) images, with the
     scale's transposed y-axis (M, H) and x-axis (W, N) sampling matrices
-    (None when the frame grid is empty).
+    (None when the frame grid is empty) and their ``sift_bands``.
 
     Returns (B, num_frames, 128) descriptors (normalized + clamped) and
     (B, num_frames) pre-normalization norms."""
@@ -104,7 +104,7 @@ def _dsift_one_scale(img: torch.Tensor, ayt, ax):
     t = ang / (2.0 * math.pi) * NUM_ORIENTATIONS
     nfy = ayt.shape[0] // NUM_SPATIAL_BINS
     nfx = ax.shape[1] // NUM_SPATIAL_BINS
-    g = sift_bin_sample(mag.contiguous(), t.contiguous(), ayt, ax)
+    g = sift_bin_sample(mag.contiguous(), t.contiguous(), ayt, ax, bands)
     g = g.reshape(B, NUM_ORIENTATIONS, nfy, NUM_SPATIAL_BINS, nfx, NUM_SPATIAL_BINS)
     g = g.permute(0, 2, 4, 3, 5, 1)  # (B, nfy, nfx, j, i, t)
     raw = g.reshape(B, -1, DESCRIPTOR_DIMS)
@@ -117,10 +117,11 @@ def _dsift_one_scale(img: torch.Tensor, ayt, ax):
 
 def scale_operators(H: int, W: int, step: int, bin: int, num_scales: int,
                     scale_step: int, device) -> List[tuple]:
-    """Per scale, on ``device``: the Gaussian pre-smoothing kernel and the
-    transposed y-axis and x-axis sampling matrices (None, None when the
-    frame grid is empty). Frame grid: top-left corners at bound + f·step
-    along both axes, descriptor extent 4·binSize."""
+    """Per scale, on ``device``: the Gaussian pre-smoothing kernel, the
+    transposed y-axis and x-axis sampling matrices and their bands
+    (``sift_bands``; all three None when the frame grid is empty). Frame
+    grid: top-left corners at bound + f·step along both axes, descriptor
+    extent 4·binSize."""
     ops = []
     for scale in range(num_scales):
         bin_size = bin + 2 * scale
@@ -131,15 +132,13 @@ def scale_operators(H: int, W: int, step: int, bin: int, num_scales: int,
         nfy = max((H - 1 - bound - extent) // scale_step_ + 1, 0)
         nfx = max((W - 1 - bound - extent) // scale_step_ + 1, 0)
         if nfy == 0 or nfx == 0:
-            ops.append((k, None, None))
+            ops.append((k, None, None, None))
             continue
-        ay = _sampling_matrix(H, nfy, bin_size, scale_step_, bound)
-        ax = _sampling_matrix(W, nfx, bin_size, scale_step_, bound)
-        ops.append((
-            k,
-            torch.as_tensor(ay.T.copy(), device=device),
-            torch.as_tensor(ax, device=device),
-        ))
+        ayt = torch.as_tensor(
+            _sampling_matrix(H, nfy, bin_size, scale_step_, bound).T.copy(), device=device
+        )
+        ax = torch.as_tensor(_sampling_matrix(W, nfx, bin_size, scale_step_, bound), device=device)
+        ops.append((k, ayt, ax, sift_bands(ayt, ax)))
     return ops
 
 
@@ -148,8 +147,8 @@ def dsift_unquantized(x: torch.Tensor, ops: List[tuple]) -> torch.Tensor:
     (B, numDescriptors, 128) descriptors of every scale,
     contrast-thresholded, before the ×512 quantization."""
     descs: List[torch.Tensor] = []
-    for k, ayt, ax in ops:
-        desc, norms = _dsift_one_scale(_sep_conv2d(x, k), ayt, ax)
+    for k, ayt, ax, bands in ops:
+        desc, norms = _dsift_one_scale(_sep_conv2d(x, k), ayt, ax, bands)
         # contrast-threshold zeroing (VLFeat.cxx:141-175)
         desc = torch.where(
             (norms >= CONTRAST_THRESHOLD)[..., None], desc, torch.zeros((), device=x.device)
@@ -169,9 +168,10 @@ class SIFTExtractor(Transformer):
     scale_step: int = 1
 
     def operators(self, H: int, W: int, device) -> List[tuple]:
-        """``scale_operators`` for (H, W) images on ``device``, built once
-        per (H, W, device) — the counterpart of the JAX package building
-        them once per jit trace — so a dispatch does no numpy work."""
+        """``scale_operators`` (matrices and bands) for (H, W) images
+        on ``device``, built once per (H, W, device) — the counterpart of
+        the JAX package building them once per jit trace — so a dispatch
+        does no numpy work."""
         cache = self.__dict__.setdefault("_operator_cache", {})
         key = (H, W, str(device))
         ops = cache.get(key)
