@@ -8,18 +8,22 @@ Phases, in order; any failure exits non-zero:
 2. build the CUDA kernels from ``keystone_tpu_torch/csrc`` (nvcc, sm_90a)
    and print what ptxas reports of each: registers, shared memory, spills;
 3. hold each kernel against its plain PyTorch version on the card, at
-   ragged shapes (random dense operators, and real SIFT operators cropped
-   so their bands straddle the kernel's tiles, with a zero row and column)
-   and at the full-width shapes of the serving path (B = 64 images of
-   256x256), and time the kernel, the plain version and a one-call
-   PyTorch yardstick with CUDA events; each bound counts the FLOPs of the
-   operators' nonzero bands (the dense count is kept beside it);
+   ragged shapes (random dense operators, and real SIFT and LCS operators
+   cropped so their bands straddle the kernels' tiles, with a tile of zero
+   rows and a group of zero columns) and at the full-width shapes of the
+   serving path (B = 64 images of 256x256), and time the kernel, the plain
+   version and a one-call PyTorch yardstick with CUDA events around runs
+   of 10 calls in a row (``compare_kernels.time_ms``), so that the host's
+   launch time hides behind the device's work; each bound counts the FLOPs
+   of the operators' nonzero bands (the dense count is kept beside it);
 4. serve the ImageNetSiftLcsFV configuration (SIFT step 3 / bin 4 /
    4 scales, LCS 4/16/6, desc_dim 64, vocab 32 → 8,192 features, a
    seeded 8,192 x 1,000 linear head, top-5) through buckets (8, 64),
    check every kernel's launch count, and hold the first 8 images'
    features and top-5 against a CPU run of the port (plain versions);
-5. time examples/sec per bucket.
+5. time examples/sec per bucket, and profile one bucket-64 dispatch: device
+   busy time with and without the host-to-device copies, and the port's
+   kernels in it.
 
 Prints the kernel table as one JSON line, then, last, the result line
 ``{"ok": true, "device": {...}}``. Writes the full record to
@@ -41,10 +45,10 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from compare_kernels import time_ms  # noqa: E402
 from keystone_tpu_torch import _cuda  # noqa: E402
 from keystone_tpu_torch.convert import model_head  # noqa: E402
-from keystone_tpu_torch.ops.images import fv_kernel, kernels, sift  # noqa: E402
-from keystone_tpu_torch.ops.images.lcs import _lcs_sampling_matrix  # noqa: E402
+from keystone_tpu_torch.ops.images import fv_kernel, kernels, lcs, sift  # noqa: E402
 from keystone_tpu_torch.serving.featurize import (  # noqa: E402
     build_flagship_featurize_pipeline,
 )
@@ -69,23 +73,6 @@ RTOL_FEAT, ATOL_FEAT = 1e-4, 1e-5
 
 def log(*a):
     print(*a, flush=True)
-
-
-def time_ms(fn, reps=10, warmup=2):
-    """Median of ``reps`` CUDA-event timings of ``fn()``, in ms."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def bound(flops, nbytes):
@@ -125,7 +112,7 @@ def sift_inputs(imgs_u8, dev):
         nf = (IMG - 1 - bnd - 3 * bin_size) // step + 1
         a = sift._sampling_matrix(IMG, nf, bin_size, step, bnd)
         ayt, ax = torch.as_tensor(a.T.copy(), device=dev), torch.as_tensor(a, device=dev)
-        out.append((mag, t, ayt, ax, kernels.sift_bands(ayt, ax)))
+        out.append((mag, t, ayt, ax, kernels.operator_bands(ayt, ax)))
     return out
 
 
@@ -139,14 +126,17 @@ def band_flops(row_bands, col_bands, z_cols, t1_rows, reps):
     return 2 * reps * (wr * z_cols + wc * t1_rows)
 
 
+def lcs_extractor():
+    return lcs.LCSExtractor(CONF["lcs_stride"], CONF["lcs_border"], CONF["lcs_patch"])
+
+
 def lcs_inputs(imgs_u8, dev):
+    """The planes, operators and cached bands the LCS path gives the
+    kernel, from raw images."""
     img = imgs_u8.to(torch.float32)
-    s, st, sp = CONF["lcs_patch"], CONF["lcs_stride"], CONF["lcs_border"]
-    keys = np.arange(sp, IMG - sp, st)
-    offs = np.arange(-2 * s + s // 2 - 1, s + s // 2, s)
-    a = _lcs_sampling_matrix(IMG, keys, offs, s)
+    at, bm, bands, *_ = lcs_extractor().operators(IMG, IMG, dev)
     z = torch.cat([img, img * img], dim=-1).permute(0, 3, 1, 2).contiguous()
-    return z, torch.as_tensor(a.T.copy(), device=dev), torch.as_tensor(a, device=dev)
+    return z, at, bm, bands
 
 
 def fv_library(x, means, variances, weights, thresh):
@@ -167,8 +157,8 @@ def check_ragged(dev, gen):
     """Each kernel against its plain version at shapes that are no
     multiple of any tile (edges of M, N, H, W, m and k < 32), and on the
     paths the serving shapes do not take: W over one column chunk of B1's
-    stage 1, a tile of all-zero rows and a group of all-zero columns, k
-    over 32 in B3."""
+    and B2's stage 1, W not a multiple of 4 (B2's 4-byte staging), a tile
+    of all-zero rows and a group of all-zero columns, k over 32 in B3."""
     def r(*shape):
         return torch.randn(*shape, device=dev, generator=gen)
 
@@ -186,7 +176,7 @@ def check_ragged(dev, gen):
     ax = sift._sampling_matrix(70, 17, 4, 3, 9)[:, 2:47].copy()
     ayt[5:15], ax[:, 8:16] = 0.0, 0.0
     ayt, ax = torch.as_tensor(ayt, device=dev), torch.as_tensor(ax, device=dev)
-    bands = kernels.sift_bands(ayt, ax)
+    bands = kernels.operator_bands(ayt, ax)
     want = kernels.sift_bin_sample_plain(mag, t, ayt, ax)
     for b in (bands, None):
         max_abs_err(kernels.sift_bin_sample(mag, t, ayt, ax, b), want,
@@ -195,6 +185,22 @@ def check_ragged(dev, gen):
     max_abs_err(kernels.plane_sandwich(planes, at, bm),
                 kernels.plane_sandwich_plain(planes, at, bm),
                 RTOL_SANDWICH, ATOL_SANDWICH, "plane_sandwich ragged")
+    # real LCS operators, cropped so the bands straddle the kernel's 16-row
+    # tiles and 32-column warp groups, with 20 all-zero rows of at (a whole
+    # tile once sorted) and 8 all-zero columns of b; W = 131 takes the
+    # 4-byte staging, W = 300 the 16-byte one over two column chunks
+    for h, w, rows, cols in ((133, 131, (3, 90), (2, 95)), (70, 300, (1, 38), (5, 200))):
+        at, bm, *_ = lcs_extractor().operators(h, w, "cpu")
+        at = at[rows[0]:rows[1]].clone()
+        bm = bm[:, cols[0]:cols[1]].clone()
+        at[5:25], bm[:, 8:16] = 0.0, 0.0
+        at, bm = at.to(dev), bm.to(dev)
+        planes = r(2, 5, h, w)
+        bands = kernels.operator_bands(at, bm)
+        want = kernels.plane_sandwich_plain(planes, at, bm)
+        for b in (bands, None):
+            max_abs_err(kernels.plane_sandwich(planes, at, bm, b), want,
+                        RTOL_SANDWICH, ATOL_SANDWICH, f"plane_sandwich ragged banded W={w}")
     for d, k, m in ((8, 7, 1500), (8, 40, 500)):
         x, means = r(2, d, m), r(d, k)
         variances, weights = 0.5 + r(d, k).abs(), torch.full((k,), 1 / k, device=dev)
@@ -243,14 +249,14 @@ def check_kernels(dev, gen):
     ))
     del planes
 
-    # B2 — LCS, P = 6
-    z, at, bm = lcs_inputs(imgs, dev)
-    got = kernels.plane_sandwich(z, at, bm)
+    # B2 — LCS, P = 6, with the bands the extractor caches
+    z, at, bm, bands = lcs_inputs(imgs, dev)
+    got = kernels.plane_sandwich(z, at, bm, bands)
     want = kernels.plane_sandwich_plain(z, at, bm)
     err = max_abs_err(got, want, RTOL_SANDWICH, ATOL_SANDWICH, "plane_sandwich")
+    del got, want
     M = at.shape[0]
-    flops = band_flops(kernels.band_extents(at, 1), kernels.band_extents(bm, 0),
-                       IMG, M, B * 6)
+    flops = band_flops(bands[0], bands[1], IMG, M, B * 6)
     dense_flops = 2 * B * 6 * M * IMG * (IMG + M)
     nbytes = 4 * (z.numel() + at.numel() + bm.numel() + B * 6 * M * M)
     b_ms, b_by = bound(flops, nbytes)
@@ -259,7 +265,7 @@ def check_kernels(dev, gen):
         source="keystone_tpu_torch/csrc/sandwich.cu",
         replaces="keystone_tpu/ops/images/pallas_kernels.py:129",
         max_abs_err=err,
-        ms=time_ms(lambda: kernels.plane_sandwich(z, at, bm)),
+        ms=time_ms(lambda: kernels.plane_sandwich(z, at, bm, bands)),
         plain_ms=time_ms(lambda: kernels.plane_sandwich_plain(z, at, bm)),
         library_ms=time_ms(lambda: torch.einsum("mh,bphw,wn->bpmn", at, z, bm)),
         bound_ms=b_ms, bound_by=b_by, flops=flops, dense_flops=dense_flops,
@@ -387,17 +393,26 @@ def serve(dev, smi):
               if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     events.sort(key=lambda e: -e.device_time_total)
     device_ms = sum(e.device_time_total for e in events) / 1e3
+    # the host-to-device copy of the batch varies most between runs; the
+    # busy time without copies is the one the kernels move
+    copy_ms = sum(e.device_time_total for e in events if e.key.startswith("Memcpy")) / 1e3
     top = [(e.key[:90], e.device_time_total / 1e3, e.count) for e in events[:15]]
+    ours = [(e.key[:90], e.device_time_total / 1e3, e.count) for e in events
+            if any(k in e.key for k in ("sift_bin_kernel", "sandwich_kernel", "fv_"))]
     log(f"profile of one bucket-64 dispatch: wall {wall_ms:.3f} ms, device "
-        f"busy {device_ms:.3f} ms, idle share {1 - device_ms / wall_ms:.3f}")
+        f"busy {device_ms:.3f} ms ({device_ms - copy_ms:.3f} without copies), "
+        f"idle share {1 - device_ms / wall_ms:.3f}")
     for key, ms, n in top:
+        log(f"  {ms:9.3f} ms  x{n:<4d} {key}")
+    log("the port's kernels in that dispatch:")
+    for key, ms, n in ours:
         log(f"  {ms:9.3f} ms  x{n:<4d} {key}")
     return {
         "launches": launches, "dispatches": dispatches, "sift": sift_rec,
         "feature_max_abs_err": feat_err, "top5_equal": top_equal,
         "throughput": throughput, "profile_wall_ms": wall_ms,
-        "profile_device_ms": device_ms,
-        "profile_top": top,
+        "profile_device_ms": device_ms, "profile_copy_ms": copy_ms,
+        "profile_top": top, "profile_kernels": ours,
     }
 
 

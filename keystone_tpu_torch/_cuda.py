@@ -4,8 +4,9 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), loaded with ``ctypes``. Builds run at first use, one
 ``nvcc`` per source, all started together, into ``_build/`` beside this
-file; a library's file name carries a digest of its source, so an edited
-source is rebuilt and a stale library is never loaded.
+file; a library's file name carries a digest of its source and of the
+headers (``csrc/*.cuh``), so an edited source is rebuilt and a stale
+library is never loaded.
 
 ``LAUNCHES`` counts the kernel launches of each wrapper: a wrapper adds
 one where it launches its kernel, and nowhere else (a call on CPU tensors
@@ -15,6 +16,7 @@ runs the plain version and counts nothing).
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -57,8 +59,9 @@ SIGNATURES = {
         "ks_sift_bin_sample": [_P] * 10 + [_I] * 5 + [_P],
     },
     "sandwich": {
-        # planes, at, b, out, B, P, H, W, M, N, stream
-        "ks_plane_sandwich": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # planes, at, b, at_lo, at_hi, b_lo, b_hi, row_order, out, B, P, H, W,
+        # M, N, stream
+        "ks_plane_sandwich": [_P] * 9 + [_I] * 6 + [_P],
     },
     "fv_stats": {
         # x, means, variances, weights, thresh, terms, partial, out, B, d, m,
@@ -97,9 +100,11 @@ def source_path(name: str) -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(source_path(name), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"libks_{name}_{digest}.so")
+    digest = hashlib.sha256()
+    for path in (source_path(name), *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"libks_{name}_{digest.hexdigest()[:12]}.so")
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:

@@ -43,6 +43,8 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int NUM_ORIENTATIONS = 8;
@@ -66,21 +68,6 @@ constexpr int SCRATCH_FLOATS = STAGE1_FLOATS > STAGE2_FLOATS ? STAGE1_FLOATS : S
 static_assert(CW == TPB, "stage 1 gives each thread one column");
 static_assert(WARP_FLOATS % 4 == 0, "float4-aligned warp areas");
 static_assert(ROWS == 16 * 4 && GW == 2 * 4, "stage 2: 16 x 2 lane tiles of 4 x 4");
-
-// 4-byte asynchronous copy global -> shared; zero-fills when !valid (src is
-// then not read, but must still be a global address).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(s), "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 __global__ void __launch_bounds__(TPB, 2)
 sift_bin_kernel(const float* __restrict__ mag, const float* __restrict__ orient,

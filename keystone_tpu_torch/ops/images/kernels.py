@@ -3,11 +3,15 @@
 
 - ``sift_bin_sample``: trilinear orientation binning of the gradient
   magnitude fused with the two sampling-matrix products, ``(B, 8, M, N)``.
-  The ``(B, 8, H, W)`` plane stack never exists in device memory, and the
-  kernel walks only the band of each operator row and column
-  (``sift_bands``).
+  The ``(B, 8, H, W)`` plane stack never exists in device memory.
 - ``plane_sandwich``: ``out[b, p] = at @ planes[b, p] @ b_mat`` over a
-  ``(B, P, H, W)`` stack, each plane kept on chip between its two products.
+  ``(B, P, H, W)`` stack, each plane's first product kept on chip until
+  the second.
+
+Both kernels walk only the band of each operator row and column: the
+extents, and a row order that groups rows of like band, come from the
+operators (``operator_bands``) and are cached with them by the
+extractors.
 
 Both are CUDA kernels (``csrc/sift_bin.cu``, ``csrc/sandwich.cu``) on CUDA
 tensors and their plain PyTorch versions on CPU tensors; any other device
@@ -37,29 +41,31 @@ def band_extents(op: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.stack([torch.where(hi > 0, lo, 0), hi])
 
 
-def sift_bands(ayt: torch.Tensor, ax: torch.Tensor):
-    """What ``sift_bin_sample`` needs to know of its operators:
-    ``(band_extents(ayt, 1), band_extents(ax, 0), row_order)``, the rows of
-    ``ayt`` sorted by band start (stable) as int32, so that the rows the
-    kernel takes together share most of their band."""
-    rows = band_extents(ayt, 1)
+def operator_bands(left: torch.Tensor, right: torch.Tensor):
+    """What a banded sandwich ``left @ Z @ right`` needs to know of its
+    operators: ``(band_extents(left, 1), band_extents(right, 0),
+    row_order)``, the rows of ``left`` sorted by band start (stable) as
+    int32, so that the rows a kernel takes together share most of their
+    band."""
+    rows = band_extents(left, 1)
     order = torch.argsort(rows[0], stable=True).to(torch.int32)
-    return rows, band_extents(ax, 0), order
+    return rows, band_extents(right, 0), order
 
 
-def _check_bands(bands, ayt, ax):
-    """Raise unless ``bands`` has the form ``sift_bands`` gives: contiguous
-    int32 on ``ayt``'s device, of shapes (2, M), (2, N) and (M,)."""
+def _check_bands(bands, left, right):
+    """Raise unless ``bands`` has the form ``operator_bands`` gives:
+    contiguous int32 on ``left``'s device, of shapes (2, M), (2, N) and
+    (M,)."""
     if not isinstance(bands, (tuple, list)) or len(bands) != 3:
-        raise ValueError("bands must be (ayt row extents, ax column extents, row order)")
-    M, N = ayt.shape[0], ax.shape[1]
-    for t, shape, name in zip(bands, ((2, M), (2, N), (M,)), ("ayt extents", "ax extents", "row order")):
+        raise ValueError("bands must be (row extents, column extents, row order)")
+    M, N = left.shape[0], right.shape[1]
+    for t, shape, name in zip(bands, ((2, M), (2, N), (M,)), ("row extents", "column extents", "row order")):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
             raise TypeError(f"{name} must be an int32 tensor")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-        if t.device != ayt.device:
-            raise ValueError(f"{name} on device {t.device}, operators on {ayt.device}")
+        if t.device != left.device:
+            raise ValueError(f"{name} on device {t.device}, operators on {left.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
@@ -96,7 +102,7 @@ def sift_bin_sample(
     ``mag``/``orient``: (B, H, W) gradient magnitude and continuous
     orientation (angle / 2π · 8); ``ayt``: (M, H) transposed y-axis
     sampling matrix; ``ax``: (W, N) x-axis sampling matrix. ``bands``:
-    ``sift_bands(ayt, ax)``, computed here when not given; the kernel skips
+    ``operator_bands(ayt, ax)``, computed here when not given; the kernel skips
     the operators' zeros outside the extents, so they must be the
     operators' own. Returns (B, 8, M, N)."""
     for t, name, nd in ((mag, "mag", 3), (orient, "orient", 3), (ayt, "ayt", 2), (ax, "ax", 2)):
@@ -113,7 +119,7 @@ def sift_bin_sample(
     if not _cuda.on_cuda(mag, orient, ayt, ax):
         return sift_bin_sample_plain(mag, orient, ayt, ax)
     if bands is None:
-        bands = sift_bands(ayt, ax)
+        bands = operator_bands(ayt, ax)
     ay_b, ax_b, order = bands
     out = torch.empty((B, NUM_ORIENTATIONS, M, N), dtype=torch.float32, device=mag.device)
     lib = _cuda.lib("sift_bin")
@@ -129,10 +135,15 @@ def sift_bin_sample(
     return out
 
 
-def plane_sandwich(planes: torch.Tensor, at: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def plane_sandwich(
+    planes: torch.Tensor, at: torch.Tensor, b: torch.Tensor, bands=None
+) -> torch.Tensor:
     """(B, P, M, N) GEMM sandwich ``out[i, p] = at @ planes[i, p] @ b`` —
     the LCS box-filter→sample stage over the stacked image/image² channel
-    planes (``at``: (M, H), ``b``: (W, N))."""
+    planes (``at``: (M, H), ``b``: (W, N)). ``bands``:
+    ``operator_bands(at, b)``, computed here when not given; the kernel
+    skips the operators' zeros outside the extents, so they must be the
+    operators' own."""
     _cuda.check_arg(planes, "planes", 4)
     _cuda.check_arg(at, "at", 2)
     _cuda.check_arg(b, "b", 2)
@@ -143,14 +154,20 @@ def plane_sandwich(planes: torch.Tensor, at: torch.Tensor, b: torch.Tensor) -> t
             f"shapes disagree: planes {tuple(planes.shape)}, at "
             f"{tuple(at.shape)}, b {tuple(b.shape)}"
         )
+    if bands is not None:
+        _check_bands(bands, at, b)
     if not _cuda.on_cuda(planes, at, b):
         return plane_sandwich_plain(planes, at, b)
+    if bands is None:
+        bands = operator_bands(at, b)
+    at_b, b_b, order = bands
     out = torch.empty((B, P, M, N), dtype=torch.float32, device=planes.device)
     lib = _cuda.lib("sandwich")
     with torch.cuda.device(planes.device):
         err = lib.ks_plane_sandwich(
-            planes.data_ptr(), at.data_ptr(), b.data_ptr(), out.data_ptr(),
-            B, P, H, W, M, N, _cuda.stream(planes),
+            planes.data_ptr(), at.data_ptr(), b.data_ptr(), at_b[0].data_ptr(),
+            at_b[1].data_ptr(), b_b[0].data_ptr(), b_b[1].data_ptr(),
+            order.data_ptr(), out.data_ptr(), B, P, H, W, M, N, _cuda.stream(planes),
         )
     _cuda.check(err, f"ks_plane_sandwich (W={W})")
     _cuda.LAUNCHES["plane_sandwich"] += 1

@@ -4,7 +4,10 @@
 Per grid keypoint, the means and standard deviations of each channel over
 a 4x4 neighborhood of sub-patches. Box-mean → sample is linear and
 separable, so it is one sampling matrix per axis, applied to the image
-and to its square in the ``plane_sandwich`` kernel.
+and to its square in the ``plane_sandwich`` kernel. Each row and column of
+those matrices holds one sub-patch's box (6 nonzeros of 256 at the
+flagship's settings); the kernel walks only those bands, whose extents
+are taken from the matrices and cached with them.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from keystone_tpu_torch.ops.images.kernels import plane_sandwich
+from keystone_tpu_torch.ops.images.kernels import operator_bands, plane_sandwich
 from keystone_tpu_torch.parallel.dataset import Dataset
 from keystone_tpu_torch.workflow.api import Transformer
 
@@ -67,8 +70,9 @@ class LCSExtractor(Transformer):
 
     def operators(self, X: int, Y: int, device):
         """(x-axis operator transposed (M, X), y-axis operator (Y, N),
-        keys along x, keys along y, neighbors per axis) for (X, Y) images
-        on ``device``, built once per (X, Y, device)."""
+        their ``operator_bands``, keys along x, keys along y, neighbors per
+        axis) for (X, Y) images on ``device``, built once per (X, Y,
+        device)."""
         cache = self.__dict__.setdefault("_operator_cache", {})
         key = (X, Y, str(device))
         ops = cache.get(key)
@@ -80,10 +84,10 @@ class LCSExtractor(Transformer):
             offs = np.arange(-2 * s + s // 2 - 1, s + s // 2, s)
             ax = _lcs_sampling_matrix(X, xs, offs, s)
             ay = _lcs_sampling_matrix(Y, ys, offs, s)
+            axt = torch.as_tensor(ax.T.copy(), device=device)
+            ay = torch.as_tensor(ay, device=device)
             ops = cache[key] = (
-                torch.as_tensor(ax.T.copy(), device=device),
-                torch.as_tensor(ay, device=device),
-                len(xs), len(ys), len(offs),
+                axt, ay, operator_bands(axt, ay), len(xs), len(ys), len(offs),
             )
         return ops
 
@@ -91,10 +95,10 @@ class LCSExtractor(Transformer):
         """(B, X, Y, C) images -> (B, numLCSValues, numKeypoints)."""
         img = imgs.to(torch.float32)
         B, X, Y, C = img.shape
-        axt, ay, nxk, nyk, nb = self.operators(X, Y, img.device)
+        axt, ay, bands, nxk, nyk, nb = self.operators(X, Y, img.device)
         # image and its square share the product chain as stacked planes
         z = torch.cat([img, img * img], dim=-1).permute(0, 3, 1, 2).contiguous()
-        out = plane_sandwich(z, axt, ay)
+        out = plane_sandwich(z, axt, ay, bands)
         both = out.permute(0, 2, 3, 1)  # (B, nxk·nb, nyk·nb, 2C)
         m, sq = both[..., :C], both[..., C:]
         sd = torch.sqrt(torch.clamp(sq - m * m, min=0.0))

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from keystone_tpu_torch.ops.images.kernels import sift_bands, sift_bin_sample
+from keystone_tpu_torch.ops.images.kernels import operator_bands, sift_bin_sample
 from keystone_tpu_torch.parallel.dataset import Dataset
 from keystone_tpu_torch.workflow.api import Transformer
 
@@ -91,7 +91,7 @@ def _sampling_matrix(
 def _dsift_one_scale(img: torch.Tensor, ayt, ax, bands):
     """Dense SIFT at one scale over pre-smoothed (B, H, W) images, with the
     scale's transposed y-axis (M, H) and x-axis (W, N) sampling matrices
-    (None when the frame grid is empty) and their ``sift_bands``.
+    (None when the frame grid is empty) and their ``operator_bands``.
 
     Returns (B, num_frames, 128) descriptors (normalized + clamped) and
     (B, num_frames) pre-normalization norms."""
@@ -119,7 +119,7 @@ def scale_operators(H: int, W: int, step: int, bin: int, num_scales: int,
                     scale_step: int, device) -> List[tuple]:
     """Per scale, on ``device``: the Gaussian pre-smoothing kernel, the
     transposed y-axis and x-axis sampling matrices and their bands
-    (``sift_bands``; all three None when the frame grid is empty). Frame
+    (``operator_bands``; all three None when the frame grid is empty). Frame
     grid: top-left corners at bound + f·step along both axes, descriptor
     extent 4·binSize."""
     ops = []
@@ -138,7 +138,7 @@ def scale_operators(H: int, W: int, step: int, bin: int, num_scales: int,
             _sampling_matrix(H, nfy, bin_size, scale_step_, bound).T.copy(), device=device
         )
         ax = torch.as_tensor(_sampling_matrix(W, nfx, bin_size, scale_step_, bound), device=device)
-        ops.append((k, ayt, ax, sift_bands(ayt, ax)))
+        ops.append((k, ayt, ax, operator_bands(ayt, ax)))
     return ops
 
 

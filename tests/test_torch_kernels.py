@@ -155,9 +155,52 @@ def test_sift_bin_sample_with_banded_operators_matches_jax_kernel():
             np.testing.assert_allclose(got[b], want, **SANDWICH_TOL)
 
 
+@pytest.mark.parametrize("P", [6, 5])
+def test_plane_sandwich_with_lcs_operators_matches_jax_kernel(P):
+    """The real LCS operators of a 64² image, bands passed as the extractor
+    passes them, against the JAX kernel in interpret mode."""
+    rng = np.random.default_rng(7)
+    planes = (rng.random((2, P, 64, 64)) * 255).astype(np.float32)
+    axt, ay, bands, *_ = lcs.LCSExtractor(4, 16, 6).operators(64, 64, "cpu")
+    got = kernels.plane_sandwich(_t(planes), axt, ay, bands).numpy()
+    assert got.shape == (2, P, axt.shape[0], ay.shape[1])
+    for i in range(2):
+        want = np.asarray(jax_plane_sandwich(
+            jnp.asarray(planes[i]), jnp.asarray(axt.numpy()), jnp.asarray(ay.numpy()),
+            interpret=True,
+        ))
+        np.testing.assert_allclose(got[i], want, **SANDWICH_TOL)
+
+
+@pytest.mark.parametrize("name", ["sift0", "sift1", "sift2", "sift3", "lcs"])
+def test_operator_bands_match_numpy(name):
+    """Extents and row order (stable sort by band start) of every serving
+    operator: for SIFT what the extractor has cached since band extents
+    came in, for LCS the same rule."""
+    left, right = _serving_operators(name)
+    rows, cols, order = kernels.operator_bands(left, right)
+    want_rows = _numpy_extents(left.numpy(), 1)
+    np.testing.assert_array_equal(rows.numpy(), want_rows)
+    np.testing.assert_array_equal(cols.numpy(), _numpy_extents(right.numpy(), 0))
+    assert order.dtype == torch.int32
+    np.testing.assert_array_equal(order.numpy(), np.argsort(want_rows[0], kind="stable"))
+
+
+def test_extractors_cache_their_operator_bands():
+    axt, ay, bands, *_ = lcs.LCSExtractor(4, 16, 6).operators(64, 64, "cpu")
+    for got, want in zip(bands, kernels.operator_bands(axt, ay)):
+        assert torch.equal(got, want)
+    ext = lcs.LCSExtractor(4, 16, 6)
+    assert ext.operators(64, 64, "cpu")[2] is ext.operators(64, 64, "cpu")[2]
+    for _, ayt, ax, bands in sift.SIFTExtractor().operators(48, 48, "cpu"):
+        if ayt is not None:
+            for got, want in zip(bands, kernels.operator_bands(ayt, ax)):
+                assert torch.equal(got, want)
+
+
 def test_sift_bands_order_rows_by_band_start():
     ayt, ax = _serving_operators("sift2")
-    rows, cols, order = kernels.sift_bands(ayt, ax)
+    rows, cols, order = kernels.operator_bands(ayt, ax)
     assert order.dtype == torch.int32 and sorted(order.tolist()) == list(range(ayt.shape[0]))
     assert torch.equal(rows, kernels.band_extents(ayt, 1))
     assert torch.equal(cols, kernels.band_extents(ax, 0))
@@ -168,7 +211,7 @@ def test_sift_bands_order_rows_by_band_start():
 def test_sift_bin_sample_rejects_bad_bands():
     x = torch.zeros((1, 8, 8))
     ayt, ax = torch.zeros((4, 8)), torch.zeros((8, 5))
-    rows, cols, order = kernels.sift_bands(ayt, ax)
+    rows, cols, order = kernels.operator_bands(ayt, ax)
     with pytest.raises(ValueError, match="bands must be"):
         kernels.sift_bin_sample(x, x, ayt, ax, (rows, cols))
     with pytest.raises(ValueError, match=r"shape \(2, 5\)"):
@@ -183,6 +226,30 @@ def test_sift_bin_sample_rejects_bad_bands():
         kernels.sift_bin_sample(x, x, ayt, ax, (rows.to("meta"), cols, order))
     with pytest.raises(ValueError, match="contiguous"):
         kernels.sift_bin_sample(x, x, ayt, ax, (rows, torch.zeros((5, 2), dtype=torch.int32).T, order))
+
+
+def test_plane_sandwich_rejects_bad_bands():
+    planes = torch.zeros((1, 2, 8, 8))
+    at, b = torch.zeros((4, 8)), torch.zeros((8, 5))
+    rows, cols, order = kernels.operator_bands(at, b)
+    with pytest.raises(ValueError, match="bands must be"):
+        kernels.plane_sandwich(planes, at, b, (rows, cols))
+    with pytest.raises(ValueError, match="bands must be"):
+        kernels.plane_sandwich(planes, at, b, rows)
+    with pytest.raises(ValueError, match=r"shape \(2, 4\)"):
+        kernels.plane_sandwich(planes, at, b, (rows[:, :3].contiguous(), cols, order))
+    with pytest.raises(ValueError, match=r"shape \(2, 5\)"):
+        kernels.plane_sandwich(planes, at, b, (rows, cols[:, :4].contiguous(), order))
+    with pytest.raises(ValueError, match=r"shape \(4,\)"):
+        kernels.plane_sandwich(planes, at, b, (rows, cols, order[:3]))
+    with pytest.raises(TypeError, match="int32"):
+        kernels.plane_sandwich(planes, at, b, (rows, cols.long(), order))
+    with pytest.raises(TypeError, match="int32"):
+        kernels.plane_sandwich(planes, at, b, (rows, cols, order.numpy()))
+    with pytest.raises(ValueError, match="device"):
+        kernels.plane_sandwich(planes, at, b, (rows, cols, order.to("meta")))
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.plane_sandwich(planes, at, b, (torch.zeros((4, 2), dtype=torch.int32).T, cols, order))
 
 
 def test_batched_matches_per_image():
