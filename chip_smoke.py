@@ -23,15 +23,29 @@ Phases, in order; any failure exits non-zero:
    features and top-5 against a CPU run of the port (plain versions);
 5. time examples/sec per bucket, and profile one bucket-64 dispatch: device
    busy time with and without the host-to-device copies, and the port's
-   kernels in it.
+   kernels in it;
+6. train, then serve: fit ImageNetSiftLcsFV on the card as
+   ``pipelines.images.imagenet_sift_lcs_fv.run`` does (``build_pipeline``
+   and ``fit``: PCA, GMM EM and the mixture-weighted solver; vocab 32,
+   1,000 classes) on 2,000 seeded synthetic 256² images, 2 per class, and
+   classify 1,000 held-out ones;
+   check that the fit launched every kernel; hold each estimator on the
+   card against the port on the CPU on the same inputs (both PCA
+   matrices, both GMMs, the solver on its first 512 rows with PCG and with
+   Cholesky), and B3 against its plain version with the fitted GMMs;
+   require a held-out top-5 error of at most 0.5; serve the trained chain
+   through buckets (8, 64) and require the fitted pipeline's top-5. Prints
+   the wall time of each stage and the peak device memory.
 
-Prints the kernel table as one JSON line, then, last, the result line
-``{"ok": true, "device": {...}}``. Writes the full record to
-``chiprun_out/chip_smoke.json``. Imports nothing of JAX.
+Prints the kernel table as one JSON line, then the card's name and power
+limit, then, last, the result line ``{"ok": true, "device": {...}}``.
+Writes the full record to ``chiprun_out/chip_smoke.json``. Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -46,9 +60,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from compare_kernels import time_ms  # noqa: E402
-from keystone_tpu_torch import _cuda  # noqa: E402
+from keystone_tpu_torch import _cuda, convert  # noqa: E402
 from keystone_tpu_torch.convert import model_head  # noqa: E402
-from keystone_tpu_torch.ops.images import fv_kernel, kernels, lcs, sift  # noqa: E402
+from keystone_tpu_torch.ops.images import core, fisher_vector, fv_kernel, kernels, lcs, sift  # noqa: E402
+from keystone_tpu_torch.ops.learning import gmm, pca, weighted_ls  # noqa: E402
+from keystone_tpu_torch.ops.stats import nodes as stats_nodes  # noqa: E402
+from keystone_tpu_torch.parallel.dataset import Dataset  # noqa: E402
+from keystone_tpu_torch.pipelines.images import imagenet_sift_lcs_fv as flagship  # noqa: E402
 from keystone_tpu_torch.serving.featurize import (  # noqa: E402
     build_flagship_featurize_pipeline,
 )
@@ -69,6 +87,25 @@ REQUESTS = (1, 8, 37, 64)
 RTOL_SANDWICH, ATOL_SANDWICH = 1e-4, 1e-4
 RTOL_FV, ATOL_FV = 1e-3, 1e-4
 RTOL_FEAT, ATOL_FEAT = 1e-4, 1e-5
+
+# phase 6: ImageNetSiftLcsFV at the serving phase's widths, trained
+TRAIN_CONF = dict(
+    desc_dim=64, vocab_size=32, lam=6e-5, mixture_weight=0.25,
+    sift_scale_step=1, lcs_stride=4, lcs_border=16, lcs_patch=6,
+    num_pca_samples_per_image=10, num_gmm_samples_per_image=10,
+    num_classes=1000, seed=0,
+)
+TRAIN_PER_CLASS, NOISE_SIGMA = 2, 8.0
+MAX_TOP5_ERR = 0.5
+SOLVER_ROWS = 512
+# bars of the JAX package's tests: PCA tests/ops/test_pca_zca.py, GMM
+# tests/ops/test_clustering.py, solvers tests/ops/test_weighted_ls.py
+ATOL_PCA, TOL_GMM, ATOL_SOLVER = 5e-3, 1e-3, 5e-4
+# and the solver's W and intercept as a whole: ‖card − CPU‖ / ‖CPU‖, a
+# bar that scales with the solution (float32 rounding, amplified by the
+# conditioning of a 512-row fit, stays far below it; a solver that stopped
+# early or solved another system does not)
+RTOL_SOLVER_NORM = 1e-3
 
 
 def log(*a):
@@ -416,6 +453,290 @@ def serve(dev, smi):
     }
 
 
+def synthetic_imagenet(classes, per_class, seed, dev):
+    """Seeded synthetic 256² uint8 images on ``dev``: a prototype per class
+    (a smooth random field plus a finer one) and Gaussian noise of sigma
+    ``NOISE_SIGMA`` per image, clipped; image i has class i % ``classes``.
+    Returns (training images, their labels, held-out images, their
+    labels): ``per_class`` training images a class, one held-out image a
+    class with fresh noise."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def field(res):
+        f = torch.rand(classes, 3, res, res, device=dev, generator=g) * 255.0
+        return torch.nn.functional.interpolate(f, size=(IMG, IMG), mode="bilinear",
+                                               align_corners=False)
+
+    protos = (0.6 * field(16) + 0.4 * field(64)).permute(0, 2, 3, 1)
+
+    def draw(n):
+        labels = torch.arange(n, device=dev) % classes
+        noise = torch.randn(n, IMG, IMG, 3, device=dev, generator=g) * NOISE_SIGMA
+        return torch.clamp(protos[labels] + noise, 0, 255).round().to(torch.uint8), labels
+
+    return (*draw(classes * per_class), *draw(classes))
+
+
+class Stages:
+    """Wall time of each stage of a fit, per call (with the number of rows
+    it took), with the device synchronized around each; and what the
+    checks after the fit need: each estimator's inputs and outputs, the
+    first chunk of the Fisher-vector node's inputs."""
+
+    TIMED = {
+        "pixel_scaler": (core.PixelScaler, "apply_batch"),
+        "gray_scaler": (core.GrayScaler, "apply_batch"),
+        "sift": (sift.SIFTExtractor, "apply_batch"),
+        "hellinger": (stats_nodes.SignedHellingerMapper, "apply_batch"),
+        "lcs": (lcs.LCSExtractor, "apply_batch"),
+        "column_sampler": (stats_nodes.ColumnSampler, "apply_batch"),
+        "pca_apply": (pca.BatchPCATransformer, "apply_batch"),
+        # the cost model's choice at these shapes (tests/test_torch_training.py)
+        "pca_fit": (pca.DistributedColumnPCAEstimator, "fit"),
+        "gmm_fit": (gmm.GaussianMixtureModelEstimator, "fit"),
+        "fv": (fisher_vector.FisherVectorFused, "apply_batch"),
+        "solver": (weighted_ls.BlockWeightedLeastSquaresEstimator, "fit"),
+    }
+    FEATURIZE = ("pixel_scaler", "gray_scaler", "sift", "hellinger", "lcs", "pca_apply")
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.calls = []  # (stage, rows, seconds)
+        self.captured = {"pca_fit": [], "gmm_fit": [], "fv": [], "solver": []}
+
+    def sync(self):
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+
+    @staticmethod
+    def rows(args):
+        ds = args[0]
+        return ds.n if isinstance(ds, Dataset) else int(torch.as_tensor(ds).shape[0])
+
+    @contextlib.contextmanager
+    def patched(self):
+        saved = []
+        for stage, (cls, name) in self.TIMED.items():
+            orig = cls.__dict__[name]
+            saved.append((cls, name, orig))
+            setattr(cls, name, self._wrap(stage, orig))
+        try:
+            yield self
+        finally:
+            for cls, name, orig in saved:
+                setattr(cls, name, orig)
+
+    def _wrap(self, stage, orig):
+        def timed(obj, *args, **kw):
+            self.sync()
+            t = time.perf_counter()
+            out = orig(obj, *args, **kw)
+            self.sync()
+            sec = time.perf_counter() - t
+            rows = self.rows(args)
+            self.calls.append((stage, rows, sec))
+            if stage in ("pca_fit", "gmm_fit"):
+                self.captured[stage].append((args[0], out, sec))
+            elif stage == "fv":
+                self.captured[stage].append((args[0].padded()[:B].clone(), obj.gmm, sec, rows))
+            elif stage == "solver":
+                self.captured[stage].append((args[0], args[1], out, sec))
+            return out
+        return timed
+
+    def summary(self):
+        """Per stage and number of rows: the seconds of each call (the
+        training set, the node optimizer's sample, the held-out set)."""
+        out = {}
+        for stage, rows, sec in self.calls:
+            out.setdefault(stage, {}).setdefault(f"rows_{rows}", []).append(sec)
+        return out
+
+    def featurize_s(self, n):
+        """Seconds of the featurize stages over ``n`` rows."""
+        return sum(sec for stage, rows, sec in self.calls if stage in self.FEATURIZE and rows == n)
+
+
+def full_fits(captured):
+    """The captured fits over the most rows: each branch's fit on the
+    whole training set (the optimizer's fits on its sample are smaller)."""
+    most = max(item[0].n for item in captured)
+    return [item for item in captured if item[0].n == most]
+
+
+def train_then_serve(dev, smi, classes=1000, per_class=TRAIN_PER_CLASS, solver_rows=SOLVER_ROWS):
+    """Phase 6. Returns the record written to chip_smoke.json."""
+    conf = flagship.ImageNetSiftLcsFVConfig(**dict(TRAIN_CONF, num_classes=classes))
+    rec = {"card": smi, "classes": classes, "train_images": classes * per_class,
+           "held_out_images": classes, "conf": dict(TRAIN_CONF, num_classes=classes),
+           "noise_sigma": NOISE_SIGMA}
+    t0 = time.perf_counter()
+    train_x, train_y, test_x, test_y = synthetic_imagenet(classes, per_class, seed=1234, dev=dev)
+    rec["data_s"] = time.perf_counter() - t0
+    log(f"made {train_x.shape[0]} training and {test_x.shape[0]} held-out images in "
+        f"{rec['data_s']:.3f} s")
+
+    # what flagship.run does, with the fitted pipeline kept for serving
+    stages = Stages(dev)
+    _cuda.reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with stages.patched():
+        fitted = flagship.build_pipeline(
+            Dataset.from_array(train_x), Dataset.from_array(train_y), conf, device=dev
+        ).fit()
+        stages.sync()
+        rec["fit_s"] = time.perf_counter() - t0
+        rec["launches_fit"] = dict(_cuda.LAUNCHES)
+        t1 = time.perf_counter()
+        top5 = fitted(Dataset.from_array(test_x)).array()
+        err = 1.0 - float((top5 == test_y[:, None]).any(dim=1).float().mean())
+        rec["held_out_s"] = time.perf_counter() - t1
+    rec["launches_held_out"] = {k: v - rec["launches_fit"][k] for k, v in _cuda.LAUNCHES.items()}
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    rec["top5_err"] = err
+    rec["calls"] = stages.summary()
+    log(f"fit in {rec['fit_s']:.3f} s, held-out top-5 in {rec['held_out_s']:.3f} s on {smi}")
+    log(f"peak device memory over the fit and the held-out set: {rec['peak_memory_bytes']} bytes on {smi}")
+    log(f"kernel launches in the fit: {rec['launches_fit']}; over the held-out set: "
+        f"{rec['launches_held_out']}")
+    for name in _cuda.LAUNCHES:
+        if dev.type == "cuda":
+            assert rec["launches_fit"][name] > 0, (name, rec["launches_fit"])
+    log(f"held-out top-5 error {err} (limit {MAX_TOP5_ERR}; a fixed guess: {1 - 5 / classes})")
+    assert err <= MAX_TOP5_ERR, err
+
+    # -- each estimator on the card against the port on the CPU ------------
+    cpu = torch.device("cpu")
+    checks = {}
+    # wall time of each stage of the fit, synchronized around each call
+    n_train = train_x.shape[0]
+    stage_s = {"featurize the training set": stages.featurize_s(n_train)}
+    pca_fits = full_fits(stages.captured["pca_fit"])
+    assert len(pca_fits) == 2, len(pca_fits)
+    for data, out, sec in pca_fits:
+        rows_in, dims = out.pca_mat.shape
+        branch = {128: "sift", 96: "lcs"}[rows_in]
+        stage_s[f"PCA fit {branch}"] = sec
+        data_cpu = Dataset.from_array(data.array().cpu())
+        t = time.perf_counter()
+        want = pca.DistributedColumnPCAEstimator(dims).fit(data_cpu).pca_mat
+        err_pca = float((out.pca_mat.cpu() - want).abs().max())
+        checks[f"pca_{branch}"] = {"max_abs_err": err_pca, "bar": ATOL_PCA, "cpu_s": time.perf_counter() - t,
+                                   "input": list(data.array().shape)}
+        log(f"PCA {branch}, card vs CPU: max abs err {err_pca} (bar {ATOL_PCA}) on input {list(data.array().shape)}")
+        assert err_pca <= ATOL_PCA, (branch, err_pca)
+
+    params = convert.flagship_params(fitted)
+    gmm_fits = full_fits(stages.captured["gmm_fit"])
+    assert len(gmm_fits) == 2, len(gmm_fits)
+    for X, out, sec in gmm_fits:
+        branch = next(b for b in ("sift", "lcs")
+                      if np.array_equal(params[b]["means"], out.means.cpu().numpy()))
+        stage_s[f"GMM fit {branch}"] = sec
+        t = time.perf_counter()
+        want = gmm.GaussianMixtureModelEstimator(conf.vocab_size, seed=conf.seed).fit(X.array().cpu())
+        errs = {}
+        for f in ("means", "variances", "weights"):
+            g_, w_ = getattr(out, f).cpu(), getattr(want, f)
+            errs[f] = max_abs_err(g_, w_, TOL_GMM, TOL_GMM, f"GMM {branch} {f}, card vs CPU")
+        checks[f"gmm_{branch}"] = {"max_abs_err": errs, "bar": TOL_GMM, "cpu_s": time.perf_counter() - t,
+                                   "input": list(X.array().shape)}
+        log(f"GMM {branch}, card vs CPU: max abs err {errs} (rtol = atol = {TOL_GMM}) "
+            f"on input {list(X.array().shape)}")
+
+    for x, g, sec, rows in stages.captured["fv"]:
+        if rows == n_train:
+            branch = next(b for b in ("sift", "lcs")
+                          if np.array_equal(params[b]["means"], g.means.cpu().numpy()))
+            stage_s[f"FV over the training set {branch}"] = sec
+    (X, Y, model, sec), = stages.captured["solver"]
+    stage_s["solver"] = sec
+    Xs, Ys = X.array()[:solver_rows], Y.array()[:solver_rows]
+    rec["solver"] = {"cg_iterations": int(model.solver_info["pcg_iterations"]),
+                     "cg_exit_rel_residual": float(model.solver_info["pcg_max_rel_residual"]),
+                     "shape": [X.n, X.array().shape[1], Y.array().shape[1]]}
+    rec["stage_s"] = stage_s
+    for stage, sec in stage_s.items():
+        extra = (f", {rec['solver']['cg_iterations']} CG iterations at most per block, exit relative "
+                 f"residual {rec['solver']['cg_exit_rel_residual']:.3e}, X {rec['solver']['shape'][:2]}, "
+                 f"{rec['solver']['shape'][2]} classes" if stage == "solver" else "")
+        log(f"stage {stage}: {sec:.3f} s{extra} on {smi}")
+    for solve, block in (("pcg", 4096), ("chol", 256)):
+        est = weighted_ls.BlockWeightedLeastSquaresEstimator(
+            block, 1, conf.lam, conf.mixture_weight, solve=solve)
+        res = {}
+        for where, d in (("card", dev), ("cpu", cpu)):
+            t = time.perf_counter()
+            m = est.fit(Dataset.from_array(Xs.to(d)), Dataset.from_array(Ys.to(d)))
+            res[where] = (m.W.cpu(), m.intercept.cpu(), time.perf_counter() - t, m.solver_info)
+        errs, rel, size = {}, {}, {}
+        for i, part in enumerate(("W", "intercept")):
+            got, want = res["card"][i], res["cpu"][i]
+            errs[part] = max_abs_err(got, want, 0.0, ATOL_SOLVER, f"solver {solve} {part}")
+            # the bar beside the size of what it holds
+            rel[part] = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+            size[part] = float(want.abs().max())
+            assert rel[part] <= RTOL_SOLVER_NORM, (solve, part, rel[part])
+        checks[f"solver_{solve}"] = {"max_abs_err": errs, "bar": ATOL_SOLVER, "rel_norm_err": rel,
+                                     "rel_norm_bar": RTOL_SOLVER_NORM, "max_abs_cpu": size,
+                                     "card_s": res["card"][2],
+                                     "cpu_s": res["cpu"][2], "rows": solver_rows, "block": block,
+                                     "info_card": _info(res["card"][3]), "info_cpu": _info(res["cpu"][3])}
+        log(f"solver {solve} (block {block}, first {solver_rows} rows), card vs CPU: max abs err {errs} "
+            f"(atol {ATOL_SOLVER}) on entries up to {size}; relative norm err {rel} (bar "
+            f"{RTOL_SOLVER_NORM}); card {res['card'][2]:.3f} s, CPU {res['cpu'][2]:.3f} s")
+    rec["checks"] = checks
+
+    # -- B3 with the fitted GMMs against its plain version --------------------
+    fv_rows = []
+    seen = set()
+    for x, g, _, _ in stages.captured["fv"]:
+        if id(g) in seen:
+            continue
+        seen.add(id(g))
+        got = fv_kernel.fisher_vector_stats(x, g.means, g.variances, g.weights, g.weight_threshold)
+        want = fv_kernel.fisher_vector_stats_plain(x, g.means, g.variances, g.weights, g.weight_threshold)
+        e = max(max_abs_err(a, b, RTOL_FV, ATOL_FV, f"fisher_vector_stats fitted m={x.shape[2]}")
+                for a, b in zip(got, want))
+        # the largest error as a share of its entry's bar (at most 1), and
+        # the largest statistic: a fitted GMM's s2 reaches E[x²] of its
+        # projected descriptors
+        share = max(float(((a - b).abs() / (ATOL_FV + RTOL_FV * b.abs())).max())
+                    for a, b in zip(got, want))
+        largest = max(float(b.abs().max()) for b in want)
+        fv_rows.append({"m": x.shape[2], "max_abs_err": e, "bar_share": share, "largest_stat": largest,
+                        "min_variance": float(g.variances.min()),
+                        "max_variance": float(g.variances.max()), "min_weight": float(g.weights.min())})
+        log(f"fisher_vector_stats with the fitted GMM at B={x.shape[0]} m={x.shape[2]}: max abs err {e} "
+            f"(rtol {RTOL_FV} atol {ATOL_FV}; largest share of an entry's bar {share:.3g}, largest "
+            f"statistic {largest:.6g}; variances {fv_rows[-1]['min_variance']:.4g} to "
+            f"{fv_rows[-1]['max_variance']:.4g})")
+    assert len(fv_rows) == 2, fv_rows
+    rec["fv_fitted"] = fv_rows
+
+    # -- serve the trained chain ---------------------------------------------
+    feat, head = convert.flagship_from_numpy(
+        params, device=dev, sift_step=3, sift_bin=4, sift_scales=4,
+        sift_scale_step=conf.sift_scale_step, lcs_stride=conf.lcs_stride,
+        lcs_border=conf.lcs_border, lcs_patch=conf.lcs_patch,
+    )
+    engine = head.compiled(buckets=BUCKETS, featurize=feat, device=dev)
+    raw = test_x[:B]
+    served = engine.apply(raw.cpu().numpy(), sync=True).cpu()
+    own = fitted(Dataset.from_array(raw)).array().cpu()
+    rec["served_top5_equal"] = bool(torch.equal(served, own))
+    log(f"served top-5 of {B} held-out images equal to the fitted pipeline's: {rec['served_top5_equal']}")
+    assert rec["served_top5_equal"]
+    return rec
+
+
+def _info(info):
+    return None if info is None else {k: float(v) for k, v in info.items()}
+
+
 def main():
     # -- 1. the card ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -459,11 +780,24 @@ def main():
     served = serve(dev, smi)
     for r in rows:
         r["launches"] = served["launches"][r["name"]]
+    torch.cuda.empty_cache()
+
+    # -- 6. train, then serve -------------------------------------------
+    t0 = time.perf_counter()
+    trained = train_then_serve(dev, smi)
+    trained["phase_s"] = time.perf_counter() - t0
+    log(f"phase 6 in {trained['phase_s']:.3f} s on {smi}")
+    for r in rows:
+        r["fit_launches"] = trained["launches_fit"][r["name"]]
+    fv_row = next(r for r in rows if r["name"] == "fisher_vector_stats")
+    fv_row["fitted_gmm_max_abs_err"] = max(e["max_abs_err"] for e in trained["fv_fitted"])
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": smi, "kernels": rows, "serve": served,
+        json.dump({"card": smi, "kernels": rows, "serve": served, "train": trained,
                    "ptxas": ptxas}, f, indent=1)
+    # the fit's launches and B3's error with the fitted GMMs are in
+    # chip_smoke.json beside these
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

@@ -1,9 +1,9 @@
-"""Build the port's flagship pipelines from numpy parameters.
+"""Carry the flagship's fitted parameters as numpy arrays.
 
 ``flagship_from_numpy`` takes the fitted parameters of an ImageNetSiftLcsFV
 serving chain as numpy arrays — as taken out of the JAX package's
-``FittedPipeline``, or from anywhere else — and returns the port's frozen
-featurize chain and model head:
+``FittedPipeline``, or by ``flagship_params`` out of the port's — and
+returns the port's frozen featurize chain and model head:
 
     params = {
         "sift": {"pca": (128, desc_dim), "means": (desc_dim, vocab),
@@ -24,6 +24,63 @@ import numpy as np
 import torch
 
 from keystone_tpu_torch._device import resolve_device
+
+
+def _numpy(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def flagship_params(fitted_featurize, model=None) -> dict:
+    """numpy parameters of a fitted flagship chain of the port, in the
+    layout ``flagship_from_numpy`` takes: each branch's
+    ``BatchPCATransformer`` (128 input rows for SIFT, 96 for LCS) and the
+    Fisher-vector node that consumes it, and ``"model"`` from the
+    ``BlockLinearMapper`` of ``model`` (a mapper or a fitted pipeline that
+    holds one) or, when ``model`` is None, of ``fitted_featurize`` if it
+    holds one."""
+    from keystone_tpu_torch.ops.images.fisher_vector import (
+        FisherVector,
+        FisherVectorFused,
+    )
+    from keystone_tpu_torch.ops.learning.block_ls import BlockLinearMapper
+    from keystone_tpu_torch.ops.learning.pca import BatchPCATransformer
+
+    g = fitted_featurize.graph
+    out = {}
+    for nid, op in g.operators.items():
+        if not isinstance(op, BatchPCATransformer):
+            continue
+        fv = next(
+            o for n, o in g.operators.items()
+            if isinstance(o, (FisherVector, FisherVectorFused))
+            and g.dependencies[n] == (nid,)
+        )
+        pca = _numpy(op.pca_mat)
+        branch = {128: "sift", 96: "lcs"}[pca.shape[0]]
+        gmm = fv.gmm
+        out[branch] = {
+            "pca": pca, "means": _numpy(gmm.means),
+            "variances": _numpy(gmm.variances), "weights": _numpy(gmm.weights),
+            "threshold": gmm.weight_threshold,
+        }
+    if set(out) != {"sift", "lcs"}:
+        raise ValueError(f"expected a SIFT and an LCS branch, found {sorted(out)}")
+
+    def mappers(p):
+        return [o for o in p.graph.operators.values() if isinstance(o, BlockLinearMapper)]
+
+    if model is None:
+        found = mappers(fitted_featurize)
+        model = found[0] if len(found) == 1 else None
+    elif not isinstance(model, BlockLinearMapper):
+        (model,) = mappers(model)
+    if model is not None:
+        icpt = model.intercept
+        out["model"] = {
+            "W": _numpy(model.W),
+            "intercept": None if icpt is None else _numpy(icpt),
+        }
+    return out
 
 
 def model_head(W: np.ndarray, intercept: Optional[np.ndarray], top_k: int,

@@ -5,7 +5,12 @@ Input per example: a (d, m) descriptor matrix; output: the (d, 2k) FV.
 ``FisherVector`` computes the statistics with plain products (the k < 32
 choice); ``FisherVectorFused`` with the ``fisher_vector_stats`` kernel
 (the k >= 32 choice), which never writes the (m, k) posterior to device
-memory.
+memory. Both run over chunks of images (``utils/chunks.py``).
+
+``GMMFisherVectorEstimator`` fits the GMM on the descriptor columns
+(host-stepped EM) and picks the node the same way: the fused kernel at
+k >= 32 (``EncEvalGMMFisherVectorEstimator``), plain products below
+(``ScalaGMMFisherVectorEstimator``).
 """
 
 from __future__ import annotations
@@ -15,10 +20,16 @@ import dataclasses
 import torch
 
 from keystone_tpu_torch.ops.images.fv_kernel import fisher_vector_stats
-from keystone_tpu_torch.ops.learning.gmm import GaussianMixtureModel
+from keystone_tpu_torch.ops.learning.gmm import (
+    GaussianMixtureModel,
+    GaussianMixtureModelEstimator,
+)
+from keystone_tpu_torch.ops.learning.pca import matrix_columns
 from keystone_tpu_torch.parallel.dataset import Dataset
+from keystone_tpu_torch.utils.chunks import map_rows
 from keystone_tpu_torch.utils.precision import mm
-from keystone_tpu_torch.workflow.api import Transformer
+from keystone_tpu_torch.workflow.api import Estimator, Transformer
+from keystone_tpu_torch.workflow.node_optimization import Optimizable
 
 
 def _fv_from_stats(gmm, s0, s1, s2):
@@ -51,7 +62,9 @@ class FisherVector(Transformer):
         return self.encode(x.to(torch.float32)[None])[0]
 
     def apply_batch(self, ds: Dataset) -> Dataset:
-        return Dataset.from_array(self.encode(ds.padded().to(torch.float32)), n=ds.n)
+        return Dataset.from_array(
+            map_rows(lambda x: self.encode(x.to(torch.float32)), ds.padded()), n=ds.n
+        )
 
 
 @dataclasses.dataclass(eq=False)
@@ -71,4 +84,55 @@ class FisherVectorFused(Transformer):
         return self.encode(x.to(torch.float32)[None])[0]
 
     def apply_batch(self, ds: Dataset) -> Dataset:
-        return Dataset.from_array(self.encode(ds.padded().to(torch.float32)), n=ds.n)
+        return Dataset.from_array(
+            map_rows(lambda x: self.encode(x.to(torch.float32)), ds.padded()), n=ds.n
+        )
+
+
+# (d, m) descriptor matrices -> one (N, d) array of their columns, as the
+# PCA fit takes them
+_columns_of = matrix_columns
+
+
+@dataclasses.dataclass(eq=False)
+class ScalaGMMFisherVectorEstimator(Estimator):
+    """GMM fit, then the FV by plain products."""
+
+    k: int
+    seed: int = 0
+
+    def fit(self, data: Dataset) -> FisherVector:
+        gmm = GaussianMixtureModelEstimator(self.k, seed=self.seed).fit(_columns_of(data))
+        return FisherVector(gmm)
+
+
+@dataclasses.dataclass(eq=False)
+class EncEvalGMMFisherVectorEstimator(Estimator):
+    """GMM fit, then the FV through the fused statistics kernel."""
+
+    k: int
+    seed: int = 0
+
+    def fit(self, data: Dataset) -> FisherVectorFused:
+        gmm = GaussianMixtureModelEstimator(self.k, seed=self.seed).fit(_columns_of(data))
+        return FisherVectorFused(gmm)
+
+
+@dataclasses.dataclass(eq=False)
+class GMMFisherVectorEstimator(Estimator, Optimizable):
+    """The fused kernel at k >= 32 (posteriors never leave the chip),
+    plain products below."""
+
+    k: int
+    seed: int = 0
+
+    def _choice(self) -> Estimator:
+        if self.k >= 32:
+            return EncEvalGMMFisherVectorEstimator(self.k, self.seed)
+        return ScalaGMMFisherVectorEstimator(self.k, self.seed)
+
+    def fit(self, data: Dataset) -> Transformer:
+        return self._choice().fit(data)
+
+    def optimize(self, samples, n_total: int):
+        return self._choice()

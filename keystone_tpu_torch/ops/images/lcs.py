@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from keystone_tpu_torch.ops.images.kernels import operator_bands, plane_sandwich
 from keystone_tpu_torch.parallel.dataset import Dataset
+from keystone_tpu_torch.utils.chunks import map_rows
 from keystone_tpu_torch.workflow.api import Transformer
 
 
@@ -114,4 +115,6 @@ class LCSExtractor(Transformer):
         return self.extract(img[None])[0]
 
     def apply_batch(self, ds: Dataset) -> Dataset:
-        return Dataset.from_array(self.extract(ds.padded()), n=ds.n)
+        # in chunks of images: a training set in one batch would make
+        # temporaries several times the size of its descriptors
+        return Dataset.from_array(map_rows(self.extract, ds.padded()), n=ds.n)

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from keystone_tpu_torch.ops.images.kernels import operator_bands, sift_bin_sample
 from keystone_tpu_torch.parallel.dataset import Dataset
+from keystone_tpu_torch.utils.chunks import map_rows
 from keystone_tpu_torch.workflow.api import Transformer
 
 NUM_ORIENTATIONS = 8
@@ -201,4 +202,6 @@ class SIFTExtractor(Transformer):
         return self.extract(img[None])[0]
 
     def apply_batch(self, ds: Dataset) -> Dataset:
-        return Dataset.from_array(self.extract(ds.padded()), n=ds.n)
+        # in chunks of images: a training set in one batch would make
+        # temporaries several times the size of its descriptors
+        return Dataset.from_array(map_rows(self.extract, ds.padded()), n=ds.n)

@@ -1,6 +1,7 @@
 """Representation/utility nodes on the flagship path (counterpart of
-``keystone_tpu/ops/util/nodes.py``: ``TopKClassifier``,
-``VectorCombiner``, ``MatrixVectorizer`` and ``FloatToDouble``)."""
+``keystone_tpu/ops/util/nodes.py``: ``ClassLabelIndicators``,
+``TopKClassifier``, ``VectorCombiner``, ``MatrixVectorizer`` and
+``FloatToDouble``)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,28 @@ import torch
 
 from keystone_tpu_torch.parallel.dataset import Dataset
 from keystone_tpu_torch.workflow.api import Transformer
+
+
+def _indicators(y: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """±1 one-hot rows; a label outside [0, num_classes) gives a row of
+    −1, as ``jax.nn.one_hot`` gives zeros for it."""
+    classes = torch.arange(num_classes, device=y.device)
+    return 2.0 * (y[..., None] == classes).to(torch.float32) - 1.0
+
+
+@dataclasses.dataclass(eq=False)
+class ClassLabelIndicators(Transformer):
+    """int label -> ±1 indicator vector."""
+
+    num_classes: int
+
+    def apply(self, y):
+        return _indicators(torch.as_tensor(y), self.num_classes)
+
+    def apply_batch(self, ds: Dataset) -> Dataset:
+        out = _indicators(ds.padded().to(torch.int64), self.num_classes)
+        # the indicator of a zero pad row is (+1, -1, ...): keep pad rows zero
+        return Dataset.from_array(out * ds.mask()[:, None], n=ds.n)
 
 
 @dataclasses.dataclass(eq=False)

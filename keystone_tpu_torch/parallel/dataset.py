@@ -1,7 +1,7 @@
 """``Dataset`` — the framework's N-example collection type, on one device.
 
 Two physical modes (``keystone_tpu/parallel/dataset.py`` has a third,
-host blocks, which waits for the training slice):
+host blocks, which the port does not have yet):
 
 - **array mode**: a tensor, or a tuple of tensors, with a leading example
   axis, possibly zero-padded past the valid count ``n``. Transformers
@@ -133,6 +133,11 @@ class Dataset:
     def __iter__(self):
         return iter(self.items())
 
+    def first(self) -> Any:
+        if self._items is not None:
+            return self._items[0]
+        return _tree_map(lambda a: a[0], self.array())
+
     def take(self, k: int) -> List[Any]:
         return self.items()[:k]
 
@@ -154,6 +159,21 @@ class Dataset:
     def map(self, fn: Callable[[Any], Any]) -> "Dataset":
         """Per-example host map (items mode result)."""
         return Dataset(items=[fn(x) for x in self.items()])
+
+    def zip(self, other: "Dataset") -> "Dataset":
+        if self.n != other.n:
+            raise ValueError(f"zip length mismatch: {self.n} vs {other.n}")
+        if self.is_array and other.is_array:
+            pn = max(self.padded_n, other.padded_n)
+            a = self._pad_to(pn)._arrays
+            b = other._pad_to(pn)._arrays
+            return Dataset(arrays=(a, b), n=self.n)
+        return Dataset(items=list(zip(self.items(), other.items())))
+
+    def cache(self) -> "Dataset":
+        """The identity (reference: Cacher / rdd.cache): the arrays already
+        live on their device, and the executor's memo keeps them."""
+        return self
 
     def _pad_to(self, pn: int) -> "Dataset":
         arrs = self.to_array_mode()._arrays

@@ -1,6 +1,6 @@
 """The flagship ImageNetSiftLcsFV featurize chain for serving (counterpart
-of ``keystone_tpu/serving/featurize.py``: the seeded warm-start path;
-fitting PCA/GMM on ``fit_images`` waits for the training slice).
+of ``keystone_tpu/serving/featurize.py``): seeded warm-start parameters,
+or PCA and GMMs fitted on ``fit_images``.
 
 A branched DAG: gray → SIFT and LCS branches, each PCA → GMM Fisher
 vector → Hellinger/L2 normalization, gathered through ``VectorCombiner``.
@@ -11,7 +11,7 @@ both packages freeze identical parameters from one seed.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Any, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -144,24 +144,57 @@ def build_flagship_featurize_pipeline(
     lcs_border: int = 16,
     lcs_patch: int = 6,
     seed: int = 7,
+    fit_images: Optional[Any] = None,
     device: Optional[Union[str, torch.device]] = None,
 ) -> Tuple[object, int]:
     """The flagship SIFT+LCS→FV featurize chain as a frozen serving stage
     — raw ``(img, img, 3)`` uint8 in, ``(2·2·desc_dim·vocab,)`` float32
     features out — with its parameters on ``device`` (``None`` means
-    ``cuda``). Returns ``(fitted_featurize, feature_dim)``."""
+    ``cuda``). Returns ``(fitted_featurize, feature_dim)``.
+
+    With ``fit_images`` (a ``Dataset`` of ``(img, img, 3)`` images, or an
+    array of them) the PCA projections and GMMs are fitted on them, on
+    ``device``, through ``compute_pca_and_fisher_branch`` (ColumnSampler →
+    ColumnPCA, sampled and projected descriptors → GMM); without it, the
+    seeded warm start stands in. Both freeze to the same graph."""
     dev = resolve_device(device)
     if img <= 2 * lcs_border:
         raise ValueError(
             f"img={img} leaves the LCS keypoint grid empty "
             f"(needs img > 2*lcs_border = {2 * lcs_border})"
         )
-    pipe = flagship_pipeline(
-        np.random.default_rng(seed), desc_dim, vocab, device=dev,
-        sift_step=sift_step, sift_bin=sift_bin, sift_scales=sift_scales,
-        sift_scale_step=sift_scale_step, lcs_stride=lcs_stride,
-        lcs_border=lcs_border, lcs_patch=lcs_patch,
-    )
+    if fit_images is None:
+        pipe = flagship_pipeline(
+            np.random.default_rng(seed), desc_dim, vocab, device=dev,
+            sift_step=sift_step, sift_bin=sift_bin, sift_scales=sift_scales,
+            sift_scale_step=sift_scale_step, lcs_stride=lcs_stride,
+            lcs_border=lcs_border, lcs_patch=lcs_patch,
+        )
+    else:
+        from keystone_tpu_torch.ops.util.nodes import VectorCombiner
+        from keystone_tpu_torch.parallel.dataset import Dataset
+        from keystone_tpu_torch.pipelines.images.imagenet_sift_lcs_fv import (
+            ImageNetSiftLcsFVConfig,
+            compute_pca_and_fisher_branch,
+        )
+        from keystone_tpu_torch.workflow.api import Pipeline
+
+        images = Dataset.of(fit_images).to_array_mode().array()
+        images = Dataset.from_array(torch.as_tensor(images).to(dev))
+        conf = ImageNetSiftLcsFVConfig(
+            desc_dim=desc_dim, vocab_size=vocab, seed=seed,
+            sift_scale_step=sift_scale_step, lcs_stride=lcs_stride,
+            lcs_border=lcs_border, lcs_patch=lcs_patch,
+        )
+        sift, lcs = flagship_prefixes(
+            sift_step=sift_step, sift_bin=sift_bin, sift_scales=sift_scales,
+            sift_scale_step=sift_scale_step, lcs_stride=lcs_stride,
+            lcs_border=lcs_border, lcs_patch=lcs_patch,
+        )
+        pipe = Pipeline.gather([
+            compute_pca_and_fisher_branch(sift, images, conf, None, None, device=dev),
+            compute_pca_and_fisher_branch(lcs, images, conf, None, None, device=dev),
+        ]).and_then(VectorCombiner())
     # two branches, each a (desc_dim, 2·vocab) Fisher vector
     return pipe.fit(), 2 * 2 * desc_dim * vocab
 

@@ -5,6 +5,7 @@ from keystone_tpu_torch.workflow.api import (  # noqa: F401
     Estimator,
     FittedPipeline,
     GatherTransformerOperator,
+    LabelEstimator,
     Pipeline,
     PipelineDataset,
     PipelineDatum,

@@ -117,9 +117,16 @@ class Chainable:
         raise NotImplementedError
 
     def and_then(
-        self, nxt: Union["Chainable", "Estimator"], data: Any = None
+        self,
+        nxt: Union["Chainable", "Estimator", "LabelEstimator"],
+        data: Any = None,
+        labels: Any = None,
     ) -> "Pipeline":
         pipe = self.to_pipeline()
+        if isinstance(nxt, LabelEstimator):
+            if data is None or labels is None:
+                raise TypeError("LabelEstimator chaining needs data and labels")
+            return pipe._concat(nxt.with_data(pipe(data), labels))
         if isinstance(nxt, Estimator):
             if data is None:
                 raise TypeError("Estimator chaining needs data")
@@ -328,6 +335,27 @@ class Estimator(Chainable, EstimatorOperator):
     @property
     def label(self) -> str:  # type: ignore[override]
         return type(self).__name__
+
+
+class LabelEstimator(Estimator):
+    """fit(Dataset, labels: Dataset) -> Transformer."""
+
+    def fit(self, data: Dataset, labels: Dataset) -> Transformer:  # type: ignore[override]
+        raise NotImplementedError
+
+    def fit_datasets(self, datasets: Sequence[Dataset]) -> TransformerOperator:
+        return self.fit(datasets[0], datasets[1])
+
+    def with_data(self, data: Any, labels: Any = None) -> Pipeline:
+        if labels is None:
+            raise TypeError("LabelEstimator.with_data needs labels")
+        g, data_end = _splice_data(EMPTY_GRAPH, data)
+        g, labels_end = _splice_data(g, labels)
+        g, est_node = g.add_node(self, (data_end, labels_end))
+        g, src = g.add_source()
+        g, delegate = g.add_node(DelegatingOperator(), (est_node, src))
+        g, sink = g.add_sink(delegate)
+        return Pipeline(GraphExecutor(g), src, sink)
 
 
 def _splice_data(g: Graph, data: Any):

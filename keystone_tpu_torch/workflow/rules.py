@@ -167,14 +167,14 @@ class UnusedBranchRemovalRule(Rule):
 
 
 def _is_saveable_op(op: Operator) -> bool:
-    # the port has no Cacher node yet: estimator fits are the only
-    # saveable prefixes
-    return isinstance(op, EstimatorOperator)
+    from keystone_tpu_torch.ops.util.cacher import Cacher
+
+    return isinstance(op, (EstimatorOperator, Cacher))
 
 
 class ExtractSaveablePrefixes(Rule):
     """Compute prefixes for nodes whose results are worth persisting:
-    estimator fits."""
+    estimator fits and explicit Cacher materialization points."""
 
     def apply(self, graph: Graph, prefixes: PrefixMap) -> Tuple[Graph, PrefixMap]:
         new = dict(prefixes)

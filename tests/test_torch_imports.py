@@ -14,6 +14,14 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "keystone_tpu_torch")
+# the training slice's new modules, which the walk must reach
+TRAINING_MODULES = [
+    "keystone_tpu_torch." + m for m in (
+        "loaders.image_loaders", "ops.util.cacher", "ops.learning.cost",
+        "parallel.linalg", "ops.learning.kmeans", "ops.learning.weighted_ls",
+        "pipelines.images.imagenet_sift_lcs_fv", "utils.chunks",
+    )
+]
 
 
 def _port_sources():
@@ -38,6 +46,7 @@ bad = sorted(n for n in sys.modules
              or n.startswith("keystone_tpu."))
 print("LOADED", len([n for n in sys.modules if n.startswith("keystone_tpu_torch")]))
 print("BAD", bad)
+print("TRAINING", sorted(n for n in {TRAINING_MODULES!r} if n not in sys.modules))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -46,7 +55,8 @@ print("BAD", bad)
     )
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
-    assert int(re.search(r"LOADED (\d+)", out.stdout).group(1)) >= 25
+    assert "TRAINING []" in out.stdout, out.stdout
+    assert int(re.search(r"LOADED (\d+)", out.stdout).group(1)) >= 25 + len(TRAINING_MODULES)
 
 
 def test_no_source_imports_jax_or_the_jax_package():
@@ -85,3 +95,53 @@ def test_entry_points_need_cuda_unless_given_the_cpu(monkeypatch):
         np.zeros((1, 40, 40, 3), np.uint8)
     )
     assert out.shape == (1, 2 * 2 * 4 * 2) and bool(torch.isfinite(out).all())
+
+
+def test_training_entry_points_need_cuda_unless_given_the_cpu(monkeypatch):
+    from keystone_tpu_torch.loaders.image_loaders import LabeledImage
+    from keystone_tpu_torch.ops.images.lcs import LCSExtractor
+    from keystone_tpu_torch.ops.learning.gmm import GaussianMixtureModel
+    from keystone_tpu_torch.parallel.dataset import Dataset
+    from keystone_tpu_torch.pipelines.images.imagenet_sift_lcs_fv import (
+        ImageNetSiftLcsFVConfig,
+        LabelExtractor,
+        build_pipeline,
+        compute_pca_and_fisher_branch,
+        run,
+    )
+    from keystone_tpu_torch.serving.featurize import (
+        build_flagship_featurize_pipeline,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (4, 40, 40, 3), dtype=np.uint8)
+    data = Dataset.from_items([LabeledImage(im, i % 2) for i, im in enumerate(images)])
+    conf = ImageNetSiftLcsFVConfig(
+        desc_dim=4, vocab_size=2, num_classes=2, lcs_stride=8,
+        num_pca_samples_per_image=8, num_gmm_samples_per_image=8,
+    )
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run(data, data, conf)
+    # host data, as a loader yields it
+    host_images = Dataset.from_items(list(images))
+    labels = LabelExtractor.apply(data)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_pipeline(host_images, labels, conf)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compute_pca_and_fisher_branch(
+            LCSExtractor(8, 16, 6).to_pipeline(), host_images, conf, None, None)
+    pred = build_pipeline(host_images, labels, conf, device="cpu")
+    top = pred.fit()(Dataset.from_array(torch.as_tensor(images))).array()
+    assert top.shape[0] == 4 and top.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_flagship_featurize_pipeline(img=40, desc_dim=4, vocab=2, fit_images=images)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GaussianMixtureModel.load("m.csv", "v.csv", "w.csv")
+    feat, dim = build_flagship_featurize_pipeline(
+        img=40, desc_dim=4, vocab=2, fit_images=images, device="cpu"
+    )
+    out = feat._batch_run(torch.as_tensor(images))
+    assert out.shape == (4, dim) and bool(torch.isfinite(out).all())
+    _, err = run(data, data, conf, device="cpu")
+    assert 0.0 <= err <= 1.0
