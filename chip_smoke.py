@@ -18,12 +18,14 @@ Phases, in order; any failure exits non-zero:
    of the operators' nonzero bands (the dense count is kept beside it);
 4. serve the ImageNetSiftLcsFV configuration (SIFT step 3 / bin 4 /
    4 scales, LCS 4/16/6, desc_dim 64, vocab 32 → 8,192 features, a
-   seeded 8,192 x 1,000 linear head, top-5) through buckets (8, 64),
-   check every kernel's launch count, and hold the first 8 images'
-   features and top-5 against a CPU run of the port (plain versions);
+   seeded 8,192 x 1,000 linear head, top-5) through buckets (8, 64) of
+   the serving engine, one CUDA graph per bucket captured at ``warmup``,
+   check every kernel's launch count (4 / 1 / 2 per dispatch, counted
+   per replay), and hold the first 8 images' features and top-5 against
+   a CPU run of the port (plain versions);
 5. time examples/sec per bucket, and profile one bucket-64 dispatch: device
-   busy time with and without the host-to-device copies, and the port's
-   kernels in it;
+   busy time with and without the copies, the pinned host-to-device
+   copy, the idle share, and the port's kernels in it;
 6. train, then serve: fit ImageNetSiftLcsFV on the card as
    ``pipelines.images.imagenet_sift_lcs_fv.run`` does (``build_pipeline``
    and ``fit``: PCA, GMM EM and the mixture-weighted solver; vocab 32,
@@ -35,7 +37,19 @@ Phases, in order; any failure exits non-zero:
    Cholesky), and B3 against its plain version with the fitted GMMs;
    require a held-out top-5 error of at most 0.5; serve the trained chain
    through buckets (8, 64) and require the fitted pipeline's top-5. Prints
-   the wall time of each stage and the peak device memory.
+   the wall time of each stage and the peak device memory;
+7. serve phase 4's chain and head under a request stream: capture buckets
+   (8, 64) at ``warmup`` (compile count 2; capture seconds and graph-pool
+   bytes per bucket); hold replays against the eager chain (top-5 equal,
+   features at phase 4's bar) and their launches; run bursts of exactly
+   64 single-image requests through ``MicroBatcher`` serial and pipelined
+   (``pipeline_depth=2``) and require every future's row bit for bit
+   equal across the modes and to ``engine.apply``; drive a closed loop of
+   128 single requests in flight (8 client threads of 16) for 8 s per
+   mode, at the batcher's default max_delay_ms of 5 and at 25, and print
+   requests/s, request p50/p99, the mean coalesced size, the stage means,
+   the bottleneck stage, the overlap efficiency and the staging bytes;
+   then phase 5's throughput and profile once more.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then, last, the result line ``{"ok": true, "device": {...}}``.
@@ -51,7 +65,9 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -67,6 +83,7 @@ from keystone_tpu_torch.ops.learning import gmm, pca, weighted_ls  # noqa: E402
 from keystone_tpu_torch.ops.stats import nodes as stats_nodes  # noqa: E402
 from keystone_tpu_torch.parallel.dataset import Dataset  # noqa: E402
 from keystone_tpu_torch.pipelines.images import imagenet_sift_lcs_fv as flagship  # noqa: E402
+from keystone_tpu_torch.serving import MicroBatcher, ServingMetrics  # noqa: E402
 from keystone_tpu_torch.serving.featurize import (  # noqa: E402
     build_flagship_featurize_pipeline,
 )
@@ -87,6 +104,11 @@ REQUESTS = (1, 8, 37, 64)
 RTOL_SANDWICH, ATOL_SANDWICH = 1e-4, 1e-4
 RTOL_FV, ATOL_FV = 1e-3, 1e-4
 RTOL_FEAT, ATOL_FEAT = 1e-4, 1e-5
+# phase 7: the closed loop's client threads and requests in flight (each
+# thread keeps its share of them), the batcher's max_delay_ms of each pair
+# of runs (the default, then one that lets a pipelined lane fill its
+# windows), and seconds per run
+STREAM_THREADS, STREAM_IN_FLIGHT, STREAM_DELAYS_MS, STREAM_S = 8, 128, (5.0, 25.0), 8.0
 
 # phase 6: ImageNetSiftLcsFV at the serving phase's widths, trained
 TRAIN_CONF = dict(
@@ -344,7 +366,9 @@ def check_kernels(dev, gen):
 
 
 def serve(dev, smi):
-    """Phase 4 and 5: the flagship through buckets (8, 64)."""
+    """Phase 4 and 5: the flagship through buckets (8, 64), one CUDA graph
+    per bucket. Returns the record and the chain and head, which phase 7
+    serves again."""
     t0 = time.perf_counter()
     feat, feat_dim = build_flagship_featurize_pipeline(device=dev, **CONF)
     assert feat_dim == 8192, feat_dim
@@ -353,7 +377,9 @@ def serve(dev, smi):
     icpt = (rng.standard_normal(CLASSES) * 0.01).astype(np.float32)
     model = model_head(W, icpt, TOP_K, dev)
     engine = model.compiled(buckets=BUCKETS, featurize=feat, device=dev)
-    log(f"built the serving pipeline in {time.perf_counter() - t0:.3f} s")
+    capture_s = engine.warmup(example=np.zeros((IMG, IMG, 3), np.uint8))
+    log(f"built the serving pipeline and captured buckets {capture_s} (s) in "
+        f"{time.perf_counter() - t0:.3f} s")
 
     reqs = [rng.integers(0, 256, (n, IMG, IMG, 3), dtype=np.uint8) for n in REQUESTS]
     _cuda.reset_launches()
@@ -364,6 +390,7 @@ def serve(dev, smi):
             "fisher_vector_stats": 2 * dispatches}
     log(f"launches over {dispatches} dispatches: {launches} (expected {want})")
     assert launches == want, (launches, want)
+    assert engine.metrics.compile_count == len(BUCKETS), engine.metrics.summary()
     for o, n in zip(outs, REQUESTS):
         assert tuple(o.shape) == (n, TOP_K) and o.device.type == "cuda", o.shape
 
@@ -399,10 +426,24 @@ def serve(dev, smi):
     assert feat_ok, feat_err
     assert top_equal
 
-    # examples/sec per bucket (host-side uint8 batch in, top-5 on the card)
+    rec = {
+        "launches": launches, "dispatches": dispatches, "sift": sift_rec,
+        "feature_max_abs_err": feat_err, "top5_equal": top_equal,
+        "capture_s": capture_s, "graphs": engine.graph_report(),
+    }
+    rec.update(throughput_and_profile(engine, rng, smi))
+    return rec, feat, model
+
+
+def throughput_and_profile(engine, rng, smi, img=IMG):
+    """Phase 5 (and phase 7's last step): examples/sec per bucket, a uint8
+    host batch in and top-5 on the card, median of 5 after one warm
+    dispatch; then, on the card, one profiled bucket-64 dispatch, by
+    device activity (kernels and copies). The rest of the dispatch's wall
+    time the device sat idle."""
     throughput = {}
     for b in BUCKETS:
-        batch = rng.integers(0, 256, (b, IMG, IMG, 3), dtype=np.uint8)
+        batch = rng.integers(0, 256, (b, img, img, 3), dtype=np.uint8)
         engine.apply(batch, sync=True)
         times = []
         for _ in range(5):
@@ -413,11 +454,10 @@ def serve(dev, smi):
         throughput[b] = {"median_s": med, "ex_per_s": b / med, "runs_s": times}
         log(f"bucket {b}: {b / med:.1f} ex/s (median of 5, {med * 1e3:.2f} ms "
             f"per dispatch) on {smi}")
+    if engine.device.type != "cuda":
+        return {"throughput": throughput}
 
-    # where the time of one bucket-64 dispatch goes, by device activity
-    # (kernels and copies); the rest of the dispatch's wall time the
-    # device sat idle
-    batch = rng.integers(0, 256, (64, IMG, IMG, 3), dtype=np.uint8)
+    batch = rng.integers(0, 256, (64, img, img, 3), dtype=np.uint8)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -430,27 +470,186 @@ def serve(dev, smi):
               if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     events.sort(key=lambda e: -e.device_time_total)
     device_ms = sum(e.device_time_total for e in events) / 1e3
-    # the host-to-device copy of the batch varies most between runs; the
-    # busy time without copies is the one the kernels move
+    assert device_ms > 0, "the profiler saw no device time"
+    # the busy time without copies is the one the kernels move
     copy_ms = sum(e.device_time_total for e in events if e.key.startswith("Memcpy")) / 1e3
+    h2d_ms = sum(e.device_time_total for e in events if "HtoD" in e.key) / 1e3
     top = [(e.key[:90], e.device_time_total / 1e3, e.count) for e in events[:15]]
     ours = [(e.key[:90], e.device_time_total / 1e3, e.count) for e in events
             if any(k in e.key for k in ("sift_bin_kernel", "sandwich_kernel", "fv_"))]
+    # the profiler does not show the copies on the engine's copy stream:
+    # time the pinned upload of a bucket-64 batch there by CUDA events
+    # around 10 copies in a row, and each graph's replay on the compute
+    # stream the same way
+    host = engine.alloc_host(batch, 64)
+    engine.host_stage(batch, 64, 64, host)
+    with torch.cuda.stream(engine._copy_stream):
+        pinned_ms = time_ms(lambda: host.to(engine.device, non_blocking=True))
+    replay_ms = {}
+    with torch.cuda.stream(engine._compute_stream):
+        for g in engine._graphs.values():
+            replay_ms[g.bucket] = time_ms(g.graph.replay)
     log(f"profile of one bucket-64 dispatch: wall {wall_ms:.3f} ms, device "
-        f"busy {device_ms:.3f} ms ({device_ms - copy_ms:.3f} without copies), "
-        f"idle share {1 - device_ms / wall_ms:.3f}")
+        f"busy {device_ms:.3f} ms ({device_ms - copy_ms:.3f} without copies; "
+        f"host-to-device copies seen {h2d_ms:.3f}), idle share "
+        f"{1 - device_ms / wall_ms:.3f}; the pinned upload of {host.nbytes} bytes "
+        f"{pinned_ms:.3f} ms and a replay {replay_ms} ms by CUDA events, on {smi}")
     for key, ms, n in top:
         log(f"  {ms:9.3f} ms  x{n:<4d} {key}")
     log("the port's kernels in that dispatch:")
     for key, ms, n in ours:
         log(f"  {ms:9.3f} ms  x{n:<4d} {key}")
     return {
-        "launches": launches, "dispatches": dispatches, "sift": sift_rec,
-        "feature_max_abs_err": feat_err, "top5_equal": top_equal,
         "throughput": throughput, "profile_wall_ms": wall_ms,
         "profile_device_ms": device_ms, "profile_copy_ms": copy_ms,
+        "profile_h2d_ms": h2d_ms, "profile_idle_share": 1 - device_ms / wall_ms,
+        "pinned_upload_ms": pinned_ms, "replay_ms": replay_ms,
         "profile_top": top, "profile_kernels": ours,
     }
+
+
+def closed_loop(engine, depth, images, max_delay_ms, seconds):
+    """``STREAM_THREADS`` client threads, each keeping its share of
+    ``STREAM_IN_FLIGHT`` single-image requests in flight through one
+    ``MicroBatcher`` for ``seconds``. The engine records into a fresh
+    ``ServingMetrics`` (with room for every request's latency) for this
+    run. Returns its record."""
+    engine.metrics = metrics = ServingMetrics(latency_window=1 << 18)
+    mb = MicroBatcher(engine, max_delay_ms=max_delay_ms, pipeline_depth=depth)
+    per_thread = STREAM_IN_FLIGHT // STREAM_THREADS
+    done = [0] * STREAM_THREADS
+    errors = []
+
+    def client(tid):
+        try:
+            q = deque(mb.submit(images[(tid + i * STREAM_THREADS) % len(images)])
+                      for i in range(per_thread))
+            i = per_thread
+            while q:
+                row = q.popleft().result(timeout=120)
+                assert row.shape == (TOP_K,)
+                done[tid] += 1
+                if time.perf_counter() < stop:
+                    q.append(mb.submit(images[(tid + i * STREAM_THREADS) % len(images)]))
+                    i += 1
+        except Exception as e:  # reported below, and the phase fails
+            errors.append(repr(e))
+
+    try:
+        t0 = time.perf_counter()
+        stop = t0 + seconds
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(STREAM_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(seconds + 240)
+        elapsed = time.perf_counter() - t0
+        assert not any(t.is_alive() for t in threads), "a client thread hung"
+    finally:
+        mb.close()
+    assert not errors, errors
+    summ = metrics.summary()
+    rec = {
+        "pipeline_depth": depth, "in_flight": STREAM_THREADS * per_thread,
+        "max_delay_ms": max_delay_ms,
+        "seconds": elapsed, "requests": sum(done), "req_per_s": sum(done) / elapsed,
+        "request_p50_ms": summ["request_p50_ms"], "request_p99_ms": summ["request_p99_ms"],
+        "mean_coalesced": metrics.examples.total / metrics.dispatches.total,
+        "dispatches_per_bucket": summ["dispatches_per_bucket"],
+        "dispatch_p50_ms": summ["dispatch_p50_ms"],
+        "stages_ms": summ.get("pipeline", {}).get("stages"),
+        "bottleneck": metrics.bottleneck(), "overlap_efficiency": metrics.overlap_efficiency(),
+        "staging_bytes": metrics.staging_bytes,
+    }
+    return rec
+
+
+def serve_stream(dev, smi, feat, model, img=IMG, seconds=STREAM_S):
+    """Phase 7: phase 4's chain and head under a request stream. To
+    rehearse it on the CPU at a small size (no graphs there, so no
+    captures, and no profile): ``serve_stream(torch.device("cpu"), "cpu",
+    feat, model, img=48, seconds=1)`` with a 48² chain and its head."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(17)
+    example = np.zeros((img, img, 3), np.uint8)
+    engine = model.compiled(buckets=BUCKETS, featurize=feat, device=dev, name="phase7")
+    on_card = dev.type == "cuda"
+    reserved = torch.cuda.memory_reserved(dev) if on_card else 0
+    capture_s = engine.warmup(example=example)
+    metrics = engine.metrics
+    captures = len(BUCKETS) if on_card else 0
+    assert metrics.compile_count == captures, metrics.summary()
+    graphs = engine.graph_report()
+    for g in graphs:
+        log(f"bucket {g['bucket']}: captured in {capture_s[g['bucket']]:.3f} s (warm pass, "
+            f"capture and one replay), graph pool {g['pool_bytes']} bytes, launches per "
+            f"replay {g['launches']} on {smi}")
+    rec = {"capture_s": capture_s, "graphs": graphs,
+           "reserved_by_warmup": (torch.cuda.memory_reserved(dev) if on_card else 0) - reserved}
+
+    # -- graph against eager -------------------------------------------
+    features = feat.compiled(buckets=BUCKETS, device=dev, name="phase7-features")
+    features.warmup(example=example)
+    rec["graph_vs_eager"] = {}
+    for b in (64, 8):
+        raw = rng.integers(0, 256, (b, img, img, 3), dtype=np.uint8)
+        x = torch.as_tensor(raw).to(dev)
+        top_equal = bool(torch.equal(engine.apply(raw, sync=True), engine._run_bucket(x)))
+        err = max_abs_err(features.apply(raw, sync=True), features._run_bucket(x),
+                          RTOL_FEAT, ATOL_FEAT, f"bucket {b} features, graph vs eager")
+        rec["graph_vs_eager"][b] = {"top5_equal": top_equal, "feature_max_abs_err": err}
+        log(f"bucket {b}, graph vs eager: top-5 equal {top_equal}, features max abs err {err}")
+        assert top_equal
+    del features
+    raw64 = rng.integers(0, 256, (64, img, img, 3), dtype=np.uint8)
+    _cuda.reset_launches()
+    n_replays = 3
+    for _ in range(n_replays):
+        engine.apply(raw64, sync=True)
+    k = n_replays if on_card else 0
+    want = {"sift_bin_sample": 4 * k, "plane_sandwich": k, "fisher_vector_stats": 2 * k}
+    log(f"launches over {n_replays} replays: {dict(_cuda.LAUNCHES)} (expected {want})")
+    assert _cuda.LAUNCHES == want, (_cuda.LAUNCHES, want)
+
+    # -- deterministic windows: bursts of exactly 64 -------------------
+    bursts = rng.integers(0, 256, (3, 64, img, img, 3), dtype=np.uint8)
+    direct = np.concatenate([engine.apply(b, sync=True).cpu().numpy() for b in bursts])
+    rows = {}
+    for depth in (0, 2):
+        before = metrics.dispatches.get(64)
+        mb = MicroBatcher(engine, max_delay_ms=60_000.0, pipeline_depth=depth)
+        try:
+            futures = [mb.submit(x) for burst in bursts for x in burst]
+            rows[depth] = np.stack([f.result(timeout=120) for f in futures])
+        finally:
+            mb.close()
+        assert metrics.dispatches.get(64) - before == len(bursts), metrics.summary()
+    rec["windows_bitwise"] = {
+        "serial_eq_pipelined": bool(np.array_equal(rows[0], rows[2])),
+        "serial_eq_apply": bool(np.array_equal(rows[0], direct)),
+    }
+    log(f"{len(bursts)} windows of 64, serial and pipelined: {rec['windows_bitwise']}")
+    assert all(rec["windows_bitwise"].values()), rec["windows_bitwise"]
+    assert metrics.compile_count == captures, metrics.summary()
+
+    # -- the closed loop -------------------------------------------------
+    images = rng.integers(0, 256, (256, img, img, 3), dtype=np.uint8)
+    rec["stream"] = {}
+    for delay in STREAM_DELAYS_MS:
+        for mode, depth in (("serial", 0), ("pipelined", 2)):
+            r = closed_loop(engine, depth, images, delay, seconds)
+            rec["stream"][f"{mode} {delay}"] = r
+            log(f"closed loop {mode}, max_delay_ms {delay} ({r['in_flight']} in flight, "
+                f"{r['seconds']:.2f} s): {r['req_per_s']:.1f} req/s, request p50 "
+                f"{r['request_p50_ms']} ms, p99 {r['request_p99_ms']} ms, mean coalesced "
+                f"{r['mean_coalesced']:.2f}, dispatches {r['dispatches_per_bucket']}, stages "
+                f"{r['stages_ms']}, bottleneck {r['bottleneck']}, overlap efficiency "
+                f"{r['overlap_efficiency']}, staging bytes {r['staging_bytes']} on {smi}")
+
+    rec.update(throughput_and_profile(engine, rng, smi, img))
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 7 in {rec['phase_s']:.3f} s")
+    return rec
 
 
 def synthetic_imagenet(classes, per_class, seed, dev):
@@ -777,7 +976,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 4, 5. serve ----------------------------------------------------
-    served = serve(dev, smi)
+    served, feat, model = serve(dev, smi)
     for r in rows:
         r["launches"] = served["launches"][r["name"]]
     torch.cuda.empty_cache()
@@ -791,11 +990,15 @@ def main():
         r["fit_launches"] = trained["launches_fit"][r["name"]]
     fv_row = next(r for r in rows if r["name"] == "fisher_vector_stats")
     fv_row["fitted_gmm_max_abs_err"] = max(e["max_abs_err"] for e in trained["fv_fitted"])
+    torch.cuda.empty_cache()
+
+    # -- 7. serve under a request stream --------------------------------
+    streamed = serve_stream(dev, smi, feat, model)
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": rows, "serve": served, "train": trained,
-                   "ptxas": ptxas}, f, indent=1)
+                   "stream": streamed, "ptxas": ptxas}, f, indent=1, default=str)
     # the fit's launches and B3's error with the fitted GMMs are in
     # chip_smoke.json beside these
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -9,12 +9,17 @@ headers (``csrc/*.cuh``), so an edited source is rebuilt and a stale
 library is never loaded.
 
 ``LAUNCHES`` counts the kernel launches of each wrapper: a wrapper adds
-one where it launches its kernel, and nowhere else (a call on CPU tensors
-runs the plain version and counts nothing).
+one (``count``) where it launches its kernel, and nowhere else (a call on
+CPU tensors runs the plain version and counts nothing). A call made
+while its thread captures a CUDA graph launches nothing: it counts into
+the capture's tally (``capture_tally``) instead, and the serving engine
+adds that tally to ``LAUNCHES`` (``add_launches``) on every replay of the
+graph, so the counts stay one per kernel that ran on the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -76,9 +81,44 @@ _libs: Dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}
 
 
+_count_lock = threading.Lock()
+_capture = threading.local()
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count(name: str) -> None:
+    """One launch of ``name``'s kernel, or, while this thread captures a
+    CUDA graph, one launch into the capture's tally."""
+    tally = getattr(_capture, "tally", None)
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + 1
+        return
+    with _count_lock:
+        LAUNCHES[name] += 1
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """The launches of one replay of a captured graph."""
+    with _count_lock:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Count this thread's launches into the yielded dict instead of
+    ``LAUNCHES`` (around a CUDA graph capture)."""
+    tally: Dict[str, int] = {}
+    _capture.tally = tally
+    try:
+        yield tally
+    finally:
+        _capture.tally = None
 
 
 def _nvcc() -> str:

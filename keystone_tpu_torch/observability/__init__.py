@@ -1,1 +1,3 @@
-"""Observability: span tracing (``tracing.py``)."""
+"""Observability: span tracing (``tracing.py``), the metrics registry
+(``registry.py``) and its Prometheus rendering (``prometheus.py``), and
+the device table (``device.py``)."""

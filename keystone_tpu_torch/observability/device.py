@@ -1,0 +1,124 @@
+"""Device truth: what the card is and what it peaks at (counterpart of
+``keystone_tpu/observability/device.py``: ``peaks_for`` and
+``device_table``).
+
+``device_table`` reads the local CUDA devices once
+(``torch.cuda.get_device_name`` and ``get_device_properties``): kind,
+platform, count, peak FLOP/s and memory rate from ``PEAK_TABLE``
+(overridable by ``KEYSTONE_PEAK_FLOPS`` / ``KEYSTONE_PEAK_MEMBW_GBPS``
+for hardware the table does not know), and the device memory in bytes.
+Without CUDA it holds one ``cpu`` row with unknown peaks, as the JAX
+table does on a CPU backend.
+
+The JAX module's cost-model extraction (``compiled_cost_model``) is not
+ported: the port has no compiler cost analysis to read, so the MFU and
+roofline series of ``ServingMetrics`` stay absent, as they do in the JAX
+package on hardware it does not know.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import re
+import threading
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+logger = logging.getLogger(__name__)
+
+# Peak float32 throughput outside the tensor cores and peak device-memory
+# rate, keyed by a case-insensitive word-bounded substring of the device
+# name; unknown parts stay (None, None). The JAX table gives each part's
+# bf16 dense tensor-core rate; the port computes in float32 on the CUDA
+# cores with TF32 off (``_device.resolve_device``), so its MFU
+# denominator is the float32 rate (NVIDIA data sheets; the H100 SXM row
+# is the 67 TFLOP/s and 3.35 TB/s that PERF.md's kernel bounds use). The
+# port's kernels are built for sm_90a only, so only Hopper parts are
+# listed.
+PEAK_TABLE: Tuple[Tuple[str, float, float], ...] = (
+    # (kind substring, peak FLOP/s, peak device-memory bytes/s)
+    ("h200", 67e12, 4800e9),
+    ("h100", 67e12, 3350e9),
+)
+
+_ENV_PEAK_FLOPS = "KEYSTONE_PEAK_FLOPS"
+_ENV_PEAK_MEMBW = "KEYSTONE_PEAK_MEMBW_GBPS"
+
+
+def peaks_for(device_kind: Optional[str]) -> Tuple[Optional[float], Optional[float]]:
+    """``(peak_flops, peak_membw_bytes_per_s)`` for a device kind, from
+    the env overrides first, then the table; ``(None, None)`` for
+    hardware neither knows (MFU/roofline series stay absent)."""
+    flops = membw = None
+    env_flops = os.environ.get(_ENV_PEAK_FLOPS)
+    if env_flops:
+        try:
+            flops = float(env_flops)
+        except ValueError:
+            logger.warning("ignoring non-numeric %s=%r",
+                           _ENV_PEAK_FLOPS, env_flops)
+    env_membw = os.environ.get(_ENV_PEAK_MEMBW)
+    if env_membw:
+        try:
+            membw = float(env_membw) * 1e9
+        except ValueError:
+            logger.warning("ignoring non-numeric %s=%r",
+                           _ENV_PEAK_MEMBW, env_membw)
+    if flops is not None and membw is not None:
+        return flops, membw
+    kind = (device_kind or "").lower()
+    for sub, table_flops, table_membw in PEAK_TABLE:
+        if re.search(rf"\b{re.escape(sub)}\b", kind):
+            return (flops if flops is not None else table_flops,
+                    membw if membw is not None else table_membw)
+    return flops, membw
+
+
+_table: Optional[List[Dict[str, Any]]] = None
+_table_lock = threading.Lock()
+
+
+def device_table() -> List[Dict[str, Any]]:
+    """The local device set as one row per device kind (kind, platform,
+    count, peak FLOP/s, peak memory rate, device memory bytes), read
+    once."""
+    global _table
+    with _table_lock:
+        if _table is None:
+            rows: Dict[str, Dict[str, Any]] = {}
+            if torch.cuda.is_available():
+                for i in range(torch.cuda.device_count()):
+                    kind = torch.cuda.get_device_name(i)
+                    row = rows.get(kind)
+                    if row is None:
+                        flops, membw = peaks_for(kind)
+                        row = rows[kind] = {
+                            "kind": kind,
+                            "platform": "gpu",
+                            "count": 0,
+                            "peak_flops": flops,
+                            "peak_membw_bytes_per_s": membw,
+                            "hbm_bytes_limit": torch.cuda.get_device_properties(i).total_memory,
+                        }
+                    row["count"] += 1
+            else:
+                flops, membw = peaks_for("cpu")
+                rows["cpu"] = {
+                    "kind": "cpu", "platform": "cpu", "count": 1,
+                    "peak_flops": flops, "peak_membw_bytes_per_s": membw,
+                    "hbm_bytes_limit": None,
+                }
+            _table = list(rows.values())
+        return [dict(row) for row in _table]
+
+
+def peaks_of(device: torch.device) -> Tuple[Optional[float], Optional[float]]:
+    """The table's peaks for ``device``'s kind (``(None, None)`` on the
+    CPU)."""
+    if device.type != "cuda":
+        return None, None
+    kind = torch.cuda.get_device_name(device)
+    row = next(r for r in device_table() if r["kind"] == kind)
+    return row["peak_flops"], row["peak_membw_bytes_per_s"]

@@ -28,9 +28,20 @@ class PixelScaler(Transformer):
 class GrayScaler(Transformer):
     """RGB -> single-channel grayscale with MATLAB rgb2gray weights."""
 
+    def weights(self, device) -> torch.Tensor:
+        """The (3,) weights on ``device``, made once per device: a
+        dispatch copies nothing from the host (a CUDA graph capture
+        refuses a host-to-device copy)."""
+        cache = self.__dict__.setdefault("_weight_cache", {})
+        w = cache.get(str(device))
+        if w is None:
+            w = cache[str(device)] = torch.tensor(
+                GRAYSCALE_WEIGHTS, dtype=torch.float32, device=device
+            )
+        return w
+
     def apply(self, img):
-        w = torch.tensor(GRAYSCALE_WEIGHTS, dtype=torch.float32, device=img.device)
-        return (img.to(torch.float32) @ w)[..., None]
+        return (img.to(torch.float32) @ self.weights(img.device))[..., None]
 
     def apply_batch(self, ds: Dataset) -> Dataset:
         return Dataset.from_array(self.apply(ds.padded()), n=ds.n)

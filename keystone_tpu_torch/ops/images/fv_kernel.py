@@ -88,5 +88,5 @@ def fisher_vector_stats(x, means, variances, weights, weight_threshold=1e-4):
             B, d, m, k, ROWS_PER_BLOCK, _cuda.stream(x),
         )
     _cuda.check(err, "ks_fv_stats")
-    _cuda.LAUNCHES["fisher_vector_stats"] += 1
+    _cuda.count("fisher_vector_stats")
     return out[:, 0], out[:, 1 : 1 + d], out[:, 1 + d :]

@@ -131,7 +131,7 @@ def sift_bin_sample(
             _cuda.stream(mag),
         )
     _cuda.check(err, f"ks_sift_bin_sample (W={W})")
-    _cuda.LAUNCHES["sift_bin_sample"] += 1
+    _cuda.count("sift_bin_sample")
     return out
 
 
@@ -170,5 +170,5 @@ def plane_sandwich(
             order.data_ptr(), out.data_ptr(), B, P, H, W, M, N, _cuda.stream(planes),
         )
     _cuda.check(err, f"ks_plane_sandwich (W={W})")
-    _cuda.LAUNCHES["plane_sandwich"] += 1
+    _cuda.count("plane_sandwich")
     return out

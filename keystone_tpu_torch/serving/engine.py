@@ -1,35 +1,115 @@
-"""Bucketed execution of a ``FittedPipeline`` (counterpart of
-``keystone_tpu/serving/engine.py`` ``CompiledPipeline``).
+"""Bucketed execution of a ``FittedPipeline`` with one CUDA graph per
+bucket (counterpart of ``keystone_tpu/serving/engine.py``
+``CompiledPipeline``).
 
 A ``CompiledPipeline`` fixes a small set of row buckets, zero-pads each
 incoming batch up to the smallest covering bucket and dispatches the
-pipeline's batched apply path on that bucket; batches larger than the
-largest bucket are chunked through it. Zero pad rows are safe by the
-``Dataset`` padding discipline; outputs are sliced back to the valid rows.
-Fixed buckets keep the set of kernel shapes the server ever launches
-small, as the JAX engine's bounded compiles do.
+bucket's program; batches larger than the largest bucket are chunked
+through it. Zero pad rows are safe by the ``Dataset`` padding
+discipline; outputs are sliced back to the valid rows.
+
+**One CUDA graph per bucket** is the counterpart of the JAX engine's
+per-bucket XLA program. A bucket's first dispatch (or ``warmup``, before
+traffic) runs one warm eager pass of ``featurize∘pipeline`` on the
+bucket's shape — it fills the SIFT/LCS operator and band caches, the
+gray weights and the libraries' per-stream state, so that the capture
+finds no host work — then captures ``featurize._batch_run`` and
+``pipeline._batch_run`` into a ``torch.cuda.CUDAGraph`` that reads a
+static ``(bucket, ...)`` input and writes a static output. Every
+dispatch copies its uploaded batch into the static input on the
+engine's compute stream, replays the graph and clones the valid rows of
+the output before the next replay can overwrite it. A capture counts on
+``metrics.record_trace`` (``compile_count``: at most one per bucket and
+example spec). On the card a capture or replay that fails raises;
+nothing drops back to eager dispatch. On CPU tensors there is no graph:
+the engine runs the chain eagerly there, as the kernels run their plain
+versions there.
+
+The kernels' wrappers count launches in Python, so a replay would count
+nothing: each graph keeps the launches its capture made
+(``_cuda.capture_tally``) and adds them to ``_cuda.LAUNCHES`` on every
+replay.
+
+The dispatch path is factored into stage primitives so the staged lane
+pipeline (``serving/pipeline.py``) can run them on separate threads —
+``host_stage`` (pad on the host into a pooled buffer, page-locked when
+the device is CUDA), ``upload_staged`` (a ``non_blocking`` copy on the
+engine's copy stream, returning the device tree and a CUDA event) and
+``compute_staged`` (the compute stream waits on that event, replays the
+bucket's graph, records the dispatch) — while the serial
+``apply``/``_dispatch`` path composes exactly the same primitives
+inline, which is what makes pipelined results bit-identical to serial
+ones.
 
 ``featurize=`` puts a second fitted pipeline (e.g. the flagship
-SIFT+LCS→FV chain) in front of the model: callers send raw examples
-(uint8 images), which are padded on the host and copied to the device
-once per dispatch.
+SIFT+LCS→FV chain) in front of the model inside every bucket's graph:
+callers send raw examples (uint8 images), which are padded on the host
+and copied to the device once per dispatch.
 
-Not yet ported: AOT executables, sharding, metrics, input donation and
-the host/upload/compute stage split.
+Not ported: AOT executables (a CUDA graph cannot be serialized), mesh
+sharding (one card), input donation, and the per-bucket cost model (no
+compiler cost analysis to read).
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence, Tuple
+import dataclasses
+import logging
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from keystone_tpu_torch import _cuda
 from keystone_tpu_torch._device import resolve_device
+from keystone_tpu_torch.loadgen import faults
+from keystone_tpu_torch.observability import device as device_obs
 from keystone_tpu_torch.observability.tracing import get_tracer
 from keystone_tpu_torch.parallel.dataset import Dataset, _leading_dim, _tree_map
+from keystone_tpu_torch.serving.metrics import ServingMetrics
+from keystone_tpu_torch.serving.pipeline import HostBufferPool, on_host, tree_leaves
+
+logger = logging.getLogger(__name__)
 
 DEFAULT_BUCKETS = (8, 64, 512)
+
+
+def _dtype(a: Any) -> torch.dtype:
+    if isinstance(a, torch.Tensor):
+        return a.dtype
+    return torch.from_numpy(np.empty(0, np.asarray(a).dtype)).dtype
+
+
+def _row_spec(tree: Any, drop: int = 1) -> Any:
+    """The tree's structure with each leaf's per-row shape and dtype."""
+    if isinstance(tree, tuple):
+        return tuple(_row_spec(t, drop) for t in tree)
+    shape = tuple(tree.shape) if hasattr(tree, "shape") else np.shape(tree)
+    return (tuple(shape[drop:]), _dtype(tree))
+
+
+def _zip_map(fn, a: Any, b: Any) -> Any:
+    if isinstance(a, tuple):
+        return tuple(_zip_map(fn, x, y) for x, y in zip(a, b))
+    return fn(a, b)
+
+
+@dataclasses.dataclass
+class BucketGraph:
+    """One bucket's captured CUDA graph: its static input and output
+    trees, the kernel launches one replay makes, the seconds the warm
+    pass and capture took, and the device memory its private pool
+    reserved."""
+
+    bucket: int
+    graph: Any
+    static_in: Any
+    static_out: Any
+    launches: Dict[str, int]
+    capture_s: float
+    pool_bytes: int
 
 
 class CompiledPipeline:
@@ -38,14 +118,19 @@ class CompiledPipeline:
     Parameters
     ----------
     pipeline:  the fitted (transformer-only) pipeline, with its parameters
-               on ``device``.
+               on ``device``; its batched apply path must run without
+               host syncs on the card, or the graph capture raises.
     buckets:   row buckets; a batch of n rows dispatches the smallest
                bucket >= n, and larger batches are chunked through the
                biggest.
     featurize: optional fitted featurize pipeline run in front of
-               ``pipeline`` on every dispatch: callers send raw examples.
+               ``pipeline`` inside every bucket's graph: callers send raw
+               examples.
     device:    where the staged batches go; ``None`` means ``cuda`` and
                raises when CUDA is missing.
+    metrics:   the ``ServingMetrics`` to record into (a fresh one by
+               default); registered into the global registry under
+               ``name``.
     """
 
     def __init__(
@@ -55,6 +140,7 @@ class CompiledPipeline:
         *,
         featurize: Any = None,
         device=None,
+        metrics: Optional[ServingMetrics] = None,
         name: Optional[str] = None,
     ):
         if not buckets:
@@ -64,8 +150,28 @@ class CompiledPipeline:
         self.device = resolve_device(device)
         self.pipeline = pipeline
         self.featurize = featurize
-        self.name = name or f"engine-{id(self):x}"
         self.buckets: Tuple[int, ...] = tuple(sorted(set(int(b) for b in buckets)))
+        self.metrics = metrics if metrics is not None else ServingMetrics()
+        # every engine is scrapeable through the global MetricsRegistry
+        # (weakref bridge) under the `engine` label
+        self.name = self.metrics.register(engine=name)
+        self.metrics.set_device_peaks(*device_obs.peaks_of(self.device))
+        # (bucket, example spec) -> its captured graph
+        self._graphs: Dict[Any, BucketGraph] = {}
+        # a MicroBatcher's compute thread and direct apply() callers may
+        # race to capture a bucket; two captures would break the
+        # <= len(buckets) compile bound
+        self._fn_lock = threading.Lock()
+        # a replay reads the static input and writes the static output:
+        # the copy in, the replay and the clone out go onto the compute
+        # stream together
+        self._replay_lock = threading.Lock()
+        # pinned staging buffers of the serial path (the lane pipeline
+        # keeps its own pool)
+        self._staging = HostBufferPool(max_per_key=2)
+        if self.device.type == "cuda":
+            self._copy_stream = torch.cuda.Stream(self.device)
+            self._compute_stream = torch.cuda.Stream(self.device)
 
     @property
     def max_bucket(self) -> int:
@@ -82,9 +188,12 @@ class CompiledPipeline:
             f"{self.max_bucket}; chunk it (engine.apply does)"
         )
 
+    # -- staging -----------------------------------------------------------
+
     def _stage(self, tree: Any, rows: int, bucket: int) -> Any:
         """Pad a tensor (or tuple of tensors) up to ``bucket`` rows with
-        zeros and place it on the engine's device."""
+        zeros on its own device and place it on the engine's device (the
+        path of batches that arrive on the card)."""
         pad = bucket - rows
 
         def pad_leaf(a):
@@ -96,16 +205,187 @@ class CompiledPipeline:
 
         return _tree_map(pad_leaf, tree)
 
+    def host_key(self, tree: Any, bucket: int) -> Any:
+        """The staging-pool key of a host batch: the bucket and the
+        tree's per-row shapes and dtypes."""
+        return bucket, _row_spec(tree)
+
+    def alloc_host(self, tree: Any, bucket: int) -> Any:
+        """Zeroed ``(bucket, ...)`` host buffers matching ``tree``,
+        page-locked when the engine's device is CUDA (``pin_memory``
+        needs a card, so on the CPU they are plain)."""
+        pin = self.device.type == "cuda"
+        return _tree_map(
+            lambda a: torch.zeros(
+                (bucket,) + _row_spec(a)[0], dtype=_dtype(a), pin_memory=pin
+            ),
+            tree,
+        )
+
+    # -- pipeline stage primitives (serving/pipeline.py runs these on
+    # -- separate threads; _dispatch composes them inline) ------------------
+
+    def host_stage(self, tree: Any, rows: int, bucket: int, out: Any) -> Any:
+        """HOST-side pad of a host batch up to ``bucket`` rows with zeros
+        — the pipelined host-prep stage. ``out`` is a matching tree of
+        preallocated ``(bucket, ...)`` buffers (``alloc_host``; the
+        reusable staging pool): valid rows are copied in and the pad
+        region zeroed, so steady-state windows allocate nothing on the
+        host. Returns ``out``."""
+        def fill_leaf(buf, a):
+            buf[:rows].copy_(torch.as_tensor(a))
+            if bucket > rows:
+                buf[rows:].zero_()
+            return buf
+
+        return _zip_map(fill_leaf, out, tree)
+
+    def upload_staged(self, staged_host: Any) -> Tuple[Any, Optional[Any]]:
+        """Host-to-device copy of a host-staged (already padded) tree —
+        the pipelined upload stage. On CUDA the copies are
+        ``non_blocking`` from the pinned buffers, on the engine's copy
+        stream; returns ``(device tree, event)``, the event recorded on
+        the copy stream after the copies (the host buffers may be reused
+        once it has completed). On the CPU the host tree IS the device
+        tree and the event is None."""
+        if self.device.type != "cuda":
+            return staged_host, None
+        with torch.cuda.stream(self._copy_stream):
+            staged = _tree_map(
+                lambda a: a.to(self.device, non_blocking=True), staged_host
+            )
+            ready = torch.cuda.Event()
+            ready.record(self._copy_stream)
+        return staged, ready
+
+    def compute_staged(
+        self, staged: Any, rows: int, bucket: int, ready: Optional[Any] = None
+    ) -> Any:
+        """Run the bucket's program over an already-staged (padded and
+        placed) tree and record the dispatch counters: on CUDA, the
+        compute stream waits on ``ready`` (the upload's event) and on the
+        caller's stream, copies ``staged`` into the graph's static input
+        and replays the graph (capturing it first if this bucket has
+        none yet). Returns the ``rows`` valid rows of the output, cloned
+        (the next replay overwrites the static output); the caller's
+        current stream is ordered after them."""
+        # chaos point: fail the whole window at dispatch (match:
+        # engine=<name>). Serial apply and the pipelined compute stage
+        # both pass through here.
+        if faults.armed() and faults.fire(
+            "engine.dispatch.error", {"engine": self.name}
+        ) is not None:
+            raise faults.FaultInjected(
+                "engine.dispatch.error", engine=self.name, bucket=bucket
+            )
+        # the wire-bytes fact: what this dispatch staged, padded rows
+        # included (shape metadata, no device read)
+        h2d_bytes = sum(int(a.nbytes) for a in tree_leaves(staged))
+        if self.device.type == "cuda":
+            valid = self._replay(self._graph(bucket, staged), staged, rows, ready)
+        else:
+            valid = _tree_map(lambda a: a[:rows].clone(), self._run_bucket(staged))
+        self.metrics.record_dispatch(bucket, rows, h2d_bytes=h2d_bytes)
+        return valid
+
+    def synchronize(self) -> None:
+        """Wait until the caller's current stream (which every returned
+        output is ordered on) has finished."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    # -- the graph per bucket ----------------------------------------------
+
     def _run_bucket(self, staged: Any) -> Any:
+        """The chain, eagerly: ``featurize`` then ``pipeline``."""
         if self.featurize is not None:
             staged = self.featurize._batch_run(staged)
         return self.pipeline._batch_run(staged)
+
+    def _graph(self, bucket: int, staged: Any) -> BucketGraph:
+        key = (bucket, _row_spec(staged))
+        g = self._graphs.get(key)
+        if g is not None:
+            return g
+        with self._fn_lock:
+            g = self._graphs.get(key)
+            if g is None:
+                g = self._graphs[key] = self._capture(bucket, staged)
+            return g
+
+    def _capture(self, bucket: int, staged: Any) -> BucketGraph:
+        """Warm pass, capture and one checking replay of ``bucket``'s
+        graph for ``staged``'s spec, on the compute stream.
+        ``capture_error_mode="thread_local"``: a capture at a bucket's
+        first dispatch runs on the lane's compute thread while the other
+        stage threads copy and allocate."""
+        t0 = time.perf_counter()
+        stream = self._compute_stream
+        static_in = _tree_map(torch.zeros_like, staged)
+        with torch.cuda.stream(stream):
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            self._run_bucket(static_in)
+        stream.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        graph = torch.cuda.CUDAGraph()
+        with _cuda.capture_tally() as launches:
+            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                static_out = self._run_bucket(static_in)
+        pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        with torch.cuda.stream(stream):
+            graph.replay()
+        _cuda.add_launches(launches)
+        stream.synchronize()
+        self.metrics.record_trace(bucket)
+        return BucketGraph(
+            bucket, graph, static_in, static_out, dict(launches),
+            time.perf_counter() - t0, pool_bytes,
+        )
+
+    def _replay(self, g: BucketGraph, staged: Any, rows: int, ready) -> Any:
+        stream = self._compute_stream
+        caller = torch.cuda.current_stream(self.device)
+        with self._replay_lock, torch.cuda.stream(stream):
+            # the staged tensors were written on the copy stream (an
+            # upload, ``ready``) or on the caller's stream (a batch padded
+            # on the card)
+            stream.wait_stream(caller)
+            if ready is not None:
+                stream.wait_event(ready)
+            for src, dst in zip(tree_leaves(staged), tree_leaves(g.static_in)):
+                # the caching allocator must not hand src's memory to the
+                # next upload while this stream still reads it
+                src.record_stream(stream)
+                dst.copy_(src)
+            g.graph.replay()
+            _cuda.add_launches(g.launches)
+            valid = _tree_map(lambda a: a[:rows].clone(), g.static_out)
+            done = torch.cuda.Event()
+            done.record(stream)
+        caller.wait_event(done)
+        for a in tree_leaves(valid):
+            a.record_stream(caller)
+        return valid
+
+    def graph_report(self) -> List[Dict[str, Any]]:
+        """One entry per captured graph: bucket, capture seconds (warm
+        pass included), the bytes its private memory pool reserved, and
+        the launches of one replay."""
+        return [
+            {"bucket": g.bucket, "capture_s": g.capture_s,
+             "pool_bytes": g.pool_bytes, "launches": dict(g.launches)}
+            for g in self._graphs.values()
+        ]
+
+    # -- serving entry points ----------------------------------------------
 
     def apply(self, data: Any, sync: bool = False) -> Any:
         """Serve one batch: pad to the covering bucket (chunking through
         the largest bucket when oversized), dispatch, and return outputs
         sliced to the valid rows, on the engine's device. ``sync=True``
-        waits for the device to finish."""
+        waits for the device to finish and records the completion-timed
+        dispatch latency."""
         if isinstance(data, Dataset):
             rows = data.n
             tree = data.array()
@@ -115,15 +395,20 @@ class CompiledPipeline:
         if rows == 0:
             raise ValueError("cannot serve an empty batch")
         outs: List[Any] = []
+        t0 = time.perf_counter()
         start = 0
         while start < rows:
             take = min(self.max_bucket, rows - start)
             chunk = _tree_map(lambda a: a[start : start + take], tree)
             outs.append(self._dispatch(chunk, take))
             start += take
-        result = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
-        if sync and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if len(outs) == 1:
+            result = outs[0]
+        else:
+            result = _zip_cat(outs)
+        if sync:
+            self.synchronize()
+            self.metrics.record_dispatch_complete(time.perf_counter() - t0)
         return result
 
     def _dispatch(self, chunk: Any, rows: int) -> Any:
@@ -131,7 +416,75 @@ class CompiledPipeline:
         with get_tracer().span(
             "serving.dispatch", engine=self.name, bucket=bucket, rows=rows
         ):
-            out = self._run_bucket(self._stage(chunk, rows, bucket))
-            return out[:rows]
+            t0 = time.perf_counter()
+            if not on_host(chunk):
+                out = self.compute_staged(self._stage(chunk, rows, bucket), rows, bucket)
+            else:
+                key = self.host_key(chunk, bucket)
+                gen, host = self._staging.acquire(
+                    key, lambda: self.alloc_host(chunk, bucket)
+                )
+                ready = None
+                try:
+                    self.host_stage(chunk, rows, bucket, host)
+                    staged, ready = self.upload_staged(host)
+                    out = self.compute_staged(staged, rows, bucket, ready)
+                finally:
+                    # the copy has read the pinned buffer once `ready` is
+                    # done (on the CPU, the eager compute has)
+                    if ready is not None:
+                        ready.synchronize()
+                    self._staging.release(key, gen, host)
+            self.metrics.record_dispatch_enqueue(time.perf_counter() - t0)
+        return out
+
+    def warmup(
+        self,
+        example: Any = None,
+        batch: Any = None,
+        buckets: Optional[Sequence[int]] = None,
+    ) -> Dict[int, float]:
+        """Capture every bucket's graph up front, before traffic (zero
+        captures at traffic time). The per-example shape/dtype spec comes
+        from ``example`` (ONE example, no leading axis) or ``batch``
+        (WITH a leading axis). Returns bucket -> seconds (warm pass,
+        capture and a checking replay; on the CPU, one eager run)."""
+        if (example is None) == (batch is None):
+            raise ValueError("pass exactly one of example= or batch=")
+        if isinstance(batch, Dataset):
+            batch = batch.array()
+        spec = _row_spec(batch if batch is not None else example,
+                         drop=1 if batch is not None else 0)
+        want = list(buckets) if buckets is not None else list(self.buckets)
+        unknown = [b for b in want if b not in self.buckets]
+        if unknown:  # validate BEFORE capturing anything
+            raise ValueError(
+                f"unknown bucket(s) {unknown} (have {self.buckets})"
+            )
+        times: Dict[int, float] = {}
+        for b in want:
+            t0 = time.perf_counter()
+            staged = _spec_map(
+                lambda s: torch.zeros((b,) + s[0], dtype=s[1], device=self.device), spec
+            )
+            if self.device.type == "cuda":
+                self._graph(b, staged)
+            else:
+                self._run_bucket(staged)
+            times[b] = time.perf_counter() - t0
+        return times
 
     __call__ = apply
+
+
+def _spec_map(fn, spec: Any) -> Any:
+    """Map ``fn`` over the (shape, dtype) leaves of a ``_row_spec``."""
+    if len(spec) == 2 and isinstance(spec[1], torch.dtype):
+        return fn(spec)
+    return tuple(_spec_map(fn, s) for s in spec)
+
+
+def _zip_cat(outs: List[Any]) -> Any:
+    if isinstance(outs[0], tuple):
+        return tuple(_zip_cat([o[i] for o in outs]) for i in range(len(outs[0])))
+    return torch.cat(outs, dim=0)

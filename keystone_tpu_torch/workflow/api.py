@@ -435,10 +435,12 @@ class FittedPipeline:
         out = self._run(Dataset.from_array(arr), batch=True)
         return out.padded() if isinstance(out, Dataset) else out
 
-    def compiled(self, buckets=None, *, featurize=None, device=None, name=None):
+    def compiled(self, buckets=None, *, featurize=None, device=None,
+                 metrics=None, name=None):
         """This pipeline behind the bucketed serving engine
-        (``serving/engine.py`` ``CompiledPipeline``). ``device=None``
-        means ``cuda``."""
+        (``serving/engine.py`` ``CompiledPipeline``), recording into
+        ``metrics`` (a fresh ``ServingMetrics`` by default).
+        ``device=None`` means ``cuda``."""
         from keystone_tpu_torch.serving.engine import (
             DEFAULT_BUCKETS,
             CompiledPipeline,
@@ -446,5 +448,5 @@ class FittedPipeline:
 
         return CompiledPipeline(
             self, buckets if buckets is not None else DEFAULT_BUCKETS,
-            featurize=featurize, device=device, name=name,
+            featurize=featurize, device=device, metrics=metrics, name=name,
         )

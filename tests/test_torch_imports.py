@@ -22,6 +22,14 @@ TRAINING_MODULES = [
         "pipelines.images.imagenet_sift_lcs_fv", "utils.chunks",
     )
 ]
+# the serving slice's new modules, which the walk must reach too
+SERVING_MODULES = [
+    "keystone_tpu_torch." + m for m in (
+        "utils.profiling", "observability.registry", "observability.prometheus",
+        "observability.device", "loadgen", "loadgen.faults", "serving.metrics",
+        "serving.pipeline", "serving.batching", "serving.autoscale",
+    )
+]
 
 
 def _port_sources():
@@ -47,6 +55,7 @@ bad = sorted(n for n in sys.modules
 print("LOADED", len([n for n in sys.modules if n.startswith("keystone_tpu_torch")]))
 print("BAD", bad)
 print("TRAINING", sorted(n for n in {TRAINING_MODULES!r} if n not in sys.modules))
+print("SERVING", sorted(n for n in {SERVING_MODULES!r} if n not in sys.modules))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -56,7 +65,9 @@ print("TRAINING", sorted(n for n in {TRAINING_MODULES!r} if n not in sys.modules
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     assert "TRAINING []" in out.stdout, out.stdout
-    assert int(re.search(r"LOADED (\d+)", out.stdout).group(1)) >= 25 + len(TRAINING_MODULES)
+    assert "SERVING []" in out.stdout, out.stdout
+    assert int(re.search(r"LOADED (\d+)", out.stdout).group(1)) >= (
+        25 + len(TRAINING_MODULES) + len(SERVING_MODULES))
 
 
 def test_no_source_imports_jax_or_the_jax_package():
@@ -67,6 +78,7 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 def test_entry_points_need_cuda_unless_given_the_cpu(monkeypatch):
     from keystone_tpu_torch import convert
+    from keystone_tpu_torch.serving import MicroBatcher, ServingMetrics
     from keystone_tpu_torch.serving.engine import CompiledPipeline
     from keystone_tpu_torch.serving.featurize import (
         build_flagship_featurize_pipeline,
@@ -95,6 +107,17 @@ def test_entry_points_need_cuda_unless_given_the_cpu(monkeypatch):
         np.zeros((1, 40, 40, 3), np.uint8)
     )
     assert out.shape == (1, 2 * 2 * 4 * 2) and bool(torch.isfinite(out).all())
+    # the micro-batcher serves through an engine, so it needs one made on
+    # the CPU as well
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MicroBatcher(feat.compiled((4,), metrics=ServingMetrics()))
+    for depth in (0, 2):
+        mb = MicroBatcher(feat.compiled((4,), device="cpu"), pipeline_depth=depth)
+        try:
+            row = mb.submit(np.zeros((40, 40, 3), np.uint8)).result(timeout=60)
+        finally:
+            mb.close()
+        assert isinstance(row, np.ndarray) and row.shape == (2 * 2 * 4 * 2,)
 
 
 def test_training_entry_points_need_cuda_unless_given_the_cpu(monkeypatch):
