@@ -16,6 +16,12 @@ Phases, in order; any failure exits non-zero:
    of 10 calls in a row (``compare_kernels.time_ms``), so that the host's
    launch time hides behind the device's work; each bound counts the FLOPs
    of the operators' nonzero bands (the dense count is kept beside it);
+   past the kernels' old limits, B1 at W = 1,024 and 2,048 (dense, and one
+   scale's real SIFT operators of a 1,536 x 2,048 and a 2,048 x 300
+   image), B2 at W = 2,048 (dense, and real LCS operators with and
+   without their bands), B3 at (d, k) = (64, 256), (80, 256) and
+   (129, 257) at m = 1, 1,500 and 13,165, each timed beside its bound,
+   and ``TopKClassifier`` on tied rows against a stable host sort;
 4. serve the ImageNetSiftLcsFV configuration (SIFT step 3 / bin 4 /
    4 scales, LCS 4/16/6, desc_dim 64, vocab 32 → 8,192 features, a
    seeded 8,192 x 1,000 linear head, top-5) through buckets (8, 64) of
@@ -49,7 +55,23 @@ Phases, in order; any failure exits non-zero:
    mode, at the batcher's default max_delay_ms of 5 and at 25, and print
    requests/s, request p50/p99, the mean coalesced size, the stage means,
    the bottleneck stage, the overlap efficiency and the staging bytes;
-   then phase 5's throughput and profile once more.
+   then phase 5's throughput and profile once more;
+8. real image files: write a train and a test tar of seeded JPEGs (PIL,
+   quality 90; 12 WNIDs, 10 training and 3 test images each, at 375 x
+   500, 500 x 375 and 333 x 500, with 2 + 2 at 768 x 1,024 and 1 + 1 at
+   1,536 x 2,048) and a WNID file under ``chiprun_out/phase8``; run
+   ``ImageNetSiftLcsFV.main`` on them on the card at vocab 32 (the
+   images decoded at their native sizes, one batch per size); require
+   every kernel launched and B1 and B2 launched wider than their old
+   limits; hold the features of 4 test images of different sizes
+   against the port on the CPU, through the serving chain's seeded warm
+   start at the serving bar and through the fitted parameters (top-5
+   equal, and to the fitted pipeline's; features at the fitted-GMM bar);
+   then stream the training tar at 256² through
+   ``StreamingImageNetLoader.featurized_batches`` into a serving engine of
+   the featurize chain at the paper's vocabulary, 256 (B3 at k = 256),
+   hold its first 8 rows against the CPU port, and print decode images/s
+   and featurize examples/s.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then, last, the result line ``{"ok": true, "device": {...}}``.
@@ -60,11 +82,14 @@ of JAX.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tarfile
 import threading
 import time
 from collections import deque
@@ -104,6 +129,10 @@ REQUESTS = (1, 8, 37, 64)
 RTOL_SANDWICH, ATOL_SANDWICH = 1e-4, 1e-4
 RTOL_FV, ATOL_FV = 1e-3, 1e-4
 RTOL_FEAT, ATOL_FEAT = 1e-4, 1e-5
+# phase 8's fitted chain, card against CPU: the share of feature entries
+# allowed past RTOL_FEAT / ATOL_FEAT, and the largest error of any entry
+# (SIFT's ±1 quantization steps move near-threshold posteriors; PERF.md § 4)
+FITTED_BEYOND_SHARE, FITTED_MAX_ABS = 0.005, 5e-3
 # phase 7: the closed loop's client threads and requests in flight (each
 # thread keeps its share of them), the batcher's max_delay_ms of each pair
 # of runs (the default, then one that lets a pipelined lane fill its
@@ -266,6 +295,151 @@ def check_ragged(dev, gen):
         for g, w in zip(fv_kernel.fisher_vector_stats(x, means, variances, weights),
                         fv_kernel.fisher_vector_stats_plain(x, means, variances, weights)):
             max_abs_err(g, w, RTOL_FV, ATOL_FV, f"fisher_vector_stats ragged k={k}")
+
+
+def _wide_row(name, got, want, rtol, atol, fn, plain, flops, nbytes, shapes):
+    """One wide-shape case: the kernel's error against its plain version,
+    both timed, and the bound."""
+    err = max(max_abs_err(g, w, rtol, atol, f"{name} [{shapes}]") for g, w in zip(got, want))
+    b_ms, b_by = bound(flops, nbytes)
+    ms = time_ms(fn, calls=3, rounds=3, warmup=1)
+    row = dict(name=name, shapes=shapes, max_abs_err=err, ms=ms,
+               plain_ms=time_ms(plain, calls=1, rounds=1, warmup=1),
+               bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms)
+    log(f"  {name} [{shapes}]: {ms:.3f} ms (plain {row['plain_ms']:.3f}, bound {b_ms:.4f} by "
+        f"{b_by}, share {b_ms / ms:.3f}), max abs err {err:.3g}")
+    return row
+
+
+def check_wide(dev, gen):
+    """Phase 3, the shapes past the old limits: B1 at W = 1,024 and 2,048
+    with dense operators (every window wider than a chunk) and with one
+    scale's real SIFT operators of a 1,536 x 2,048 image and of a tall
+    2,048 x 300 one; B2 at W = 2,048 dense and with real LCS operators,
+    with and without their bands; B3 at (d, k) = (64, 256), (80, 256) and
+    (129, 257) at m = 1, 1,500 and 13,165; TopKClassifier on tied rows
+    against a stable sort on the host, and its cost beside torch.topk.
+    Each case held against its plain version on the card and timed."""
+    from keystone_tpu_torch.ops.util.nodes import TopKClassifier
+
+    def r(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def u(*shape):
+        return torch.rand(*shape, device=dev, generator=gen)
+
+    # Dense operators here are non-negative, as the extractors' sampling
+    # operators are: sums of thousands of signed terms cancel to entries
+    # near zero, where two float32 summation orders differ by more than
+    # atol (1e-3 at W = 2,048), which says nothing of the kernel
+    rows = []
+    for h, w, m, n in ((64, 1024, 37, 45), (48, 2048, 21, 70)):
+        mag, t = u(2, h, w), u(2, h, w) * 8
+        ayt, ax = u(m, h), u(w, n)
+        rows.append(_wide_row(
+            "sift_bin_sample dense", [kernels.sift_bin_sample(mag, t, ayt, ax)],
+            [kernels.sift_bin_sample_plain(mag, t, ayt, ax)], RTOL_SANDWICH, ATOL_SANDWICH,
+            lambda: kernels.sift_bin_sample(mag, t, ayt, ax),
+            lambda: kernels.sift_bin_sample_plain(mag, t, ayt, ax),
+            2 * 2 * 8 * m * w * (h + n), 4 * (4 * h * w + ayt.numel() + ax.numel() + 16 * m * n),
+            f"B=2 H={h} W={w} M={m} N={n}"))
+    for h, w in ((1536, 2048), (2048, 300)):
+        mag, t = r(1, h, w).abs(), torch.rand(1, h, w, device=dev, generator=gen) * 8
+        _, ayt, ax, bands = sift.scale_operators(h, w, 3, 4, 4, 1, dev)[0]
+        want = kernels.sift_bin_sample_plain(mag, t, ayt, ax)
+        for b in (bands, None):
+            got = kernels.sift_bin_sample(mag, t, ayt, ax, b)
+            max_abs_err(got, want, RTOL_SANDWICH, ATOL_SANDWICH,
+                        f"sift_bin_sample real H={h} W={w} bands={b is not None}")
+            del got
+        M, N = ayt.shape[0], ax.shape[1]
+        rows.append(_wide_row(
+            "sift_bin_sample real", [kernels.sift_bin_sample(mag, t, ayt, ax, bands)], [want],
+            RTOL_SANDWICH, ATOL_SANDWICH,
+            lambda: kernels.sift_bin_sample(mag, t, ayt, ax, bands),
+            lambda: kernels.sift_bin_sample_plain(mag, t, ayt, ax),
+            band_flops(bands[0], bands[1], w, M, 8),
+            4 * (2 * h * w + ayt.numel() + ax.numel() + 8 * M * N),
+            f"B=1 H={h} W={w} M={M} N={N}, scale 0"))
+        del want
+    planes, at, bm = u(1, 3, 40, 2048), u(33, 40), u(2048, 50)
+    rows.append(_wide_row(
+        "plane_sandwich dense", [kernels.plane_sandwich(planes, at, bm)],
+        [kernels.plane_sandwich_plain(planes, at, bm)], RTOL_SANDWICH, ATOL_SANDWICH,
+        lambda: kernels.plane_sandwich(planes, at, bm),
+        lambda: kernels.plane_sandwich_plain(planes, at, bm),
+        2 * 3 * 33 * 2048 * (40 + 50), 4 * (planes.numel() + at.numel() + bm.numel() + 3 * 33 * 50),
+        "B=1 P=3 H=40 W=2048 M=33 N=50"))
+    h, w = 256, 2048
+    at, bm, bands, *_ = lcs_extractor().operators(h, w, dev)
+    imgs = torch.randint(0, 256, (2, h, w, 3), device=dev, generator=gen).to(torch.float32)
+    z = torch.cat([imgs, imgs * imgs], dim=-1).permute(0, 3, 1, 2).contiguous()
+    want = kernels.plane_sandwich_plain(z, at, bm)
+    for b in (bands, None):
+        max_abs_err(kernels.plane_sandwich(z, at, bm, b), want, RTOL_SANDWICH, ATOL_SANDWICH,
+                    f"plane_sandwich real W={w} bands={b is not None}")
+    M, N = at.shape[0], bm.shape[1]
+    rows.append(_wide_row(
+        "plane_sandwich real", [kernels.plane_sandwich(z, at, bm, bands)], [want],
+        RTOL_SANDWICH, ATOL_SANDWICH, lambda: kernels.plane_sandwich(z, at, bm, bands),
+        lambda: kernels.plane_sandwich_plain(z, at, bm),
+        band_flops(bands[0], bands[1], w, M, 12),
+        4 * (z.numel() + at.numel() + bm.numel() + 12 * M * N), f"B=2 P=6 H={h} W={w} M={M} N={N}"))
+    del z, want
+    for d, k in ((64, 256), (80, 256), (129, 257)):
+        means = r(d, k)
+        variances, weights = 0.5 + r(d, k).abs(), torch.full((k,), 1 / k, device=dev)
+        for m in (1, 1500, 13165):
+            x = r(2, d, m)
+            args = (x, means, variances, weights)
+            rows.append(_wide_row(
+                "fisher_vector_stats", fv_kernel.fisher_vector_stats(*args),
+                fv_kernel.fisher_vector_stats_plain(*args), RTOL_FV, ATOL_FV,
+                lambda: fv_kernel.fisher_vector_stats(*args),
+                lambda: fv_kernel.fisher_vector_stats_plain(*args),
+                2 * m * (8 * d * k + 12 * k), 4 * (x.numel() + 2 * d * k + k + 2 * (1 + 2 * d) * k),
+                f"B=2 d={d} k={k} m={m}"))
+    # B3 at phase 8's streaming shapes: both branches' descriptor counts of
+    # a bucket of 64 images of 256², at the paper's vocabulary
+    d, k = CONF["desc_dim"], 256
+    means = r(d, k)
+    variances, weights = 0.5 + r(d, k).abs(), torch.full((k,), 1 / k, device=dev)
+    xs = [r(B, d, m) for m in (13165, 3136)]
+    got = [t for x in xs for t in fv_kernel.fisher_vector_stats(x, means, variances, weights)]
+    want = [t for x in xs for t in fv_kernel.fisher_vector_stats_plain(x, means, variances, weights)]
+    rows.append(_wide_row(
+        "fisher_vector_stats", got, want, RTOL_FV, ATOL_FV,
+        lambda: [fv_kernel.fisher_vector_stats(x, means, variances, weights) for x in xs],
+        lambda: [fv_kernel.fisher_vector_stats_plain(x, means, variances, weights) for x in xs],
+        sum(B * x.shape[2] * (8 * d * k + 12 * k) for x in xs),
+        sum(4 * (x.numel() + 2 * d * k + k + B * (1 + 2 * d) * k) for x in xs),
+        f"B={B} d={d} k={k} m in (13165, 3136)"))
+    del got, want
+    if dev.type == "cuda":  # its device time by kernel: the two passes and their helpers
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for x in xs:
+                fv_kernel.fisher_vector_stats(x, means, variances, weights)
+            torch.cuda.synchronize()
+        rows[-1]["by_kernel_ms"] = {e.key.split("::")[-1].split("(")[0]: e.device_time_total / 1e3
+                                    for e in prof.key_averages() if e.device_time_total > 0}
+        log(f"    by kernel: {rows[-1]['by_kernel_ms']}")
+    del xs
+    # ties: all-zero rows and integer scores in 0..3, against a stable sort
+    # of the negated scores on the host (ties to the lower index)
+    top = TopKClassifier(TOP_K)
+    for scores in (torch.zeros(64, CLASSES, device=dev),
+                   torch.randint(0, 4, (64, CLASSES), device=dev, generator=gen).to(torch.float32)):
+        got = top.apply_batch(Dataset.from_array(scores)).array().cpu().numpy()
+        want = np.argsort(-scores.cpu().numpy(), axis=1, kind="stable")[:, :TOP_K]
+        assert np.array_equal(got, want), (got[:2], want[:2])
+    scores = torch.randn(64, CLASSES, device=dev, generator=gen)
+    topk = {"sort_ms": time_ms(lambda: top.apply(scores)),
+            "torch_topk_ms": time_ms(lambda: torch.topk(scores, TOP_K, dim=-1))}
+    log(f"  TopKClassifier on tied rows equals a stable host sort; at 64 x {CLASSES}: stable sort "
+        f"{topk['sort_ms']:.4f} ms, torch.topk {topk['torch_topk_ms']:.4f} ms")
+    return {"cases": rows, "top_k": topk}
 
 
 def check_kernels(dev, gen):
@@ -932,6 +1106,240 @@ def train_then_serve(dev, smi, classes=1000, per_class=TRAIN_PER_CLASS, solver_r
     return rec
 
 
+def _texture_jpeg(h, w, c, seed):
+    """A seeded (h, w) RGB JPEG (PIL, quality 90) of class ``c``: a
+    class-dependent texture frequency and tint, plus noise."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    f = 2.0 + 1.5 * (c % 8)
+    base = 128.0 + 90.0 * np.sin(x / f + c) * np.cos(y / (f + 0.5 * (c // 8)))
+    img = np.stack([base + 12.0 * ((c + k) % 3) for k in range(3)], -1)
+    img += rng.normal(0.0, 8.0, img.shape).astype(np.float32)
+    buf = io.BytesIO()
+    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(buf, "JPEG", quality=90)
+    return buf.getvalue()
+
+
+def write_image_tars(root, classes, per_train, per_test, sizes, wide, seed=0):
+    """A train and a test tar of seeded JPEGs named as ImageNet members
+    (``{wnid}_{i}.JPEG``) and the WNID -> class file, under ``root``.
+    Images cycle through ``sizes`` ((height, width)); ``wide`` lists
+    (size, train count, test count) of larger images, given to the first
+    classes. Returns (train tar, test tar, label file)."""
+    wnids = [f"n{10_000_000 + c:08d}" for c in range(classes)]
+    paths = {}
+    for split, per, off in (("train", per_train, 0), ("test", per_test, 10_000)):
+        plan = [[sizes[(c + i) % len(sizes)] for i in range(per)] for c in range(classes)]
+        c = 0
+        for size, n_train, n_test in wide:
+            for _ in range(n_train if split == "train" else n_test):
+                plan[c % classes][0] = size
+                c += 1
+        paths[split] = os.path.join(root, f"{split}.tar")
+        with tarfile.open(paths[split], "w") as tf:
+            for c, wnid in enumerate(wnids):
+                for i, (h, w) in enumerate(plan[c]):
+                    data = _texture_jpeg(h, w, c, seed + off + 100 * c + i)
+                    info = tarfile.TarInfo(f"{wnid}_{i}.JPEG")
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+    labels = os.path.join(root, "labels.txt")
+    with open(labels, "w") as f:
+        f.writelines(f"{w} {c}\n" for c, w in enumerate(wnids))
+    return paths["train"], paths["test"], labels
+
+
+# phase 8: ImageNetSiftLcsFV from tars of JPEGs decoded at native sizes
+P8_CLASSES, P8_TRAIN, P8_TEST = 12, 10, 3
+P8_SIZES = ((375, 500), (500, 375), (333, 500))
+# (size, train images, test images) past the kernels' old width limits
+P8_WIDE = (((768, 1024), 2, 2), ((1536, 2048), 1, 1))
+P8_VOCAB = 32
+# the widths the kernels refused before they walked W in chunks
+OLD_WIDTH_LIMIT = {"sift_bin_sample": 728, "plane_sandwich": 1955}
+# the streaming feed: the paper's vocabulary, the fused FV at k = 256
+P8_STREAM = dict(CONF, vocab=256)
+P8_STREAM_ROWS, P8_STREAM_CHECK = 64, 8
+
+
+def real_image_files(dev, smi, classes=P8_CLASSES, per_train=P8_TRAIN, per_test=P8_TEST,
+                     sizes=P8_SIZES, wide=P8_WIDE, vocab=P8_VOCAB, stream=P8_STREAM,
+                     stream_rows=P8_STREAM_ROWS, desc_dim=64):
+    """Phase 8: ``main`` of ImageNetSiftLcsFV on tars of JPEGs at their
+    native sizes, then the streaming loader feeding a serving engine. To
+    rehearse it on the CPU at a small size: ``real_image_files(
+    torch.device("cpu"), "cpu", classes=4, per_train=25, per_test=2,
+    sizes=((40, 48), (48, 40)), wide=(((56, 64), 1, 1),), vocab=2,
+    stream=dict(CONF, img=48, desc_dim=8, vocab=4), stream_rows=8,
+    desc_dim=8)``."""
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    root = os.path.join(ROOT, "chiprun_out", "phase8")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t = time.perf_counter()
+    train_tar, test_tar, labels = write_image_tars(
+        root, classes, per_train, per_test, sizes, wide)
+    rec = {"write_s": time.perf_counter() - t,
+           "train_images": classes * per_train, "test_images": classes * per_test}
+
+    # -- main() on the card, with the kernels' widths and the fit recorded --
+    widths = {name: 0 for name in OLD_WIDTH_LIMIT}
+    orig = (sift.sift_bin_sample, lcs.plane_sandwich, flagship.run)
+    kept = {}
+
+    def sift_width(mag, *a, **k):
+        widths["sift_bin_sample"] = max(widths["sift_bin_sample"], mag.shape[2])
+        return orig[0](mag, *a, **k)
+
+    def lcs_width(planes, *a, **k):
+        widths["plane_sandwich"] = max(widths["plane_sandwich"], planes.shape[3])
+        return orig[1](planes, *a, **k)
+
+    def run_keeping_the_fit(*a, **k):
+        predictor, kept["fitted"], kept["err"] = flagship.fit_and_score(*a, **k)
+        return predictor, kept["err"]
+
+    argv = ["--trainLocation", train_tar, "--testLocation", test_tar, "--labelPath", labels,
+            "--descDim", str(desc_dim), "--vocabSize", str(vocab)]
+    out = io.StringIO()
+    _cuda.reset_launches()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    sift.sift_bin_sample, lcs.plane_sandwich, flagship.run = sift_width, lcs_width, run_keeping_the_fit
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = flagship.main(argv, device=dev)
+    finally:
+        sift.sift_bin_sample, lcs.plane_sandwich, flagship.run = orig
+    rec["main_s"] = time.perf_counter() - t
+    printed = out.getvalue().splitlines()
+    for ln in printed:
+        log(f"  main: {ln}")
+    assert rc == 0 and len(printed) == 2 and printed[0].startswith("TEST Top-5 error is "), printed
+    rec.update(printed=printed, top5_err=kept["err"], launches=dict(_cuda.LAUNCHES),
+               widths=dict(widths))
+    if on_card:
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    log(f"main() on {rec['train_images']} + {rec['test_images']} JPEGs of sizes "
+        f"{sorted(set(sizes) | {w[0] for w in wide})}: {rec['main_s']:.3f} s, top-5 error "
+        f"{kept['err']}, launches {rec['launches']}, widest call {widths}, peak device memory "
+        f"{rec.get('peak_bytes')} bytes on {smi}")
+    if on_card:
+        assert all(n > 0 for n in rec["launches"].values()), rec["launches"]
+        for name, limit in OLD_WIDTH_LIMIT.items():
+            assert widths[name] > limit, (name, widths[name], limit)
+
+    # -- 4 test images of different sizes, card against the CPU ------------
+    # Two chains on each side: the serving chain's seeded warm start, held
+    # at the serving bar (RTOL_FEAT / ATOL_FEAT), and the fitted parameters,
+    # held to top-5 equal (the CPU's, and the fitted pipeline's on the card)
+    # and, as features, at the serving bar on all but FITTED_BEYOND_SHARE
+    # of the entries, none off by more than FITTED_MAX_ABS: a fitted GMM's
+    # logits cancel terms of x²/σ² large enough that a SIFT quantization
+    # step (±1, the kernels' golden bar) moves a posterior across the 1e-4
+    # threshold, which moves a few features by more than ATOL_FEAT
+    t = time.perf_counter()
+    cpu = torch.device("cpu")
+    params = convert.flagship_params(kept["fitted"])
+    fitted_chains = {where: convert.flagship_from_numpy(params, device=where) for where in (dev, cpu)}
+    seeded = {where: build_flagship_featurize_pipeline(device=where, **CONF)[0] for where in (dev, cpu)}
+    test = flagship.ImageNetLoader(test_tar, labels).items()
+    picked, seen = [], set()
+    for li in sorted(test, key=lambda li: li.image.shape[0] * li.image.shape[1]):
+        if li.image.shape not in seen and len(picked) < 4:
+            seen.add(li.image.shape)
+            picked.append(li)
+    checks = []
+    for li in picked:
+        x = torch.as_tensor(li.image)[None]
+        shape = tuple(li.image.shape)
+        seeded_err = max_abs_err(seeded[dev]._batch_run(x.to(dev)).cpu(), seeded[cpu]._batch_run(x),
+                                 RTOL_FEAT, ATOL_FEAT, f"phase 8 seeded-chain features of a {shape} image")
+        (fg, hg), (fc, hc) = fitted_chains[dev], fitted_chains[cpu]
+        feat_card, feat_cpu = fg._batch_run(x.to(dev)).cpu(), fc._batch_run(x)
+        fitted_err = max_abs_err(feat_card, feat_cpu, 0.0, FITTED_MAX_ABS,
+                                 f"phase 8 fitted-chain features of a {shape} image")
+        beyond = int((~torch.isclose(feat_card, feat_cpu, rtol=RTOL_FEAT, atol=ATOL_FEAT)).sum())
+        assert beyond <= FITTED_BEYOND_SHARE * feat_card.numel(), (
+            f"phase 8 fitted-chain features of a {shape} image: {beyond} of {feat_card.numel()} "
+            f"entries beyond rtol {RTOL_FEAT} / atol {ATOL_FEAT}, more than {FITTED_BEYOND_SHARE:.1%}")
+        top_card, top_cpu = hg._batch_run(feat_card.to(dev)).cpu(), hc._batch_run(feat_cpu)
+        fitted_top = kept["fitted"](Dataset.from_items([x[0].to(dev)])).array().cpu()
+        checks.append({"shape": shape, "seeded_max_abs_err": seeded_err,
+                       "fitted_max_abs_err": fitted_err, "fitted_beyond_serving_bar": beyond,
+                       "features": feat_card.numel(),
+                       "top5_equal": bool(torch.equal(top_card, top_cpu)),
+                       "fitted_top5_equal": bool(torch.equal(top_card, fitted_top))})
+        log(f"  {shape}: seeded chain card vs CPU max abs err {seeded_err}; fitted chain max abs err "
+            f"{fitted_err}, {beyond} of {feat_card.numel()} beyond rtol {RTOL_FEAT} / atol {ATOL_FEAT}; "
+            f"top-5 equal {checks[-1]['top5_equal']}, the fitted pipeline's {checks[-1]['fitted_top5_equal']}")
+        assert checks[-1]["top5_equal"] and checks[-1]["fitted_top5_equal"], checks[-1]
+    assert len(picked) == min(4, len({li.image.shape for li in test})), [li.image.shape for li in picked]
+    rec["card_vs_cpu"] = checks
+    rec["card_vs_cpu_s"] = time.perf_counter() - t
+    del fitted_chains, seeded
+
+    # -- the streaming loader into a serving engine ------------------------
+    from keystone_tpu_torch.loaders.streaming import StreamingImageNetLoader
+
+    img = stream["img"]
+    feat, dim = build_flagship_featurize_pipeline(device=dev, **stream)
+    engine = feat.compiled(buckets=(stream_rows,), device=dev, name="phase8-stream")
+    loader = StreamingImageNetLoader(train_tar, labels, decode_size=img, shard_index=0, num_shards=1)
+    t = time.perf_counter()
+    n_dec = sum(1 for _ in loader.items())
+    decode_s = time.perf_counter() - t
+    engine.apply(np.zeros((stream_rows, img, img, 3), np.uint8), sync=True)  # capture
+    batch = next(loader.batches(stream_rows, np.uint8))[0]
+    engine_s = []
+    for _ in range(5):
+        t = time.perf_counter()
+        engine.apply(batch, sync=True)
+        engine_s.append(time.perf_counter() - t)
+    _cuda.reset_launches()
+    t = time.perf_counter()
+    rows, first = 0, None
+    for feats, labs, n in loader.featurized_batches(engine, stream_rows):
+        if first is None:
+            first = feats[:P8_STREAM_CHECK].cpu()
+        rows += n
+    if on_card:
+        torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t
+    launches = dict(_cuda.LAUNCHES)
+    raw = batch[:P8_STREAM_CHECK]
+    cpu_feat, _ = build_flagship_featurize_pipeline(device="cpu", **stream)
+    want = cpu_feat._batch_run(torch.as_tensor(raw))
+    err = max_abs_err(first, want, RTOL_FEAT, ATOL_FEAT,
+                      f"phase 8 streamed features at vocab {stream['vocab']}, card vs CPU")
+    assert first.shape == (P8_STREAM_CHECK, dim) and bool(torch.isfinite(first).all())
+    if on_card:
+        assert launches["fisher_vector_stats"] > 0, launches
+    from keystone_tpu_torch.native import jpeg_native_available
+
+    engine_med = statistics.median(engine_s)
+    rec["stream"] = {
+        "images": rows, "decode_images_per_s": n_dec / decode_s,
+        "native_decode": jpeg_native_available(),
+        "featurize_ex_per_s": rows / stream_s, "seconds": stream_s, "launches": launches,
+        "engine_ex_per_s": stream_rows / engine_med, "engine_runs_s": engine_s,
+        "first_rows_max_abs_err": err, "vocab": stream["vocab"], "img": img,
+    }
+    log(f"streaming {rows} images at {img}² (vocab {stream['vocab']}): decode {n_dec / decode_s:.1f} "
+        f"images/s (native libjpeg: {rec['stream']['native_decode']}), featurized_batches "
+        f"{rows / stream_s:.1f} ex/s ({stream_s:.3f} s, launches {launches}); the engine alone "
+        f"{stream_rows / engine_med:.1f} ex/s (median of 5 dispatches of {stream_rows}); first "
+        f"{P8_STREAM_CHECK} rows card vs CPU max abs err {err} on {smi}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 8 in {rec['phase_s']:.3f} s on {smi}")
+    return rec
+
+
 def _info(info):
     return None if info is None else {k: float(v) for k, v in info.items()}
 
@@ -964,7 +1372,9 @@ def main():
     # -- 3. kernels against their plain versions ------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     check_ragged(dev, gen)
-    log("kernels match their plain versions at ragged shapes")
+    log("kernels match their plain versions at ragged shapes; past the old limits:")
+    wide = check_wide(dev, gen)
+    torch.cuda.empty_cache()
     rows = check_kernels(dev, gen)
     for r in rows:
         r["bound_share"] = r["bound_ms"] / r["ms"]
@@ -994,11 +1404,18 @@ def main():
 
     # -- 7. serve under a request stream --------------------------------
     streamed = serve_stream(dev, smi, feat, model)
+    del feat, model
+    torch.cuda.empty_cache()
+
+    # -- 8. real image files --------------------------------------------
+    files = real_image_files(dev, smi)
+    for r in rows:
+        r["phase8_launches"] = files["launches"][r["name"]]
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": smi, "kernels": rows, "serve": served, "train": trained,
-                   "stream": streamed, "ptxas": ptxas}, f, indent=1, default=str)
+        json.dump({"card": smi, "kernels": rows, "wide": wide, "serve": served, "train": trained,
+                   "stream": streamed, "files": files, "ptxas": ptxas}, f, indent=1, default=str)
     # the fit's launches and B3's error with the fitted GMMs are in
     # chip_smoke.json beside these
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

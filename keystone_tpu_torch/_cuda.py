@@ -69,9 +69,9 @@ SIGNATURES = {
         "ks_plane_sandwich": [_P] * 9 + [_I] * 6 + [_P],
     },
     "fv_stats": {
-        # x, means, variances, weights, thresh, terms, partial, out, B, d, m,
-        # k, rows_per_block, stream
-        "ks_fv_stats": [_P] * 4 + [_F] + [_P] * 3 + [_I] * 5 + [_P],
+        # x, means, variances, weights, thresh, terms, norms, partial, out, B,
+        # d, m, k, rows_per_block, stream
+        "ks_fv_stats": [_P] * 4 + [_F] + [_P] * 4 + [_I] * 5 + [_P],
     },
 }
 
@@ -110,15 +110,28 @@ def add_launches(counts: Dict[str, int]) -> None:
 
 
 @contextlib.contextmanager
-def capture_tally():
+def capture_tally(refs: Optional[list] = None):
     """Count this thread's launches into the yielded dict instead of
-    ``LAUNCHES`` (around a CUDA graph capture)."""
+    ``LAUNCHES`` (around a CUDA graph capture), and collect into ``refs``
+    what ``keep_alive`` is given meanwhile."""
     tally: Dict[str, int] = {}
     _capture.tally = tally
+    _capture.refs = refs
     try:
         yield tally
     finally:
         _capture.tally = None
+        _capture.refs = None
+
+
+def keep_alive(obj) -> None:
+    """Tensors that a kernel launched in this thread reads, kept by the CUDA
+    graph being captured here (its holder owns ``capture_tally``'s
+    ``refs``), so that a cache that drops them cannot free memory a replay
+    reads. Outside a capture, nothing."""
+    refs = getattr(_capture, "refs", None)
+    if refs is not None:
+        refs.append(obj)
 
 
 def _nvcc() -> str:

@@ -1,6 +1,7 @@
 """Image preprocessing nodes on the flagship path (counterpart of
 ``keystone_tpu/ops/images/core.py``: ``PixelScaler`` and ``GrayScaler``).
-Images are ``(X, Y, C)``; batches ``(B, X, Y, C)``."""
+Images are ``(X, Y, C)``; batches ``(B, X, Y, C)``; an items-mode dataset
+of images of several sizes runs one batch per size."""
 
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ class PixelScaler(Transformer):
         return img.to(torch.float32) / 255.0
 
     def apply_batch(self, ds: Dataset) -> Dataset:
+        if not ds.is_array:
+            return self._bucketed_batch(ds)
         return Dataset.from_array(self.apply(ds.padded()), n=ds.n)
 
     def eq_key(self):
@@ -44,6 +47,8 @@ class GrayScaler(Transformer):
         return (img.to(torch.float32) @ self.weights(img.device))[..., None]
 
     def apply_batch(self, ds: Dataset) -> Dataset:
+        if not ds.is_array:
+            return self._bucketed_batch(ds)
         return Dataset.from_array(self.apply(ds.padded()), n=ds.n)
 
     def eq_key(self):

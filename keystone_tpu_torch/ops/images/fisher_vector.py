@@ -62,6 +62,8 @@ class FisherVector(Transformer):
         return self.encode(x.to(torch.float32)[None])[0]
 
     def apply_batch(self, ds: Dataset) -> Dataset:
+        if not ds.is_array:  # descriptor matrices of several widths
+            return self._bucketed_batch(ds)
         return Dataset.from_array(
             map_rows(lambda x: self.encode(x.to(torch.float32)), ds.padded()), n=ds.n
         )
@@ -84,6 +86,8 @@ class FisherVectorFused(Transformer):
         return self.encode(x.to(torch.float32)[None])[0]
 
     def apply_batch(self, ds: Dataset) -> Dataset:
+        if not ds.is_array:  # descriptor matrices of several widths
+            return self._bucketed_batch(ds)
         return Dataset.from_array(
             map_rows(lambda x: self.encode(x.to(torch.float32)), ds.padded()), n=ds.n
         )

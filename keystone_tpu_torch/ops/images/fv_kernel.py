@@ -9,6 +9,9 @@ On CUDA tensors this is the kernel in ``csrc/fv_stats.cu``, which forms
 the GMM terms on the card, never writes the (m, k) posterior to device
 memory and reduces its per-block partial sums in a fixed order (run-to-run
 identical output); on CPU tensors it is the plain PyTorch version below.
+The kernel takes any ``d`` and ``k`` up to ``K_BOUND`` mixtures: past 64 of
+either it tiles them, with one pass for each descriptor's softmax and
+threshold sums over all ``k`` before any statistic.
 """
 
 from __future__ import annotations
@@ -24,8 +27,10 @@ from keystone_tpu_torch import _cuda
 # 264 blocks; at B = 64 both serving descriptor counts give at least two:
 # m = 3,136 -> 9 slabs (576 blocks), m = 13,165 -> 35 slabs (2,240).
 ROWS_PER_BLOCK = 384
-MAX_D = 64
-MAX_K = 64
+# The kernel's one bound: its per-descriptor pass keeps 128 bytes of shared
+# memory per mixture. Four times the largest vocabulary of a configuration
+# of the JAX package (VOC's 256).
+K_BOUND = 1024
 
 
 def gmm_terms(means, variances, weights):
@@ -74,17 +79,21 @@ def fisher_vector_stats(x, means, variances, weights, weight_threshold=1e-4):
         raise ValueError("x holds no descriptors")
     if not _cuda.on_cuda(x, means, variances, weights):
         return fisher_vector_stats_plain(x, means, variances, weights, weight_threshold)
-    if k > MAX_K or d > MAX_D:
-        raise ValueError(f"the kernel takes d <= {MAX_D} and k <= {MAX_K}, got d={d}, k={k}")
+    if k > K_BOUND:
+        raise ValueError(f"the kernel takes k <= {K_BOUND} mixtures, got k={k}")
     n_blocks = -(-m // ROWS_PER_BLOCK)
     terms = torch.empty((2 * d + 1) * k, dtype=torch.float32, device=x.device)
+    # each descriptor's softmax and threshold sums, for the tiled path the
+    # kernel takes past d or k = 64 (it alone decides; 3/d of x's size)
+    norms = torch.empty((B, m, 3), dtype=torch.float32, device=x.device)
     partial = torch.empty((B, n_blocks, 1 + 2 * d, k), dtype=torch.float32, device=x.device)
     out = torch.empty((B, 1 + 2 * d, k), dtype=torch.float32, device=x.device)
     lib = _cuda.lib("fv_stats")
     with torch.cuda.device(x.device):
         err = lib.ks_fv_stats(
             x.data_ptr(), means.data_ptr(), variances.data_ptr(), weights.data_ptr(),
-            float(weight_threshold), terms.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            float(weight_threshold), terms.data_ptr(), norms.data_ptr(), partial.data_ptr(),
+            out.data_ptr(),
             B, d, m, k, ROWS_PER_BLOCK, _cuda.stream(x),
         )
     _cuda.check(err, "ks_fv_stats")

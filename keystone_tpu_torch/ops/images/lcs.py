@@ -18,9 +18,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from keystone_tpu_torch import _cuda
 from keystone_tpu_torch.ops.images.kernels import operator_bands, plane_sandwich
 from keystone_tpu_torch.parallel.dataset import Dataset
 from keystone_tpu_torch.utils.chunks import map_rows
+from keystone_tpu_torch.utils.lru import LRUCache
 from keystone_tpu_torch.workflow.api import Transformer
 
 
@@ -73,24 +75,22 @@ class LCSExtractor(Transformer):
         """(x-axis operator transposed (M, X), y-axis operator (Y, N),
         their ``operator_bands``, keys along x, keys along y, neighbors per
         axis) for (X, Y) images on ``device``, built once per (X, Y,
-        device)."""
-        cache = self.__dict__.setdefault("_operator_cache", {})
-        key = (X, Y, str(device))
-        ops = cache.get(key)
-        if ops is None:
-            s = self.sub_patch_size
-            xs = np.arange(self.stride_start, X - self.stride_start, self.stride)
-            ys = np.arange(self.stride_start, Y - self.stride_start, self.stride)
-            # neighborhood offsets: -2s + s/2 - 1 .. s + s/2 - 1 step s
-            offs = np.arange(-2 * s + s // 2 - 1, s + s // 2, s)
-            ax = _lcs_sampling_matrix(X, xs, offs, s)
-            ay = _lcs_sampling_matrix(Y, ys, offs, s)
-            axt = torch.as_tensor(ax.T.copy(), device=device)
-            ay = torch.as_tensor(ay, device=device)
-            ops = cache[key] = (
-                axt, ay, operator_bands(axt, ay), len(xs), len(ys), len(offs),
-            )
+        device). The cache keeps the ``OPERATOR_SHAPES`` shapes used last;
+        a CUDA graph being captured keeps what it reads."""
+        cache = self.__dict__.setdefault("_operator_cache", LRUCache())
+        ops = cache.get_or_make((X, Y, str(device)), lambda: self._make_operators(X, Y, device))
+        _cuda.keep_alive(ops)
         return ops
+
+    def _make_operators(self, X: int, Y: int, device):
+        s = self.sub_patch_size
+        xs = np.arange(self.stride_start, X - self.stride_start, self.stride)
+        ys = np.arange(self.stride_start, Y - self.stride_start, self.stride)
+        # neighborhood offsets: -2s + s/2 - 1 .. s + s/2 - 1 step s
+        offs = np.arange(-2 * s + s // 2 - 1, s + s // 2, s)
+        axt = torch.as_tensor(_lcs_sampling_matrix(X, xs, offs, s).T.copy(), device=device)
+        ay = torch.as_tensor(_lcs_sampling_matrix(Y, ys, offs, s), device=device)
+        return axt, ay, operator_bands(axt, ay), len(xs), len(ys), len(offs)
 
     def extract(self, imgs: torch.Tensor) -> torch.Tensor:
         """(B, X, Y, C) images -> (B, numLCSValues, numKeypoints)."""
@@ -115,6 +115,8 @@ class LCSExtractor(Transformer):
         return self.extract(img[None])[0]
 
     def apply_batch(self, ds: Dataset) -> Dataset:
+        if not ds.is_array:  # images of several sizes: one batch per size
+            return self._bucketed_batch(ds)
         # in chunks of images: a training set in one batch would make
         # temporaries several times the size of its descriptors
         return Dataset.from_array(map_rows(self.extract, ds.padded()), n=ds.n)

@@ -20,9 +20,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from keystone_tpu_torch import _cuda
 from keystone_tpu_torch.ops.images.kernels import operator_bands, sift_bin_sample
 from keystone_tpu_torch.parallel.dataset import Dataset
 from keystone_tpu_torch.utils.chunks import map_rows
+from keystone_tpu_torch.utils.lru import LRUCache
 from keystone_tpu_torch.workflow.api import Transformer
 
 NUM_ORIENTATIONS = 8
@@ -172,14 +174,16 @@ class SIFTExtractor(Transformer):
         """``scale_operators`` (matrices and bands) for (H, W) images
         on ``device``, built once per (H, W, device) — the counterpart of
         the JAX package building them once per jit trace — so a dispatch
-        does no numpy work."""
-        cache = self.__dict__.setdefault("_operator_cache", {})
-        key = (H, W, str(device))
-        ops = cache.get(key)
-        if ops is None:
-            ops = cache[key] = scale_operators(
+        does no numpy work. The cache keeps the ``OPERATOR_SHAPES`` shapes
+        used last; a CUDA graph being captured keeps what it reads."""
+        cache = self.__dict__.setdefault("_operator_cache", LRUCache())
+        ops = cache.get_or_make(
+            (H, W, str(device)),
+            lambda: scale_operators(
                 H, W, self.step, self.bin, self.num_scales, self.scale_step, device
-            )
+            ),
+        )
+        _cuda.keep_alive(ops)
         return ops
 
     def unquantized(self, imgs: torch.Tensor) -> torch.Tensor:
@@ -202,6 +206,8 @@ class SIFTExtractor(Transformer):
         return self.extract(img[None])[0]
 
     def apply_batch(self, ds: Dataset) -> Dataset:
+        if not ds.is_array:  # images of several sizes: one batch per size
+            return self._bucketed_batch(ds)
         # in chunks of images: a training set in one batch would make
         # temporaries several times the size of its descriptors
         return Dataset.from_array(map_rows(self.extract, ds.padded()), n=ds.n)

@@ -61,6 +61,8 @@ class BatchPCATransformer(Transformer):
         return mm(self.pca_mat.T, m)
 
     def apply_batch(self, ds: Dataset) -> Dataset:
+        if not ds.is_array:  # descriptor matrices of several widths
+            return self._bucketed_batch(ds)
         # in chunks of images: a training set's (n, d, m) descriptors
         # are the largest tensor of a fit
         out = map_rows(

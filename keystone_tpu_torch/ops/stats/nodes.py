@@ -38,6 +38,8 @@ class SignedHellingerMapper(Transformer):
         return torch.abs(x).sqrt_().copysign_(x)
 
     def apply_batch(self, ds: Dataset) -> Dataset:
+        if not ds.is_array:  # descriptor matrices of several widths
+            return self._bucketed_batch(ds)
         return Dataset.from_array(self.apply(ds.padded()), n=ds.n)
 
     def eq_key(self):

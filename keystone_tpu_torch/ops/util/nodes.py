@@ -35,14 +35,24 @@ class ClassLabelIndicators(Transformer):
         return Dataset.from_array(out * ds.mask()[:, None], n=ds.n)
 
 
+def top_k_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """The indices of the ``k`` largest scores along the last axis, best
+    first, ties to the lower index, as ``jax.lax.top_k`` orders them: the
+    first ``k`` of a stable descending sort (``torch.topk`` gives ties in
+    no set order). A sort is one kernel with no host sync, so a CUDA graph
+    captures it."""
+    k = min(k, scores.shape[-1])
+    return torch.sort(scores, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
 @dataclasses.dataclass(eq=False)
 class TopKClassifier(Transformer):
-    """top-k class indices, best first."""
+    """top-k class indices, best first, ties to the lower index."""
 
     k: int
 
     def apply(self, scores):
-        return torch.topk(scores, min(self.k, scores.shape[-1]), dim=-1).indices
+        return top_k_indices(scores, self.k)
 
     def apply_batch(self, ds: Dataset) -> Dataset:
         return Dataset.from_array(self.apply(ds.padded()), n=ds.n)

@@ -15,7 +15,7 @@ zeros. Reductions that care divide by ``n`` or use ``mask()``.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,6 +41,15 @@ def _as_tensor(a: Any) -> Any:
     if isinstance(a, torch.Tensor):
         return a
     return torch.as_tensor(np.asarray(a))
+
+
+def shape_groups(items: Sequence[torch.Tensor]) -> List[List[int]]:
+    """The positions of ``items`` grouped by (shape, dtype, device), the
+    groups and the positions within each in dataset order."""
+    groups: Dict[tuple, List[int]] = {}
+    for i, x in enumerate(items):
+        groups.setdefault((tuple(x.shape), x.dtype, x.device), []).append(i)
+    return list(groups.values())
 
 
 def _device_of(tree: Any) -> torch.device:

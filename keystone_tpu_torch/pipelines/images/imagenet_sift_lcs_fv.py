@@ -1,18 +1,24 @@
 """ImageNetSiftLcsFV — the flagship pipeline, trained: SIFT and LCS
 branches, each PCA -> GMM Fisher vector -> normalization, gathered and fed
 to the mixture-weighted block least-squares solver, top-5 out
-(counterpart of ``keystone_tpu/pipelines/images/imagenet_sift_lcs_fv.py``;
-``main()``, which reads ImageNet tars, waits for the port of the loaders).
+(counterpart of ``keystone_tpu/pipelines/images/imagenet_sift_lcs_fv.py``).
 
 Every node fits and runs on ``device`` (``None`` means ``cuda``): ``run``,
 ``build_pipeline`` and ``compute_pca_and_fisher_branch`` put the training
-data there.
+data there. Images of several sizes, as ``ImageNetLoader`` decodes them,
+stay an items-mode dataset: each node runs one batch per size, and after
+the Fisher vectors every image has the same feature length.
+
+    python -m keystone_tpu_torch.pipelines.images.imagenet_sift_lcs_fv \
+        --trainLocation TRAIN_TARS --testLocation TEST_TARS --labelPath WNID_MAP
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
-from typing import Optional, Union
+import time
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
@@ -21,6 +27,7 @@ from keystone_tpu_torch._device import resolve_device
 from keystone_tpu_torch.loaders.image_loaders import (
     NUM_IMAGENET_CLASSES,
     ImageExtractor,
+    ImageNetLoader,
     LabelExtractor,
 )
 from keystone_tpu_torch.ops.images.core import GrayScaler, PixelScaler
@@ -51,7 +58,7 @@ from keystone_tpu_torch.ops.util.nodes import (
     TopKClassifier,
     VectorCombiner,
 )
-from keystone_tpu_torch.parallel.dataset import Dataset
+from keystone_tpu_torch.parallel.dataset import Dataset, shape_groups
 from keystone_tpu_torch.workflow.api import Pipeline
 from keystone_tpu_torch.workflow.executor import GraphExecutor
 
@@ -173,13 +180,31 @@ def build_pipeline(
     )
 
 
+def _is_on(t: torch.Tensor, dev: torch.device) -> bool:
+    return t.device.type == dev.type and dev.index in (None, t.device.index)
+
+
 def _on_device(ds: Dataset, dev: torch.device) -> Dataset:
-    """An items- or array-mode dataset as one array on ``dev``: the same
-    dataset when it is one already, so that the pipeline's branches and
-    its solver share one source node."""
-    x = torch.as_tensor(ds.to_array_mode().array())
-    on_dev = x.device.type == dev.type and dev.index in (None, x.device.index)
-    if on_dev and ds.is_array and ds.padded_n == ds.n:
+    """A dataset on ``dev``, the same dataset when it is there already, so
+    that the pipeline's branches and its solver share one source node.
+    Items of one shape (labels, images of one size) become one array;
+    items of several shapes (images as ``ImageNetLoader`` decodes them)
+    stay items, moved one stack per shape."""
+    if not ds.is_array:
+        items = [torch.as_tensor(x) for x in ds.items()]
+        groups = shape_groups(items)
+        if len(groups) == 1:
+            return Dataset.from_array(torch.stack(items).to(dev))
+        if all(isinstance(x, torch.Tensor) and _is_on(x, dev) for x in ds.items()):
+            return ds
+        out = [None] * len(items)
+        for idxs in groups:
+            moved = torch.stack([items[i] for i in idxs]).to(dev)
+            for i, x in zip(idxs, moved.unbind(0)):
+                out[i] = x
+        return Dataset.from_items(out)
+    x = ds.array()
+    if _is_on(x, dev) and ds.padded_n == ds.n:
         return ds
     return Dataset.from_array(x.to(dev))
 
@@ -187,14 +212,23 @@ def _on_device(ds: Dataset, dev: torch.device) -> Dataset:
 def run(train_data: Dataset, test_data: Dataset, conf: ImageNetSiftLcsFVConfig,
         device: Optional[Union[str, torch.device]] = None):
     """Fit on ``train_data`` and classify ``test_data`` (datasets of
-    ``LabeledImage``) on ``device`` (``None`` means ``cuda``). Returns the
-    unfitted predictor and the top-5 error, as the JAX package does.
+    ``LabeledImage``, of one image size or several) on ``device`` (``None``
+    means ``cuda``). Returns the unfitted predictor and the top-5 error, as
+    the JAX package does.
     Applying the predictor again loads the solver's fit from the pipeline
     environment, but fits the column PCAs and GMMs anew on fresh samples
     (the node optimizer swaps those estimators and keeps no state for the
     swapped nodes, and the samplers' counters have moved on), as in the
-    JAX package; keep ``build_pipeline(...).fit()`` to serve the model that
+    JAX package; ``fit_and_score`` also returns the fitted pipeline that
     was scored."""
+    predictor, _, err = fit_and_score(train_data, test_data, conf, device)
+    return predictor, err
+
+
+def fit_and_score(train_data: Dataset, test_data: Dataset, conf: ImageNetSiftLcsFVConfig,
+                  device: Optional[Union[str, torch.device]] = None):
+    """``run``'s work: (the unfitted predictor, the fitted pipeline that
+    classified ``test_data``, its top-5 error)."""
     dev = resolve_device(device)
     train_images = _on_device(ImageExtractor.apply(train_data), dev)
     train_labels = _on_device(LabelExtractor.apply(train_data), dev)
@@ -209,4 +243,37 @@ def run(train_data: Dataset, test_data: Dataset, conf: ImageNetSiftLcsFVConfig,
     ).fit()
     top5 = fitted(test_images).array().cpu().numpy()
     err = 1.0 - np.mean([a in p for a, p in zip(actual, top5)])
-    return predictor, float(err)
+    return predictor, fitted, float(err)
+
+
+def main(argv: Optional[List[str]] = None, device: Optional[Union[str, torch.device]] = None) -> int:
+    """Train on the tars at ``--trainLocation`` and score top-5 on those at
+    ``--testLocation`` (a tar file or a directory of them; WNIDs mapped to
+    classes by ``--labelPath``), on ``device`` (``None`` means ``cuda``).
+    The JAX package's flags and defaults; prints the error and the time."""
+    p = argparse.ArgumentParser(description="ImageNetSiftLcsFV")
+    p.add_argument("--trainLocation", required=True)
+    p.add_argument("--testLocation", required=True)
+    p.add_argument("--labelPath", required=True)
+    p.add_argument("--lambda", dest="lam", type=float, default=6e-5)
+    p.add_argument("--mixtureWeight", type=float, default=0.25)
+    p.add_argument("--descDim", type=int, default=64)
+    p.add_argument("--vocabSize", type=int, default=16)
+    p.add_argument("--siftScaleStep", type=int, default=1)
+    a = p.parse_args(argv)
+    conf = ImageNetSiftLcsFVConfig(
+        train_location=a.trainLocation, test_location=a.testLocation,
+        label_path=a.labelPath, lam=a.lam, mixture_weight=a.mixtureWeight,
+        desc_dim=a.descDim, vocab_size=a.vocabSize, sift_scale_step=a.siftScaleStep,
+    )
+    train = ImageNetLoader(conf.train_location, conf.label_path)
+    test = ImageNetLoader(conf.test_location, conf.label_path)
+    t0 = time.time()
+    _, err = run(train, test, conf, device=device)
+    print(f"TEST Top-5 error is {100 * err:.2f}%")
+    print(f"Total time: {time.time() - t0:.2f}s")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

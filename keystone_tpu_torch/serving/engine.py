@@ -110,6 +110,9 @@ class BucketGraph:
     launches: Dict[str, int]
     capture_s: float
     pool_bytes: int
+    # what the capture's kernels read beside static_in (the SIFT and LCS
+    # operators, out of their bounded caches), kept for the graph's life
+    refs: List[Any] = dataclasses.field(default_factory=list)
 
 
 class CompiledPipeline:
@@ -329,7 +332,8 @@ class CompiledPipeline:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
-        with _cuda.capture_tally() as launches:
+        refs: List[Any] = []
+        with _cuda.capture_tally(refs) as launches:
             with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
                 static_out = self._run_bucket(static_in)
         pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
@@ -340,7 +344,7 @@ class CompiledPipeline:
         self.metrics.record_trace(bucket)
         return BucketGraph(
             bucket, graph, static_in, static_out, dict(launches),
-            time.perf_counter() - t0, pool_bytes,
+            time.perf_counter() - t0, pool_bytes, refs,
         )
 
     def _replay(self, g: BucketGraph, staged: Any, rows: int, ready) -> Any:

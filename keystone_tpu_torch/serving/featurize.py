@@ -175,12 +175,13 @@ def build_flagship_featurize_pipeline(
         from keystone_tpu_torch.parallel.dataset import Dataset
         from keystone_tpu_torch.pipelines.images.imagenet_sift_lcs_fv import (
             ImageNetSiftLcsFVConfig,
+            _on_device,
             compute_pca_and_fisher_branch,
         )
         from keystone_tpu_torch.workflow.api import Pipeline
 
-        images = Dataset.of(fit_images).to_array_mode().array()
-        images = Dataset.from_array(torch.as_tensor(images).to(dev))
+        # an array stays one array; a list (of images of any sizes), items
+        images = _on_device(Dataset.of(fit_images), dev)
         conf = ImageNetSiftLcsFVConfig(
             desc_dim=desc_dim, vocab_size=vocab, seed=seed,
             sift_scale_step=sift_scale_step, lcs_stride=lcs_stride,

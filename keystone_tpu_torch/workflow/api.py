@@ -23,7 +23,7 @@ from typing import Any, Dict, List, Sequence, Union
 import numpy as np
 import torch
 
-from keystone_tpu_torch.parallel.dataset import Dataset
+from keystone_tpu_torch.parallel.dataset import Dataset, shape_groups
 from keystone_tpu_torch.workflow.executor import GraphExecutor
 from keystone_tpu_torch.workflow.graph import (
     EMPTY_GRAPH,
@@ -272,7 +272,8 @@ class Transformer(Chainable, TransformerOperator):
     """A per-example function, liftable to a one-node pipeline.
 
     Subclasses override ``apply(x)`` and, on the serving path, the batched
-    ``apply_batch(ds)``."""
+    ``apply_batch(ds)``; one that takes images or descriptor matrices of
+    several sizes sends an items-mode dataset to ``_bucketed_batch``."""
 
     def apply(self, x: Any) -> Any:  # single datum
         raise NotImplementedError
@@ -283,6 +284,22 @@ class Transformer(Chainable, TransformerOperator):
                 torch.func.vmap(self.apply)(ds.padded()), n=ds.n
             )
         return ds.map(self.apply)
+
+    def _bucketed_batch(self, ds: Dataset) -> Dataset:
+        """An items-mode dataset through this node's batched ``apply_batch``:
+        the items grouped by (shape, dtype, device), each group stacked and
+        run as one array-mode batch, the results put back in dataset order
+        as items (counterpart of the JAX package's
+        ``Transformer._bucketed_batch``, which runs ``jit(vmap(apply))`` on
+        each group)."""
+        items = [torch.as_tensor(x) for x in ds.items()]
+        out: List[Any] = [None] * len(items)
+        for idxs in shape_groups(items):
+            stack = torch.stack([items[i] for i in idxs])
+            res = self.apply_batch(Dataset.from_array(stack)).array()
+            for j, i in enumerate(idxs):
+                out[i] = res[j]
+        return Dataset.from_items(out)
 
     def single_transform(self, inputs: Sequence[Any]) -> Any:
         return self.apply(inputs[0])

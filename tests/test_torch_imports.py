@@ -32,6 +32,12 @@ SERVING_MODULES = [
 ]
 
 
+# the real-image-files slice's new modules, which the walk must reach too
+LOADER_MODULES = [
+    "keystone_tpu_torch." + m for m in ("native", "loaders.streaming", "utils.lru")
+]
+
+
 def _port_sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:
@@ -56,6 +62,7 @@ print("LOADED", len([n for n in sys.modules if n.startswith("keystone_tpu_torch"
 print("BAD", bad)
 print("TRAINING", sorted(n for n in {TRAINING_MODULES!r} if n not in sys.modules))
 print("SERVING", sorted(n for n in {SERVING_MODULES!r} if n not in sys.modules))
+print("LOADERS", sorted(n for n in {LOADER_MODULES!r} if n not in sys.modules))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -66,8 +73,31 @@ print("SERVING", sorted(n for n in {SERVING_MODULES!r} if n not in sys.modules))
     assert "BAD []" in out.stdout, out.stdout
     assert "TRAINING []" in out.stdout, out.stdout
     assert "SERVING []" in out.stdout, out.stdout
+    assert "LOADERS []" in out.stdout, out.stdout
     assert int(re.search(r"LOADED (\d+)", out.stdout).group(1)) >= (
-        25 + len(TRAINING_MODULES) + len(SERVING_MODULES))
+        25 + len(TRAINING_MODULES) + len(SERVING_MODULES) + len(LOADER_MODULES))
+
+
+def test_streaming_loader_imports_neither_torch_nor_jax():
+    """Spawned decode workers unpickle ``_decode_payload`` from the
+    streaming module and load the native decoder: neither may pull in
+    torch or jax."""
+    code = f"""
+import sys
+sys.path.insert(0, {ROOT!r})
+import keystone_tpu_torch.loaders.streaming as s
+import keystone_tpu_torch.native
+s._decode_payload((b"not a jpeg", None))
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("torch", "jax", "keystone_tpu"))
+print("BAD", bad)
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=ROOT, env=env,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
 
 
 def test_no_source_imports_jax_or_the_jax_package():

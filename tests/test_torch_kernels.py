@@ -96,6 +96,57 @@ def test_fisher_vector_stats_plain_matches_jax_kernel(d, k, m):
             np.testing.assert_allclose(g[b].numpy(), np.asarray(w), **FV_TOL)
 
 
+@pytest.mark.parametrize("d,k,m", [(80, 256, 300), (129, 257, 40)])
+def test_fisher_vector_stats_plain_matches_jax_kernel_past_64(d, k, m):
+    """VOC's (d, k) = (80, 256), and a (d, k) past every tile of the
+    kernel's tiled path."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((1, d, m)).astype(np.float32)
+    means, variances, weights = _gmm(rng, d, k)
+    got = fv_kernel.fisher_vector_stats(_t(x), _t(means), _t(variances), _t(weights), 1e-4)
+    want = fisher_vector_stats_pallas(
+        jnp.asarray(x[0]), jnp.asarray(means), jnp.asarray(variances),
+        jnp.asarray(weights), 1e-4, interpret=True,
+    )
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g[0].numpy(), np.asarray(w), **FV_TOL)
+
+
+def test_fisher_vector_stats_bound_is_past_every_configuration():
+    assert fv_kernel.K_BOUND >= 4 * 256
+    assert not hasattr(fv_kernel, "MAX_D") and not hasattr(fv_kernel, "MAX_K")
+
+
+@pytest.mark.parametrize("banded", [False, True], ids=["dense", "sift_operators"])
+def test_sift_bin_sample_plain_matches_jax_kernel_at_w_1024(banded):
+    rng = np.random.default_rng(6)
+    H, W = 40, 1024
+    if banded:
+        _, ayt, ax, _ = sift.scale_operators(H, W, 3, 4, 4, 1, "cpu")[0]
+        ayt, ax = ayt.numpy(), ax.numpy()
+        mag, t, _, _ = _sift_inputs(rng, 1, H, W, 1, 1)
+    else:
+        mag, t, ayt, ax = _sift_inputs(rng, 1, H, W, 6, 10)
+    got = kernels.sift_bin_sample(_t(mag), _t(t), _t(ayt), _t(ax)).numpy()
+    want = np.asarray(jax_sift_bin_sample(
+        jnp.asarray(mag[0]), jnp.asarray(t[0]), jnp.asarray(ayt), jnp.asarray(ax),
+        interpret=True,
+    ))
+    np.testing.assert_allclose(got[0], want, **SANDWICH_TOL)
+
+
+def test_plane_sandwich_plain_matches_jax_kernel_at_w_1024():
+    rng = np.random.default_rng(7)
+    planes = rng.standard_normal((1, 3, 24, 1024)).astype(np.float32)
+    at = rng.standard_normal((9, 24)).astype(np.float32)
+    b = rng.standard_normal((1024, 11)).astype(np.float32)
+    got = kernels.plane_sandwich(_t(planes), _t(at), _t(b)).numpy()
+    want = np.asarray(jax_plane_sandwich(
+        jnp.asarray(planes[0]), jnp.asarray(at), jnp.asarray(b), interpret=True,
+    ))
+    np.testing.assert_allclose(got[0], want, **SANDWICH_TOL)
+
+
 def _numpy_extents(op, axis):
     """[lo, hi) of the nonzeros of each slice along ``axis``, by numpy."""
     nz = np.moveaxis(op != 0, axis, -1)

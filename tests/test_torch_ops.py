@@ -200,3 +200,25 @@ def test_top_k():
     np.testing.assert_array_equal(
         trun(tutil.TopKClassifier(5), x), jrun(jutil.TopKClassifier(5), x)
     )
+
+
+def test_top_k_breaks_ties_as_jax():
+    """200 tie-heavy rows (integer scores in 0..3, all-zero rows, a row
+    shorter than k): the lower index first, as ``jax.lax.top_k``."""
+    rng = np.random.default_rng(10)
+    x = rng.integers(0, 4, (200, 1000)).astype(np.float32)
+    x[:20] = 0.0
+    for node in (tutil.TopKClassifier(5),):
+        got = trun(node, x)
+        want = jrun(jutil.TopKClassifier(5), x)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got[:20], np.tile(np.arange(5), (20, 1)))
+        for row in x[:5]:
+            np.testing.assert_array_equal(
+                node.apply(torch.as_tensor(row)).numpy(),
+                np.asarray(jutil.TopKClassifier(5).apply(jnp.asarray(row))),
+            )
+    short = np.zeros((3, 3), np.float32)
+    np.testing.assert_array_equal(
+        trun(tutil.TopKClassifier(5), short), jrun(jutil.TopKClassifier(5), short)
+    )
