@@ -72,6 +72,21 @@ Phases, in order; any failure exits non-zero:
    the featurize chain at the paper's vocabulary, 256 (B3 at k = 256),
    hold its first 8 rows against the CPU port, and print decode images/s
    and featurize examples/s.
+9. VOCSIFTFisher at the paper's widths: write a train and a test tar of
+   seeded JPEGs (240 and 120, at 375 x 500, 500 x 375 and 333 x 500; 1 to
+   3 of 20 classes an image, each class a textured band) and the VOC
+   labels CSV under ``chiprun_out/phase9``; run ``VOCSIFTFisher.main`` on
+   the card (desc_dim 80, vocab 256, lambda 0.5, block 4,096 -> 40,960
+   features); require B1 and B3 launched in the fit and in the scoring
+   pass and a MAP above chance; hold the fitted chain's features of 4 test
+   images against the CPU (phase 8's fitted-chain bar) and the solver
+   against a CPU fit of the same features; fit again from host column
+   blocks (``Dataset.host_blocks_from_batches``) and require the in-memory
+   fit's W, a peak under ``host_block_budget`` and the blockwise apply
+   equal to the dense one; save the fitted
+   pipeline and require a fresh ``python3`` process that loads it to
+   score the test tar bit for bit as this one did, with the same MAP;
+   time B3 at one 375 x 500 image's descriptors with the fitted GMM.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then, last, the result line ``{"ok": true, "device": {...}}``.
@@ -104,11 +119,14 @@ from compare_kernels import time_ms  # noqa: E402
 from keystone_tpu_torch import _cuda, convert  # noqa: E402
 from keystone_tpu_torch.convert import model_head  # noqa: E402
 from keystone_tpu_torch.ops.images import core, fisher_vector, fv_kernel, kernels, lcs, sift  # noqa: E402
-from keystone_tpu_torch.ops.learning import gmm, pca, weighted_ls  # noqa: E402
+from keystone_tpu_torch.ops.learning import block_ls, gmm, pca, weighted_ls  # noqa: E402
 from keystone_tpu_torch.ops.stats import nodes as stats_nodes  # noqa: E402
 from keystone_tpu_torch.parallel.dataset import Dataset  # noqa: E402
 from keystone_tpu_torch.pipelines.images import imagenet_sift_lcs_fv as flagship  # noqa: E402
+from keystone_tpu_torch.pipelines.images import voc_sift_fisher as voc  # noqa: E402
 from keystone_tpu_torch.serving import MicroBatcher, ServingMetrics  # noqa: E402
+from keystone_tpu_torch.utils.chunks import CHUNK_ROWS  # noqa: E402
+from keystone_tpu_torch.workflow import api  # noqa: E402
 from keystone_tpu_torch.serving.featurize import (  # noqa: E402
     build_flagship_featurize_pipeline,
 )
@@ -1102,20 +1120,35 @@ def train_then_serve(dev, smi, classes=1000, per_class=TRAIN_PER_CLASS, solver_r
     own = fitted(Dataset.from_array(raw)).array().cpu()
     rec["served_top5_equal"] = bool(torch.equal(served, own))
     log(f"served top-5 of {B} held-out images equal to the fitted pipeline's: {rec['served_top5_equal']}")
+    if not rec["served_top5_equal"]:
+        # which rows differ, and how far apart the served chain's scores
+        # are there: a tie decided by rounding, or another model
+        rows = (served != own).any(1).nonzero().flatten()
+        mapper = next(o for o in head.graph.operators.values()
+                      if isinstance(o, block_ls.BlockLinearMapper))
+        scores = mapper.apply_batch(Dataset.from_array(feat._batch_run(raw[rows]))).array().cpu()
+        top = torch.sort(scores, dim=-1, descending=True).values
+        log(f"  rows {rows.tolist()}: served {served[rows].tolist()}, fitted {own[rows].tolist()}; "
+            f"served scores ranked 4 to 7 {top[:, 3:7].tolist()}")
     assert rec["served_top5_equal"]
     return rec
 
 
-def _texture_jpeg(h, w, c, seed):
-    """A seeded (h, w) RGB JPEG (PIL, quality 90) of class ``c``: a
-    class-dependent texture frequency and tint, plus noise."""
+def _texture_jpeg(h, w, classes, seed):
+    """A seeded (h, w) RGB JPEG (PIL, quality 90) of ``classes``: one
+    vertical band per class, each with a class-dependent texture frequency
+    and tint, plus noise."""
     from PIL import Image
 
     rng = np.random.default_rng(seed)
     y, x = np.mgrid[0:h, 0:w].astype(np.float32)
-    f = 2.0 + 1.5 * (c % 8)
-    base = 128.0 + 90.0 * np.sin(x / f + c) * np.cos(y / (f + 0.5 * (c // 8)))
-    img = np.stack([base + 12.0 * ((c + k) % 3) for k in range(3)], -1)
+    img = np.empty((h, w, 3), np.float32)
+    edges = np.linspace(0, w, len(classes) + 1).astype(int)
+    for c, lo, hi in zip(classes, edges[:-1], edges[1:]):
+        f = 2.0 + 1.5 * (c % 8)
+        base = 128.0 + 90.0 * np.sin(x / f + c) * np.cos(y / (f + 0.5 * (c // 8)))
+        for k in range(3):
+            img[:, lo:hi, k] = base[:, lo:hi] + 12.0 * ((c + k) % 3)
     img += rng.normal(0.0, 8.0, img.shape).astype(np.float32)
     buf = io.BytesIO()
     Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(buf, "JPEG", quality=90)
@@ -1141,7 +1174,7 @@ def write_image_tars(root, classes, per_train, per_test, sizes, wide, seed=0):
         with tarfile.open(paths[split], "w") as tf:
             for c, wnid in enumerate(wnids):
                 for i, (h, w) in enumerate(plan[c]):
-                    data = _texture_jpeg(h, w, c, seed + off + 100 * c + i)
+                    data = _texture_jpeg(h, w, [c], seed + off + 100 * c + i)
                     info = tarfile.TarInfo(f"{wnid}_{i}.JPEG")
                     info.size = len(data)
                     tf.addfile(info, io.BytesIO(data))
@@ -1340,6 +1373,403 @@ def real_image_files(dev, smi, classes=P8_CLASSES, per_train=P8_TRAIN, per_test=
     return rec
 
 
+# phase 9: VOCSIFTFisher at the paper's widths (main()'s defaults: desc_dim
+# 80, vocab 256, lambda 0.5, scale step 0 -> 40,960 features, block 4,096)
+P9_CLASSES, P9_TRAIN, P9_TEST = 20, 240, 120
+# VOC 2007's common native sizes, (height, width): 500 x 375, 375 x 500 and
+# 500 x 333 as width x height
+P9_SIZES = ((375, 500), (500, 375), (333, 500))
+P9_DESC_DIM, P9_VOCAB, P9_LAM = 80, 256, 0.5
+# the bars: the solver card against CPU as phase 6 (a 512-row solve there,
+# float32 rounding far below it), the host-block fit against the in-memory
+# one as the JAX package's test_host_blocks.py:69, MAP above chance (about
+# 0.1: two labels of 20 an image) on classes with coherent textures
+RTOL_SOLVER_VOC = 5e-4
+RTOL_HOST_FIT, ATOL_HOST_FIT = 2e-4, 2e-5
+RTOL_HOST_APPLY, ATOL_HOST_APPLY = 2e-5, 2e-5
+MIN_VOC_MAP = 0.3
+# the fitted chain's features card against CPU: phase 8's share past
+# RTOL_FEAT / ATOL_FEAT, and a cap on any entry set for VOC's unit rows of
+# 40,960 entries (a typical entry 1/sqrt(40960) = 4.9e-3; the largest
+# error read was 7.3e-5, PERF.md § 4)
+FITTED_MAX_ABS_VOC = 1e-3
+
+# scores the test tar with a pipeline saved by another process:
+# argv = repo root, saved pipeline, test tar, labels CSV, device, output .npy
+SCORE_SAVED = """
+import json, sys
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+from keystone_tpu_torch.evaluation import MeanAveragePrecisionEvaluator
+from keystone_tpu_torch.loaders.image_loaders import MultiLabelExtractor, VOCLoader
+from keystone_tpu_torch.pipelines.images import voc_sift_fisher as voc
+from keystone_tpu_torch.workflow.api import FittedPipeline
+fitted = FittedPipeline.load(sys.argv[2], device=sys.argv[5])
+test = VOCLoader(sys.argv[3], sys.argv[4])
+scores = voc.score(fitted, test, sys.argv[5]).cpu()
+aps = MeanAveragePrecisionEvaluator(voc.NUM_VOC_CLASSES).evaluate(
+    MultiLabelExtractor.apply(test).items(), scores)
+np.save(sys.argv[6], scores.numpy())
+print(json.dumps({"map": float(np.mean(aps)), "rows": scores.shape[0]}))
+"""
+
+
+@contextlib.contextmanager
+def node_times(sync, into, where):
+    """Times each transformer's batch apply and each estimator's fit with
+    a sync on both sides, into ``into[where[0]][label]`` in seconds: a
+    node's own time, since its inputs are computed before it is entered.
+    ``where[0]`` names the pass (the fit or the scoring) and may change
+    while this is on."""
+    depth = [0]
+    orig = {(cls, name): cls.__dict__[name] for cls, name in (
+        (api.Transformer, "batch_transform"), (api.Estimator, "fit_datasets"),
+        (api.LabelEstimator, "fit_datasets"))}
+
+    def timed(fn, prefix):
+        def wrapper(self, arg):
+            if depth[0]:
+                return fn(self, arg)
+            depth[0] += 1
+            try:
+                sync()
+                t = time.perf_counter()
+                out = fn(self, arg)
+                sync()
+            finally:
+                depth[0] -= 1
+            times = into.setdefault(where[0], {})
+            label = prefix + type(self).__name__
+            times[label] = times.get(label, 0.0) + time.perf_counter() - t
+            return out
+        return wrapper
+
+    for (cls, name), fn in orig.items():
+        setattr(cls, name, timed(fn, "fit " if name == "fit_datasets" else ""))
+    try:
+        yield into
+    finally:
+        for (cls, name), fn in orig.items():
+            setattr(cls, name, fn)
+
+
+def write_voc_tars(root, n_train, n_test, sizes, classes=P9_CLASSES, seed=0):
+    """A train and a test tar of seeded JPEGs named as VOC members, 1 to 3
+    classes an image (the first cycles through the classes), each class a
+    textured band, and the labels CSV (1-based classes, one row per image
+    and class). Returns (train tar, test tar, labels CSV)."""
+    rows, paths = [], {}
+    for split, n, off in (("train", n_train, 0), ("test", n_test, 100_000)):
+        paths[split] = os.path.join(root, f"{split}.tar")
+        with tarfile.open(paths[split], "w") as tf:
+            for i in range(n):
+                rng = np.random.default_rng((seed, off + i))
+                extra = rng.choice(classes, size=int(rng.integers(0, 3)), replace=False)
+                labels = list(dict.fromkeys([i % classes] + [int(c) for c in extra]))
+                h, w = sizes[i % len(sizes)]
+                name = f"VOC2007/JPEGImages/{split}_{i:06d}.jpg"
+                data = _texture_jpeg(h, w, labels, seed + off + i)
+                info = tarfile.TarInfo(name)
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+                rows += [f"{len(rows)},{c + 1},class{c},{split},{name}\n" for c in labels]
+    csv = os.path.join(root, "voclabels.csv")
+    with open(csv, "w") as f:
+        f.write("id,class,classname,traintesteval,filename\n")
+        f.writelines(rows)
+    return paths["train"], paths["test"], csv
+
+
+def host_block_budget(n, k, b, D):
+    """Bytes a host-block fit may add on the card: the labels and the
+    residual (n, k), the mask, 3 slabs (n, b), W (D, k) and the means, and
+    the solve's workspace: 4 (b, b) matrices (gram + λI, its factor, a
+    column-major copy for the solver and cuSOLVER's scratch) and a few
+    (b, k) and (n, k) temporaries."""
+    return 4 * (2 * n * k + n + block_ls.SLABS_ON_CARD * n * b + D * k + D + 4 * b * b
+                + 8 * b * k + 4 * n * k)
+
+
+def voc_sift_fisher(dev, smi, n_train=P9_TRAIN, n_test=P9_TEST, sizes=P9_SIZES,
+                    desc_dim=P9_DESC_DIM, vocab=P9_VOCAB, block=voc.BLOCK_SIZE):
+    """Phase 9: ``VOCSIFTFisher.main`` on tars of JPEGs at VOC's native
+    sizes at the paper's widths; the fitted chain's features and the solver
+    on the card against the CPU; the solver again from host column blocks;
+    the fitted pipeline saved and scored by a fresh process; B3 at VOC's
+    shape. To rehearse it on the CPU at a small size:
+    ``voc_sift_fisher(torch.device("cpu"), "cpu", n_train=40, n_test=12,
+    sizes=((40, 48), (48, 40), (36, 48)), desc_dim=8, vocab=32,
+    block=128)``."""
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    cpu = torch.device("cpu")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    root = os.path.join(ROOT, "chiprun_out", "phase9")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t = time.perf_counter()
+    train_tar, test_tar, labels = write_voc_tars(root, n_train, n_test, sizes)
+    rec = {"write_s": time.perf_counter() - t, "train_images": n_train, "test_images": n_test,
+           "sizes": sizes, "desc_dim": desc_dim, "vocab": vocab}
+
+    # -- main(), with the fit's and the scoring pass's launches apart, its
+    # decoding and each node's time (a sync around each node) ------------
+    kept = {"decode": []}
+    stages, where = {}, ["fit"]
+    BLS = block_ls.BlockLeastSquaresEstimator
+    orig = (voc.run, voc.score, BLS.fit, voc.VOCLoader)
+
+    def loader_timed(*a, **k):
+        t = time.perf_counter()
+        ds = orig[3](*a, **k)
+        kept["decode"].append({"images": ds.n, "s": time.perf_counter() - t})
+        return ds
+
+    def run_keeping_the_fit(*a, **k):
+        predictor, kept["fitted"], kept["scores"], kept["map"] = voc.fit_and_score(*a, **k)
+        return predictor, kept["map"]
+
+    def score_counting(*a, **k):
+        sync()
+        kept["fit_launches"] = dict(_cuda.LAUNCHES)
+        _cuda.reset_launches()
+        where[0] = "score"
+        out = orig[1](*a, **k)
+        sync()
+        kept["score_launches"] = dict(_cuda.LAUNCHES)
+        return out
+
+    def fit_timed(self, data, labels_ds):
+        sync()
+        t = time.perf_counter()
+        model = orig[2](self, data, labels_ds)
+        sync()
+        kept["solver_s"] = time.perf_counter() - t
+        kept["X"], kept["Y"] = data.to_array_mode().padded(), labels_ds.to_array_mode().padded()
+        return model
+
+    argv = ["--trainLocation", train_tar, "--testLocation", test_tar, "--labelPath", labels,
+            "--descDim", str(desc_dim), "--vocabSize", str(vocab), "--lambda", str(P9_LAM),
+            "--scaleStep", "0"]
+    out = io.StringIO()
+    _cuda.reset_launches()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    voc.run, voc.score, BLS.fit, voc.VOCLoader = run_keeping_the_fit, score_counting, fit_timed, loader_timed
+    try:
+        with contextlib.redirect_stdout(out), node_times(sync, stages, where):
+            rc = voc.main(argv, device=dev)
+    finally:
+        voc.run, voc.score, BLS.fit, voc.VOCLoader = orig
+    rec["main_s"] = time.perf_counter() - t
+    printed = out.getvalue().splitlines()
+    for ln in printed:
+        log(f"  main: {ln}")
+    assert rc == 0 and len(printed) == 2 and printed[0].startswith("TEST MAP is: "), printed
+    scores = kept["scores"]
+    rec.update(printed=printed, map=kept["map"], fit_launches=kept["fit_launches"],
+               score_launches=kept["score_launches"], solver_s=kept["solver_s"],
+               features=int(kept["X"].shape[1]))
+    if on_card:
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    decode_s = sum(d["s"] for d in kept["decode"])
+    rec["decode"] = dict(kept["decode"][0], test=kept["decode"][1],
+                         images_per_s=(n_train + n_test) / decode_s, s=decode_s)
+    rec["stages"] = {p: dict(sorted(st.items(), key=lambda kv: -kv[1])) for p, st in stages.items()}
+    rec["other_s"] = rec["main_s"] - decode_s - sum(sum(st.values()) for st in stages.values())
+    log(f"  decoding {n_train + n_test} JPEGs {decode_s:.3f} s ({rec['decode']['images_per_s']:.1f} "
+        f"images/s); node seconds (a sync around each), the rest of main() {rec['other_s']:.3f} s:")
+    for p, st in rec["stages"].items():
+        log(f"    {p}: " + ", ".join(f"{name} {v:.3f}" for name, v in st.items()))
+    log(f"VOCSIFTFisher main() on {n_train} + {n_test} JPEGs of sizes {sorted(set(sizes))}, "
+        f"desc_dim {desc_dim}, vocab {vocab} ({rec['features']} features): {rec['main_s']:.3f} s, "
+        f"MAP {kept['map']:.4f}, solver {kept['solver_s']:.3f} s, launches fit "
+        f"{rec['fit_launches']} / scoring {rec['score_launches']}, peak device memory "
+        f"{rec.get('peak_bytes')} bytes on {smi}")
+    assert tuple(scores.shape) == (n_test, P9_CLASSES) and bool(torch.isfinite(scores).all())
+    assert rec["features"] == 2 * desc_dim * vocab
+    assert kept["map"] >= MIN_VOC_MAP, kept["map"]
+    if on_card:
+        for phase in ("fit_launches", "score_launches"):
+            assert rec[phase]["sift_bin_sample"] > 0 and rec[phase]["fisher_vector_stats"] > 0, rec[phase]
+            assert rec[phase]["plane_sandwich"] == 0, rec[phase]
+
+    # -- the fitted chain's features of 4 test images, card against the
+    # same pipeline saved and loaded on the CPU ----------------------------
+    path = os.path.join(root, "voc_pipeline.pt")
+    kept["fitted"].save(path)
+    chains = {dev: voc.features_of(kept["fitted"]),
+              cpu: voc.features_of(api.FittedPipeline.load(path, device=cpu))}
+    test = voc.VOCLoader(test_tar, labels).items()
+    picked = [next(li for li in test if li.image.shape[:2] == hw) for hw in dict.fromkeys(sizes)]
+    picked += [li for li in test if all(li is not p for p in picked)][: 4 - len(picked)]
+    checks = []
+    for li in picked:
+        x = torch.as_tensor(li.image)[None]
+        card, host = chains[dev]._batch_run(x.to(dev)).cpu(), chains[cpu]._batch_run(x)
+        shape = tuple(li.image.shape)
+        err = max_abs_err(card, host, 0.0, FITTED_MAX_ABS_VOC, f"phase 9 features of a {shape} image")
+        beyond = int((~torch.isclose(card, host, rtol=RTOL_FEAT, atol=ATOL_FEAT)).sum())
+        assert beyond <= FITTED_BEYOND_SHARE * card.numel(), (
+            f"phase 9 features of a {shape} image: {beyond} of {card.numel()} entries beyond "
+            f"rtol {RTOL_FEAT} / atol {ATOL_FEAT}, more than {FITTED_BEYOND_SHARE:.1%}")
+        checks.append({"shape": shape, "max_abs_err": err, "beyond_serving_bar": beyond,
+                       "features": card.numel()})
+        log(f"  {shape}: features card vs CPU max abs err {err}, {beyond} of {card.numel()} beyond "
+            f"rtol {RTOL_FEAT} / atol {ATOL_FEAT}")
+    rec["card_vs_cpu"] = checks
+    del chains
+
+    # -- the solver: card against CPU, and from host column blocks --------
+    X, Y = kept["X"], kept["Y"]
+    n, D, k = X.shape[0], X.shape[1], Y.shape[1]
+    model = next(o for o in kept["fitted"].graph.operators.values()
+                 if isinstance(o, block_ls.BlockLinearMapper))
+    est = BLS(voc.BLOCK_SIZE, 1, P9_LAM)
+    t1 = time.perf_counter()
+    on_cpu = est.fit(Dataset.from_array(X.cpu()), Dataset.from_array(Y.cpu()))
+    rec["solver_cpu_s"] = time.perf_counter() - t1
+    rel = {}
+    for what in ("W", "intercept"):
+        got, want = getattr(model, what).cpu(), getattr(on_cpu, what)
+        rel[what] = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+        assert rel[what] <= RTOL_SOLVER_VOC, (what, rel[what])
+    rec["solver_rel_err"] = rel
+    log(f"  solver card vs CPU: ‖ΔW‖/‖W‖ {rel['W']:.3g}, ‖Δb‖/‖b‖ {rel['intercept']:.3g} "
+        f"(CPU fit {rec['solver_cpu_s']:.3f} s)")
+
+    est = BLS(block, 1, P9_LAM)
+    fits = {}
+    for mode in ("in_memory", "host_blocks"):
+        data = (Dataset.from_array(X) if mode == "in_memory" else
+                Dataset.host_blocks_from_batches([X[i:i + 64] for i in range(0, n, 64)],
+                                                 block, device=dev))
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+        t1 = time.perf_counter()
+        m = est.fit(data, Dataset.from_array(Y))
+        sync()
+        fits[mode] = {"model": m, "data": data, "s": time.perf_counter() - t1,
+                      "peak_above_start_bytes": (torch.cuda.max_memory_allocated(dev) - base)
+                      if on_card else None}
+    err = max_abs_err(fits["host_blocks"]["model"].W, fits["in_memory"]["model"].W,
+                      RTOL_HOST_FIT, ATOL_HOST_FIT, "phase 9 host-block fit against the in-memory one")
+    # the mapper's blockwise apply, slab by slab, against its dense apply
+    # (the JAX package's bar, test_host_blocks.py:205)
+    model = fits["host_blocks"]["model"]
+    apply_err = max_abs_err(model.apply_batch(fits["host_blocks"]["data"]).array(),
+                            model.apply_batch(fits["in_memory"]["data"]).array(),
+                            RTOL_HOST_APPLY, ATOL_HOST_APPLY, "phase 9 apply from host blocks against dense")
+    budget = host_block_budget(n, k, block, D)
+    rec["host_blocks"] = {mode: {kk: v for kk, v in f.items() if kk not in ("model", "data")}
+                          for mode, f in fits.items()}
+    rec["host_blocks"].update(max_abs_err=err, apply_max_abs_err=apply_err, budget_bytes=budget,
+                              block=block, slabs=-(-D // block), slab_bytes=4 * n * block)
+    log(f"  host blocks ({-(-D // block)} slabs of {n} x {block}) against in memory: max abs err {err} "
+        f"(their apply {apply_err}); "
+        f"seconds {fits['host_blocks']['s']:.3f} / {fits['in_memory']['s']:.3f}; peak above the start "
+        f"{fits['host_blocks']['peak_above_start_bytes']} / {fits['in_memory']['peak_above_start_bytes']} "
+        f"bytes (budget {budget} bytes) on {smi}")
+    if on_card:
+        assert fits["host_blocks"]["peak_above_start_bytes"] <= budget, rec["host_blocks"]
+    del fits
+
+    # -- persistence: a fresh process loads the pipeline and scores --------
+    params = convert.voc_params(kept["fitted"])
+    scored = os.path.join(root, "scores_loaded.npy")
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", SCORE_SAVED, ROOT, path, test_tar, labels, str(dev), scored],
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    same = bool(np.array_equal(np.load(scored), scores.cpu().numpy()))
+    rec["persistence"] = {"file_bytes": os.path.getsize(path),
+                          "param_bytes": sum(np.asarray(v).nbytes for v in params.values()),
+                          "subprocess_s": time.perf_counter() - t1, "map": loaded["map"],
+                          "scores_equal": same}
+    log(f"  saved pipeline {rec['persistence']['file_bytes']} bytes (parameters "
+        f"{rec['persistence']['param_bytes']}); a fresh process scored the test tar in "
+        f"{rec['persistence']['subprocess_s']:.3f} s: scores equal bit for bit {same}, MAP "
+        f"{loaded['map']} (fitting process {kept['map']})")
+    assert same and loaded["map"] == kept["map"], rec["persistence"]
+    # about the size of the parameters: no caches, no discarded columns
+    assert rec["persistence"]["file_bytes"] <= 1.05 * rec["persistence"]["param_bytes"] + 65536, (
+        rec["persistence"])
+
+    # -- B3 at VOC's shape: one 375 x 500 image's descriptors --------------
+    fv_node = next(o for o in kept["fitted"].graph.operators.values()
+                   if isinstance(o, (fisher_vector.FisherVector, fisher_vector.FisherVectorFused)))
+    pca_node = next(o for o in kept["fitted"].graph.operators.values()
+                    if isinstance(o, pca.BatchPCATransformer))
+    sift_node = next(o for o in kept["fitted"].graph.operators.values()
+                     if isinstance(o, sift.SIFTExtractor))
+    img = torch.as_tensor(picked[0].image).to(dev)
+    gray = core.GrayScaler().apply(core.PixelScaler().apply(img))
+    x = torch.einsum("dk,ndm->nkm", pca_node.pca_mat, sift_node.extract(gray[None]))
+    g = fv_node.gmm
+    args = (x, g.means, g.variances, g.weights, g.weight_threshold)
+    d, m = x.shape[1], x.shape[2]
+    errs = [max_abs_err(a, b, RTOL_FV, ATOL_FV, f"phase 9 fisher_vector_stats d={d} k={g.k} m={m}")
+            for a, b in zip(fv_kernel.fisher_vector_stats(*args),
+                            fv_kernel.fisher_vector_stats_plain(*args))]
+    b_ms, b_by = bound(2 * m * (8 * d * g.k + 12 * g.k), 4 * (x.numel() + 2 * d * g.k + g.k + (1 + 2 * d) * g.k))
+    b3 = {"shape": f"B=1 d={d} k={g.k} m={m} ({tuple(picked[0].image.shape)} image, fitted GMM)",
+          "max_abs_err": max(errs), "bound_ms": b_ms, "bound_by": b_by}
+    if on_card:
+        b3.update(ms=time_ms(lambda: fv_kernel.fisher_vector_stats(*args)),
+                  plain_ms=time_ms(lambda: fv_kernel.fisher_vector_stats_plain(*args)),
+                  library_ms=time_ms(lambda: fv_library(*args)))
+        b3["bound_share"] = b_ms / b3["ms"]
+        log(f"  B3 [{b3['shape']}]: {b3['ms']:.3f} ms (plain {b3['plain_ms']:.3f}, library "
+            f"{b3['library_ms']:.3f}, bound {b_ms:.4f} by {b_by}, share {b3['bound_share']:.3f}), "
+            f"max abs err {b3['max_abs_err']:.3g} on {smi}")
+    rec["b3_voc_shape"] = b3
+    # and at the batch the fit gives it: a chunk of CHUNK_ROWS test images
+    # of this descriptor count (map_rows; 5 calls for 240 training images)
+    xs = []
+    for li in test:
+        gray = core.GrayScaler().apply(core.PixelScaler().apply(torch.as_tensor(li.image).to(dev)))
+        xi = torch.einsum("dk,ndm->nkm", pca_node.pca_mat, sift_node.extract(gray[None]))
+        if xi.shape[2] == m:
+            xs.append(xi)
+        if len(xs) == CHUNK_ROWS:
+            break
+    xb = torch.cat(xs)
+    del xs
+    args = (xb, g.means, g.variances, g.weights, g.weight_threshold)
+    nb = xb.shape[0]
+    errs = [max_abs_err(a, b, RTOL_FV, ATOL_FV, f"phase 9 fisher_vector_stats B={nb} d={d} k={g.k} m={m}")
+            for a, b in zip(fv_kernel.fisher_vector_stats(*args),
+                            fv_kernel.fisher_vector_stats_plain(*args))]
+    b_ms, b_by = bound(2 * nb * m * (8 * d * g.k + 12 * g.k),
+                       4 * (xb.numel() + 2 * d * g.k + g.k + nb * (1 + 2 * d) * g.k))
+    b3b = {"shape": f"B={nb} d={d} k={g.k} m={m} (the fit's chunk of VOC images, fitted GMM)",
+           "max_abs_err": max(errs), "bound_ms": b_ms, "bound_by": b_by}
+    if on_card:
+        b3b.update({k: time_ms(fn, calls=3, rounds=3) for k, fn in (
+            ("ms", lambda: fv_kernel.fisher_vector_stats(*args)),
+            ("plain_ms", lambda: fv_kernel.fisher_vector_stats_plain(*args)),
+            ("library_ms", lambda: fv_library(*args)))})
+        b3b["bound_share"] = b_ms / b3b["ms"]
+        log(f"  B3 [{b3b['shape']}]: {b3b['ms']:.3f} ms (plain {b3b['plain_ms']:.3f}, library "
+            f"{b3b['library_ms']:.3f}, bound {b_ms:.4f} by {b_by}, share {b3b['bound_share']:.3f}), "
+            f"max abs err {b3b['max_abs_err']:.3g} on {smi}")
+    rec["b3_voc_chunk"] = b3b
+    del xb, args
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 9 in {rec['phase_s']:.3f} s on {smi}")
+    return rec
+
+
 def _info(info):
     return None if info is None else {k: float(v) for k, v in info.items()}
 
@@ -1411,11 +1841,19 @@ def main():
     files = real_image_files(dev, smi)
     for r in rows:
         r["phase8_launches"] = files["launches"][r["name"]]
+    torch.cuda.empty_cache()
+
+    # -- 9. VOCSIFTFisher at the paper's widths ---------------------------
+    voc_rec = voc_sift_fisher(dev, smi)
+    for r in rows:
+        r["phase9_fit_launches"] = voc_rec["fit_launches"][r["name"]]
+        r["phase9_score_launches"] = voc_rec["score_launches"][r["name"]]
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": rows, "wide": wide, "serve": served, "train": trained,
-                   "stream": streamed, "files": files, "ptxas": ptxas}, f, indent=1, default=str)
+                   "stream": streamed, "files": files, "voc": voc_rec, "ptxas": ptxas}, f,
+                  indent=1, default=str)
     # the fit's launches and B3's error with the fitted GMMs are in
     # chip_smoke.json beside these
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -14,6 +14,18 @@ returns the port's frozen featurize chain and model head:
     }
 
 ``pca`` is ``BatchPCATransformer.pca_mat`` (projection = ``pcaᵀ · x``).
+
+``voc_from_numpy`` does the same for a fitted VOCSIFTFisher pipeline, whole
+(featurize chain and model), from
+
+    params = {"pca": (128, desc_dim), "means": (desc_dim, vocab),
+              "variances": (desc_dim, vocab), "weights": (vocab,),
+              "threshold": float,
+              "W": (2 · desc_dim · vocab, classes),
+              "feature_mean": (features,), "label_mean": (classes,)}
+
+or ``"intercept"`` (classes,) in place of the two means; ``voc_params``
+takes them out of the port's fitted pipeline.
 """
 
 from __future__ import annotations
@@ -81,6 +93,69 @@ def flagship_params(fitted_featurize, model=None) -> dict:
             "intercept": None if icpt is None else _numpy(icpt),
         }
     return out
+
+
+def _only(fitted, types) -> object:
+    found = [o for o in fitted.graph.operators.values() if isinstance(o, types)]
+    if len(found) != 1:
+        raise ValueError(f"expected one {types} node, found {len(found)}")
+    return found[0]
+
+
+def voc_params(fitted) -> dict:
+    """numpy parameters of a fitted VOCSIFTFisher pipeline of the port, in
+    the layout ``voc_from_numpy`` takes."""
+    from keystone_tpu_torch.ops.images.fisher_vector import (
+        FisherVector,
+        FisherVectorFused,
+    )
+    from keystone_tpu_torch.ops.learning.block_ls import BlockLinearMapper
+    from keystone_tpu_torch.ops.learning.pca import BatchPCATransformer
+
+    gmm = _only(fitted, (FisherVector, FisherVectorFused)).gmm
+    model = _only(fitted, BlockLinearMapper)
+    out = {
+        "pca": _numpy(_only(fitted, BatchPCATransformer).pca_mat),
+        "means": _numpy(gmm.means), "variances": _numpy(gmm.variances),
+        "weights": _numpy(gmm.weights), "threshold": gmm.weight_threshold,
+        "W": _numpy(model.W),
+    }
+    if model.explicit_intercept is None and model.label_mean is not None:
+        out["label_mean"] = _numpy(model.label_mean)
+        if model.feature_mean is not None:
+            out["feature_mean"] = _numpy(model.feature_mean)
+    elif model.intercept is not None:
+        out["intercept"] = _numpy(model.intercept)
+    return out
+
+
+def voc_from_numpy(params: dict, *, scale_step: int = 0,
+                   device=None) -> Tuple[object, object]:
+    """(featurize, model) fitted pipelines of a VOCSIFTFisher pipeline's
+    ``params`` on ``device`` (``None`` means ``cuda``): the chain of
+    ``voc_sift_fisher.featurizer`` and the ``BlockLinearMapper``, as
+    ``build_pipeline`` fits them; ``featurize.and_then(model)`` maps raw
+    images to class scores."""
+    from keystone_tpu_torch.ops.learning.block_ls import BlockLinearMapper
+    from keystone_tpu_torch.ops.learning.gmm import GaussianMixtureModel
+    from keystone_tpu_torch.pipelines.images.voc_sift_fisher import (
+        BLOCK_SIZE,
+        featurizer,
+    )
+
+    dev = resolve_device(device)
+
+    def t(name):
+        a = params.get(name)
+        return None if a is None else torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    gmm = GaussianMixtureModel(t("means"), t("variances"), t("weights"),
+                               float(params.get("threshold", 1e-4)))
+    mapper = BlockLinearMapper(
+        t("W"), BLOCK_SIZE, feature_mean=t("feature_mean"),
+        label_mean=t("label_mean"), explicit_intercept=t("intercept"),
+    )
+    return featurizer(t("pca"), gmm, scale_step).fit(), mapper.to_pipeline().fit()
 
 
 def model_head(W: np.ndarray, intercept: Optional[np.ndarray], top_k: int,

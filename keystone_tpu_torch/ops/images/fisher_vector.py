@@ -122,16 +122,26 @@ class EncEvalGMMFisherVectorEstimator(Estimator):
         return FisherVectorFused(gmm)
 
 
+# the vocabulary from which the Fisher vector runs the fused kernel
+FUSED_MIN_K = 32
+
+
+def fisher_vector_of(gmm: GaussianMixtureModel) -> Transformer:
+    """The Fisher-vector node ``GMMFisherVectorEstimator`` fits around
+    ``gmm``: fused at k >= ``FUSED_MIN_K``, plain products below."""
+    return FisherVectorFused(gmm) if gmm.k >= FUSED_MIN_K else FisherVector(gmm)
+
+
 @dataclasses.dataclass(eq=False)
 class GMMFisherVectorEstimator(Estimator, Optimizable):
-    """The fused kernel at k >= 32 (posteriors never leave the chip),
-    plain products below."""
+    """The fused kernel at k >= ``FUSED_MIN_K`` (posteriors never leave
+    the chip), plain products below."""
 
     k: int
     seed: int = 0
 
     def _choice(self) -> Estimator:
-        if self.k >= 32:
+        if self.k >= FUSED_MIN_K:
             return EncEvalGMMFisherVectorEstimator(self.k, self.seed)
         return ScalaGMMFisherVectorEstimator(self.k, self.seed)
 

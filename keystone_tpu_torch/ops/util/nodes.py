@@ -1,5 +1,6 @@
-"""Representation/utility nodes on the flagship path (counterpart of
-``keystone_tpu/ops/util/nodes.py``: ``ClassLabelIndicators``,
+"""Representation/utility nodes on the flagship and VOC paths
+(counterpart of ``keystone_tpu/ops/util/nodes.py``:
+``ClassLabelIndicators``, ``ClassLabelIndicatorsFromIntArrayLabels``,
 ``TopKClassifier``, ``VectorCombiner``, ``MatrixVectorizer`` and
 ``FloatToDouble``)."""
 
@@ -7,6 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from keystone_tpu_torch.parallel.dataset import Dataset
@@ -33,6 +35,24 @@ class ClassLabelIndicators(Transformer):
         out = _indicators(ds.padded().to(torch.int64), self.num_classes)
         # the indicator of a zero pad row is (+1, -1, ...): keep pad rows zero
         return Dataset.from_array(out * ds.mask()[:, None], n=ds.n)
+
+
+@dataclasses.dataclass(eq=False)
+class ClassLabelIndicatorsFromIntArrayLabels(Transformer):
+    """multi-label int array -> ±1 indicator vector (float32, on the host,
+    as the labels come from the loader; the solver moves them to its
+    device)."""
+
+    num_classes: int
+
+    def apply(self, ys):
+        base = -np.ones(self.num_classes, dtype=np.float32)
+        base[np.asarray(ys, dtype=np.int64)] = 1.0
+        return torch.from_numpy(base)
+
+    def apply_batch(self, ds: Dataset) -> Dataset:
+        # the label arrays differ in length: mapped one by one on the host
+        return Dataset.from_items([self.apply(ys) for ys in ds.items()])
 
 
 def top_k_indices(scores: torch.Tensor, k: int) -> torch.Tensor:

@@ -58,7 +58,7 @@ from keystone_tpu_torch.ops.util.nodes import (
     TopKClassifier,
     VectorCombiner,
 )
-from keystone_tpu_torch.parallel.dataset import Dataset, shape_groups
+from keystone_tpu_torch.parallel.dataset import Dataset, on_device
 from keystone_tpu_torch.workflow.api import Pipeline
 from keystone_tpu_torch.workflow.executor import GraphExecutor
 
@@ -101,7 +101,7 @@ def compute_pca_and_fisher_branch(
     the projected samples, or loaded) → normalization. The training data
     and loaded parameters go to ``device`` (``None`` means ``cuda``)."""
     dev = resolve_device(device)
-    training_data = _on_device(training_data, dev)
+    training_data = on_device(training_data, dev)
     if pca_file is not None:
         pca_mat = np.loadtxt(pca_file, delimiter=",").astype(np.float32)
         pca_pipeline = BatchPCATransformer(
@@ -143,8 +143,8 @@ def build_pipeline(
     ``train_labels`` (int class ids), moved to ``device`` (``None`` means
     ``cuda``), when it is applied or ``fit()``."""
     dev = resolve_device(device)
-    train_images = _on_device(train_images, dev)
-    train_labels = _on_device(train_labels, dev)
+    train_images = on_device(train_images, dev)
+    train_labels = on_device(train_labels, dev)
     indicator_labels = ClassLabelIndicators(conf.num_classes)(train_labels)
 
     sift_prefix = (
@@ -180,35 +180,6 @@ def build_pipeline(
     )
 
 
-def _is_on(t: torch.Tensor, dev: torch.device) -> bool:
-    return t.device.type == dev.type and dev.index in (None, t.device.index)
-
-
-def _on_device(ds: Dataset, dev: torch.device) -> Dataset:
-    """A dataset on ``dev``, the same dataset when it is there already, so
-    that the pipeline's branches and its solver share one source node.
-    Items of one shape (labels, images of one size) become one array;
-    items of several shapes (images as ``ImageNetLoader`` decodes them)
-    stay items, moved one stack per shape."""
-    if not ds.is_array:
-        items = [torch.as_tensor(x) for x in ds.items()]
-        groups = shape_groups(items)
-        if len(groups) == 1:
-            return Dataset.from_array(torch.stack(items).to(dev))
-        if all(isinstance(x, torch.Tensor) and _is_on(x, dev) for x in ds.items()):
-            return ds
-        out = [None] * len(items)
-        for idxs in groups:
-            moved = torch.stack([items[i] for i in idxs]).to(dev)
-            for i, x in zip(idxs, moved.unbind(0)):
-                out[i] = x
-        return Dataset.from_items(out)
-    x = ds.array()
-    if _is_on(x, dev) and ds.padded_n == ds.n:
-        return ds
-    return Dataset.from_array(x.to(dev))
-
-
 def run(train_data: Dataset, test_data: Dataset, conf: ImageNetSiftLcsFVConfig,
         device: Optional[Union[str, torch.device]] = None):
     """Fit on ``train_data`` and classify ``test_data`` (datasets of
@@ -230,9 +201,9 @@ def fit_and_score(train_data: Dataset, test_data: Dataset, conf: ImageNetSiftLcs
     """``run``'s work: (the unfitted predictor, the fitted pipeline that
     classified ``test_data``, its top-5 error)."""
     dev = resolve_device(device)
-    train_images = _on_device(ImageExtractor.apply(train_data), dev)
-    train_labels = _on_device(LabelExtractor.apply(train_data), dev)
-    test_images = _on_device(ImageExtractor.apply(test_data), dev)
+    train_images = on_device(ImageExtractor.apply(train_data), dev)
+    train_labels = on_device(LabelExtractor.apply(train_data), dev)
+    test_images = on_device(ImageExtractor.apply(test_data), dev)
     actual = LabelExtractor.apply(test_data).array().numpy()
 
     predictor = build_pipeline(train_images, train_labels, conf, device=dev)

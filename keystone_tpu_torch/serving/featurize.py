@@ -172,16 +172,15 @@ def build_flagship_featurize_pipeline(
         )
     else:
         from keystone_tpu_torch.ops.util.nodes import VectorCombiner
-        from keystone_tpu_torch.parallel.dataset import Dataset
+        from keystone_tpu_torch.parallel.dataset import Dataset, on_device
         from keystone_tpu_torch.pipelines.images.imagenet_sift_lcs_fv import (
             ImageNetSiftLcsFVConfig,
-            _on_device,
             compute_pca_and_fisher_branch,
         )
         from keystone_tpu_torch.workflow.api import Pipeline
 
         # an array stays one array; a list (of images of any sizes), items
-        images = _on_device(Dataset.of(fit_images), dev)
+        images = on_device(Dataset.of(fit_images), dev)
         conf = ImageNetSiftLcsFVConfig(
             desc_dim=desc_dim, vocab_size=vocab, seed=seed,
             sift_scale_step=sift_scale_step, lcs_stride=lcs_stride,

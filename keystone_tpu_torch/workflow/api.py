@@ -11,7 +11,9 @@ Counterpart of ``keystone_tpu/workflow/api.py``:
 - ``Pipeline.fit()`` executes estimator fits (memoized by structural prefix
   across pipelines) and returns a ``FittedPipeline``. PyTorch runs eagerly,
   so there is no ``jit``: ``FittedPipeline._batch_run`` is the batched
-  apply path the serving engine dispatches.
+  apply path the serving engine dispatches. A ``FittedPipeline`` is saved
+  to a file and loaded, onto a device of the loader's choosing, in
+  another process.
 """
 
 from __future__ import annotations
@@ -414,7 +416,7 @@ class GatherTransformerOperator(TransformerOperator):
 class FittedPipeline:
     """A train-free, transformer-only pipeline. ``apply`` interprets the
     graph node by node; ``compiled()`` puts it behind the bucketed serving
-    engine."""
+    engine; ``save`` and ``load`` carry it to another process."""
 
     def __init__(self, graph: Graph, source: SourceId, sink: SinkId):
         self.graph = graph
@@ -467,3 +469,28 @@ class FittedPipeline:
             self, buckets if buckets is not None else DEFAULT_BUCKETS,
             featurize=featurize, device=device, metrics=metrics, name=name,
         )
+
+    def and_then(self, nxt: "FittedPipeline") -> "FittedPipeline":
+        """This pipeline's output fed to ``nxt``'s input, as one pipeline."""
+        g, _, sink_map = self.graph.connect_graph(
+            nxt.graph, {nxt.source: self.sink}
+        )
+        return FittedPipeline(g, self.source, sink_map[nxt.sink])
+
+    # -- persistence (reference: FittedPipeline is Serializable) ----------
+
+    def save(self, path: str) -> None:
+        """Pickle the pipeline to ``path`` with ``torch.save``: its nodes
+        and their tensors, without the caches nodes attach on first use
+        (``operators.LAZY_CACHES``), so the file is about the size of the
+        parameters. Nodes must be module-level classes."""
+        torch.save(self, path)
+
+    @staticmethod
+    def load(path: str, device=None) -> "FittedPipeline":
+        """The pipeline ``save`` wrote, every tensor on ``device`` (``None``
+        means ``cuda``, raising without it). This unpickles the file, which
+        can run arbitrary code: load only files you trust."""
+        from keystone_tpu_torch._device import resolve_device
+
+        return torch.load(path, map_location=resolve_device(device), weights_only=False)

@@ -9,7 +9,10 @@ save executed prefixes into the global state) and workflow/PipelineEnv.scala
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Optional, Set, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Set, Tuple
+
+import numpy as np
+import torch
 
 from keystone_tpu_torch.observability.tracing import get_tracer
 from keystone_tpu_torch.workflow.expressions import Expression
@@ -22,6 +25,14 @@ from keystone_tpu_torch.workflow.graph import (
     get_ancestors,
 )
 from keystone_tpu_torch.workflow.prefix import Prefix
+
+
+class _Leaf(NamedTuple):
+    """One leaf of a saved dataset: ``raw`` (pickled as it is), ``arr`` (a
+    numpy array in the index) or ``npy`` (the name of its own file)."""
+
+    kind: str
+    payload: Any
 
 
 class PipelineEnv:
@@ -54,6 +65,143 @@ class PipelineEnv:
     def reset(self) -> None:
         self.state = {}
         self._optimizer = None
+
+    # -- persistence (the prefix state is a content-addressed cache keyed
+    # by structural prefix; persisting it lets re-built pipelines in a NEW
+    # process skip recompute) ----------------------------------------------
+
+    def save_state(
+        self,
+        path: str,
+        *,
+        large_array_bytes: int = 1 << 20,
+        max_total_bytes: Optional[int] = None,
+    ) -> None:
+        """Persist every materialized prefix expression to a directory:
+        ``index.pt`` plus one ``.npy`` file per large tensor.
+
+        Tensors of ``large_array_bytes`` or more stream to their own file
+        one at a time (device -> host -> disk, then released), so a cached
+        feature dataset never needs the whole state on the host at once.
+        ``max_total_bytes`` caps what gets written: an entry that would
+        exceed the budget is skipped whole (its files removed and
+        un-charged), in state-iteration order. Unevaluated expressions are
+        skipped, not forced."""
+        import os
+        import pickle
+
+        from keystone_tpu_torch.parallel.dataset import Dataset
+
+        os.makedirs(path, exist_ok=True)
+        index = {}
+        written = 0
+        counter = 0
+
+        def persist_tree(tree):
+            """The tree with large tensors replaced by ``.npy`` file
+            references, or None (files and budget rolled back) if the
+            entry would exceed the budget."""
+            nonlocal counter, written
+            entry_files = []
+            entry_bytes = 0
+
+            def rollback():
+                nonlocal written
+                for f in entry_files:
+                    try:
+                        os.remove(os.path.join(path, f))
+                    except OSError:
+                        pass
+                written -= entry_bytes
+
+            def persist(leaf):
+                nonlocal counter, written, entry_bytes
+                if isinstance(leaf, (tuple, list)):
+                    out = [persist(x) for x in leaf]
+                    return None if any(o is None for o in out) else (
+                        tuple(out) if isinstance(leaf, tuple) else out)
+                if not isinstance(leaf, (torch.Tensor, np.ndarray)):
+                    return _Leaf("raw", leaf)
+                a = leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor) else leaf
+                if max_total_bytes is not None and written + a.nbytes > max_total_bytes:
+                    return None
+                written += a.nbytes
+                entry_bytes += a.nbytes
+                if a.nbytes >= large_array_bytes:
+                    fname = f"arr{counter:05d}.npy"
+                    counter += 1
+                    np.save(os.path.join(path, fname), a)
+                    entry_files.append(fname)
+                    return _Leaf("npy", fname)
+                return _Leaf("arr", a)
+
+            out = persist(tree)
+            if out is None:
+                rollback()
+            return out
+
+        for prefix, expr in self.state.items():
+            if not expr.is_computed:
+                continue
+            value = expr.get()
+            if isinstance(value, Dataset):
+                if value.is_array:
+                    tree = persist_tree(value.padded())
+                    entry = ("dataset_array", tree, value.n)
+                else:
+                    tree = persist_tree(value.items())
+                    entry = ("dataset_items", tree, None)
+                if tree is None:
+                    continue
+            else:
+                entry = ("raw", value, None)
+            try:
+                pickle.dumps(entry)
+                pickle.dumps(prefix)
+            except Exception:
+                continue  # unpicklable (e.g. a closure-defined transformer)
+            index[prefix] = entry
+        torch.save(index, os.path.join(path, "index.pt"))
+
+    def load_state(self, path: str, device=None) -> int:
+        """Load persisted prefix state, every tensor on ``device`` (``None``
+        means ``cuda``, raising without it); returns the number of
+        entries. This unpickles ``index.pt``: load only state you trust."""
+        import os
+
+        from keystone_tpu_torch._device import resolve_device
+        from keystone_tpu_torch.parallel.dataset import Dataset
+        from keystone_tpu_torch.workflow.expressions import (
+            DatasetExpression,
+            DatumExpression,
+        )
+
+        dev = resolve_device(device)
+        saved = torch.load(os.path.join(path, "index.pt"), map_location=dev,
+                           weights_only=False)
+
+        def restore(tree):
+            if isinstance(tree, _Leaf):
+                if tree.kind == "raw":
+                    return tree.payload
+                a = tree.payload
+                if tree.kind == "npy":
+                    a = np.load(os.path.join(path, a))
+                return torch.as_tensor(a).to(dev)
+            if isinstance(tree, list):
+                return [restore(x) for x in tree]
+            return tuple(restore(x) for x in tree)
+
+        for prefix, (kind, payload, n) in saved.items():
+            if kind == "dataset_array":
+                ds = Dataset.from_array(restore(payload), n=n)
+                self.state[prefix] = DatasetExpression.of(ds)
+            elif kind == "dataset_items":
+                ds = Dataset.from_items(restore(payload))
+                self.state[prefix] = DatasetExpression.of(ds)
+            else:
+                self.state[prefix] = DatumExpression.of(payload)
+        return len(saved)
 
 
 class GraphExecutor:

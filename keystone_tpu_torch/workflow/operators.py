@@ -24,6 +24,14 @@ from keystone_tpu_torch.workflow.expressions import (
 )
 
 
+# The caches nodes attach to themselves on first use, left out of a
+# pickle (FittedPipeline.save) and rebuilt on first use after a load: the
+# eq_key digests (api.py) hold tensor references keyed by id(), the SIFT
+# and LCS operators and GrayScaler's weights are device tensors, and an
+# LRU cache's lock cannot be pickled
+LAZY_CACHES = ("_arr_digest_cache", "_operator_cache", "_weight_cache")
+
+
 class Operator:
     label: str = ""
 
@@ -41,13 +49,9 @@ class Operator:
         return hash(self.eq_key())
 
     def __getstate__(self):
-        # process-local state that must not bloat or poison pickles
-        # (FittedPipeline.save): the eq_key digest cache holds array
-        # references keyed by id(); the extractors' operator caches hold
-        # device tensors
         state = dict(self.__dict__)
-        state.pop("_arr_digest_cache", None)
-        state.pop("_operator_cache", None)
+        for name in LAZY_CACHES:
+            state.pop(name, None)
         return state
 
 

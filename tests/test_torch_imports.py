@@ -38,6 +38,17 @@ LOADER_MODULES = [
 ]
 
 
+# the VOC slice's new modules, which the walk must reach too
+VOC_MODULES = [
+    "keystone_tpu_torch." + m for m in (
+        "utils.checkpoint", "ops.learning.hostsolve", "ops.learning.block_ls",
+        "evaluation", "evaluation.multiclass", "evaluation.binary",
+        "evaluation.mean_average_precision", "evaluation.augmented",
+        "workflow.chain_utils", "pipelines.images.voc_sift_fisher",
+    )
+]
+
+
 def _port_sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:
@@ -63,6 +74,7 @@ print("BAD", bad)
 print("TRAINING", sorted(n for n in {TRAINING_MODULES!r} if n not in sys.modules))
 print("SERVING", sorted(n for n in {SERVING_MODULES!r} if n not in sys.modules))
 print("LOADERS", sorted(n for n in {LOADER_MODULES!r} if n not in sys.modules))
+print("VOC", sorted(n for n in {VOC_MODULES!r} if n not in sys.modules))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -74,8 +86,10 @@ print("LOADERS", sorted(n for n in {LOADER_MODULES!r} if n not in sys.modules))
     assert "TRAINING []" in out.stdout, out.stdout
     assert "SERVING []" in out.stdout, out.stdout
     assert "LOADERS []" in out.stdout, out.stdout
+    assert "VOC []" in out.stdout, out.stdout
     assert int(re.search(r"LOADED (\d+)", out.stdout).group(1)) >= (
-        25 + len(TRAINING_MODULES) + len(SERVING_MODULES) + len(LOADER_MODULES))
+        25 + len(TRAINING_MODULES) + len(SERVING_MODULES) + len(LOADER_MODULES)
+        + len(VOC_MODULES))
 
 
 def test_streaming_loader_imports_neither_torch_nor_jax():
@@ -198,3 +212,40 @@ def test_training_entry_points_need_cuda_unless_given_the_cpu(monkeypatch):
     assert out.shape == (4, dim) and bool(torch.isfinite(out).all())
     _, err = run(data, data, conf, device="cpu")
     assert 0.0 <= err <= 1.0
+
+
+def test_voc_entry_points_need_cuda_unless_given_the_cpu(monkeypatch, tmp_path):
+    from keystone_tpu_torch import convert
+    from keystone_tpu_torch.loaders.image_loaders import LabeledImage
+    from keystone_tpu_torch.ops.stats.nodes import NormalizeRows
+    from keystone_tpu_torch.parallel.dataset import Dataset
+    from keystone_tpu_torch.pipelines.images import voc_sift_fisher as voc
+    from keystone_tpu_torch.workflow.api import FittedPipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    items = []
+    for i in range(6):
+        li = LabeledImage(rng.integers(0, 256, (40, 48, 3)).astype(np.float32), -1)
+        li.labels = [i % 3, (i + 1) % 3]
+        items.append(li)
+    data = Dataset.from_items(items)
+    conf = voc.SIFTFisherConfig(desc_dim=4, vocab_size=2, num_classes=3,
+                                num_pca_samples_per_image=8, num_gmm_samples_per_image=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        voc.run(data, data, conf)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        voc.main(["--trainLocation", "x", "--testLocation", "y", "--labelPath", "z"])
+    images = Dataset.from_items([li.image for li in items])
+    labels = Dataset.from_array(torch.ones(6, 3))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        voc.build_pipeline(images, labels, conf)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.voc_from_numpy({})
+    _, mean_ap = voc.run(data, data, conf, device="cpu")
+    assert 0.0 <= mean_ap <= 1.0 + 1e-12  # eleven sums of precision / 11
+    path = str(tmp_path / "p.pt")
+    NormalizeRows().to_pipeline().fit().save(path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FittedPipeline.load(path)
+    assert isinstance(FittedPipeline.load(path, device="cpu"), FittedPipeline)

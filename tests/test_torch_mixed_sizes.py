@@ -28,7 +28,7 @@ from keystone_tpu_torch.ops.images import lcs as tlcs
 from keystone_tpu_torch.ops.images import sift as tsift
 from keystone_tpu_torch.ops.learning import gmm as tgmm
 from keystone_tpu_torch.ops.learning import pca as tpca
-from keystone_tpu_torch.parallel.dataset import Dataset
+from keystone_tpu_torch.parallel.dataset import Dataset, on_device
 from keystone_tpu_torch.pipelines.images import imagenet_sift_lcs_fv as tflagship
 from keystone_tpu_torch.utils.lru import OPERATOR_SHAPES, LRUCache
 from keystone_tpu_torch.workflow.executor import PipelineEnv as TEnv
@@ -258,16 +258,16 @@ def test_on_device_keeps_mixed_sizes_as_items():
     (labels, images of one size) become one array."""
     raw = raw_images()
     ds = Dataset.from_items(raw)
-    on = tflagship._on_device(ds, torch.device("cpu"))
+    on = on_device(ds, torch.device("cpu"))
     assert not on.is_array and on.n == len(raw)
     for x, r in zip(on.items(), raw):
         assert isinstance(x, torch.Tensor)
         np.testing.assert_array_equal(x.numpy(), r)
-    assert tflagship._on_device(on, torch.device("cpu")) is on
-    same = tflagship._on_device(Dataset.from_items([r for r in raw if r.shape == raw[0].shape]),
+    assert on_device(on, torch.device("cpu")) is on
+    same = on_device(Dataset.from_items([r for r in raw if r.shape == raw[0].shape]),
                                 torch.device("cpu"))
     assert same.is_array and same.n == 3 and tuple(same.array().shape) == (3, *raw[0].shape)
-    labels = tflagship._on_device(Dataset.from_items([3, 1, 4]), torch.device("cpu"))
+    labels = on_device(Dataset.from_items([3, 1, 4]), torch.device("cpu"))
     assert labels.is_array and labels.array().tolist() == [3, 1, 4]
 
 

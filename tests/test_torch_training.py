@@ -38,7 +38,7 @@ from keystone_tpu_torch.ops.learning import weighted_ls as twls
 from keystone_tpu_torch.ops.stats.nodes import ColumnSampler
 from keystone_tpu_torch.ops.util.cacher import Cacher
 from keystone_tpu_torch.ops.util.nodes import ClassLabelIndicators
-from keystone_tpu_torch.parallel.dataset import Dataset
+from keystone_tpu_torch.parallel.dataset import Dataset, on_device
 from keystone_tpu_torch.pipelines.images import imagenet_sift_lcs_fv as tflagship
 from keystone_tpu_torch.serving.featurize import (
     build_flagship_featurize_pipeline as torch_build,
@@ -617,7 +617,7 @@ def test_fit_images_params_rebuild_the_same_chain(fit_images_chains):
 
 def test_run_labels_and_images_go_to_the_device():
     train = _port_data(_synthetic_imagenet(n_per_class=2, num_classes=2, seed=0))
-    images = tflagship._on_device(tflagship.ImageExtractor.apply(train), torch.device("cpu"))
+    images = on_device(tflagship.ImageExtractor.apply(train), torch.device("cpu"))
     labels = tflagship.LabelExtractor.apply(train)
     assert images.is_array and images.n == 4 and tuple(images.first().shape) == (48, 48, 3)
     np.testing.assert_array_equal(np_(labels.array()), [0, 0, 1, 1])
@@ -626,6 +626,6 @@ def test_run_labels_and_images_go_to_the_device():
     # and its solver share one source node
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        assert tflagship._on_device(images, torch.device("cpu")) is images
+        assert on_device(images, torch.device("cpu")) is images
     padded = Dataset.from_array(images.padded(), n=3)
-    assert tflagship._on_device(padded, torch.device("cpu")).padded_n == 3
+    assert on_device(padded, torch.device("cpu")).padded_n == 3
