@@ -26,6 +26,22 @@ returns the port's frozen featurize chain and model head:
 
 or ``"intercept"`` (classes,) in place of the two means; ``voc_params``
 takes them out of the port's fitted pipeline.
+
+The random-features apps carry across the same way, each ``*_params``
+taking the numpy parameters out of the port's fitted pipeline and each
+``*_from_numpy`` building the port's fitted pipeline from them:
+
+- RandomPatchCifar (``random_patch_cifar_*``), raw images to class ids:
+  ``{"filters": (F, k·k·3), "img_size", "whitener": (k·k·3, k·k·3),
+  "whitener_means": (k·k·3,)`` (both absent without a whitener)``, "alpha", "pool_stride", "pool_size",
+  "scaler_mean": (D,), "scaler_std": (D,), "W": (D, classes),
+  "feature_mean", "label_mean"}`` (or ``"intercept"``);
+- MnistRandomFFT (``mnist_random_fft_*``), pixel rows to class ids:
+  ``{"signs": (num_ffts, d), "rectify_threshold", "W", "feature_mean",
+  "label_mean"}``;
+- a kernel ridge regression model (``krr_*``), feature rows to scores:
+  ``{"train_X": (n, d), "n_train", "gamma", "W": (n, classes),
+  "block_size"}``.
 """
 
 from __future__ import annotations
@@ -118,8 +134,14 @@ def voc_params(fitted) -> dict:
         "pca": _numpy(_only(fitted, BatchPCATransformer).pca_mat),
         "means": _numpy(gmm.means), "variances": _numpy(gmm.variances),
         "weights": _numpy(gmm.weights), "threshold": gmm.weight_threshold,
-        "W": _numpy(model.W),
     }
+    out.update(_block_model_params(model))
+    return out
+
+
+def _block_model_params(model) -> dict:
+    """A ``BlockLinearMapper``'s ``W`` and its means (or its intercept)."""
+    out = {"W": _numpy(model.W)}
     if model.explicit_intercept is None and model.label_mean is not None:
         out["label_mean"] = _numpy(model.label_mean)
         if model.feature_mean is not None:
@@ -129,6 +151,23 @@ def voc_params(fitted) -> dict:
     return out
 
 
+def _tensors(params: dict, dev):
+    """``t(name)``: ``params[name]`` as a float32 tensor on ``dev``, or None."""
+    def t(name):
+        a = params.get(name)
+        return None if a is None else torch.tensor(np.asarray(a, np.float32), device=dev)
+    return t
+
+
+def _block_model(t, block_size: int):
+    from keystone_tpu_torch.ops.learning.block_ls import BlockLinearMapper
+
+    return BlockLinearMapper(
+        t("W"), block_size, feature_mean=t("feature_mean"),
+        label_mean=t("label_mean"), explicit_intercept=t("intercept"),
+    )
+
+
 def voc_from_numpy(params: dict, *, scale_step: int = 0,
                    device=None) -> Tuple[object, object]:
     """(featurize, model) fitted pipelines of a VOCSIFTFisher pipeline's
@@ -136,26 +175,118 @@ def voc_from_numpy(params: dict, *, scale_step: int = 0,
     ``voc_sift_fisher.featurizer`` and the ``BlockLinearMapper``, as
     ``build_pipeline`` fits them; ``featurize.and_then(model)`` maps raw
     images to class scores."""
-    from keystone_tpu_torch.ops.learning.block_ls import BlockLinearMapper
     from keystone_tpu_torch.ops.learning.gmm import GaussianMixtureModel
     from keystone_tpu_torch.pipelines.images.voc_sift_fisher import (
         BLOCK_SIZE,
         featurizer,
     )
 
-    dev = resolve_device(device)
-
-    def t(name):
-        a = params.get(name)
-        return None if a is None else torch.tensor(np.asarray(a, np.float32), device=dev)
-
+    t = _tensors(params, resolve_device(device))
     gmm = GaussianMixtureModel(t("means"), t("variances"), t("weights"),
                                float(params.get("threshold", 1e-4)))
-    mapper = BlockLinearMapper(
-        t("W"), BLOCK_SIZE, feature_mean=t("feature_mean"),
-        label_mean=t("label_mean"), explicit_intercept=t("intercept"),
-    )
+    mapper = _block_model(t, BLOCK_SIZE)
     return featurizer(t("pca"), gmm, scale_step).fit(), mapper.to_pipeline().fit()
+
+
+def random_patch_cifar_params(fitted) -> dict:
+    """numpy parameters of a fitted RandomPatchCifar pipeline of the port
+    (or of RandomCifar's conv chain with a block model), in the layout
+    ``random_patch_cifar_from_numpy`` takes."""
+    from keystone_tpu_torch.ops.images.core import Convolver, Pooler, SymmetricRectifier
+    from keystone_tpu_torch.ops.learning.block_ls import BlockLinearMapper
+    from keystone_tpu_torch.ops.stats.nodes import StandardScalerModel
+
+    conv = _only(fitted, Convolver)
+    pool = _only(fitted, Pooler)
+    scaler = _only(fitted, StandardScalerModel)
+    out = {
+        "filters": _numpy(conv.filters), "img_size": conv.img_width,
+        "alpha": _only(fitted, SymmetricRectifier).alpha,
+        "pool_stride": pool.stride, "pool_size": pool.pool_size,
+        "scaler_mean": _numpy(scaler.mean),
+        "scaler_std": None if scaler.std is None else _numpy(scaler.std),
+    }
+    if conv.whitener is not None:
+        out["whitener"] = _numpy(conv.whitener.whitener)
+        out["whitener_means"] = _numpy(conv.whitener.means)
+    out.update(_block_model_params(_only(fitted, BlockLinearMapper)))
+    return out
+
+
+def random_patch_cifar_from_numpy(params: dict, *, block_size: int = 4096,
+                                  device=None):
+    """The fitted RandomPatchCifar pipeline of ``params`` on ``device``
+    (``None`` means ``cuda``): Convolver → SymmetricRectifier → Pooler →
+    ImageVectorizer → StandardScalerModel → BlockLinearMapper →
+    MaxClassifier, raw (size, size, 3) images to class ids."""
+    from keystone_tpu_torch.ops.learning.zca import ZCAWhitener
+    from keystone_tpu_torch.ops.stats.nodes import StandardScalerModel
+    from keystone_tpu_torch.ops.util.nodes import MaxClassifier
+    from keystone_tpu_torch.pipelines.images.random_patch_cifar import featurizer
+
+    t = _tensors(params, resolve_device(device))
+    whitener = None
+    if params.get("whitener") is not None:
+        whitener = ZCAWhitener(t("whitener"), t("whitener_means"))
+    return (
+        featurizer(t("filters"), whitener, float(params["alpha"]), int(params["pool_stride"]),
+                   int(params["pool_size"]), int(params["img_size"]))
+        .and_then(StandardScalerModel(t("scaler_mean"), t("scaler_std")))
+        .and_then(_block_model(t, block_size))
+        .and_then(MaxClassifier())
+        .fit()
+    )
+
+
+def mnist_random_fft_params(fitted) -> dict:
+    """numpy parameters of a fitted fused MnistRandomFFT pipeline of the
+    port (its ``RandomFFTFeatures`` node and block model)."""
+    from keystone_tpu_torch.ops.learning.block_ls import BlockLinearMapper
+    from keystone_tpu_torch.ops.stats.nodes import RandomFFTFeatures
+
+    fft = _only(fitted, RandomFFTFeatures)
+    out = {"signs": _numpy(fft.signs), "rectify_threshold": fft.rectify_threshold}
+    out.update(_block_model_params(_only(fitted, BlockLinearMapper)))
+    return out
+
+
+def mnist_random_fft_from_numpy(params: dict, *, block_size: int = 2048, device=None):
+    """The fitted MnistRandomFFT pipeline of ``params`` on ``device``
+    (``None`` means ``cuda``): RandomFFTFeatures → BlockLinearMapper →
+    MaxClassifier, pixel rows to class ids."""
+    from keystone_tpu_torch.ops.stats.nodes import RandomFFTFeatures
+    from keystone_tpu_torch.ops.util.nodes import MaxClassifier
+
+    t = _tensors(params, resolve_device(device))
+    fft = RandomFFTFeatures(t("signs"), float(params.get("rectify_threshold", 0.0)))
+    return fft.and_then(_block_model(t, block_size)).and_then(MaxClassifier()).fit()
+
+
+def krr_params(fitted) -> dict:
+    """numpy parameters of the ``KernelBlockLinearMapper`` a fitted
+    pipeline of the port holds (or of the mapper itself)."""
+    from keystone_tpu_torch.ops.learning.kernel import KernelBlockLinearMapper
+
+    m = fitted if isinstance(fitted, KernelBlockLinearMapper) else _only(
+        fitted, KernelBlockLinearMapper)
+    kt = m.kernel_transformer
+    return {"train_X": _numpy(kt.train_X), "n_train": int(kt.n_train),
+            "gamma": float(kt.gamma), "W": _numpy(m.model), "block_size": m.block_size}
+
+
+def krr_from_numpy(params: dict, *, device=None):
+    """The fitted kernel ridge regression model of ``params`` on ``device``
+    (``None`` means ``cuda``): feature rows to (rows, classes) scores,
+    K(x, train) · W accumulated block by block."""
+    from keystone_tpu_torch.ops.learning.kernel import (
+        GaussianKernelTransformer,
+        KernelBlockLinearMapper,
+    )
+
+    t = _tensors(params, resolve_device(device))
+    n = int(params["n_train"])
+    kt = GaussianKernelTransformer(t("train_X"), n, float(params["gamma"]))
+    return KernelBlockLinearMapper(t("W"), int(params["block_size"]), kt, n).to_pipeline().fit()
 
 
 def model_head(W: np.ndarray, intercept: Optional[np.ndarray], top_k: int,

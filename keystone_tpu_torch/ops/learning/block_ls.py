@@ -75,19 +75,20 @@ def _f32_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(_f32(a), _f32(b))
 
 
-def _psd_solve_device(gram: torch.Tensor, rhs: torch.Tensor, lam: float,
-                      refine: int = 2) -> torch.Tensor:
-    """(gram + lam·I) X = rhs on the device: a float32 Cholesky factor and
-    ``refine`` iterative-refinement steps, which recover most of the
-    float64 accuracy of the reference's single-node solve
-    (BlockLinearMapper.scala:234-240). ``gram`` becomes gram + lam·I in
-    place. The factor's success is read once (one host sync); only when it
-    failed (indefiniteness from float32 rounding) is the system solved by
-    ``eigh`` with the eigenvalues clamped, as ``hostsolve.py`` does."""
-    A = gram
-    A.diagonal().add_(lam)
-    L, info = torch.linalg.cholesky_ex(A)
-    ok = bool(((info == 0) & torch.isfinite(L).all()).item())
+def _psd_solve_with_factor(A: torch.Tensor, L: torch.Tensor, rhs: torch.Tensor,
+                           refine: int = 2, ok: Optional[bool] = None) -> torch.Tensor:
+    """A X = rhs given the (already-ridged) ``A``'s lower Cholesky factor
+    ``L``: float32 and ``refine`` iterative-refinement steps, which recover
+    most of the float64 accuracy of the reference's single-node solve
+    (BlockLinearMapper.scala:234-240). ``ok`` says whether the factor
+    succeeded; when it is not given, a non-finite ``L`` means it failed
+    (one host sync). A failed factor (indefiniteness from float32 rounding)
+    is replaced by ``eigh`` with the eigenvalues clamped, as
+    ``hostsolve.py`` does, up to ``EIGH_MAX_ROWS`` rows. Shared by the
+    fresh-factor path below and the cached kernel ridge regression's
+    factor bank (``kernel.py``)."""
+    if ok is None:
+        ok = bool(torch.isfinite(L).all().item())
     if ok:
         W = torch.cholesky_solve(rhs, L)
         for _ in range(refine):
@@ -98,6 +99,19 @@ def _psd_solve_device(gram: torch.Tensor, rhs: torch.Tensor, lam: float,
     w, V = torch.linalg.eigh(A)
     w = torch.maximum(w, 1e-12 * torch.clamp(w[-1], min=1.0))
     return torch.matmul(V, torch.matmul(V.T, rhs) / w[:, None])
+
+
+def _psd_solve_device(gram: torch.Tensor, rhs: torch.Tensor, lam: float,
+                      refine: int = 2) -> torch.Tensor:
+    """(gram + lam·I) X = rhs on the device: a float32 Cholesky factor,
+    then the refined solve of ``_psd_solve_with_factor``. ``gram`` becomes
+    gram + lam·I in place. The factor's success is read once (one host
+    sync)."""
+    A = gram
+    A.diagonal().add_(lam)
+    L, info = torch.linalg.cholesky_ex(A)
+    ok = bool(((info == 0) & torch.isfinite(L).all()).item())
+    return _psd_solve_with_factor(A, L, rhs, refine, ok)
 
 
 def _add_contribution(R, Xb, Wb, mu_b, mask, sign: float) -> None:

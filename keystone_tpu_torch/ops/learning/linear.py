@@ -1,0 +1,98 @@
+"""Dense linear maps and exact least-squares solvers (counterpart of
+``keystone_tpu/ops/learning/linear.py``; ``SparseLinearMapper`` is not
+ported yet).
+
+Reference: nodes/learning/LinearMapper.scala (LinearMapper/LinearMapEstimator
+— mlmatrix NormalEquations) and LocalLeastSquaresEstimator.scala (dual-form
+OLS for d >> n). The Gram matrices are float32 products on the data's
+device (TF32 off on the card, the JAX package's ``Precision.HIGHEST``);
+the small (d, d) or (n, n) system is solved on the host in float64
+(``hostsolve.py``), as the reference solves it on one node.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from keystone_tpu_torch.ops.learning.block_ls import _f32_mm
+from keystone_tpu_torch.ops.learning.hostsolve import psd_solve_host
+from keystone_tpu_torch.parallel.dataset import Dataset
+from keystone_tpu_torch.utils.precision import mm
+from keystone_tpu_torch.workflow.api import LabelEstimator, Transformer
+
+
+@dataclasses.dataclass(eq=False)
+class LinearMapper(Transformer):
+    """x -> x @ W (+ intercept), optionally standard-scaling the input first
+    (reference: nodes/learning/LinearMapper.scala:18)."""
+
+    W: Any  # (d, k)
+    intercept: Optional[Any] = None  # (k,)
+    feature_scaler: Optional[Any] = None  # StandardScalerModel or None
+
+    def apply(self, x):
+        if self.feature_scaler is not None:
+            x = self.feature_scaler.apply(x)
+        out = mm(x, self.W)
+        if self.intercept is not None:
+            out = out + self.intercept
+        return out
+
+    def apply_batch(self, ds: Dataset) -> Dataset:
+        if self.feature_scaler is not None:
+            ds = self.feature_scaler.apply_batch(ds)
+        out = mm(ds.padded(), self.W)
+        if self.intercept is not None:
+            out = (out + self.intercept) * ds.mask()[:, None]
+        return Dataset.from_array(out, n=ds.n)
+
+
+@dataclasses.dataclass(eq=False)
+class LinearMapEstimator(LabelEstimator):
+    """Exact OLS via normal equations with optional L2: solve
+    (AᵀA + λI) W = Aᵀb (reference: LinearMapper.scala:69-116 — mlmatrix
+    NormalEquations)."""
+
+    lam: float = 0.0
+
+    def fit(self, data: Dataset, labels: Dataset) -> LinearMapper:
+        A = data.padded()
+        b = labels.to_array_mode().padded().to(A.device)
+        gram = _f32_mm(A.T, A)
+        rhs = _f32_mm(A.T, b)
+        W = psd_solve_host(gram.cpu().numpy(), rhs.cpu().numpy(), self.lam)
+        return LinearMapper(torch.as_tensor(W, dtype=A.dtype, device=A.device))
+
+    def cost(self, n, d, k, sparsity, num_machines, cpu_weight, mem_weight,
+             network_weight):
+        """Exact normal-equations cost (reference:
+        LinearMapper.scala:100-115)."""
+        flops = n * float(d) * (d + k) / num_machines
+        bytes_scanned = n * float(d) / num_machines + float(d) * d
+        network = float(d) * (d + k)
+        return (
+            max(cpu_weight * flops, mem_weight * bytes_scanned)
+            + network_weight * network
+        )
+
+
+@dataclasses.dataclass(eq=False)
+class LocalLeastSquaresEstimator(LabelEstimator):
+    """Dual-form OLS for d >> n: W = Aᵀ (A Aᵀ + λ n I)⁻¹ b (reference:
+    nodes/learning/LocalLeastSquaresEstimator.scala:35): the (n, n) Gram on
+    the device, its solve and Aᵀα on the host in float64, as in the JAX
+    package."""
+
+    lam: float = 0.0
+
+    def fit(self, data: Dataset, labels: Dataset) -> LinearMapper:
+        A = data.array()
+        b = labels.to_array_mode().array()
+        n = A.shape[0]
+        K = _f32_mm(A, A.T)
+        alpha = psd_solve_host(K.cpu().numpy(), b.cpu().numpy(), self.lam * n)
+        W = A.cpu().numpy().T @ alpha
+        return LinearMapper(torch.as_tensor(W, dtype=A.dtype, device=A.device))

@@ -1,16 +1,149 @@
-"""Statistical feature nodes on the flagship path (counterpart of
-``keystone_tpu/ops/stats/nodes.py``: ``NormalizeRows``,
-``SignedHellingerMapper`` and ``ColumnSampler``)."""
+"""Statistical feature nodes (counterpart of
+``keystone_tpu/ops/stats/nodes.py``): the flagship path's
+``NormalizeRows``, ``SignedHellingerMapper`` and ``ColumnSampler``, and
+the random-features apps' ``RandomSignNode``, ``PaddedFFT``,
+``RandomFFTFeatures``, ``LinearRectifier``, ``StandardScaler`` and
+``Sampler``.
+
+Reference: nodes/stats/*.scala. Random signs and sample indices are drawn
+with numpy generators seeded as in the JAX package, so both packages draw
+the same numbers; the FFTs are ``torch.fft.rfft`` (cuFFT on the card),
+whose bins are the first half of the full transform's.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from keystone_tpu_torch.parallel.dataset import Dataset
-from keystone_tpu_torch.workflow.api import Transformer
+from keystone_tpu_torch.utils.chunks import map_rows, rows_for
+from keystone_tpu_torch.workflow.api import Estimator, FunctionNode, Transformer
+from keystone_tpu_torch.workflow.operators import cached_on
+
+
+def _pad_len(d: int) -> int:
+    """The next power of two at or above ``d``."""
+    return int(2 ** np.ceil(np.log2(max(d, 1))))
+
+
+def _signs(d: int, seed: int) -> np.ndarray:
+    """(d,) float32 ±1 drawn as the JAX package's RandomSignNode.create."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 2, size=d).astype(np.float32) * 2.0 - 1.0
+
+
+def _fft_real_half(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Real parts of the first pad/2 bins of the zero-padded FFT along the
+    last axis (PaddedFFT.scala: Breeze fourierTr, x(0 until pad/2).real)."""
+    return torch.fft.rfft(x.to(torch.float32), n=pad, dim=-1).real[..., : pad // 2]
+
+
+@dataclasses.dataclass(eq=False)
+class RandomSignNode(Transformer):
+    """Elementwise multiply by a fixed ±1 sign vector (reference:
+    nodes/stats/RandomSignNode.scala:10; factory draws Binomial signs)."""
+
+    signs: Any  # (d,) tensor of ±1
+
+    def __post_init__(self):
+        self.signs = torch.as_tensor(self.signs)
+
+    @staticmethod
+    def create(d: int, seed: int = 0, device=None) -> "RandomSignNode":
+        return RandomSignNode(torch.as_tensor(_signs(d, seed), device=device))
+
+    def apply(self, x):
+        return x * cached_on(self, "signs", lambda: self.signs, x.device)
+
+    def apply_batch(self, ds: Dataset) -> Dataset:
+        return Dataset.from_array(self.apply(ds.padded()), n=ds.n)
+
+
+@dataclasses.dataclass(eq=False)
+class PaddedFFT(Transformer):
+    """Zero-pad to the next power of two, real FFT, keep the real parts of
+    the first half (reference: nodes/stats/PaddedFFT.scala:13)."""
+
+    def apply(self, x):
+        return _fft_real_half(x, _pad_len(x.shape[-1]))
+
+    def apply_batch(self, ds: Dataset) -> Dataset:
+        return Dataset.from_array(self.apply(ds.padded()), n=ds.n)
+
+    def eq_key(self):
+        return ("padded_fft",)
+
+
+@dataclasses.dataclass(eq=False)
+class RandomFFTFeatures(Transformer):
+    """All ``num_ffts`` random-sign -> PaddedFFT -> rectify branches of
+    the MnistRandomFFT featurization as one batched transform (reference
+    composes per-branch pipelines, MnistRandomFFT.scala:28-37): one
+    (num_ffts, d) sign matrix and one batched FFT per chunk of rows
+    (``utils.chunks.rows_for`` of the (num_ffts, pad) intermediate a row
+    makes), written into one (n, num_ffts · pad/2) output."""
+
+    signs: Any  # (num_ffts, d)
+    rectify_threshold: float = 0.0
+
+    def __post_init__(self):
+        self.signs = torch.as_tensor(self.signs)
+
+    @staticmethod
+    def create(d: int, num_ffts: int, seed: int = 0,
+               rectify_threshold: float = 0.0, device=None) -> "RandomFFTFeatures":
+        """Branch i's signs match ``RandomSignNode.create(d, seed + i)``,
+        so the fused node is numerically interchangeable with the
+        composed per-branch pipelines."""
+        signs = np.stack([_signs(d, seed + i) for i in range(num_ffts)])
+        return RandomFFTFeatures(torch.as_tensor(signs, device=device),
+                                 rectify_threshold=rectify_threshold)
+
+    @property
+    def out_dim(self) -> int:
+        return self.signs.shape[0] * (_pad_len(self.signs.shape[1]) // 2)
+
+    def _features(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., d) -> (..., num_ffts · pad/2)."""
+        signs = cached_on(self, "signs", lambda: self.signs, x.device)
+        spec = _fft_real_half(x[..., None, :] * signs, _pad_len(x.shape[-1]))
+        out = torch.clamp(spec, min=self.rectify_threshold)
+        return out.reshape(x.shape[:-1] + (-1,))
+
+    def apply(self, x):
+        return self._features(x)
+
+    def apply_batch(self, ds: Dataset) -> Dataset:
+        x = ds.padded()
+        rows = rows_for(self.signs.shape[0] * _pad_len(x.shape[-1]) * 4)
+        out = map_rows(self._features, x, rows)
+        if self.rectify_threshold > 0:
+            # pad rows rectify to the threshold: keep them zero
+            out *= ds.mask()[:, None]
+        return Dataset.from_array(out, n=ds.n)
+
+
+@dataclasses.dataclass(eq=False)
+class LinearRectifier(Transformer):
+    """max(max_val, x - alpha) (reference:
+    nodes/stats/LinearRectifier.scala:12)."""
+
+    max_val: float = 0.0
+    alpha: float = 0.0
+
+    def apply(self, x):
+        return torch.clamp(x - self.alpha, min=self.max_val)
+
+    def apply_batch(self, ds: Dataset) -> Dataset:
+        out = self.apply(ds.padded())
+        if self.max_val > 0 or self.alpha < 0:
+            # rectified zero pad rows would be nonzero: keep the invariant
+            out = out * ds.mask()[:, None]
+        return Dataset.from_array(out, n=ds.n)
 
 
 @dataclasses.dataclass(eq=False)
@@ -86,3 +219,71 @@ class ColumnSampler(Transformer):
 
     def eq_key(self):
         return ("column_sampler", self.num_cols, self.seed)
+
+
+@dataclasses.dataclass(eq=False)
+class StandardScalerModel(Transformer):
+    """x -> (x - mean) / std (std division optional). Pad rows are
+    re-zeroed after centering so downstream Gram-matrix math stays exact
+    (reference: nodes/stats/StandardScaler.scala:16)."""
+
+    mean: Any  # (d,)
+    std: Optional[Any] = None  # (d,) or None
+
+    def apply(self, x):
+        out = x - cached_on(self, "mean", lambda: self.mean, x.device)
+        if self.std is not None:
+            out = out / cached_on(self, "std", lambda: self.std, x.device)
+        return out
+
+    def apply_batch(self, ds: Dataset) -> Dataset:
+        out = self.apply(ds.padded()) * ds.mask()[:, None]
+        return Dataset.from_array(out, n=ds.n)
+
+
+@dataclasses.dataclass(eq=False)
+class StandardScaler(Estimator):
+    """Column mean and std in one pass over the rows (reference:
+    nodes/stats/StandardScaler.scala:38, a treeAggregate of a
+    MultivariateOnlineSummarizer): float32 sums of x and x², unbiased
+    variance (n − 1), a std below ``eps`` taken as 1, as in the JAX
+    package."""
+
+    normalize_std_dev: bool = True
+    eps: float = 1e-12
+
+    def fit(self, data: Dataset) -> StandardScalerModel:
+        x = data.padded().to(torch.float32)
+        n = data.n
+        s1 = torch.sum(x, dim=0)  # pad rows are zero — exact
+        s2 = torch.sum(x * x, dim=0)
+        mean = s1 / n
+        if not self.normalize_std_dev:
+            return StandardScalerModel(mean, None)
+        var = (s2 - n * mean * mean) / max(n - 1, 1)
+        std = torch.sqrt(torch.clamp(var, min=0.0))
+        std = torch.where(std < self.eps, torch.ones_like(std), std)
+        return StandardScalerModel(mean, std)
+
+
+class Sampler(FunctionNode):
+    """Eager takeSample of ~``size`` examples (reference:
+    nodes/stats/Sampling.scala:28): the JAX package's sorted
+    ``default_rng(seed).choice`` indices, gathered on the data's device
+    (the sample of 100,000 windows of CIFAR-10's 36 M never sends the
+    windows to the host)."""
+
+    def __init__(self, size: int, seed: int = 0):
+        self.size = size
+        self.seed = seed
+
+    def apply(self, data: Any) -> Dataset:
+        ds = Dataset.of(data)
+        rng = np.random.default_rng(self.seed)
+        k = min(self.size, ds.n)
+        idx = np.sort(rng.choice(ds.n, size=k, replace=False))
+        if ds.is_array and not isinstance(ds.padded(), tuple):
+            x = ds.padded()
+            return Dataset.from_array(x[torch.as_tensor(idx, device=x.device)], n=k)
+        items = ds.items()
+        return Dataset.from_items([items[i] for i in idx])

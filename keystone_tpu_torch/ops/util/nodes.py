@@ -1,18 +1,39 @@
-"""Representation/utility nodes on the flagship and VOC paths
-(counterpart of ``keystone_tpu/ops/util/nodes.py``:
+"""Representation/utility nodes (counterpart of
+``keystone_tpu/ops/util/nodes.py``): ``VectorSplitter``,
 ``ClassLabelIndicators``, ``ClassLabelIndicatorsFromIntArrayLabels``,
-``TopKClassifier``, ``VectorCombiner``, ``MatrixVectorizer`` and
-``FloatToDouble``)."""
+``MaxClassifier``, ``TopKClassifier``, ``VectorCombiner``,
+``MatrixVectorizer`` and ``FloatToDouble``."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, List
 
 import numpy as np
 import torch
 
 from keystone_tpu_torch.parallel.dataset import Dataset
-from keystone_tpu_torch.workflow.api import Transformer
+from keystone_tpu_torch.workflow.api import FunctionNode, Transformer
+
+
+class VectorSplitter(FunctionNode):
+    """Split a dataset of feature vectors into feature-dimension blocks —
+    the primitive behind all block solvers (reference:
+    nodes/util/VectorSplitter.scala). Returns a list of Datasets, one per
+    block (column views of the rows); the last block may be narrower."""
+
+    def __init__(self, block_size: int, num_features: int = None):
+        self.block_size = block_size
+        self.num_features = num_features
+
+    def apply(self, data: Any) -> List[Dataset]:
+        ds = Dataset.of(data)
+        x = ds.padded()
+        d = self.num_features or x.shape[1]
+        return [
+            Dataset.from_array(x[:, s : min(s + self.block_size, d)], n=ds.n)
+            for s in range(0, d, self.block_size)
+        ]
 
 
 def _indicators(y: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -53,6 +74,20 @@ class ClassLabelIndicatorsFromIntArrayLabels(Transformer):
     def apply_batch(self, ds: Dataset) -> Dataset:
         # the label arrays differ in length: mapped one by one on the host
         return Dataset.from_items([self.apply(ys) for ys in ds.items()])
+
+
+class MaxClassifier(Transformer):
+    """argmax over scores, the first of tied maxima (reference:
+    nodes/util/MaxClassifier.scala)."""
+
+    def apply(self, scores):
+        return torch.argmax(scores, dim=-1)
+
+    def apply_batch(self, ds: Dataset) -> Dataset:
+        return Dataset.from_array(self.apply(ds.padded()), n=ds.n)
+
+    def eq_key(self):
+        return ("max_classifier",)
 
 
 def top_k_indices(scores: torch.Tensor, k: int) -> torch.Tensor:

@@ -1,12 +1,20 @@
-"""The flagship ImageNetSiftLcsFV featurize chain for serving (counterpart
-of ``keystone_tpu/serving/featurize.py``): seeded warm-start parameters,
-or PCA and GMMs fitted on ``fit_images``.
+"""Image featurize chains for serving (counterpart of
+``keystone_tpu/serving/featurize.py``).
 
-A branched DAG: gray → SIFT and LCS branches, each PCA → GMM Fisher
-vector → Hellinger/L2 normalization, gathered through ``VectorCombiner``.
+Two chains:
+
+- ``build_featurize_pipeline`` — the dense-conv stack (PixelScaler →
+  Convolver → rectify → pool → vectorize) of the RandomPatchCifar family,
+  with seeded random filters;
+- ``build_flagship_featurize_pipeline`` — the flagship ImageNetSiftLcsFV
+  featurization: a branched DAG (gray → SIFT and LCS branches, each PCA →
+  GMM Fisher vector → Hellinger/L2 normalization, gathered through
+  ``VectorCombiner``) with seeded warm-start parameters, or PCA and GMMs
+  fitted on ``fit_images``.
+
 Parameters are drawn from ``np.random.default_rng(seed)`` in the same
-order as the JAX package (SIFT's PCA, SIFT's GMM means, then LCS's), so
-both packages freeze identical parameters from one seed.
+order as the JAX package (for the flagship: SIFT's PCA, SIFT's GMM means,
+then LCS's), so both packages freeze identical parameters from one seed.
 """
 
 from __future__ import annotations
@@ -17,6 +25,50 @@ import numpy as np
 import torch
 
 from keystone_tpu_torch._device import resolve_device
+
+
+def build_featurize_pipeline(
+    img: int = 16,
+    channels: int = 3,
+    filters: int = 96,
+    conv_size: int = 5,
+    pool_stride: int = 6,
+    pool_size: int = 6,
+    seed: int = 7,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Tuple[object, int]:
+    """The dense-conv featurize chain — raw ``(img, img, C)`` uint8 in,
+    ``(F,)`` float32 features out: PixelScaler → Convolver (patch
+    normalization folded around one convolution) → SymmetricRectifier →
+    sum Pooler → channel-major ImageVectorizer, with seeded random filters
+    on ``device`` (``None`` means ``cuda``). Returns
+    ``(fitted_featurize, feature_dim)``. At the default geometry 16·16·3
+    = 768 raw bytes an example featurize to 768 float32 features."""
+    from keystone_tpu_torch.ops.images.core import (
+        Convolver,
+        ImageVectorizer,
+        PixelScaler,
+        Pooler,
+        SymmetricRectifier,
+    )
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    packed = torch.as_tensor(
+        rng.standard_normal((filters, conv_size * conv_size * channels))
+        .astype(np.float32) * 0.1,
+        device=dev,
+    )
+    pipe = (
+        PixelScaler()
+        .and_then(Convolver(packed, img, img, channels))
+        .and_then(SymmetricRectifier())
+        .and_then(Pooler(stride=pool_stride, pool_size=pool_size))
+        .and_then(ImageVectorizer())
+    )
+    fitted = pipe.fit()
+    probe = torch.zeros((1, img, img, channels), dtype=torch.uint8, device=dev)
+    return fitted, int(fitted._batch_run(probe).shape[-1])
 
 
 def flagship_branches(
@@ -200,6 +252,7 @@ def build_flagship_featurize_pipeline(
 
 
 __all__ = [
+    "build_featurize_pipeline",
     "build_flagship_featurize_pipeline",
     "flagship_branches",
     "flagship_pipeline",

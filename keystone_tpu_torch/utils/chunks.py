@@ -30,3 +30,16 @@ def map_rows(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
     for i in range(rows, n, rows):
         out[i : i + rows] = fn(x[i : i + rows])
     return out
+
+
+# the output bytes of one chunk of the random-features image nodes
+# (Convolver, SymmetricRectifier, Pooler, Windower) and of
+# RandomFFTFeatures' intermediate: their whole-set
+# outputs run to tens of GB at CIFAR-10's 50,000 images, so each chunk's
+# temporaries stay a small fraction of the output
+CHUNK_BYTES = 256 * 2**20
+
+
+def rows_for(bytes_per_row: int) -> int:
+    """Rows per chunk whose output is about ``CHUNK_BYTES`` (at least 1)."""
+    return max(1, CHUNK_BYTES // max(1, int(bytes_per_row)))

@@ -1,6 +1,6 @@
-"""Thread-safe counters and latency reservoirs (counterpart of
-``keystone_tpu/utils/profiling.py``: ``Counter``, ``LatencyRecorder`` and
-``_interp_percentile``, copied as they are).
+"""Thread-safe counters, latency reservoirs and phase timers (counterpart
+of ``keystone_tpu/utils/profiling.py``: ``Counter``, ``LatencyRecorder``,
+``PhaseTimer`` and ``_interp_percentile``, copied as they are).
 
 The JAX module's ``trace`` wraps the JAX profiler; the port goes without
 it: ``torch.profiler.profile`` is the device trace here, and
@@ -10,8 +10,60 @@ it: ``torch.profiler.profile`` is the device trace here, and
 from __future__ import annotations
 
 import collections
+import contextlib
+import logging
 import threading
-from typing import Deque, Dict, Optional
+import time
+from typing import Deque, Dict, Iterator, Optional
+
+logger = logging.getLogger(__name__)
+
+
+class PhaseTimer:
+    """Accumulates named phase wall-clock times (reference: the
+    kernelGen/residual/collect/localSolve/modelUpdate logs in KRR)."""
+
+    def __init__(self, name: str = ""):
+        self.name = name
+        self.times: Dict[str, float] = {}
+        self._published: Dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def phase(self, phase_name: str) -> Iterator[None]:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.times[phase_name] = self.times.get(phase_name, 0.0) + dt
+
+    def summary(self) -> str:
+        parts = [f"{k}: {v:.3f}s" for k, v in self.times.items()]
+        prefix = f"{self.name} " if self.name else ""
+        return prefix + " ".join(parts)
+
+    def log(self) -> None:
+        logger.info(self.summary())
+
+    def publish(self, registry=None) -> None:
+        """Publish accumulated phase times into a ``MetricsRegistry``
+        (the global one by default) as
+        ``keystone_phase_seconds_total{timer=..., phase=...}``. Publishes
+        only the delta since the last publish, so periodic calls from a
+        long fit never double-count."""
+        from keystone_tpu_torch.observability.registry import get_global_registry
+
+        reg = registry if registry is not None else get_global_registry()
+        counter = reg.counter(
+            "keystone_phase_seconds_total",
+            "accumulated wall seconds per named phase",
+            labelnames=("timer", "phase"),
+        )
+        for phase_name, seconds in self.times.items():
+            delta = seconds - self._published.get(phase_name, 0.0)
+            if delta > 0:
+                counter.inc((self.name or "phase_timer", phase_name), delta)
+                self._published[phase_name] = seconds
 
 
 def _interp_percentile(data, p: float) -> Optional[float]:

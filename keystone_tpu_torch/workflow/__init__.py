@@ -4,6 +4,7 @@ from keystone_tpu_torch.workflow.api import (  # noqa: F401
     Chainable,
     Estimator,
     FittedPipeline,
+    FunctionNode,
     GatherTransformerOperator,
     LabelEstimator,
     Pipeline,

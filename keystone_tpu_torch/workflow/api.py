@@ -390,6 +390,17 @@ def _splice_data(g: Graph, data: Any):
     return g.add_node(DatasetOperator(Dataset.of(data)), ())
 
 
+class FunctionNode:
+    """Eagerly-applied pipeline-construction-time function (reference:
+    pipelines/FunctionNode.scala) — not a DAG node."""
+
+    def __call__(self, data: Any) -> Any:
+        return self.apply(data)
+
+    def apply(self, data: Any) -> Any:
+        raise NotImplementedError
+
+
 class GatherTransformerOperator(TransformerOperator):
     """Zips N branch outputs into a per-example tuple."""
 

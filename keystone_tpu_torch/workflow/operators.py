@@ -32,6 +32,18 @@ from keystone_tpu_torch.workflow.expressions import (
 LAZY_CACHES = ("_arr_digest_cache", "_operator_cache", "_weight_cache")
 
 
+def cached_on(node, name: str, make, device):
+    """``make()`` (a tensor) on ``device``, made once per (name, device)
+    and kept in the node's ``_weight_cache``: a dispatch then copies
+    nothing from the host, which a CUDA graph capture refuses."""
+    cache = node.__dict__.setdefault("_weight_cache", {})
+    key = (name, str(device))
+    t = cache.get(key)
+    if t is None:
+        t = cache[key] = make().to(device)
+    return t
+
+
 class Operator:
     label: str = ""
 

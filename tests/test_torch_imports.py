@@ -49,6 +49,16 @@ VOC_MODULES = [
 ]
 
 
+# the random-features slice's new modules, which the walk must reach too
+RANDOM_FEATURES_MODULES = [
+    "keystone_tpu_torch." + m for m in (
+        "loaders.cifar", "loaders.csv_loader", "ops.learning.zca", "ops.learning.linear",
+        "ops.learning.kernel", "pipelines.images.random_patch_cifar",
+        "pipelines.images.mnist_random_fft", "pipelines.images.cifar_apps",
+    )
+]
+
+
 def _port_sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:
@@ -75,6 +85,7 @@ print("TRAINING", sorted(n for n in {TRAINING_MODULES!r} if n not in sys.modules
 print("SERVING", sorted(n for n in {SERVING_MODULES!r} if n not in sys.modules))
 print("LOADERS", sorted(n for n in {LOADER_MODULES!r} if n not in sys.modules))
 print("VOC", sorted(n for n in {VOC_MODULES!r} if n not in sys.modules))
+print("RF", sorted(n for n in {RANDOM_FEATURES_MODULES!r} if n not in sys.modules))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -87,9 +98,10 @@ print("VOC", sorted(n for n in {VOC_MODULES!r} if n not in sys.modules))
     assert "SERVING []" in out.stdout, out.stdout
     assert "LOADERS []" in out.stdout, out.stdout
     assert "VOC []" in out.stdout, out.stdout
+    assert "RF []" in out.stdout, out.stdout
     assert int(re.search(r"LOADED (\d+)", out.stdout).group(1)) >= (
         25 + len(TRAINING_MODULES) + len(SERVING_MODULES) + len(LOADER_MODULES)
-        + len(VOC_MODULES))
+        + len(VOC_MODULES) + len(RANDOM_FEATURES_MODULES))
 
 
 def test_streaming_loader_imports_neither_torch_nor_jax():
@@ -162,6 +174,45 @@ def test_entry_points_need_cuda_unless_given_the_cpu(monkeypatch):
         finally:
             mb.close()
         assert isinstance(row, np.ndarray) and row.shape == (2 * 2 * 4 * 2,)
+
+    # the random-features apps and the dense-conv serving chain
+    from keystone_tpu_torch.pipelines.images import cifar_apps, mnist_random_fft, random_patch_cifar
+    from keystone_tpu_torch.serving.featurize import build_featurize_pipeline
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_featurize_pipeline()
+    conv, dim = build_featurize_pipeline(device="cpu")
+    assert conv._batch_run(torch.zeros((2, 16, 16, 3), dtype=torch.uint8)).shape == (2, dim)
+    train, test = random_patch_cifar.synthetic_cifar(n_train=24, n_test=8)
+    rpc = random_patch_cifar.RandomCifarConfig(num_filters=4, patch_steps=8, lam=10.0)
+    mtrain, mtest = mnist_random_fft.synthetic_mnist(n_train=16, n_test=8)
+    mconf = mnist_random_fft.MnistRandomFFTConfig(num_ffts=1, block_size=512, lam=10.0)
+    kconf = cifar_apps.RandomCifarKernelConfig(num_filters=4, patch_steps=8, block_size=8)
+    aconf = cifar_apps.RandomCifarAugmentedConfig(num_filters=4, patch_steps=8, augment_copies=2)
+    akconf = cifar_apps.RandomCifarAugmentedKernelConfig(num_filters=4, patch_steps=8,
+                                                         augment_copies=2, block_size=8)
+    calls = [
+        lambda **kw: random_patch_cifar.run(train, test, rpc, **kw),
+        lambda **kw: random_patch_cifar.build_pipeline(train, rpc, **kw),
+        lambda **kw: random_patch_cifar.main(["--numFilters", "4", "--patchSteps", "8"], **kw),
+        lambda **kw: mnist_random_fft.run(mtrain, mtest, mconf, **kw),
+        lambda **kw: mnist_random_fft.build_pipeline(mtrain, mconf, **kw),
+        lambda **kw: mnist_random_fft.main(["--numFFTs", "1", "--blockSize", "512"], **kw),
+        lambda **kw: cifar_apps.linear_pixels(train, test, **kw),
+        lambda **kw: cifar_apps.random_cifar(train, test, num_filters=4, **kw),
+        lambda **kw: cifar_apps.random_patch_cifar_kernel(train, test, kconf, **kw),
+        lambda **kw: cifar_apps.random_patch_cifar_augmented(train, test, aconf, **kw),
+        lambda **kw: cifar_apps.random_patch_cifar_augmented_kernel(train, test, akconf, **kw),
+        lambda **kw: convert.random_patch_cifar_from_numpy({}, **kw),
+        lambda **kw: convert.mnist_random_fft_from_numpy({}, **kw),
+        lambda **kw: convert.krr_from_numpy({}, **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    for call in calls[:3] + calls[3:6]:
+        out = call(device="cpu")
+        assert out == 0 or out is not None
 
 
 def test_training_entry_points_need_cuda_unless_given_the_cpu(monkeypatch):

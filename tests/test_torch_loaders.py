@@ -131,7 +131,7 @@ def test_batches_match_jax(tars, native_decode, dtype):
 def test_native_and_pil_decodes_agree(tars):
     loc, labels, _, _ = tars
     assert native.jpeg_native_available()
-    assert os.path.dirname(native._lib_path()) == native.BUILD_DIR
+    assert os.path.dirname(native._JPEG._path()) == native.BUILD_DIR
     kw = dict(decode_size=24, shard_index=0, num_shards=1)
     nat = list(tstreaming.StreamingImageNetLoader(loc, labels, **kw).items())
     pil = list(tstreaming.StreamingImageNetLoader(loc, labels, use_native_decode=False, **kw).items())
