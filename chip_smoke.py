@@ -107,6 +107,28 @@ Phases, in order; any failure exits non-zero:
    1,000 images; each app must beat its JAX test's accuracy bar; serve
    ``build_featurize_pipeline``'s 16² conv stack through buckets (8, 64),
    replays bit for bit the eager chain, and time it as phase 5 does.
+11. fits past the card's memory, the flagship's other estimators, and
+   TIMIT: (a) phase 6's configuration at the paper's vocabulary, 256
+   (65,536 features): fit the featurizer on 1,000 seeded images, stream
+   4,000 and then 16,000 images (made on the card a chunk at a time)
+   through it in chunks of 64 into ``Dataset.host_blocks_from_batches``
+   and fit the weighted solver from the host blocks; print the images/s,
+   the kernels' launches per chunk, the solver's seconds and each fit's
+   peak device memory, require the peak's growth between the sizes to be
+   the slabs and the solver's (n x classes) arrays, not the features,
+   hold the host-block fit against an in-device fit of the same features
+   and score 1,000 held-out images (top-5 error at most 0.5); (b) phase
+   6's fit under ``AutoCachingOptimizer("greedy")`` against the default
+   optimizer: the cache decision, both fits' time and peak, held-out
+   top-5 equal; (c) ``PerClassWeightedLeastSquaresEstimator`` and the
+   block-weighted solver on phase 9's features (training argmax accuracy
+   above 0.95), ``ApproximatePCAEstimator`` at the SIFT PCA's shape (128
+   -> 64; principal-angle cosines above 0.99 against the exact PCA on
+   rank-64 data at the JAX defaults and on phase 6's descriptor sample at
+   16 power iterations; the defaults' angle there printed); (d)
+   ``timit.main`` with the JAX defaults (40 x 4,096 cosines) on
+   TIMIT-layout files of 32,768 + 8,192 seeded frames under the gitignored
+   ``tmp/phase11``: accuracy above 0.9, time and peak.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then, last, the result line ``{"ok": true, "device": {...}}``.
@@ -151,7 +173,7 @@ from keystone_tpu_torch.pipelines.images import random_patch_cifar as rpc  # noq
 from keystone_tpu_torch.loaders.cifar import CifarLoader, LabeledImages  # noqa: E402
 from keystone_tpu_torch.loaders.csv_loader import LabeledData  # noqa: E402
 from keystone_tpu_torch.ops.learning import kernel as krr  # noqa: E402
-from keystone_tpu_torch.ops.util.nodes import ClassLabelIndicators  # noqa: E402
+from keystone_tpu_torch.ops.util.nodes import ClassLabelIndicators, TopKClassifier  # noqa: E402
 from keystone_tpu_torch.workflow.executor import PipelineEnv  # noqa: E402
 from keystone_tpu_torch.serving import MicroBatcher, ServingMetrics  # noqa: E402
 from keystone_tpu_torch.utils.chunks import CHUNK_ROWS  # noqa: E402
@@ -345,18 +367,31 @@ def check_ragged(dev, gen):
             max_abs_err(g, w, RTOL_FV, ATOL_FV, f"fisher_vector_stats ragged k={k}")
 
 
-def _wide_row(name, got, want, rtol, atol, fn, plain, flops, nbytes, shapes):
+def _wide_row(name, got, want, rtol, atol, fn, plain, library, flops, nbytes, shapes):
     """One wide-shape case: the kernel's error against its plain version,
-    both timed, and the bound."""
+    the kernel, the plain version and the one-call PyTorch yardstick
+    timed, and the bound."""
     err = max(max_abs_err(g, w, rtol, atol, f"{name} [{shapes}]") for g, w in zip(got, want))
     b_ms, b_by = bound(flops, nbytes)
     ms = time_ms(fn, calls=3, rounds=3, warmup=1)
     row = dict(name=name, shapes=shapes, max_abs_err=err, ms=ms,
                plain_ms=time_ms(plain, calls=1, rounds=1, warmup=1),
+               library_ms=time_ms(library, calls=1, rounds=1, warmup=1),
                bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms)
-    log(f"  {name} [{shapes}]: {ms:.3f} ms (plain {row['plain_ms']:.3f}, bound {b_ms:.4f} by "
-        f"{b_by}, share {b_ms / ms:.3f}), max abs err {err:.3g}")
+    log(f"  {name} [{shapes}]: {ms:.3f} ms (plain {row['plain_ms']:.3f}, library "
+        f"{row['library_ms']:.3f}, bound {b_ms:.4f} by {b_by}, share {b_ms / ms:.3f}), "
+        f"max abs err {err:.3g}")
     return row
+
+
+def sift_library(mag, t, ayt, ax):
+    """B1's yardstick: the orientation planes, then one einsum."""
+    return torch.einsum("mh,bohw,wn->bomn", ayt, kernels.orientation_planes(mag, t), ax)
+
+
+def lcs_library(z, at, bm):
+    """B2's yardstick: one einsum."""
+    return torch.einsum("mh,bphw,wn->bpmn", at, z, bm)
 
 
 def check_wide(dev, gen):
@@ -368,8 +403,6 @@ def check_wide(dev, gen):
     (129, 257) at m = 1, 1,500 and 13,165; TopKClassifier on tied rows
     against a stable sort on the host, and its cost beside torch.topk.
     Each case held against its plain version on the card and timed."""
-    from keystone_tpu_torch.ops.util.nodes import TopKClassifier
-
     def r(*shape):
         return torch.randn(*shape, device=dev, generator=gen)
 
@@ -389,6 +422,7 @@ def check_wide(dev, gen):
             [kernels.sift_bin_sample_plain(mag, t, ayt, ax)], RTOL_SANDWICH, ATOL_SANDWICH,
             lambda: kernels.sift_bin_sample(mag, t, ayt, ax),
             lambda: kernels.sift_bin_sample_plain(mag, t, ayt, ax),
+            lambda: sift_library(mag, t, ayt, ax),
             2 * 2 * 8 * m * w * (h + n), 4 * (4 * h * w + ayt.numel() + ax.numel() + 16 * m * n),
             f"B=2 H={h} W={w} M={m} N={n}"))
     for h, w in ((1536, 2048), (2048, 300)):
@@ -406,6 +440,7 @@ def check_wide(dev, gen):
             RTOL_SANDWICH, ATOL_SANDWICH,
             lambda: kernels.sift_bin_sample(mag, t, ayt, ax, bands),
             lambda: kernels.sift_bin_sample_plain(mag, t, ayt, ax),
+            lambda: sift_library(mag, t, ayt, ax),
             band_flops(bands[0], bands[1], w, M, 8),
             4 * (2 * h * w + ayt.numel() + ax.numel() + 8 * M * N),
             f"B=1 H={h} W={w} M={M} N={N}, scale 0"))
@@ -416,6 +451,7 @@ def check_wide(dev, gen):
         [kernels.plane_sandwich_plain(planes, at, bm)], RTOL_SANDWICH, ATOL_SANDWICH,
         lambda: kernels.plane_sandwich(planes, at, bm),
         lambda: kernels.plane_sandwich_plain(planes, at, bm),
+        lambda: lcs_library(planes, at, bm),
         2 * 3 * 33 * 2048 * (40 + 50), 4 * (planes.numel() + at.numel() + bm.numel() + 3 * 33 * 50),
         "B=1 P=3 H=40 W=2048 M=33 N=50"))
     h, w = 256, 2048
@@ -430,7 +466,7 @@ def check_wide(dev, gen):
     rows.append(_wide_row(
         "plane_sandwich real", [kernels.plane_sandwich(z, at, bm, bands)], [want],
         RTOL_SANDWICH, ATOL_SANDWICH, lambda: kernels.plane_sandwich(z, at, bm, bands),
-        lambda: kernels.plane_sandwich_plain(z, at, bm),
+        lambda: kernels.plane_sandwich_plain(z, at, bm), lambda: lcs_library(z, at, bm),
         band_flops(bands[0], bands[1], w, M, 12),
         4 * (z.numel() + at.numel() + bm.numel() + 12 * M * N), f"B=2 P=6 H={h} W={w} M={M} N={N}"))
     del z, want
@@ -445,6 +481,7 @@ def check_wide(dev, gen):
                 fv_kernel.fisher_vector_stats_plain(*args), RTOL_FV, ATOL_FV,
                 lambda: fv_kernel.fisher_vector_stats(*args),
                 lambda: fv_kernel.fisher_vector_stats_plain(*args),
+                lambda: fv_library(*args, 1e-4),
                 2 * m * (8 * d * k + 12 * k), 4 * (x.numel() + 2 * d * k + k + 2 * (1 + 2 * d) * k),
                 f"B=2 d={d} k={k} m={m}"))
     # B3 at phase 8's streaming shapes: both branches' descriptor counts of
@@ -459,6 +496,7 @@ def check_wide(dev, gen):
         "fisher_vector_stats", got, want, RTOL_FV, ATOL_FV,
         lambda: [fv_kernel.fisher_vector_stats(x, means, variances, weights) for x in xs],
         lambda: [fv_kernel.fisher_vector_stats_plain(x, means, variances, weights) for x in xs],
+        lambda: [fv_library(x, means, variances, weights, 1e-4) for x in xs],
         sum(B * x.shape[2] * (8 * d * k + 12 * k) for x in xs),
         sum(4 * (x.numel() + 2 * d * k + k + B * (1 + 2 * d) * k) for x in xs),
         f"B={B} d={d} k={k} m in (13165, 3136)"))
@@ -511,7 +549,6 @@ def check_kernels(dev, gen):
     nbytes = sum(4 * (2 * B * IMG * IMG + ayt.numel() + ax.numel()
                       + B * 8 * ayt.shape[0] * ax.shape[1])
                  for _, _, ayt, ax, _ in scales)
-    planes = [kernels.orientation_planes(m, t) for m, t, *_ in scales]
     b_ms, b_by = bound(flops, nbytes)
     rows.append(dict(
         name="sift_bin_sample", route="cuda",
@@ -520,15 +557,11 @@ def check_kernels(dev, gen):
         max_abs_err=err,
         ms=time_ms(lambda: [kernels.sift_bin_sample(*s) for s in scales]),
         plain_ms=time_ms(lambda: [kernels.sift_bin_sample_plain(*s[:4]) for s in scales]),
-        library_ms=time_ms(lambda: [
-            torch.einsum("mh,bohw,wn->bomn", s[2], p, s[3])
-            for s, p in zip(scales, planes)
-        ]),
+        library_ms=time_ms(lambda: [sift_library(*s[:4]) for s in scales]),
         bound_ms=b_ms, bound_by=b_by, flops=flops, dense_flops=dense_flops,
         bytes=nbytes,
         shapes=f"B={B} H=W={IMG} M=N in {[s[2].shape[0] for s in scales]}",
     ))
-    del planes
 
     # B2 — LCS, P = 6, with the bands the extractor caches
     z, at, bm, bands = lcs_inputs(imgs, dev)
@@ -548,7 +581,7 @@ def check_kernels(dev, gen):
         max_abs_err=err,
         ms=time_ms(lambda: kernels.plane_sandwich(z, at, bm, bands)),
         plain_ms=time_ms(lambda: kernels.plane_sandwich_plain(z, at, bm)),
-        library_ms=time_ms(lambda: torch.einsum("mh,bphw,wn->bpmn", at, z, bm)),
+        library_ms=time_ms(lambda: lcs_library(z, at, bm)),
         bound_ms=b_ms, bound_by=b_by, flops=flops, dense_flops=dense_flops,
         bytes=nbytes,
         shapes=f"B={B} P=6 H=W={IMG} M=N={M}",
@@ -874,26 +907,36 @@ def serve_stream(dev, smi, feat, model, img=IMG, seconds=STREAM_S):
     return rec
 
 
-def synthetic_imagenet(classes, per_class, seed, dev):
-    """Seeded synthetic 256² uint8 images on ``dev``: a prototype per class
-    (a smooth random field plus a finer one) and Gaussian noise of sigma
-    ``NOISE_SIGMA`` per image, clipped; image i has class i % ``classes``.
-    Returns (training images, their labels, held-out images, their
-    labels): ``per_class`` training images a class, one held-out image a
-    class with fresh noise."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-
+def imagenet_prototypes(classes, g, dev):
+    """One seeded prototype per class, (classes, 256, 256, 3) float on
+    ``dev``: a smooth random field plus a finer one, drawn from ``g``."""
     def field(res):
         f = torch.rand(classes, 3, res, res, device=dev, generator=g) * 255.0
         return torch.nn.functional.interpolate(f, size=(IMG, IMG), mode="bilinear",
                                                align_corners=False)
 
-    protos = (0.6 * field(16) + 0.4 * field(64)).permute(0, 2, 3, 1)
+    return (0.6 * field(16) + 0.4 * field(64)).permute(0, 2, 3, 1)
+
+
+def noisy_images(protos, labels, g):
+    """uint8 images of ``labels``: their prototypes plus Gaussian noise of
+    sigma ``NOISE_SIGMA`` drawn from ``g``, clipped."""
+    noise = torch.randn(labels.shape[0], IMG, IMG, 3, device=protos.device, generator=g) * NOISE_SIGMA
+    return torch.clamp(protos[labels] + noise, 0, 255).round().to(torch.uint8)
+
+
+def synthetic_imagenet(classes, per_class, seed, dev):
+    """Seeded synthetic 256² uint8 images on ``dev``: a prototype per class
+    and Gaussian noise per image; image i has class i % ``classes``.
+    Returns (training images, their labels, held-out images, their
+    labels): ``per_class`` training images a class, one held-out image a
+    class with fresh noise."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    protos = imagenet_prototypes(classes, g, dev)
 
     def draw(n):
         labels = torch.arange(n, device=dev) % classes
-        noise = torch.randn(n, IMG, IMG, 3, device=dev, generator=g) * NOISE_SIGMA
-        return torch.clamp(protos[labels] + noise, 0, 255).round().to(torch.uint8), labels
+        return noisy_images(protos, labels, g), labels
 
     return (*draw(classes * per_class), *draw(classes))
 
@@ -985,8 +1028,11 @@ def full_fits(captured):
     return [item for item in captured if item[0].n == most]
 
 
-def train_then_serve(dev, smi, classes=1000, per_class=TRAIN_PER_CLASS, solver_rows=SOLVER_ROWS):
-    """Phase 6. Returns the record written to chip_smoke.json."""
+def train_then_serve(dev, smi, classes=1000, per_class=TRAIN_PER_CLASS, solver_rows=SOLVER_ROWS,
+                     keep=None):
+    """Phase 6. Returns the record written to chip_smoke.json; puts the
+    SIFT branch's PCA sample into ``keep`` (phase 11c's input) when it is
+    given."""
     conf = flagship.ImageNetSiftLcsFVConfig(**dict(TRAIN_CONF, num_classes=classes))
     rec = {"card": smi, "classes": classes, "train_images": classes * per_class,
            "held_out_images": classes, "conf": dict(TRAIN_CONF, num_classes=classes),
@@ -1041,6 +1087,8 @@ def train_then_serve(dev, smi, classes=1000, per_class=TRAIN_PER_CLASS, solver_r
         rows_in, dims = out.pca_mat.shape
         branch = {128: "sift", 96: "lcs"}[rows_in]
         stage_s[f"PCA fit {branch}"] = sec
+        if keep is not None and branch == "sift":
+            keep["sift_pca_sample"] = data
         data_cpu = Dataset.from_array(data.array().cpu())
         t = time.perf_counter()
         want = pca.DistributedColumnPCAEstimator(dims).fit(data_cpu).pca_mat
@@ -1521,7 +1569,7 @@ def host_block_budget(n, k, b, D):
 
 
 def voc_sift_fisher(dev, smi, n_train=P9_TRAIN, n_test=P9_TEST, sizes=P9_SIZES,
-                    desc_dim=P9_DESC_DIM, vocab=P9_VOCAB, block=voc.BLOCK_SIZE):
+                    desc_dim=P9_DESC_DIM, vocab=P9_VOCAB, block=voc.BLOCK_SIZE, keep=None):
     """Phase 9: ``VOCSIFTFisher.main`` on tars of JPEGs at VOC's native
     sizes at the paper's widths; the fitted chain's features and the solver
     on the card against the CPU; the solver again from host column blocks;
@@ -1659,6 +1707,8 @@ def voc_sift_fisher(dev, smi, n_train=P9_TRAIN, n_test=P9_TEST, sizes=P9_SIZES,
     # -- the solver: card against CPU, and from host column blocks --------
     X, Y = kept["X"], kept["Y"]
     n, D, k = X.shape[0], X.shape[1], Y.shape[1]
+    if keep is not None:  # phase 11c's input
+        keep.update(voc_X=X, voc_Y=Y)
     model = next(o for o in kept["fitted"].graph.operators.values()
                  if isinstance(o, block_ls.BlockLinearMapper))
     est = BLS(voc.BLOCK_SIZE, 1, P9_LAM)
@@ -2155,6 +2205,385 @@ def random_features(dev, smi, cifar=P10_CIFAR, mnist_rows=P10_MNIST, aug=P10_AUG
     return rec
 
 
+# phase 11: fits past the card's memory, the flagship's other estimators
+# and TIMIT at its published width. 11a: phase 6's configuration at the
+# paper's vocabulary (2 branches x 2 x 64 x 256 = 65,536 features, 16
+# column blocks of 4,096), the featurizer fit on 1,000 images, then 4,000
+# and 16,000 images streamed in chunks of 64 into host column blocks and
+# the weighted solver fit from them
+P11_VOCAB, P11_FIT_IMAGES, P11_HELD_OUT, P11_CHUNK = 256, 1_000, 1_000, 64
+P11_STREAMS = (4_000, 16_000)
+# the host-block fit against the in-device fit of the same features,
+# ‖ΔW‖/‖W‖ and ‖Δb‖/‖b‖: the first reading was 0.0 (the same operations on
+# a contiguous slab in place of a strided view, bit for bit; PERF.md § 6);
+# the bar leaves room for float32 rounding should cuBLAS take another
+# algorithm for one of the two layouts
+RTOL_STREAM_FIT = 1e-6
+# 11c: the JAX tests' bars: training argmax accuracy of both weighted
+# solvers (tests/ops/test_weighted_ls.py:107-120), the cosines of the
+# principal angles of the sketch PCA against the exact one
+# (tests/ops/test_pca_zca.py:55-61); the solvers at the flagship's lambda
+# and mixture weight, on phase 9's features
+P11_MIN_TRAIN_ACC, P11_MIN_ANGLE = 0.95, 0.99
+# the sketch's principal-angle bar holds at the JAX defaults (p 10, q 2)
+# on data with a spectral gap at 64, as the JAX test's data has one at its
+# rank; SIFT descriptors have none there (sigma_64 / sigma_65 = 1.016 on a
+# CPU rehearsal's sample, where q = 2 leaves one direction at a cosine of
+# 0.40 and q = 8 reaches 0.9956), so on them the bar is held at 16 power
+# iterations and the defaults' angle and captured variance are printed
+P11_POWER_ITERS = 16
+BARRED_SKETCHES = {("rank 64 plus noise", 2), ("SIFT descriptor sample", P11_POWER_ITERS)}
+# 11d: TIMIT's published width (440 -> 40 x 4,096 cosines, 147 classes;
+# timit.py:37-51's defaults) on 32,768 + 8,192 seeded frames, and the bar
+# of tests/pipelines/test_text_pipelines.py:82-99
+P11_TIMIT = (32_768, 8_192)
+P11_MIN_TIMIT_ACC = 0.9
+
+
+def streamed_fit(dev, smi, classes=CLASSES, streams=P11_STREAMS, fit_images=P11_FIT_IMAGES,
+                 held_out=P11_HELD_OUT, chunk=P11_CHUNK, vocab=P11_VOCAB, block=4096):
+    """Phase 11a: the flagship's featurizer fit on ``fit_images`` images,
+    then each stream of seeded images featurized chunk by chunk into
+    ``Dataset.host_blocks_from_batches`` and the weighted solver fit from
+    the host blocks; the peak device memory of each size, the host-block
+    fit against the in-device one, the held-out top-5 error. Images are
+    made on the card a chunk at a time, each chunk from its own seeded
+    generator. To rehearse it on the CPU at a small size:
+    ``streamed_fit(torch.device("cpu"), "cpu", classes=20, streams=(64, 128),
+    fit_images=60, held_out=20, chunk=16, vocab=4, block=256)``."""
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    conf = flagship.ImageNetSiftLcsFVConfig(**dict(TRAIN_CONF, vocab_size=vocab, num_classes=classes))
+    protos = imagenet_prototypes(classes, torch.Generator(device=dev).manual_seed(4321), dev)
+
+    def images(start, n, seed):
+        g = torch.Generator(device=dev).manual_seed(seed * 10**7 + start)
+        labels = torch.arange(start, start + n, device=dev) % classes
+        return noisy_images(protos, labels, g), labels
+
+    _reset_peak(dev)
+    t = time.perf_counter()
+    x_fit, _ = images(0, fit_images, seed=1)
+    featurizer = flagship.build_featurizer(Dataset.from_array(x_fit), conf, device=dev).fit()
+    sync()
+    del x_fit
+    rec = {"card": smi, "classes": classes, "vocab": vocab, "block": block, "chunk": chunk,
+           "featurizer_fit_images": fit_images, "featurizer_fit_s": time.perf_counter() - t,
+           "featurizer_fit_peak_bytes": _peak(dev), "streams": {}}
+    log(f"11a featurizer (vocab {vocab}) fit on {fit_images} images in {rec['featurizer_fit_s']:.3f} s, "
+        f"peak {rec['featurizer_fit_peak_bytes']} bytes on {smi}")
+
+    def featurize(x):
+        return featurizer(Dataset.from_array(x)).array()
+
+    est = weighted_ls.BlockWeightedLeastSquaresEstimator(block, 1, conf.lam, conf.mixture_weight)
+    for n in streams:
+        _reset_peak(dev)
+        _cuda.reset_launches()
+        ys = []
+
+        def batches():
+            for s in range(0, n, chunk):
+                x, y = images(s, min(chunk, n - s), seed=2)
+                ys.append(y)
+                yield featurize(x)
+
+        t = time.perf_counter()
+        host = Dataset.host_blocks_from_batches(batches(), block, device=dev)
+        sync()
+        feat_s = time.perf_counter() - t
+        chunks = -(-n // chunk)
+        run = {"images": n, "featurize_s": feat_s, "images_per_s": n / feat_s,
+               "featurize_peak_bytes": _peak(dev), "launches": dict(_cuda.LAUNCHES),
+               "launches_per_chunk": {k: v / chunks for k, v in _cuda.LAUNCHES.items()},
+               "widths": host.block_widths[:1] + [len(host.block_widths)],
+               "host_bytes": sum(b.nbytes for b in host.host_blocks)}
+        labels = ClassLabelIndicators(classes).apply_batch(Dataset.from_array(torch.cat(ys)))
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+        t = time.perf_counter()
+        model = est.fit(host, labels)
+        sync()
+        run.update(solver_s=time.perf_counter() - t,
+                   fit_peak_above_start_bytes=(torch.cuda.max_memory_allocated(dev) - base) if on_card else None,
+                   cg_iterations=int(model.solver_info["pcg_iterations"]),
+                   cg_exit_rel_residual=float(model.solver_info["pcg_max_rel_residual"]))
+        rec["streams"][n] = run
+        log(f"11a {n} images: featurized in {feat_s:.3f} s ({run['images_per_s']:.1f} images/s; "
+            f"launches per chunk of {chunk} {run['launches_per_chunk']}; "
+            f"{run['host_bytes']} bytes of host blocks, {len(host.block_widths)} of {block} columns; "
+            f"featurize peak {run['featurize_peak_bytes']} bytes), weighted host-block fit in "
+            f"{run['solver_s']:.3f} s ({run['cg_iterations']} CG iterations at most, exit residual "
+            f"{run['cg_exit_rel_residual']:.3e}), fit peak above its start "
+            f"{run['fit_peak_above_start_bytes']} bytes on {smi}")
+        if on_card:
+            for name in ("sift_bin_sample", "plane_sandwich", "fisher_vector_stats"):
+                assert run["launches"][name] > 0, run["launches"]
+        if n != streams[-1]:
+            del host, labels, model
+
+    # the growth of the fit's peak between the two sizes: the slabs and
+    # the solver's (n, C) arrays, no term of n x D
+    n0, n1 = streams
+    D = sum(host.block_widths)
+    if on_card:
+        growth = rec["streams"][n1]["fit_peak_above_start_bytes"] - rec["streams"][n0]["fit_peak_above_start_bytes"]
+        slabs = block_ls.SLABS_ON_CARD * (n1 - n0) * block * 4
+        nc = (n1 - n0) * classes * 4
+        rec["growth"] = {"bytes": growth, "slabs_bytes": slabs, "n_by_c_bytes": nc,
+                         "n_by_c_arrays": (growth - slabs) / nc, "n_by_d_bytes": (n1 - n0) * D * 4}
+        log(f"11a fit peak growth {n0} -> {n1} images: {growth} bytes = {slabs} bytes of "
+            f"{block_ls.SLABS_ON_CARD} slabs + {rec['growth']['n_by_c_arrays']:.2f} (n x {classes}) "
+            f"float32 arrays of {nc} bytes; the features would add {(n1 - n0) * D * 4} bytes")
+        assert growth < 0.5 * (n1 - n0) * D * 4, rec["growth"]
+
+    # the same features fit in device memory
+    dense = torch.cat(host.host_blocks, dim=1).to(dev)
+    sync()
+    t = time.perf_counter()
+    in_device = est.fit(Dataset.from_array(dense), labels)
+    sync()
+    del dense
+    rel = {what: float(torch.linalg.vector_norm(getattr(model, what) - getattr(in_device, what))
+                       / torch.linalg.vector_norm(getattr(in_device, what)))
+           for what in ("W", "intercept")}
+    rec["host_vs_device"] = {"rel_err": rel, "bar": RTOL_STREAM_FIT, "in_device_s": time.perf_counter() - t}
+    log(f"11a host blocks vs in device memory, {n1} x {D}: ‖ΔW‖/‖W‖ {rel['W']:.3e}, ‖Δb‖/‖b‖ "
+        f"{rel['intercept']:.3e} (bar {RTOL_STREAM_FIT}); in-device fit {rec['host_vs_device']['in_device_s']:.3f} s")
+    assert max(rel.values()) <= RTOL_STREAM_FIT, rel
+    del in_device
+
+    # the fitted pipeline scores held-out images, one a class
+    top = TopKClassifier(TOP_K)
+    hits = []
+    t = time.perf_counter()
+    for s in range(0, held_out, chunk):
+        x, y = images(s, min(chunk, held_out - s), seed=3)
+        top5 = top.apply_batch(model.apply_batch(Dataset.from_array(featurize(x)))).array()
+        hits.append((top5 == y[:, None]).any(dim=1))
+    rec["top5_err"] = 1.0 - float(torch.cat(hits).float().mean())
+    rec["held_out_s"] = time.perf_counter() - t
+    log(f"11a held-out top-5 error {rec['top5_err']} on {held_out} images (limit {MAX_TOP5_ERR}), "
+        f"{rec['held_out_s']:.3f} s")
+    assert rec["top5_err"] <= MAX_TOP5_ERR, rec["top5_err"]
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def auto_cache_fit(dev, smi, classes=CLASSES, per_class=TRAIN_PER_CLASS):
+    """Phase 11b: phase 6's fit under ``DefaultOptimizer`` and under
+    ``AutoCachingOptimizer("greedy")``: the cache decision, each fit's time
+    and peak, the solvers' W and the held-out top-5 of both. To rehearse it
+    on the CPU: ``auto_cache_fit(torch.device("cpu"), "cpu", classes=50)``."""
+    from keystone_tpu_torch.workflow import auto_cache
+    from keystone_tpu_torch.workflow.optimizer import AutoCachingOptimizer, DefaultOptimizer
+
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    conf = flagship.ImageNetSiftLcsFVConfig(**dict(TRAIN_CONF, num_classes=classes))
+    train_x, train_y, test_x, test_y = synthetic_imagenet(classes, per_class, seed=1234, dev=dev)
+    env = PipelineEnv.get_or_create()
+    rec, out = {"card": smi}, {}
+    for name, opt in (("default", DefaultOptimizer()), ("auto_cache", AutoCachingOptimizer("greedy"))):
+        _reset_peak(dev)
+        env.optimizer = opt
+        calls = {}
+        try:
+            with recorded(auto_cache.AutoCacheRule, "greedy_cache", sync, calls), \
+                    recorded(auto_cache, "profile_nodes", sync, calls):
+                t = time.perf_counter()
+                fitted = flagship.build_pipeline(
+                    Dataset.from_array(train_x), Dataset.from_array(train_y), conf, device=dev).fit()
+                sync()
+                fit_s = time.perf_counter() - t
+                top5 = fitted(Dataset.from_array(test_x)).array()
+        finally:
+            env.reset()
+        mapper = next(o for o in fitted.graph.operators.values() if isinstance(o, block_ls.BlockLinearMapper))
+        out[name] = {"W": mapper.W, "top5": top5}
+        r = {"fit_s": fit_s, "peak_bytes": _peak(dev),
+             "top5_err": 1.0 - float((top5 == test_y[:, None]).any(dim=1).float().mean())}
+        if "greedy_cache" in calls:
+            _, graph, profiles, weights = calls["greedy_cache"]["args"]
+            chosen = calls["greedy_cache"]["out"]
+            r["profile_s"] = calls["profile_nodes"]["s"]
+            r["decision"] = [{"node": n.id, "label": graph.operators[n].label,
+                              "ms": profiles[n].ns / 1e6, "device_bytes": profiles[n].device_mem,
+                              "weight": weights.get(n, 1)} for n in sorted(chosen)]
+            r["profiled_nodes"] = len(profiles)
+        rec[name] = r
+        log(f"11b {name}: fit {fit_s:.3f} s, peak {r['peak_bytes']} bytes, held-out top-5 error "
+            f"{r['top5_err']} on {smi}" + (f"; profiling {r['profile_s']:.3f} s over {r['profiled_nodes']} "
+                                          f"nodes; caches {r['decision']}" if "decision" in r else ""))
+    rec["top5_equal"] = bool(torch.equal(out["default"]["top5"], out["auto_cache"]["top5"]))
+    rec["W_equal"] = bool(torch.equal(out["default"]["W"], out["auto_cache"]["W"]))
+    dw = torch.linalg.vector_norm(out["default"]["W"] - out["auto_cache"]["W"])
+    rec["W_rel_diff"] = float(dw / torch.linalg.vector_norm(out["default"]["W"]))
+    log(f"11b held-out top-5 equal to the default fit's: {rec['top5_equal']}; solver W bit for bit "
+        f"equal: {rec['W_equal']} (‖ΔW‖/‖W‖ {rec['W_rel_diff']:.3e})")
+    assert rec["top5_equal"], rec
+    return rec
+
+
+def other_estimators(dev, smi, keep):
+    """Phase 11c: ``PerClassWeightedLeastSquaresEstimator`` and the
+    block-weighted solver on phase 9's VOC features, at the flagship's
+    lambda and mixture weight; ``ApproximatePCAEstimator`` at the
+    flagship's SIFT PCA shape (128 -> 64) on phase 6's descriptor sample,
+    against the exact PCA, at the JAX defaults and at
+    ``P11_POWER_ITERS`` power iterations, and at the JAX defaults on data
+    with a spectral gap at 64. A row's class for the solvers is its first
+    label; an image's prediction counts as right when its highest score is
+    one of its labels (VOC images have 1 to 3). To rehearse it on the CPU,
+    fill ``keep`` through phase 6's and phase 9's rehearsals, phase 9 at
+    ``n_train=120`` (at 40 images, a class can be no image's first
+    label, and the per-class solver then raises, as the JAX package's
+    does)."""
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    rec = {"card": smi}
+    X, Y = keep["voc_X"], keep["voc_Y"]
+    first = torch.argmax(Y, dim=1)
+    lam, w = TRAIN_CONF["lam"], TRAIN_CONF["mixture_weight"]
+    for name, est in (("per_class", weighted_ls.PerClassWeightedLeastSquaresEstimator(4096, 1, lam, w)),
+                      ("block_weighted", weighted_ls.BlockWeightedLeastSquaresEstimator(4096, 1, lam, w))):
+        _reset_peak(dev)
+        t = time.perf_counter()
+        model = est.fit(Dataset.from_array(X), Dataset.from_array(Y))
+        sync()
+        fit_s = time.perf_counter() - t
+        pred = torch.argmax(model.apply_batch(Dataset.from_array(X)).array(), dim=1)
+        r = {"fit_s": fit_s, "peak_bytes": _peak(dev), "shape": list(X.shape) + [Y.shape[1]],
+             "train_acc": float((Y[torch.arange(X.shape[0], device=X.device), pred] > 0).float().mean()),
+             "train_acc_first_label": float((pred == first).float().mean())}
+        rec[name] = r
+        log(f"11c {name} on VOC features {r['shape']}: fit {fit_s:.3f} s, training argmax accuracy "
+            f"{r['train_acc']:.4f} (bar {P11_MIN_TRAIN_ACC}; against the first label only "
+            f"{r['train_acc_first_label']:.4f}), peak {r['peak_bytes']} bytes on {smi}")
+        assert r["train_acc"] > P11_MIN_TRAIN_ACC, r
+
+    # the sketch PCA at the flagship's SIFT PCA shape: on data with the
+    # spectral gap of the JAX test's (rank 64 plus noise of 0.01) at the
+    # JAX defaults, and on phase 6's descriptor sample at the defaults and
+    # at P11_POWER_ITERS power iterations
+    cols = pca.matrix_columns(keep["sift_pca_sample"])
+    n, d = cols.array().shape
+    dims = 64
+    g = torch.Generator(device=dev).manual_seed(64)
+    lowrank = (torch.randn(n, dims, device=dev, generator=g) @ torch.randn(dims, d, device=dev, generator=g)
+               + 0.01 * torch.randn(n, d, device=dev, generator=g))
+    rec["approximate_pca"] = {}
+    for data_name, data, qs in (("rank 64 plus noise", Dataset.from_array(lowrank), (2,)),
+                                ("SIFT descriptor sample", cols, (2, P11_POWER_ITERS))):
+        A = data.array() - data.array().mean(dim=0)
+        exact = pca.PCAEstimator(dims).fit(data).pca_mat
+        for q in qs:
+            sync()
+            t = time.perf_counter()
+            approx = pca.ApproximatePCAEstimator(dims, q=q).fit(data).pca_mat
+            sync()
+            r = {"s": time.perf_counter() - t, "input": [n, d], "dims": dims, "q": q,
+                 "min_cosine": float(torch.linalg.svdvals(exact.T @ approx).min()),
+                 "variance_ratio": float((torch.linalg.norm(A @ approx) / torch.linalg.norm(A @ exact)) ** 2),
+                 "bar": P11_MIN_ANGLE if (data_name, q) in BARRED_SKETCHES else None}
+            rec["approximate_pca"][f"{data_name}, q={q}"] = r
+            log(f"11c ApproximatePCA on the {data_name} [{n}, {d}] -> {dims}, q = {q}: {r['s']:.3f} s, smallest "
+                f"principal-angle cosine against the exact PCA {r['min_cosine']:.6f} (bar {r['bar']}), "
+                f"variance captured against the exact PCA's {r['variance_ratio']:.6f}")
+            if r["bar"] is not None:
+                assert r["min_cosine"] > r["bar"], r
+    return rec
+
+
+def write_timit(root, X, y, name):
+    """A TIMIT-layout feature CSV (values to two decimals, through a table
+    of their strings) and its "row label" file, 1-based."""
+    table = np.array([f"{v / 100:.2f}" for v in range(-5000, 5001)], dtype=object)
+    q = np.clip(np.round(X * 100).astype(np.int64), -5000, 5000) + 5000
+    feats, labels = os.path.join(root, f"{name}.csv"), os.path.join(root, f"{name}.labels")
+    with open(feats, "w") as f:
+        for s in range(0, len(q), 8192):
+            f.write("\n".join(",".join(r) for r in table[q[s : s + 8192]]) + "\n")
+    with open(labels, "w") as f:
+        f.write("".join(f"{i + 1} {c + 1}\n" for i, c in enumerate(y)))
+    return feats, labels
+
+
+def timit_at_width(dev, smi, sizes=P11_TIMIT, flags=()):
+    """Phase 11d: ``timit.main`` with the JAX defaults on TIMIT-layout files
+    of seeded frames (class centres x 3 plus unit noise, 440 dimensions,
+    147 classes) under the gitignored ``tmp/phase11``. To rehearse it on the
+    CPU: ``timit_at_width(torch.device("cpu"), "cpu", sizes=(8192, 1024),
+    flags=["--numCosines", "2", "--numEpochs", "1"])`` (more training frames
+    than a block's 4,096 columns: below that, lambda 0 leaves each block's
+    Gram singular)."""
+    from keystone_tpu_torch.loaders.text_loaders import TIMIT_DIMENSION, TIMIT_NUM_CLASSES
+    from keystone_tpu_torch.pipelines.speech import timit
+
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    root = os.path.join(ROOT, "tmp", "phase11")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    n_train, n_test = sizes
+    rng = np.random.default_rng(11)
+    centers = rng.standard_normal((TIMIT_NUM_CLASSES, TIMIT_DIMENSION)) * 3
+    y = rng.integers(0, TIMIT_NUM_CLASSES, n_train + n_test)
+    X = (centers[y] + rng.standard_normal((n_train + n_test, TIMIT_DIMENSION))).astype(np.float32)
+    t = time.perf_counter()
+    train = write_timit(root, X[:n_train], y[:n_train], "train")
+    test = write_timit(root, X[n_train:], y[n_train:], "test")
+    rec = {"card": smi, "train_frames": n_train, "test_frames": n_test, "write_s": time.perf_counter() - t,
+           "bytes": os.path.getsize(train[0]) + os.path.getsize(test[0])}
+    argv = ["--trainDataLocation", train[0], "--trainLabelsLocation", train[1],
+            "--testDataLocation", test[0], "--testLabelsLocation", test[1], *flags]
+    _reset_peak(dev)
+    calls, times = {}, {}
+    out = io.StringIO()
+    with recorded(timit, "run", sync, calls), recorded(timit, "TimitFeaturesDataLoader", sync, calls), \
+            node_times(sync, times, ["main"]), contextlib.redirect_stdout(out):
+        t = time.perf_counter()
+        rc = timit.main(argv, device=dev)
+        rec["main_s"] = time.perf_counter() - t
+    shutil.rmtree(root, ignore_errors=True)
+    predictor, metrics = calls["run"]["out"]
+    printed = out.getvalue().splitlines()
+    assert rc == 0 and printed[-1].startswith("Total time: "), printed[-3:]
+    # each branch node stands on the training path and the test path
+    features = sum({id(o): o.W.shape[0] for o in predictor._graph.operators.values()
+                    if type(o).__name__ == "CosineRandomFeatures"}.values())
+    rec.update(accuracy=metrics.total_accuracy, features=features, peak_bytes=_peak(dev),
+               load_s=calls["TimitFeaturesDataLoader"]["s"], run_s=calls["run"]["s"],
+               node_times=times["main"], printed=[printed[0], printed[-1]])
+    log(f"11d TIMIT main() on {n_train} + {n_test} frames ({rec['bytes']} bytes of CSV written in "
+        f"{rec['write_s']:.3f} s): {rec['main_s']:.3f} s (loading {rec['load_s']:.3f}, run "
+        f"{rec['run_s']:.3f}), {features} features, accuracy {rec['accuracy']:.4f} (bar "
+        f"{P11_MIN_TIMIT_ACC}), peak {rec['peak_bytes']} bytes on {smi}; by node (s): {times['main']}")
+    assert rec["accuracy"] > P11_MIN_TIMIT_ACC, rec["accuracy"]
+    if not flags:  # the published width: 40 x 4,096 cosines
+        assert features == timit.TimitConfig().num_cosines * timit.NUM_COSINE_FEATURES, features
+    return rec
+
+
 def _info(info):
     return None if info is None else {k: float(v) for k, v in info.items()}
 
@@ -2207,8 +2636,9 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 6. train, then serve -------------------------------------------
+    keep = {}  # phase 11c's inputs, from phases 6 and 9
     t0 = time.perf_counter()
-    trained = train_then_serve(dev, smi)
+    trained = train_then_serve(dev, smi, keep=keep)
     trained["phase_s"] = time.perf_counter() - t0
     log(f"phase 6 in {trained['phase_s']:.3f} s on {smi}")
     for r in rows:
@@ -2229,7 +2659,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 9. VOCSIFTFisher at the paper's widths ---------------------------
-    voc_rec = voc_sift_fisher(dev, smi)
+    voc_rec = voc_sift_fisher(dev, smi, keep=keep)
     for r in rows:
         r["phase9_fit_launches"] = voc_rec["fit_launches"][r["name"]]
         r["phase9_score_launches"] = voc_rec["score_launches"][r["name"]]
@@ -2241,12 +2671,30 @@ def main():
     for r in rows:
         r["phase10_launches"] = _cuda.LAUNCHES[r["name"]]
     log(f"launches in phase 10: {dict(_cuda.LAUNCHES)}")
+    torch.cuda.empty_cache()
+
+    # -- 11. fits past the card's memory, the other estimators, TIMIT ----
+    t0 = time.perf_counter()
+    past = {"streamed": streamed_fit(dev, smi)}
+    largest = past["streamed"]["streams"][P11_STREAMS[-1]]
+    for r in rows:
+        r["phase11_launches"] = largest["launches"][r["name"]]
+        r["phase11_launches_per_chunk"] = largest["launches_per_chunk"][r["name"]]
+    torch.cuda.empty_cache()
+    past["auto_cache"] = auto_cache_fit(dev, smi)
+    torch.cuda.empty_cache()
+    past["estimators"] = other_estimators(dev, smi, keep)
+    del keep
+    torch.cuda.empty_cache()
+    past["timit"] = timit_at_width(dev, smi)
+    past["phase_s"] = time.perf_counter() - t0
+    log(f"phase 11 in {past['phase_s']:.3f} s on {smi}")
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": rows, "wide": wide, "serve": served, "train": trained,
                    "stream": streamed, "files": files, "voc": voc_rec, "random_features": rf,
-                   "ptxas": ptxas}, f,
+                   "past_the_card": past, "ptxas": ptxas}, f,
                   indent=1, default=str)
     # the fit's launches and B3's error with the fitted GMMs are in
     # chip_smoke.json beside these

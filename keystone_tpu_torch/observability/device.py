@@ -8,7 +8,9 @@ platform, count, peak FLOP/s and memory rate from ``PEAK_TABLE``
 (overridable by ``KEYSTONE_PEAK_FLOPS`` / ``KEYSTONE_PEAK_MEMBW_GBPS``
 for hardware the table does not know), and the device memory in bytes.
 Without CUDA it holds one ``cpu`` row with unknown peaks, as the JAX
-table does on a CPU backend.
+table does on a CPU backend. ``device_memory_stats`` and
+``host_memory_stats`` are the memory probes the weighted solver's and the
+auto-cache rule's budgets read.
 
 The JAX module's cost-model extraction (``compiled_cost_model``) is not
 ported: the port has no compiler cost analysis to read, so the MFU and
@@ -21,6 +23,7 @@ from __future__ import annotations
 import logging
 import os
 import re
+import sys
 import threading
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -122,3 +125,54 @@ def peaks_of(device: torch.device) -> Tuple[Optional[float], Optional[float]]:
     kind = torch.cuda.get_device_name(device)
     row = next(r for r in device_table() if r["kind"] == kind)
     return row["peak_flops"], row["peak_membw_bytes_per_s"]
+
+
+def device_memory_stats(device: Any = None) -> Optional[Dict[str, int]]:
+    """The one device-memory probe (the JAX module's
+    ``device_memory_stats``), shared by the weighted solver's memory budget
+    and the auto-cache rule's. On a CUDA device: ``bytes_limit`` the
+    card's memory, ``bytes_in_use`` what is not free for this process's
+    allocations (the used memory ``cudaMemGetInfo`` reports, less the
+    caching allocator's reserved but unallocated blocks, which it hands
+    out again), and
+    ``peak_bytes_in_use`` the allocator's peak. ``None`` for a device
+    without allocator stats (the CPU, or ``device=None`` without CUDA),
+    as the JAX probe gives ``None`` on a CPU backend."""
+    dev = torch.device(device) if device is not None else (
+        torch.device("cuda") if torch.cuda.is_available() else torch.device("cpu"))
+    if dev.type != "cuda":
+        return None
+    free, total = torch.cuda.mem_get_info(dev)
+    reusable = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    return {"bytes_limit": int(total), "bytes_in_use": int(total - free - reusable),
+            "peak_bytes_in_use": int(torch.cuda.max_memory_allocated(dev))}
+
+
+def host_memory_stats() -> Optional[Dict[str, int]]:
+    """Host RAM in the shape of ``device_memory_stats``: ``bytes_limit``
+    MemTotal, ``bytes_in_use`` MemTotal less MemAvailable
+    (``/proc/meminfo``), ``peak_bytes_in_use`` this process's largest
+    resident set; ``None`` where none of them can be read."""
+    stats: Dict[str, int] = {}
+    try:
+        with open("/proc/meminfo") as f:
+            fields = {}
+            for line in f:
+                parts = line.split()
+                if parts and parts[0].rstrip(":") in ("MemTotal", "MemAvailable"):
+                    fields[parts[0].rstrip(":")] = int(parts[1]) * 1024
+        if "MemTotal" in fields:
+            stats["bytes_limit"] = fields["MemTotal"]
+            if "MemAvailable" in fields:
+                stats["bytes_in_use"] = fields["MemTotal"] - fields["MemAvailable"]
+    except OSError:
+        pass
+    try:
+        import resource
+
+        # ru_maxrss is kilobytes on Linux but bytes on macOS
+        scale = 1 if sys.platform == "darwin" else 1024
+        stats["peak_bytes_in_use"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * scale
+    except (ImportError, OSError):
+        pass
+    return stats or None

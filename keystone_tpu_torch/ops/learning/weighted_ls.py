@@ -25,10 +25,19 @@ Two solvers, as in the JAX package:
   Cholesky per chunk of classes. The class index building runs on the
   host, as there.
 
+A host-blocks dataset (``Dataset.from_host_blocks``, features in host RAM
+as column slabs) takes the pcg solver only, with the dataset's own column
+blocks as the coordinate blocks: each slab is uploaded once per sweep
+through ``block_ls``'s pooled pinned buffers and copy stream, at most
+``SLABS_ON_CARD`` of them on the card.
+
+``PerClassWeightedLeastSquaresEstimator`` solves the same objective class by
+class, as reweighted single-output block coordinate descent.
+
 All products are float32 ``torch.matmul``s (TF32 off on the card), the
 counterpart of the JAX package's ``Precision.HIGHEST``. The bf16 data path
-(the TPU's limb-split products) and host-block fits are not ported: a
-bf16 or fp16 ``X`` raises ``NotImplementedError``.
+(the TPU's limb-split products) is not ported: bf16 or fp16 features
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,7 +48,8 @@ import warnings
 import numpy as np
 import torch
 
-from keystone_tpu_torch.ops.learning.block_ls import BlockLinearMapper
+from keystone_tpu_torch.observability.device import device_memory_stats, host_memory_stats
+from keystone_tpu_torch.ops.learning.block_ls import BlockLinearMapper, _SlabStream
 from keystone_tpu_torch.parallel.dataset import Dataset
 from keystone_tpu_torch.workflow.api import LabelEstimator
 
@@ -135,19 +145,26 @@ def _apply_delta(X, R, delta, start, *, width):
 
 def _device_memory_limit(device: torch.device) -> int:
     """Memory budget in bytes for the chol path's grouped-copy decision:
-    the card's total memory on CUDA; on the CPU a quarter of the host RAM
-    still available (``/proc/meminfo``), else 4 GiB."""
-    if device.type == "cuda":
-        return int(torch.cuda.mem_get_info(device)[1])
-    try:
-        with open("/proc/meminfo") as f:
-            for line in f:
-                parts = line.split()
-                if parts and parts[0] == "MemAvailable:":
-                    return int(parts[1]) * 1024 // 4
-    except OSError:
-        pass
+    the card's memory on CUDA; on the CPU a quarter of the host RAM still
+    available, else 4 GiB. Both read the probes of
+    ``observability/device.py``, which the auto-cache rule's budget reads
+    too."""
+    stats = device_memory_stats(device)
+    if stats is not None:
+        return stats["bytes_limit"]
+    host = host_memory_stats()
+    if host and "bytes_limit" in host and "bytes_in_use" in host:
+        # a quarter of what is available: the layout copy competes with
+        # the data itself and the OS
+        return (host["bytes_limit"] - host["bytes_in_use"]) // 4
     return 4 * 1024**3
+
+
+def _check_float32(dtype: torch.dtype) -> None:
+    if dtype in (torch.bfloat16, torch.float16):
+        raise NotImplementedError(
+            f"the port's weighted solver takes float32 features, got {dtype}"
+        )
 
 
 def _precond_inverse(pop_cov, w, lam):
@@ -318,13 +335,21 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
                 "layout must be 'auto', 'grouped', or 'gathered', "
                 f"got {self.layout!r}"
             )
+        if data.is_host:
+            # features in host RAM as column slabs: only the matrix-free
+            # PCG solver applies (the chol path's class-grouped row layouts
+            # are gathered from an X on the device)
+            if self.solve == "chol":
+                raise ValueError(
+                    "host-blocks datasets require the pcg solver "
+                    "(solve='auto' or 'pcg'); the chol path gathers "
+                    "class-grouped layouts from a device-resident X"
+                )
+            return self._fit_pcg_host(data, labels)
         data = data.to_array_mode()
         labels = labels.to_array_mode()
         X = data.padded()
-        if X.dtype in (torch.bfloat16, torch.float16):
-            raise NotImplementedError(
-                f"the port's weighted solver takes float32 features, got {X.dtype}"
-            )
+        _check_float32(X.dtype)
         # float32 throughout, as the JAX package computes with x64 off
         X = X.to(torch.float32)
         Y = labels.padded().to(device=X.device, dtype=torch.float32)
@@ -348,6 +373,63 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
             X, Y, data.mask(), blocks, self.mixture_weight, self.lam,
             n=n, num_iter=self.num_iter, tol=self.pcg_tol,
         )
+        self._check_convergence(rel, iters)
+        return self._finish(blocks, Wb, joint_means, jlm, {
+            "pcg_max_rel_residual": rel, "pcg_iterations": iters,
+        })
+
+    def _fit_pcg_host(self, data: Dataset, labels: Dataset) -> BlockLinearMapper:
+        """Weighted BCD from host-RAM column slabs: one slab per block per
+        sweep through ``_SlabStream`` (pooled pinned buffers, a copy
+        stream, at most ``SLABS_ON_CARD`` slabs on the card), the next
+        slab's upload issued before the current block's PCG. The slab is
+        the block (``start`` 0, the slab's width), and the dataset's own
+        column blocks are the coordinate blocks (``block_size`` is not
+        read), as the reference's Seq of per-block RDDs defines them.
+
+        The JAX package bounds its run-ahead by forcing the output of the
+        step two back, so that at most three slabs are in flight; here the
+        three pooled device buffers are all there is, a slab's buffer is
+        rewritten only after the block that read it is done with it
+        (``release``), and the CG's exit test syncs the host once per
+        iteration, so the host never runs ahead of the card by more than
+        the next slab's upload."""
+        blocks_host = data.host_blocks
+        for b in blocks_host:
+            _check_float32(b.dtype)
+        dev = data.device
+        lab = labels.to_array_mode()
+        if lab.padded_n != data.padded_n:
+            lab = lab._pad_to(data.padded_n)
+        Y = lab.padded().to(device=dev, dtype=torch.float32)
+        n = data.n
+        w = self.mixture_weight
+        widths = data.block_widths
+        starts = np.cumsum([0] + widths[:-1]).tolist()
+        blocks = list(zip(starts, widths))
+        C = Y.shape[1]
+
+        P, inv_counts, valid, jlm, R = _pcg_setup_core(Y, data.mask(), w, n)
+        Wb = {s: torch.zeros((wd, C), dtype=torch.float32, device=dev) for s, wd in blocks}
+        joint_means = {}
+        rel, iters = None, 0
+        slabs = _SlabStream(blocks_host, dev)
+        schedule = [bi for _ in range(self.num_iter) for bi in range(len(blocks))]
+        nxt = slabs.put(schedule[0])
+        for j, bi in enumerate(schedule):
+            cur = nxt
+            if j + 1 < len(schedule):
+                nxt = slabs.put(schedule[j + 1])
+            s, wd = blocks[bi]
+            Xb = slabs.acquire(cur).to(torch.float32)
+            Wb[s], R, joint_means[s], rel_b, its = _pcg_block_core(
+                Xb, R, P, Wb[s], inv_counts, valid, 0, w, self.lam,
+                width=wd, n=n, tol=self.pcg_tol,
+            )
+            slabs.release(cur)
+            rel = rel_b if rel is None else torch.maximum(rel, rel_b)
+            iters = max(iters, its)
+
         self._check_convergence(rel, iters)
         return self._finish(blocks, Wb, joint_means, jlm, {
             "pcg_max_rel_residual": rel, "pcg_iterations": iters,
@@ -485,3 +567,92 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
     @property
     def weight(self) -> int:
         return (3 * self.num_iter) + 1
+
+
+def _rwls_block_step(X, mu_b, B, y_zm, res, Wb, aTa, lam, start, *, width, first_pass):
+    """One reweighted least-squares block update for one class
+    (ReWeightedLeastSquares.scala:80-137):
+        aTa   = X̃ᵀ(B ∘ X̃)               (first pass, kept)
+        res'  = res − B ∘ (X̃ W_old)
+        aTb   = X̃ᵀ(B ∘ y − res')
+        W_new = (aTa + λI) \\ aTb          (Cholesky; no raise on failure)
+        res   = res' + B ∘ (X̃ W_new)
+    with X̃ the block centered by the class's joint feature mean and its
+    pad rows (B = 0) zeroed."""
+    Xb = X[:, start : start + width]
+    Xzm = (Xb - mu_b[None, :]) * (B > 0).to(Xb.dtype)[:, None]
+    BX = Xzm * B[:, None]
+    if first_pass:
+        aTa = torch.matmul(Xzm.T, BX)
+    res_upd = res - torch.matmul(BX, Wb)
+    aTb = torch.matmul(Xzm.T, (y_zm * B)[:, None] - res_upd)
+    L = torch.linalg.cholesky_ex(aTa + lam * _eye(width, aTa)).L
+    Wb_new = torch.cholesky_solve(aTb, L)
+    return Wb_new, res_upd + torch.matmul(BX, Wb_new), aTa
+
+
+@dataclasses.dataclass(eq=False)
+class PerClassWeightedLeastSquaresEstimator(LabelEstimator):
+    """The mixture-weighted objective solved class by class, as reweighted
+    single-output block coordinate descent
+    (PerClassWeightedLeastSquares.scala:31, 63-227). Class c's row weights
+    are (1−w)/n everywhere plus w/n_c on its own rows; features are centered
+    by the class's joint mean w·classMean_c + (1−w)·popMean, labels by the
+    joint label mean 2w + 2(1−w)·n_c/n − 1. The loop over classes, epochs
+    and blocks runs on the data's device."""
+
+    block_size: int
+    num_iter: int
+    lam: float
+    mixture_weight: float
+
+    def fit(self, data: Dataset, labels: Dataset) -> BlockLinearMapper:
+        data = data.to_array_mode()
+        X = data.padded()
+        _check_float32(X.dtype)
+        X = X.to(torch.float32)
+        dev = X.device
+        Y = labels.to_array_mode().padded().to(device=dev, dtype=torch.float32)
+        n = data.n
+        pn, D = X.shape
+        C = Y.shape[1]
+        w = self.mixture_weight
+        mask = data.mask()
+
+        class_of = torch.argmax(Y, dim=1)[:n]
+        counts = torch.bincount(class_of, minlength=C).to(torch.float64)
+        if bool((counts == 0).any()):
+            raise ValueError("every class needs at least one example")
+
+        # the means in float64, as the JAX package takes them in numpy
+        pop_mean = torch.sum(X * mask[:, None], dim=0) / n
+        onehot = torch.zeros((pn, C), dtype=torch.float32, device=dev)
+        onehot[torch.arange(n, device=dev), class_of] = 1.0
+        class_means = torch.matmul(onehot.T, X).to(torch.float64) / counts[:, None]
+        jfm = class_means * w + pop_mean.to(torch.float64)[None, :] * (1.0 - w)
+        joint_label_mean = (2.0 * w + 2.0 * (1.0 - w) * counts / n - 1.0).to(torch.float32)
+
+        blocks = [(s, min(s + self.block_size, D) - s) for s in range(0, D, self.block_size)]
+        W = torch.zeros((D, C), dtype=torch.float32, device=dev)
+        neg_wt = (1.0 - w) / n
+        for c in range(C):
+            # the class's share added in float64 and rounded once, as numpy
+            # adds a float64 scalar to the float32 weights
+            B = (torch.full((pn,), neg_wt, dtype=torch.float32, device=dev) * mask).to(torch.float64)
+            B[torch.nonzero(class_of == c).flatten()] += w / counts[c]
+            B = B.to(torch.float32)
+            y_zm = (Y[:, c] - joint_label_mean[c]) * mask
+            res = torch.zeros((pn, 1), dtype=torch.float32, device=dev)
+            Wb = {s: torch.zeros((wd, 1), dtype=torch.float32, device=dev) for s, wd in blocks}
+            aTa = {s: None for s, _ in blocks}
+            mu = {s: jfm[c, s : s + wd].to(torch.float32) for s, wd in blocks}
+            for it in range(self.num_iter):
+                for s, wd in blocks:
+                    Wb[s], res, aTa[s] = _rwls_block_step(
+                        X, mu[s], B, y_zm, res, Wb[s], aTa[s], self.lam, s,
+                        width=wd, first_pass=(it == 0),
+                    )
+            W[:, c] = torch.cat([Wb[s][:, 0] for s, _ in blocks])
+
+        intercept = joint_label_mean - torch.einsum("cd,dc->c", jfm.to(torch.float32), W)
+        return BlockLinearMapper(W, self.block_size, explicit_intercept=intercept)

@@ -3,11 +3,11 @@
 ``NormalizeRows``, ``SignedHellingerMapper`` and ``ColumnSampler``, and
 the random-features apps' ``RandomSignNode``, ``PaddedFFT``,
 ``RandomFFTFeatures``, ``LinearRectifier``, ``StandardScaler`` and
-``Sampler``.
+``Sampler``; TIMIT's ``CosineRandomFeatures``.
 
-Reference: nodes/stats/*.scala. Random signs and sample indices are drawn
-with numpy generators seeded as in the JAX package, so both packages draw
-the same numbers; the FFTs are ``torch.fft.rfft`` (cuFFT on the card),
+Reference: nodes/stats/*.scala. Random signs, sample indices and cosine
+features' frequencies and phases are drawn with numpy generators seeded as
+in the JAX package, so both packages draw the same numbers; the FFTs are ``torch.fft.rfft`` (cuFFT on the card),
 whose bins are the first half of the full transform's.
 """
 
@@ -21,6 +21,7 @@ import torch
 
 from keystone_tpu_torch.parallel.dataset import Dataset
 from keystone_tpu_torch.utils.chunks import map_rows, rows_for
+from keystone_tpu_torch.utils.precision import mm
 from keystone_tpu_torch.workflow.api import Estimator, FunctionNode, Transformer
 from keystone_tpu_torch.workflow.operators import cached_on
 
@@ -287,3 +288,38 @@ class Sampler(FunctionNode):
             return Dataset.from_array(x[torch.as_tensor(idx, device=x.device)], n=k)
         items = ds.items()
         return Dataset.from_items([items[i] for i in idx])
+
+
+@dataclasses.dataclass(eq=False)
+class CosineRandomFeatures(Transformer):
+    """Random Fourier features cos(x Wᵀ + b)
+    (nodes/stats/CosineRandomFeatures.scala:19,49): one float32 matmul and
+    a cosine; pad rows stay zero."""
+
+    W: Any  # (num_features, d)
+    b: Any  # (num_features,)
+
+    @staticmethod
+    def create(d: int, num_features: int, gamma: float, seed: int = 0,
+               distribution: str = "gaussian", device=None) -> "CosineRandomFeatures":
+        """W with entries γ·N(0, 1) (or γ·Cauchy) and b uniform in [0, 2π),
+        drawn by ``np.random.default_rng(seed)`` as the JAX package draws
+        them, then put on ``device`` (the CPU when it is not given)."""
+        rng = np.random.default_rng(seed)
+        if distribution == "cauchy":
+            w = rng.standard_cauchy((num_features, d)) * gamma
+        else:
+            w = rng.standard_normal((num_features, d)) * gamma
+        b = rng.uniform(0.0, 2.0 * np.pi, num_features)
+        return CosineRandomFeatures(
+            torch.as_tensor(w.astype(np.float32), device=device),
+            torch.as_tensor(b.astype(np.float32), device=device),
+        )
+
+    def apply(self, x):
+        return torch.cos(mm(x, self.W.T) + self.b)
+
+    def apply_batch(self, ds: Dataset) -> Dataset:
+        # cos(0 + b) is not 0: keep the pad rows zero
+        out = self.apply(ds.padded()) * ds.mask()[:, None]
+        return Dataset.from_array(out, n=ds.n)

@@ -135,18 +135,13 @@ def compute_pca_and_fisher_branch(
     )
 
 
-def build_pipeline(
-    train_images: Dataset, train_labels: Dataset, conf: ImageNetSiftLcsFVConfig,
-    device: Optional[Union[str, torch.device]] = None,
-) -> Pipeline:
-    """The unfitted predictor: its estimators fit on ``train_images`` and
-    ``train_labels`` (int class ids), moved to ``device`` (``None`` means
-    ``cuda``), when it is applied or ``fit()``."""
+def build_featurizer(train_images: Dataset, conf: ImageNetSiftLcsFVConfig,
+                     device: Optional[Union[str, torch.device]] = None) -> Pipeline:
+    """The unfitted featurizer, raw images to feature rows: the SIFT and
+    LCS branches (their PCAs and GMMs fit on ``train_images``, moved to
+    ``device``, ``None`` meaning ``cuda``), gathered and concatenated."""
     dev = resolve_device(device)
     train_images = on_device(train_images, dev)
-    train_labels = on_device(train_labels, dev)
-    indicator_labels = ClassLabelIndicators(conf.num_classes)(train_labels)
-
     sift_prefix = (
         PixelScaler()
         .and_then(GrayScaler())
@@ -164,10 +159,22 @@ def build_pipeline(
         lcs_prefix, train_images, conf, conf.lcs_pca_file, conf.lcs_gmm_files,
         device=dev,
     )
+    return Pipeline.gather([sift_branch, lcs_branch]).and_then(VectorCombiner())
 
+
+def build_pipeline(
+    train_images: Dataset, train_labels: Dataset, conf: ImageNetSiftLcsFVConfig,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Pipeline:
+    """The unfitted predictor: its estimators fit on ``train_images`` and
+    ``train_labels`` (int class ids), moved to ``device`` (``None`` means
+    ``cuda``), when it is applied or ``fit()``."""
+    dev = resolve_device(device)
+    train_images = on_device(train_images, dev)
+    train_labels = on_device(train_labels, dev)
+    indicator_labels = ClassLabelIndicators(conf.num_classes)(train_labels)
     return (
-        Pipeline.gather([sift_branch, lcs_branch])
-        .and_then(VectorCombiner())
+        build_featurizer(train_images, conf, device=dev)
         .and_then(Cacher())
         .and_then(
             BlockWeightedLeastSquaresEstimator(

@@ -25,4 +25,7 @@ from keystone_tpu_torch.workflow.graph import (  # noqa: F401
     SourceId,
 )
 from keystone_tpu_torch.workflow.node_optimization import Optimizable  # noqa: F401
-from keystone_tpu_torch.workflow.optimizer import DefaultOptimizer  # noqa: F401
+from keystone_tpu_torch.workflow.optimizer import (  # noqa: F401
+    AutoCachingOptimizer,
+    DefaultOptimizer,
+)

@@ -59,6 +59,15 @@ RANDOM_FEATURES_MODULES = [
 ]
 
 
+# the fit-memory and TIMIT slice's new modules, which the walk must reach too
+HOST_FIT_MODULES = [
+    "keystone_tpu_torch." + m for m in (
+        "workflow.auto_cache", "loaders.text_loaders", "pipelines.speech",
+        "pipelines.speech.timit",
+    )
+]
+
+
 def _port_sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:
@@ -86,6 +95,7 @@ print("SERVING", sorted(n for n in {SERVING_MODULES!r} if n not in sys.modules))
 print("LOADERS", sorted(n for n in {LOADER_MODULES!r} if n not in sys.modules))
 print("VOC", sorted(n for n in {VOC_MODULES!r} if n not in sys.modules))
 print("RF", sorted(n for n in {RANDOM_FEATURES_MODULES!r} if n not in sys.modules))
+print("HOSTFIT", sorted(n for n in {HOST_FIT_MODULES!r} if n not in sys.modules))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -99,9 +109,10 @@ print("RF", sorted(n for n in {RANDOM_FEATURES_MODULES!r} if n not in sys.module
     assert "LOADERS []" in out.stdout, out.stdout
     assert "VOC []" in out.stdout, out.stdout
     assert "RF []" in out.stdout, out.stdout
+    assert "HOSTFIT []" in out.stdout, out.stdout
     assert int(re.search(r"LOADED (\d+)", out.stdout).group(1)) >= (
         25 + len(TRAINING_MODULES) + len(SERVING_MODULES) + len(LOADER_MODULES)
-        + len(VOC_MODULES) + len(RANDOM_FEATURES_MODULES))
+        + len(VOC_MODULES) + len(RANDOM_FEATURES_MODULES) + len(HOST_FIT_MODULES))
 
 
 def test_streaming_loader_imports_neither_torch_nor_jax():
@@ -300,3 +311,32 @@ def test_voc_entry_points_need_cuda_unless_given_the_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         FittedPipeline.load(path)
     assert isinstance(FittedPipeline.load(path, device="cpu"), FittedPipeline)
+
+
+def test_timit_entry_points_need_cuda_unless_given_the_cpu(monkeypatch, tmp_path):
+    from keystone_tpu_torch.loaders.csv_loader import LabeledData
+    from keystone_tpu_torch.pipelines.speech import timit
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((12, 440)).astype(np.float32)
+    y = (np.arange(12) % 3).astype(np.int32)
+    np.savetxt(tmp_path / "f.csv", x, delimiter=",")
+    (tmp_path / "f.labels").write_text("".join(f"{i + 1} {c + 1}\n" for i, c in enumerate(y)))
+    files = [str(tmp_path / "f.csv"), str(tmp_path / "f.labels")]
+    argv = ["--trainDataLocation", files[0], "--trainLabelsLocation", files[1],
+            "--testDataLocation", files[0], "--testLabelsLocation", files[1],
+            "--numCosines", "1", "--numEpochs", "1", "--lambda", "1"]
+    data = LabeledData.of(torch.as_tensor(y), torch.as_tensor(x))
+    conf = timit.TimitConfig(num_cosines=1, num_cosine_features=64, lam=1.0, num_classes=3)
+    calls = [
+        lambda **kw: timit.main(argv, **kw),
+        lambda **kw: timit.run(data, data, conf, **kw),
+        lambda **kw: timit.build_pipeline(data, conf, **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    for call in calls:
+        out = call(device="cpu")
+        assert out == 0 or out is not None
