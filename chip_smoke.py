@@ -129,6 +129,24 @@ Phases, in order; any failure exits non-zero:
    ``timit.main`` with the JAX defaults (40 x 4,096 cosines) on
    TIMIT-layout files of 32,768 + 8,192 seeded frames under the gitignored
    ``tmp/phase11``: accuracy above 0.9, time and peak.
+12. the text apps and the ELL solver, which reach no kernel of this repo
+   (the launches in the phase are counted and printed: 0): (a)
+   ``NewsgroupsPipeline.main`` with the JAX defaults (2-grams, 100,000
+   common features, 20 classes) on 11,314 + 7,532 seeded documents of 250
+   words written as per-class directories under the gitignored
+   ``tmp/phase12``, string-keyed and ``--hashing``: accuracy above 0.9,
+   time by node and peak, Naive Bayes card against CPU, the native
+   featurizer's routes (every document native), and the string-keyed
+   pipeline saved, reloaded and scoring the test split bit for bit; (b)
+   ``AmazonReviewsPipeline.main`` (threshold 3.5, 2-grams, 100,000
+   features, 20 iterations) on JSON lines of 50,000 + 10,000 reviews
+   string-keyed and 1,000,000 + 200,000 hashed, 100 words each: accuracy,
+   L-BFGS iterations and value-and-gradient calls, nnz and CSR bytes, fit
+   seconds and peak, and the string-keyed fit against a CPU fit; (c)
+   ``EllLeastSquaresEstimator`` at bench.py's 65,000,000 x 1,024, nnz 5,
+   K 2, lambda 1e-2, bf16 data made on the card: fit seconds, Gram
+   TFLOP/s, peak, G and AᵀY of the first 1,000,000 rows against float64
+   and the mapper against the dense product.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then, last, the result line ``{"ok": true, "device": {...}}``.
@@ -2584,6 +2602,340 @@ def timit_at_width(dev, smi, sizes=P11_TIMIT, flags=()):
     return rec
 
 
+# phase 12: the text apps at their published widths (the JAX defaults:
+# nGrams 2, commonFeatures 100,000; Newsgroups' 20 classes; Amazon's
+# threshold 3.5 and numIters 20), in both feature modes, on seeded
+# synthetic corpora in the loaders' formats, and the ELL solver at the
+# Amazon experiment's shape (bench.py:232-259). Only corpus sizes are cut.
+P12_NEWS = (11_314, 7_532)  # 20 Newsgroups "bydate": train, test
+P12_NEWS_WORDS, P12_REVIEW_WORDS = 250, 100
+P12_AMAZON, P12_AMAZON_HASHED = (50_000, 10_000), (1_000_000, 200_000)
+# a Zipf vocabulary of 30,000 words; each word of a document is, with the
+# given chance, one of its class's (or sentiment's) own words instead
+P12_VOCAB, P12_ZIPF = 30_000, 1.07
+P12_CLASS_WORDS, P12_CLASS_SHARE = 150, 0.1
+P12_SENTIMENT_WORDS, P12_SENTIMENT_SHARE = 200, 0.05
+P12_MIN_ACC = 0.9
+# 12c: N, D, nnz, K and lambda of bench.py:232-259; G and AᵀY over a prefix
+# of 1M rows (one tile, as the fit forms it) held against float64, as a
+# share of the largest entry: the float32 accumulation of 1M exact bf16
+# products on the tensor cores read 1.17e-5 for G (2.3e-7 for AᵀY) on an
+# NVIDIA H100 80GB HBM3 at 700 W, above the 1e-5 first set here; a Gram
+# whose partial sums were rounded to bf16 would stray by ~4e-3 (bf16's
+# epsilon). The mapper against the dense float32 product (read 8.4e-8)
+P12_ELL = dict(n=65_000_000, d=1024, nnz=5, k=2, lam=1e-2)
+P12_ELL_CHECK_ROWS = 1_000_000
+RTOL_ELL_GRAM, RTOL_ELL_APPLY = 1e-4, 1e-5
+# 12b's logistic regression card against CPU on the string-keyed mode's
+# training rows: ‖ΔW‖/‖W‖ and the share of equal training predictions
+# (float32 sums in another order move the line search's trials a little)
+RTOL_LR_W, MIN_LR_AGREE = 1e-3, 0.999
+# H100 SXM data sheet, dense bf16 on the tensor cores
+PEAK_BF16_FLOPS = 989e12
+
+
+def _letters(v):
+    """(v, 4) uint8: word ``i`` of the vocabulary is the four lowercase
+    letters of ``i + 26³`` in base 26, so no two words are alike."""
+    i = np.arange(v) + 26 ** 3
+    return (97 + (i[:, None] // 26 ** np.arange(3, -1, -1)) % 26).astype(np.uint8)
+
+
+def zipf_table(bits=22, zipf=P12_ZIPF):
+    """Inverse-CDF table of a Zipf law over ``P12_VOCAB`` words: word ids
+    at ``2**bits`` evenly spaced quantiles (a draw is one gather; the
+    rarest word's share, 1.8e-6, spans several entries)."""
+    p = 1.0 / np.arange(1, P12_VOCAB + 1) ** zipf
+    q = (np.arange(2 ** bits) + 0.5) / 2 ** bits
+    return np.minimum(np.searchsorted(np.cumsum(p / p.sum()), q), P12_VOCAB - 1).astype(np.int32)
+
+
+def text_rows(rng, labels, words, extra, share, table):
+    """One document per label as a row of ASCII bytes: ``words`` words
+    drawn from the Zipf vocabulary of ``table``, each one with chance
+    ``share`` replaced by one of ``extra[label]`` (the ids of a class's own
+    words, past the shared vocabulary), space-separated, the first letter
+    capitalized and a period at the end: (n, 5 · words) uint8."""
+    n = len(labels)
+    tok = table[rng.integers(0, table.size, (n, words), dtype=np.int64)]
+    own = np.asarray(extra, np.int32)
+    at = np.flatnonzero(rng.random(n * words, dtype=np.float32) < share)
+    tok.reshape(-1)[at] = own[np.asarray(labels)[at // words], rng.integers(0, own.shape[1], at.size)]
+    out = np.full((n, words, 5), ord(" "), np.uint8)
+    out[:, :, :4] = _letters(P12_VOCAB + own.size)[tok]
+    out = out.reshape(n, words * 5)
+    out[:, -1] = ord(".")
+    out[:, 0] -= 32  # capitalized
+    return out
+
+
+def _own_words(classes, per_class):
+    return [list(range(P12_VOCAB + c * per_class, P12_VOCAB + (c + 1) * per_class))
+            for c in range(classes)]
+
+
+def write_newsgroups(root, rng, sizes=P12_NEWS, words=P12_NEWS_WORDS):
+    """Train and test directories of per-class plaintext files (the
+    loader's format), 20 classes, seeded."""
+    from keystone_tpu_torch.loaders.text_loaders import NEWSGROUPS_CLASSES
+
+    k = len(NEWSGROUPS_CLASSES)
+    table = zipf_table()
+    dirs = []
+    for split, n in zip(("train", "test"), sizes):
+        labels = rng.integers(0, k, n)
+        rows = text_rows(rng, labels, words, _own_words(k, P12_CLASS_WORDS), P12_CLASS_SHARE,
+                         table)
+        for c in NEWSGROUPS_CLASSES:
+            os.makedirs(os.path.join(root, split, c))
+        for i, (row, c) in enumerate(zip(rows, labels)):
+            with open(os.path.join(root, split, NEWSGROUPS_CLASSES[c], f"{i:06d}"), "wb") as f:
+                f.write(row.tobytes())
+        dirs.append(os.path.join(root, split))
+    return dirs
+
+
+def write_reviews(path, rng, n, words=P12_REVIEW_WORDS, chunk=200_000):
+    """JSON lines with "overall" (1 to 5) and "reviewText", the loader's
+    format, written a chunk of rows of bytes at a time: a review rated 4 or
+    5 leans on positive words, 1 to 3 on negative ones."""
+    head, tail = b'{"overall": 0.0, "reviewText": "', b'"}\n'
+    digit = head.index(b"0")
+    extra = _own_words(2, P12_SENTIMENT_WORDS)
+    table = zipf_table()
+    with open(path, "wb") as f:
+        for s in range(0, n, chunk):
+            m = min(chunk, n - s)
+            positive = rng.random(m) < 0.5
+            ratings = np.where(positive, rng.integers(4, 6, m), rng.integers(1, 4, m))
+            text = text_rows(rng, positive.astype(np.int64), words, extra, P12_SENTIMENT_SHARE,
+                             table)
+            line = np.empty((m, len(head) + text.shape[1] + len(tail)), np.uint8)
+            line[:, : len(head)] = np.frombuffer(head, np.uint8)
+            line[:, digit] = ord("0") + ratings
+            line[:, len(head) : len(head) + text.shape[1]] = text
+            line[:, -len(tail):] = np.frombuffer(tail, np.uint8)
+            line.tofile(f)
+    return path
+
+
+def _only_node(predictor, name):
+    (node,) = {id(o): o for o in predictor._graph.operators.values()
+               if type(o).__name__ == name}.values()
+    return node
+
+
+def _csr_bytes(a):
+    return a.crow_indices().numel() * 8 + a._nnz() * (8 + 4)
+
+
+def text_app(dev, app, argv, sync, check_cpu):
+    """One text app's ``main(argv)`` on ``dev``: its printed metrics, the
+    time split by node, the fit's records, the peak device memory, and the
+    fitted estimator's inputs, held against a CPU fit when ``check_cpu``;
+    Naive Bayes' test predictions under ``"predictions"``."""
+    from keystone_tpu_torch.ops.learning import classifiers
+    from keystone_tpu_torch.ops.util.nodes import CommonSparseFeatures, MaxClassifier
+
+    est_name = "NaiveBayesEstimator" if app.__name__.endswith("newsgroups") else \
+        "LogisticRegressionEstimator"
+    est_cls = getattr(classifiers, est_name)
+    calls, times, vec, scored = {}, {}, {}, {}
+    out = io.StringIO()
+    _reset_peak(dev)
+    with recorded(app, "run", sync, calls), recorded(est_cls, "fit", sync, calls), \
+            recorded(CommonSparseFeatures, "fit", sync, vec), \
+            recorded(MaxClassifier, "apply_batch", sync, scored), \
+            node_times(sync, times, ["main"]), contextlib.redirect_stdout(out):
+        t = time.perf_counter()
+        rc = app.main(argv, device=dev)
+        main_s = time.perf_counter() - t
+    assert rc == 0, rc
+    predictor, metrics = calls["run"]["out"]
+    est, data, labels = calls["fit"]["args"]
+    x = data.to_array_mode().padded()
+    rec = {"main_s": main_s, "run_s": calls["run"]["s"], "fit_s": calls["fit"]["s"],
+           "peak_bytes": _peak(dev), "node_times": times["main"], "rows": x.shape[0],
+           "features": x.shape[1], "nnz": x._nnz(), "csr_bytes": _csr_bytes(x),
+           "printed": out.getvalue().splitlines()[:3]}
+    if est_name == "NaiveBayesEstimator":
+        rec["accuracy"] = metrics.total_accuracy
+        rec["predictions"] = scored["apply_batch"]["out"].array()  # the test split's
+    else:
+        rec["accuracy"] = metrics.accuracy
+        rec["lbfgs"] = dict(est.fit_stats)
+    if "--hashing" in argv:
+        routes = _only_node(predictor, "FusedTextHashTF").routes
+        rec["routes"] = dict(routes)
+        # the corpora are ASCII: every document must take the native path
+        assert routes["native"] > 0 and routes["python"] == 0, routes
+    else:
+        rec["common_features"] = len(vec["fit"]["out"].feature_index)
+    if check_cpu:
+        x_cpu = Dataset.from_array(x.cpu(), n=data.n)
+        y_cpu = Dataset.from_array(labels.to_array_mode().array().cpu())
+        card = calls["fit"]["out"]
+        if est_name == "NaiveBayesEstimator":
+            host = classifiers.NaiveBayesEstimator(est.num_classes, est.lam).fit(x_cpu, y_cpu)
+            for name in ("pi", "theta"):
+                err = max_abs_err(getattr(card, name).cpu(), getattr(host, name), 1e-5, 1e-6,
+                                  f"12a Naive Bayes {name}, card vs CPU")
+                rec[f"{name}_max_abs_err"] = err
+        else:
+            host = classifiers.LogisticRegressionEstimator(
+                est.num_classes, num_iters=est.num_iters).fit(x_cpu, y_cpu)
+            rel = float(torch.linalg.norm(card.W.cpu() - host.W) / torch.linalg.norm(host.W))
+            agree = int((card.apply_batch(x_cpu).array().cpu()
+                         == host.apply_batch(x_cpu).array()).sum()) / x_cpu.n
+            rec.update(w_rel_err=rel, train_agreement=agree)
+            assert rel <= RTOL_LR_W and agree >= MIN_LR_AGREE, (rel, agree)
+    return rec, predictor
+
+
+def text_apps(dev, smi, news=P12_NEWS, amazon=P12_AMAZON, hashed=P12_AMAZON_HASHED,
+              ell=P12_ELL, check_rows=P12_ELL_CHECK_ROWS):
+    """Phase 12: NewsgroupsPipeline and AmazonReviewsPipeline ``main()`` at
+    the JAX defaults in both feature modes on seeded corpora written under
+    the gitignored ``tmp/phase12`` (12a, 12b), and
+    ``EllLeastSquaresEstimator`` at 65M x 1,024 (12c). To rehearse it on
+    the CPU at a small size: ``text_apps(torch.device("cpu"), "cpu",
+    news=(2000, 500), amazon=(2000, 500), hashed=(4000, 500),
+    ell=dict(n=20_000, d=64, nnz=5, k=2, lam=1e-2), check_rows=5_000)``
+    (about 20 s)."""
+    from keystone_tpu_torch.loaders.text_loaders import NewsgroupsDataLoader
+    from keystone_tpu_torch.ops.learning import sparse_ell
+    from keystone_tpu_torch.pipelines.text import amazon_reviews, newsgroups
+    from keystone_tpu_torch.workflow.api import FittedPipeline
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    root = os.path.join(ROOT, "tmp", "phase12")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rng = np.random.default_rng(12)
+    rec = {"card": smi, "host_cpus": os.cpu_count(), "usable_cpus": len(os.sched_getaffinity(0))}
+    log(f"phase 12 host: {rec['host_cpus']} CPUs, {rec['usable_cpus']} usable by this process")
+
+    # -- 12a: NewsgroupsPipeline -------------------------------------------
+    t = time.perf_counter()
+    train_dir, test_dir = write_newsgroups(root, rng, news)
+    rec["news_write_s"] = time.perf_counter() - t
+    argv = ["--trainLocation", train_dir, "--testLocation", test_dir]
+    for mode, flags in (("strings", []), ("hashing", ["--hashing"])):
+        r, predictor = text_app(dev, newsgroups, argv + flags, sync, check_cpu=True)
+        assert r["accuracy"] > P12_MIN_ACC, r["accuracy"]
+        if mode == "strings":
+            assert r["common_features"] == 100_000
+            # the fitted pipeline through a file, then the test split again:
+            # the predictions main() made, bit for bit
+            t = time.perf_counter()
+            fitted = predictor.fit()
+            path = os.path.join(root, "newsgroups.pt")
+            fitted.save(path)
+            loaded = FittedPipeline.load(path, device=dev)
+            got = loaded(NewsgroupsDataLoader(test_dir).data).array()
+            sync()
+            assert torch.equal(got, r.pop("predictions")), "a reloaded pipeline scores otherwise"
+            r.update(saved_bytes=os.path.getsize(path), reload_score_s=time.perf_counter() - t)
+            del fitted, loaded
+        r.pop("predictions", None)
+        rec[f"news_{mode}"] = r
+        log(f"12a Newsgroups main() {mode} on {news[0]} + {news[1]} documents: "
+            f"{r['main_s']:.3f} s, accuracy {r['accuracy']:.4f}, {r['nnz']} nonzeros "
+            f"({r['csr_bytes']} bytes of CSR), peak {r['peak_bytes']} bytes on {smi}; "
+            f"by node (s): {r['node_times']}" + (f"; routes {r['routes']}" if "routes" in r else
+                                                 f"; saved {r['saved_bytes']} bytes, reloaded "
+                                                 f"and scored bit for bit in {r['reload_score_s']:.3f} s"))
+    shutil.rmtree(os.path.join(root, "train"), ignore_errors=True)
+    shutil.rmtree(os.path.join(root, "test"), ignore_errors=True)
+
+    # -- 12b: AmazonReviewsPipeline ----------------------------------------
+    for mode, sizes, flags in (("strings", amazon, []), ("hashing", hashed, ["--hashing"])):
+        t = time.perf_counter()
+        train = write_reviews(os.path.join(root, "train.json"), rng, sizes[0])
+        test = write_reviews(os.path.join(root, "test.json"), rng, sizes[1])
+        write_s = time.perf_counter() - t
+        r, _ = text_app(dev, amazon_reviews, ["--trainLocation", train, "--testLocation", test]
+                        + flags, sync, check_cpu=mode == "strings")
+        r.update(write_s=write_s, sizes=sizes,
+                 card_bytes_with_transpose=2 * r["csr_bytes"])
+        assert r["accuracy"] > P12_MIN_ACC, r["accuracy"]
+        rec[f"amazon_{mode}"] = r
+        log(f"12b Amazon main() {mode} on {sizes[0]} + {sizes[1]} reviews (written in {write_s:.3f} "
+            f"s): {r['main_s']:.3f} s, accuracy {r['accuracy']:.4f}, L-BFGS {r['lbfgs']}, "
+            f"{r['nnz']} nonzeros ({r['csr_bytes']} bytes of CSR, twice that with its "
+            f"transpose), fit {r['fit_s']:.3f} s, peak {r['peak_bytes']} bytes on {smi}; by node "
+            f"(s): {r['node_times']}" + (f"; routes {r['routes']}" if "routes" in r else
+                                         f"; card vs CPU: W {r['w_rel_err']:.3g}, training "
+                                         f"predictions equal {r['train_agreement']:.5f}"))
+        os.remove(train)
+        os.remove(test)
+
+    # -- 12c: the ELL solver at 65M x 1,024 ---------------------------------
+    _reset_peak(dev)
+    n, d, nnz, k = ell["n"], ell["d"], ell["nnz"], ell["k"]
+    g = torch.Generator(device=dev).manual_seed(12)
+    t = time.perf_counter()
+    idx = torch.randint(0, d, (n, nnz), generator=g, device=dev, dtype=torch.int32)
+    vals = torch.randn((n, nnz), generator=g, device=dev, dtype=torch.bfloat16)
+    Y = torch.randn((n, k), generator=g, device=dev, dtype=torch.bfloat16)
+    sync()
+    gen_s = time.perf_counter() - t
+    est = sparse_ell.EllLeastSquaresEstimator(d=d, lam=ell["lam"])
+    data, labels = sparse_ell.ell_dataset(idx, vals), Dataset.from_array(Y)
+    chunk = min(est.chunk, n)
+    seg = max(int(est.segment_flops / (2.0 * d * d)) // chunk, 1) * chunk
+    segments = -(-n // seg)
+    fits = []
+    for _ in range(2):  # the first fit pays cuBLAS's first-call setup
+        sync()
+        t = time.perf_counter()
+        model = est.fit(data, labels)
+        sync()
+        fits.append(time.perf_counter() - t)
+    flop = 2.0 * n * d * (d + k)
+    rec["ell"] = er = {"n": n, "d": d, "nnz": nnz, "k": k, "gen_s": gen_s, "fit_s": fits,
+                       "segments": segments, "flop": flop, "tflops": flop / min(fits) / 1e12,
+                       "bound_s": flop / PEAK_BF16_FLOPS, "peak_bytes": _peak(dev),
+                       "data_bytes": idx.numel() * 4 + vals.numel() * 2 + Y.numel() * 2}
+    assert bool(torch.isfinite(model.W).all())
+    # G and AᵀY of a prefix against float64 from the same bf16 tile
+    rows = min(check_rows, n)
+    G, AY = sparse_ell._normal_eq_pass(idx[:rows], vals[:rows], Y[:rows], d=d, chunk=rows)
+    tile = sparse_ell.ell_to_dense(idx[:rows], vals[:rows], d).to(torch.float64)
+    G64, AY64 = tile.T @ tile, tile.T @ Y[:rows].to(torch.float64)
+    del tile
+    er["gram_rel_err"] = float((G.double() - G64).abs().max() / G64.abs().max())
+    er["aty_rel_err"] = float((AY.double() - AY64).abs().max() / AY64.abs().max())
+    # the mapper's gather against the dense float32 product (duplicate ids
+    # summed in float32 here, as the gather sums them)
+    dense = torch.zeros((rows, d), dtype=torch.float32, device=dev)
+    dense.scatter_add_(1, idx[:rows].to(torch.int64), vals[:rows].to(torch.float32))
+    want = dense @ model.W
+    got = model.apply_batch(sparse_ell.ell_dataset(idx[:rows], vals[:rows])).array()
+    er["apply_rel_err"] = float((got - want).abs().max() / want.abs().max())
+    del dense, want, got, G, AY, G64, AY64
+    log(f"12c EllLeastSquaresEstimator at {n} x {d}, nnz {nnz}, K {k} ({er['data_bytes']} bytes "
+        f"made in {gen_s:.3f} s): fits {[round(f, 4) for f in fits]} s, {er['tflops']:.1f} TFLOP/s "
+        f"of Gram (bound {er['bound_s']:.4f} s at the bf16 peak), {segments} segment(s), peak "
+        f"{er['peak_bytes']} bytes; over {rows} rows G {er['gram_rel_err']:.3g} and AᵀY "
+        f"{er['aty_rel_err']:.3g} of the largest float64 entry, the mapper "
+        f"{er['apply_rel_err']:.3g} of the dense product, on {smi}")
+    assert er["gram_rel_err"] <= RTOL_ELL_GRAM and er["aty_rel_err"] <= RTOL_ELL_GRAM, er
+    assert er["apply_rel_err"] <= RTOL_ELL_APPLY, er
+    del idx, vals, Y, data, labels, model
+    PipelineEnv.get_or_create().reset()
+    shutil.rmtree(root, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 12 in {rec['phase_s']:.3f} s on {smi}")
+    return rec
+
+
 def _info(info):
     return None if info is None else {k: float(v) for k, v in info.items()}
 
@@ -2689,12 +3041,20 @@ def main():
     past["timit"] = timit_at_width(dev, smi)
     past["phase_s"] = time.perf_counter() - t0
     log(f"phase 11 in {past['phase_s']:.3f} s on {smi}")
+    torch.cuda.empty_cache()
+
+    # -- 12. the text apps and the ELL solver (no kernel of this repo) ---
+    _cuda.reset_launches()
+    text = text_apps(dev, smi)
+    for r in rows:
+        r["phase12_launches"] = _cuda.LAUNCHES[r["name"]]
+    log(f"launches in phase 12: {dict(_cuda.LAUNCHES)}")
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": rows, "wide": wide, "serve": served, "train": trained,
                    "stream": streamed, "files": files, "voc": voc_rec, "random_features": rf,
-                   "past_the_card": past, "ptxas": ptxas}, f,
+                   "past_the_card": past, "text": text, "ptxas": ptxas}, f,
                   indent=1, default=str)
     # the fit's launches and B3's error with the fitted GMMs are in
     # chip_smoke.json beside these

@@ -42,6 +42,24 @@ taking the numpy parameters out of the port's fitted pipeline and each
 - a kernel ridge regression model (``krr_*``), feature rows to scores:
   ``{"train_X": (n, d), "n_train", "gamma", "W": (n, classes),
   "block_size"}``.
+
+The text models carry across from either package: ``text_params`` reads
+a fitted text pipeline of the JAX package or of the port (by its nodes'
+class names and attributes; it imports neither package's node classes)
+and ``text_from_numpy`` builds the port's fitted pipeline, raw documents
+to predictions, from
+
+    params = {"orders": [1, ..., n],
+              "feature_index": {term: column}, "dim": d   (string-keyed)
+              or "num_features": d, "binarize": bool     (hashed),
+              "naive_bayes": {"pi": (k,), "theta": (k, d)}
+              or "logistic": {"W": (d, k)}}
+
+Each model also converts alone: ``naive_bayes_from_numpy``,
+``logistic_regression_from_numpy``, ``linear_mapper_from_numpy`` (a
+``LinearMapper`` or, with ``ell=True``, an ``EllLinearMapper``: ``{"W":
+(d, k), "intercept": (k,)}``); a feature index of either package goes
+straight into the port's ``SparseFeatureVectorizer``.
 """
 
 from __future__ import annotations
@@ -341,3 +359,88 @@ def flagship_from_numpy(
             np.asarray(m["W"]), m.get("intercept"), top_k, dev
         )
     return featurize, model
+
+
+def _host(a) -> np.ndarray:
+    """A tensor of either package (a torch tensor or a JAX array) as numpy."""
+    return _numpy(a) if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _nodes_named(fitted, *names):
+    return [o for o in fitted.graph.operators.values() if type(o).__name__ in names]
+
+
+def text_params(fitted) -> dict:
+    """numpy parameters of a fitted NewsgroupsPipeline or
+    AmazonReviewsPipeline, of the JAX package or the port, in the layout
+    ``text_from_numpy`` takes."""
+    out: dict = {}
+    (grams,) = _nodes_named(fitted, "NGramsFeaturizer", "FusedTextHashTF") or [None]
+    if grams is None:
+        raise ValueError("no n-gram featurizer in the pipeline")
+    out["orders"] = [int(o) for o in grams.orders]
+    if type(grams).__name__ == "FusedTextHashTF":
+        out.update(num_features=int(grams.num_features), binarize=bool(grams.binarize))
+    else:
+        (vec,) = _nodes_named(fitted, "SparseFeatureVectorizer")
+        out.update(feature_index=dict(vec.feature_index), dim=int(vec.dim))
+    nb = _nodes_named(fitted, "NaiveBayesModel")
+    if nb:
+        out["naive_bayes"] = {"pi": _host(nb[0].pi), "theta": _host(nb[0].theta)}
+    else:
+        (lr,) = _nodes_named(fitted, "LogisticRegressionModel")
+        out["logistic"] = {"W": _host(lr.W)}
+    return out
+
+
+def naive_bayes_from_numpy(params: dict, *, device=None):
+    """``NaiveBayesModel(pi, theta)`` on ``device`` (``None``: cuda)."""
+    from keystone_tpu_torch.ops.learning.classifiers import NaiveBayesModel
+
+    t = _tensors(params, resolve_device(device))
+    return NaiveBayesModel(t("pi"), t("theta"))
+
+
+def logistic_regression_from_numpy(params: dict, *, device=None):
+    """``LogisticRegressionModel(W)`` on ``device`` (``None``: cuda)."""
+    from keystone_tpu_torch.ops.learning.classifiers import LogisticRegressionModel
+
+    return LogisticRegressionModel(_tensors(params, resolve_device(device))("W"))
+
+
+def linear_mapper_from_numpy(params: dict, *, ell: bool = False, device=None):
+    """``LinearMapper(W, intercept)`` on ``device`` (``None``: cuda), or
+    with ``ell`` an ``EllLinearMapper``, which takes ELL rows."""
+    from keystone_tpu_torch.ops.learning.linear import LinearMapper
+    from keystone_tpu_torch.ops.learning.sparse_ell import EllLinearMapper
+
+    t = _tensors(params, resolve_device(device))
+    return (EllLinearMapper if ell else LinearMapper)(t("W"), intercept=t("intercept"))
+
+
+def text_from_numpy(params: dict, *, device=None):
+    """The port's fitted text pipeline, raw documents to predicted class
+    ids, from ``params`` (``text_params``' layout) on ``device``
+    (``None``: cuda): the string-keyed featurizer and vectorizer or the
+    fused hashed featurizer, then Naive Bayes and ``MaxClassifier`` or
+    logistic regression."""
+    from keystone_tpu_torch.ops.nlp import FusedTextHashTF, LowerCase, NGramsFeaturizer, Tokenizer, Trim
+    from keystone_tpu_torch.ops.stats.nodes import TermFrequency, presence
+    from keystone_tpu_torch.ops.util.nodes import MaxClassifier, SparseFeatureVectorizer
+
+    dev = resolve_device(device)
+    orders = list(params["orders"])
+    if "num_features" in params:
+        pipe = FusedTextHashTF(orders, int(params["num_features"]),
+                               binarize=bool(params["binarize"])).to_pipeline()
+    else:
+        pipe = (Trim().and_then(LowerCase()).and_then(Tokenizer())
+                .and_then(NGramsFeaturizer(orders)).and_then(TermFrequency(presence))
+                .and_then(SparseFeatureVectorizer(dict(params["feature_index"]),
+                                                  int(params["dim"]))))
+    if "naive_bayes" in params:
+        pipe = pipe.and_then(naive_bayes_from_numpy(params["naive_bayes"], device=dev))
+        pipe = pipe.and_then(MaxClassifier())
+    else:
+        pipe = pipe.and_then(logistic_regression_from_numpy(params["logistic"], device=dev))
+    return pipe.fit()

@@ -1,18 +1,22 @@
-"""ctypes bindings for the native host IO runtime (counterpart of
-``keystone_tpu/native.py``): the JPEG decoder (``native/jpeg.cc``) and the
-CSV parser and CIFAR record decoder (``native/io.cc``).
+"""ctypes bindings for the native host runtime (counterpart of
+``keystone_tpu/native.py``): the JPEG decoder (``native/jpeg.cc``), the
+CSV parser and CIFAR record decoder (``native/io.cc``) and the fused text
+featurizer (``native/text.cc``).
 
 The streaming loaders decode at a fixed size through ``native/jpeg.cc``
 (libjpeg's DCT-scaled draft decode, then a triangle-filter resize to the
 target square, with the GIL released for the whole call, so a thread pool
 of decoders scales across cores). ``native/io.cc`` parses numeric CSVs on
-several threads and decodes CIFAR binary records. The port builds its own
+several threads and decodes CIFAR binary records. ``native/text.cc`` runs
+trim, ASCII lowercase, tokenization and rolling n-gram hashing of a batch
+of documents on several threads and writes CSR triplets. The port builds its own
 copy of each library at first use, with ``native/Makefile``'s flags, into
 ``keystone_tpu_torch/_build/`` (the file name carries a digest of the
 source, so an edited source is rebuilt); it never writes into ``native/``.
 When a library cannot be built or loaded (no compiler, no libjpeg), the
 functions take the JAX package's own host routes: PIL for JPEGs (the
-decoders return ``None``), numpy for CSVs and CIFAR records.
+decoders return ``None``), numpy for CSVs and CIFAR records, the composed
+Python text nodes for documents (``text_ngram_hash_tf`` returns ``None``).
 
 This module imports neither torch nor jax: spawned decode workers load it.
 """
@@ -32,6 +36,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _NATIVE_DIR = os.path.join(os.path.dirname(_HERE), "native")
 JPEG_SOURCE = os.path.join(_NATIVE_DIR, "jpeg.cc")
 IO_SOURCE = os.path.join(_NATIVE_DIR, "io.cc")
+TEXT_SOURCE = os.path.join(_NATIVE_DIR, "text.cc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 # native/Makefile's CXXFLAGS and LDFLAGS
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared", "-pthread")
@@ -64,6 +69,15 @@ def _bind_io(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.c_int,
     ]
     lib.cifar_read.restype = ctypes.c_int64
+
+
+def _bind_text(lib: ctypes.CDLL) -> None:
+    lib.text_ngram_hash_tf.argtypes = [
+        ctypes.c_char_p, P(ctypes.c_int64), ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int64, ctypes.c_int, P(ctypes.c_int64),
+        P(ctypes.c_int32), P(ctypes.c_float), ctypes.c_int64, ctypes.c_int,
+    ]
+    lib.text_ngram_hash_tf.restype = ctypes.c_int64
 
 
 class _Library:
@@ -132,6 +146,7 @@ class _Library:
 
 _JPEG = _Library(JPEG_SOURCE, "keystone_jpeg", ("-ljpeg",), _bind_jpeg)
 _IO = _Library(IO_SOURCE, "keystone_io", (), _bind_io)
+_TEXT = _Library(TEXT_SOURCE, "keystone_text", (), _bind_text)
 
 
 def jpeg_native_available() -> bool:
@@ -140,6 +155,10 @@ def jpeg_native_available() -> bool:
 
 def io_native_available() -> bool:
     return _IO.load() is not None
+
+
+def text_native_available() -> bool:
+    return _TEXT.load() is not None
 
 
 def jpeg_decode_f32(data: bytes, target: int) -> Optional[np.ndarray]:
@@ -224,3 +243,44 @@ def read_cifar(path: str, channels: int = 3, dim: int = 32
     if got < 0:
         raise OSError(f"cannot read {path}")
     return labels[:got], images[:got]
+
+
+def text_ngram_hash_tf(docs, min_order: int, max_order: int, num_features: int,
+                       binarize: bool = False, num_threads: int = 0):
+    """Fused trim / lowercase / tokenize / rolling n-gram hash TF over a
+    list of ASCII documents: ``(row_ptr int64 (n+1,), cols int32 (nnz,),
+    vals float32 (nnz,))``, each document's columns ascending, hash-identical
+    to Trim -> LowerCase -> Tokenizer -> NGramsHashingTF, on one thread per
+    CPU this process may run on (by default). ``None`` when the library is
+    unavailable or a document is not ASCII (the C++ tokenizer is
+    byte-level): the caller then runs the Python nodes."""
+    if num_features <= 0:  # a modulo by zero in C++ would raise SIGFPE
+        raise ValueError(f"num_features must be positive: {num_features}")
+    lib = _TEXT.load()
+    if lib is None:
+        return None
+    try:
+        blobs = [d.encode("ascii") for d in docs]
+    except UnicodeEncodeError:
+        return None
+    n = len(blobs)
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum([len(b) for b in blobs], out=offsets[1:])
+    concat = b"".join(blobs)
+    row_ptr = np.zeros(n + 1, np.int64)
+    cap = max(2 * len(concat) + 16, 1024)
+    for _ in range(2):
+        cols = np.empty(cap, np.int32)
+        vals = np.empty(cap, np.float32)
+        nnz = lib.text_ngram_hash_tf(
+            concat, offsets.ctypes.data_as(P(ctypes.c_int64)), n, min_order,
+            max_order, num_features, int(binarize),
+            row_ptr.ctypes.data_as(P(ctypes.c_int64)),
+            cols.ctypes.data_as(P(ctypes.c_int32)),
+            vals.ctypes.data_as(P(ctypes.c_float)), cap,
+            num_threads or len(os.sched_getaffinity(0)),
+        )
+        if nnz >= 0:
+            return row_ptr, cols[:nnz], vals[:nnz]
+        cap = int(row_ptr[n])  # the exact need, written before the -1
+    return None

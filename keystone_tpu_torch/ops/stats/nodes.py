@@ -8,17 +8,20 @@ the random-features apps' ``RandomSignNode``, ``PaddedFFT``,
 Reference: nodes/stats/*.scala. Random signs, sample indices and cosine
 features' frequencies and phases are drawn with numpy generators seeded as
 in the JAX package, so both packages draw the same numbers; the FFTs are ``torch.fft.rfft`` (cuFFT on the card),
-whose bins are the first half of the full transform's.
+whose bins are the first half of the full transform's. The text apps'
+``TermFrequency`` counts terms on the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from collections import Counter
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
+from keystone_tpu_torch.ops.nlp.string_utils import HostTextTransformer
 from keystone_tpu_torch.parallel.dataset import Dataset
 from keystone_tpu_torch.utils.chunks import map_rows, rows_for
 from keystone_tpu_torch.utils.precision import mm
@@ -323,3 +326,30 @@ class CosineRandomFeatures(Transformer):
         # cos(0 + b) is not 0: keep the pad rows zero
         out = self.apply(ds.padded()) * ds.mask()[:, None]
         return Dataset.from_array(out, n=ds.n)
+
+
+def identity(x):
+    return x
+
+
+def presence(x):
+    """TermFrequency(x => 1): a term counts once however often it occurs.
+    A module-level function, unlike the JAX package's lambda, so that a
+    fitted pipeline holding it can be saved."""
+    return 1
+
+
+@dataclasses.dataclass(eq=False)
+class TermFrequency(HostTextTransformer):
+    """term sequence -> {term: weighted count} with a pluggable weighting
+    function (reference: nodes/stats/TermFrequency.scala:19). N-gram lists
+    become hashable tuples on the way in."""
+
+    fn: Callable[[float], float] = identity
+
+    def apply(self, terms):
+        counts = Counter(tuple(t) if isinstance(t, list) else t for t in terms)
+        return {k: self.fn(v) for k, v in counts.items()}
+
+    def eq_key(self):
+        return ("term_frequency", self.fn)

@@ -2,18 +2,25 @@
 ``keystone_tpu/ops/util/nodes.py``): ``VectorSplitter``,
 ``ClassLabelIndicators``, ``ClassLabelIndicatorsFromIntArrayLabels``,
 ``MaxClassifier``, ``TopKClassifier``, ``VectorCombiner``,
-``MatrixVectorizer`` and ``FloatToDouble``."""
+``MatrixVectorizer`` and ``FloatToDouble``; the text apps' ``Densify``,
+``Sparsify``, ``Shuffler`` and the sparse feature space:
+``SparseFeatureVectorizer`` and its estimators ``CommonSparseFeatures``
+and ``AllSparseFeatures``. Sparse rows are the ``Dataset``'s CSR mode.
+The feature-space estimators count on the host in the JAX package's
+order, so both packages give every feature the same column."""
 
 from __future__ import annotations
 
 import dataclasses
+from collections import Counter
+from itertools import chain, repeat
 from typing import Any, List
 
 import numpy as np
 import torch
 
-from keystone_tpu_torch.parallel.dataset import Dataset
-from keystone_tpu_torch.workflow.api import FunctionNode, Transformer
+from keystone_tpu_torch.parallel.dataset import Dataset, csr_from_coo, is_sparse
+from keystone_tpu_torch.workflow.api import Estimator, FunctionNode, Transformer
 
 
 class VectorSplitter(FunctionNode):
@@ -159,3 +166,138 @@ class FloatToDouble(Transformer):
 
     def eq_key(self):
         return ("float_to_double",)
+
+
+class Densify(Transformer):
+    """Sparse rows -> dense."""
+
+    def apply(self, x):
+        return x.to_dense() if x.layout != torch.strided else x
+
+    def apply_batch(self, ds: Dataset) -> Dataset:
+        if ds.is_array:
+            x = ds.padded()
+            return Dataset.from_array(x.to_dense(), n=ds.n) if is_sparse(x) else ds
+        return ds.map(self.apply)
+
+    def eq_key(self):
+        return ("densify",)
+
+
+class Sparsify(Transformer):
+    """Dense -> sparse rows (the stored entries are the nonzeros, as
+    ``BCOO.fromdense`` keeps them)."""
+
+    def apply(self, x):
+        return torch.as_tensor(x).to_sparse()
+
+    def apply_batch(self, ds: Dataset) -> Dataset:
+        x = ds.to_array_mode().padded()
+        return Dataset.from_array(x.to_sparse_csr(), n=ds.n)
+
+    def eq_key(self):
+        return ("sparsify",)
+
+
+class Shuffler(Transformer):
+    """Random permutation of examples (reference: repartition-based
+    Shuffler), ``out[j] = x[perm[j]]`` with ``perm =
+    default_rng(seed).permutation(n)`` as in the JAX package.
+    ``device=True`` permutes an array on its device (one gather, the pad
+    rows kept at the end, as the JAX package's ``lax.all_to_all`` path
+    keeps them); the default host path permutes on the host and returns
+    the ``n`` valid rows on the array's device. Both give the same rows."""
+
+    def __init__(self, seed: int = 0, device: bool = False):
+        self.seed = seed
+        self.device = device
+
+    def apply(self, x):
+        return x
+
+    def apply_batch(self, ds: Dataset) -> Dataset:
+        perm = np.random.default_rng(self.seed).permutation(ds.n)
+        if ds.is_array and not isinstance(ds.padded(), tuple):
+            if self.device:
+                x = ds.padded()
+                order = torch.cat([torch.as_tensor(perm),
+                                   torch.arange(ds.n, x.shape[0])]).to(x.device)
+                return Dataset.from_array(x[order], n=ds.n)
+            x = ds.array()
+            return Dataset.from_array(x.cpu()[torch.as_tensor(perm)].to(x.device), n=ds.n)
+        items = ds.items()
+        return Dataset.from_items([items[i] for i in perm])
+
+
+# -- sparse feature space estimators ---------------------------------------
+
+
+@dataclasses.dataclass(eq=False)
+class SparseFeatureVectorizer(Transformer):
+    """term-count dict -> sparse vector given a feature -> column map
+    (reference: nodes/util/SparseFeatureVectorizer.scala). A batch becomes
+    one (n, dim) CSR matrix on the host; the consumer moves it to its
+    device."""
+
+    feature_index: dict
+    dim: int
+
+    def apply(self, counts: dict):
+        pairs = sorted((j, v) for j, v in
+                       ((self.feature_index.get(k), v) for k, v in counts.items())
+                       if j is not None)
+        return torch.sparse_coo_tensor(
+            torch.tensor([[j for j, _ in pairs]], dtype=torch.int64).reshape(1, -1),
+            torch.tensor([float(v) for _, v in pairs], dtype=torch.float32),
+            (self.dim,), is_coalesced=True,
+        )
+
+    def apply_batch(self, ds: Dataset) -> Dataset:
+        # every (term, value) of every document looked up in C loops
+        # (map, chain, fromiter); a term outside the index gets column -1
+        items = ds.items()
+        lens = np.fromiter(map(len, items), np.int64, len(items))
+        total = int(lens.sum())
+        cols = np.fromiter(map(self.feature_index.get, chain.from_iterable(items), repeat(-1)),
+                           np.int64, total)
+        vals = np.fromiter(chain.from_iterable(c.values() for c in items), np.float32, total)
+        rows = np.repeat(np.arange(len(items)), lens)
+        keep = cols >= 0
+        mat = csr_from_coo(rows[keep], cols[keep], vals[keep], (len(items), self.dim))
+        return Dataset.from_array(mat, n=len(items))
+
+    def eq_key(self):
+        return ("sparse_vectorizer", self.dim, id(self.feature_index))
+
+
+@dataclasses.dataclass(eq=False)
+class CommonSparseFeatures(Estimator):
+    """Keep the ``num_features`` most frequent features (reference:
+    nodes/util/CommonSparseFeatures.scala); ties in first-seen order, as
+    ``Counter.most_common`` orders them."""
+
+    num_features: int
+
+    def fit(self, data: Dataset) -> SparseFeatureVectorizer:
+        counts: Counter = Counter()
+        for item in data.items():
+            # every occurrence counts once, whatever its value
+            # (CommonSparseFeatures.scala:37)
+            counts.update(item.keys())
+        top = [k for k, _ in counts.most_common(self.num_features)]
+        index = {k: i for i, k in enumerate(top)}
+        return SparseFeatureVectorizer(index, self.num_features)
+
+
+@dataclasses.dataclass(eq=False)
+class AllSparseFeatures(Estimator):
+    """Keep every observed feature, ordered by ``str`` (reference:
+    nodes/util/AllSparseFeatures.scala)."""
+
+    def fit(self, data: Dataset) -> SparseFeatureVectorizer:
+        seen = set()
+        for item in data.items():
+            seen.update(item.keys())
+        ordered = sorted(seen, key=lambda k: str(k))
+        index = {k: i for i, k in enumerate(ordered)}
+        return SparseFeatureVectorizer(index, len(ordered))

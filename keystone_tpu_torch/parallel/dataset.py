@@ -5,7 +5,17 @@ Three physical modes, as in ``keystone_tpu/parallel/dataset.py``:
 - **array mode**: a tensor, or a tuple of tensors, with a leading example
   axis, possibly zero-padded past the valid count ``n``. Transformers
   become batched tensor ops over it. There is no mesh: the tensors live
-  on whatever single device they were put on.
+  on whatever single device they were put on. The tensor may be a sparse
+  row matrix (the JAX package's BCOO ``(n, d)`` array): a
+  ``torch.sparse_csr`` tensor with int64 indices, its rows' columns in
+  ascending order and no duplicates (a COO tensor given to ``from_array``
+  is coalesced first, which sums duplicate entries as BCOO's products
+  do). CSR and not COO because the sparse solvers need both ``X·W`` and
+  ``Xᵀ·R``: a CSR matrix and a CSR of its transpose (``csr_transpose``,
+  made once per fit) give both as cuSPARSE SpMM on the card, while a COO
+  transpose is not coalesced and a CSC operand is not what SpMM reads
+  fastest. Pad rows of a sparse matrix hold no entries; its items are
+  1-D sparse COO rows.
 - **items mode**: a host-side list of per-example Python objects.
 - **host-blocks mode**: a feature matrix column-blocked into host-RAM
   tensors (each (padded_n, w_i), contiguous, on the CPU), and the device
@@ -47,6 +57,8 @@ def _as_tensor(a: Any) -> Any:
     if isinstance(a, tuple):
         return tuple(_as_tensor(x) for x in a)
     if isinstance(a, torch.Tensor):
+        if a.layout == torch.sparse_coo and a.dim() == 2:
+            return a.coalesce().to_sparse_csr()
         return a
     return torch.as_tensor(np.asarray(a))
 
@@ -76,6 +88,109 @@ def _device_of(tree: Any) -> torch.device:
     if isinstance(tree, tuple):
         return _device_of(tree[0])
     return tree.device
+
+
+def is_sparse(a: Any) -> bool:
+    """Whether ``a`` is a sparse row matrix (a ``torch.sparse_csr`` tensor)."""
+    return isinstance(a, torch.Tensor) and a.layout == torch.sparse_csr
+
+
+def csr_from_parts(crow: Any, col: Any, values: Any, shape: Sequence[int],
+                   device=None) -> torch.Tensor:
+    """A CSR matrix from its row pointers, column ids and values, taken as
+    they are: each row's columns must be ascending and distinct (the native
+    text featurizer and ``torch``'s own conversions write them so)."""
+    crow, col, values = (torch.as_tensor(np.asarray(a)) if not isinstance(a, torch.Tensor)
+                         else a for a in (crow, col, values))
+    return torch.sparse_csr_tensor(
+        crow.to(device=device, dtype=torch.int64), col.to(device=device, dtype=torch.int64),
+        values.to(device=device, dtype=torch.float32), tuple(shape),
+    )
+
+
+def csr_from_coo(rows: Any, cols: Any, values: Any, shape: Sequence[int],
+                 device=None) -> torch.Tensor:
+    """A CSR matrix from (row, column, value) triplets in any order;
+    duplicate positions are summed, as a BCOO matrix's products sum them.
+    Sorted and summed with numpy on the host."""
+    rows = np.asarray(rows, np.int64).reshape(-1)
+    cols = np.asarray(cols, np.int64).reshape(-1)
+    vals = np.asarray(values, np.float32).reshape(-1)
+    order = np.lexsort((cols, rows))
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    if rows.size:
+        first = np.ones(rows.size, bool)
+        first[1:] = (rows[1:] != rows[:-1]) | (cols[1:] != cols[:-1])
+        starts = np.flatnonzero(first)
+        if starts.size < rows.size:
+            vals = np.add.reduceat(vals, starts)
+            rows, cols = rows[starts], cols[starts]
+    crow = np.zeros(shape[0] + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=shape[0]), out=crow[1:])
+    return csr_from_parts(crow, cols, vals, shape, device=device)
+
+
+def csr_transpose(a: torch.Tensor) -> torch.Tensor:
+    """The CSR matrix of ``aᵀ``: one stable sort of the entries by column,
+    so each of its rows keeps its column ids (``a``'s rows) ascending."""
+    crow, col = a.crow_indices(), a.col_indices()
+    rows = torch.repeat_interleave(torch.arange(a.shape[0], device=col.device), crow.diff())
+    order = torch.argsort(col, stable=True)
+    t_crow = torch.zeros(a.shape[1] + 1, dtype=torch.int64, device=col.device)
+    torch.cumsum(torch.bincount(col, minlength=a.shape[1]), 0, out=t_crow[1:])
+    return torch.sparse_csr_tensor(t_crow, rows[order], a.values()[order],
+                                   (a.shape[1], a.shape[0]))
+
+
+def csr_head(a: torch.Tensor, n: int) -> torch.Tensor:
+    """The first ``n`` rows of a CSR matrix (one host read of the end)."""
+    if n == a.shape[0]:
+        return a
+    crow = a.crow_indices()[: n + 1]
+    end = int(crow[-1])
+    return torch.sparse_csr_tensor(crow, a.col_indices()[:end], a.values()[:end],
+                                   (n, a.shape[1]))
+
+
+def csr_pad_rows(a: torch.Tensor, pn: int) -> torch.Tensor:
+    """A CSR matrix grown to ``pn`` rows by rows with no entries."""
+    crow = a.crow_indices()
+    pad = crow[-1:].expand(pn - a.shape[0])
+    return torch.sparse_csr_tensor(torch.cat([crow, pad]), a.col_indices(), a.values(),
+                                   (pn, a.shape[1]))
+
+
+def csr_rows(a: torch.Tensor, n: int) -> List[torch.Tensor]:
+    """The first ``n`` rows of a CSR matrix as 1-D sparse COO vectors."""
+    crow = a.crow_indices().tolist()
+    col, val, d = a.col_indices(), a.values(), a.shape[1]
+    return [
+        torch.sparse_coo_tensor(col[crow[i]:crow[i + 1]][None], val[crow[i]:crow[i + 1]],
+                                (d,), is_coalesced=True)
+        for i in range(n)
+    ]
+
+
+def csr_stack(rows: Sequence[torch.Tensor]) -> torch.Tensor:
+    """1-D sparse vectors of one length as the rows of a CSR matrix."""
+    rows = [r.coalesce() for r in rows]
+    counts = torch.tensor([r._nnz() for r in rows], dtype=torch.int64)
+    crow = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(counts, 0)])
+    dev = rows[0].device
+    col = torch.cat([r.indices()[0] for r in rows]).to(torch.int64)
+    val = torch.cat([r.values() for r in rows])
+    return torch.sparse_csr_tensor(crow.to(dev), col, val, (len(rows), rows[0].shape[0]))
+
+
+def spmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for a CSR matrix ``a`` and a dense matrix ``b`` in float32
+    on ``a``'s device (cuSPARSE SpMM on the card; float32 arithmetic, as
+    the JAX package's BCOO products)."""
+    return torch.matmul(a, b.to(device=a.device, dtype=torch.float32).contiguous())
+
+
+def _head(a: torch.Tensor, n: int) -> torch.Tensor:
+    return csr_head(a, n) if is_sparse(a) else a[:n]
 
 
 class Dataset:
@@ -257,7 +372,7 @@ class Dataset:
         arrs = self.to_array_mode()._arrays
         if _leading_dim(arrs) == self._n:
             return arrs
-        return _tree_map(lambda a: a[: self._n], arrs)
+        return _tree_map(lambda a: _head(a, self._n), arrs)
 
     def mask(self) -> torch.Tensor:
         """(padded_n,) float32 validity mask on the dataset's device."""
@@ -268,6 +383,8 @@ class Dataset:
         if self._items is not None:
             return self._items
         arrs = self.array()
+        if is_sparse(arrs):
+            return csr_rows(arrs, self._n)
         return [_tree_map(lambda a, i=i: a[i], arrs) for i in range(self._n)]
 
     def __iter__(self):
@@ -276,7 +393,10 @@ class Dataset:
     def first(self) -> Any:
         if self._items is not None:
             return self._items[0]
-        return _tree_map(lambda a: a[0], self.array())
+        arrs = self.array()
+        if is_sparse(arrs):
+            return csr_rows(arrs, 1)[0]
+        return _tree_map(lambda a: a[0], arrs)
 
     def take(self, k: int) -> List[Any]:
         return self.items()[:k]
@@ -295,6 +415,8 @@ class Dataset:
             )
             return Dataset(arrays=full, n=self._n)
         first = self._items[0]
+        if isinstance(first, torch.Tensor) and first.layout == torch.sparse_coo:
+            return Dataset(arrays=csr_stack(self._items), n=self._n)
         if isinstance(first, tuple):
             stacked = tuple(
                 torch.stack([_as_tensor(x[j]) for x in self._items])
@@ -320,7 +442,8 @@ class Dataset:
 
     def cache(self) -> "Dataset":
         """The identity (reference: Cacher / rdd.cache): the arrays already
-        live on their device, and the executor's memo keeps them."""
+        live on their device, and the executor's memo keeps them. A sparse
+        row matrix is cached as it is too."""
         return self
 
     def _pad_to(self, pn: int) -> "Dataset":
@@ -332,7 +455,7 @@ class Dataset:
             raise ValueError("cannot shrink padding")
         pad = pn - cur
         padded = _tree_map(
-            lambda a: torch.cat(
+            lambda a: csr_pad_rows(a, pn) if is_sparse(a) else torch.cat(
                 [a, a.new_zeros((pad,) + tuple(a.shape[1:]))]
             ),
             arrs,
@@ -351,6 +474,10 @@ class Dataset:
         return f"Dataset(items, n={self._n})"
 
 
+def _first_leaf(tree: Any) -> torch.Tensor:
+    return _first_leaf(tree[0]) if isinstance(tree, tuple) else tree
+
+
 def _is_on(t: torch.Tensor, dev: torch.device) -> bool:
     return t.device.type == dev.type and dev.index in (None, t.device.index)
 
@@ -358,10 +485,15 @@ def _is_on(t: torch.Tensor, dev: torch.device) -> bool:
 def on_device(ds: Dataset, dev: torch.device) -> Dataset:
     """A dataset on ``dev``, the same dataset when it is there already, so
     that the pipeline's branches and its solver share one source node.
+    A sparse row matrix (or items that are sparse rows) moves as one CSR
+    matrix; a tuple of arrays (ELL's indices and values) moves whole.
     Items of one shape (labels, images of one size) become one array;
     items of several shapes (images as ``ImageNetLoader`` decodes them)
     stay items, moved one stack per shape."""
     if not ds.is_array:
+        first = ds.first()
+        if isinstance(first, torch.Tensor) and first.layout == torch.sparse_coo:
+            return Dataset.from_array(ds.to_array_mode().padded().to(dev))
         items = [torch.as_tensor(x) for x in ds.items()]
         groups = shape_groups(items)
         if len(groups) == 1:
@@ -375,6 +507,6 @@ def on_device(ds: Dataset, dev: torch.device) -> Dataset:
                 out[i] = x
         return Dataset.from_items(out)
     x = ds.array()
-    if _is_on(x, dev) and ds.padded_n == ds.n:
+    if _is_on(_first_leaf(x), dev) and ds.padded_n == ds.n:
         return ds
-    return Dataset.from_array(x.to(dev))
+    return Dataset.from_array(_tree_map(lambda a: a.to(dev), x))

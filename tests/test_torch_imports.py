@@ -68,6 +68,17 @@ HOST_FIT_MODULES = [
 ]
 
 
+# the text slice's new modules, which the walk must reach too
+TEXT_MODULES = [
+    "keystone_tpu_torch." + m for m in (
+        "ops.nlp", "ops.nlp.string_utils", "ops.nlp.ngrams", "ops.nlp.hashing_tf",
+        "ops.learning.lbfgs", "ops.learning.classifiers", "ops.learning.sparse_ell",
+        "ops.learning.least_squares", "pipelines.text", "pipelines.text.newsgroups",
+        "pipelines.text.amazon_reviews", "utils.gcpause",
+    )
+]
+
+
 def _port_sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:
@@ -96,6 +107,7 @@ print("LOADERS", sorted(n for n in {LOADER_MODULES!r} if n not in sys.modules))
 print("VOC", sorted(n for n in {VOC_MODULES!r} if n not in sys.modules))
 print("RF", sorted(n for n in {RANDOM_FEATURES_MODULES!r} if n not in sys.modules))
 print("HOSTFIT", sorted(n for n in {HOST_FIT_MODULES!r} if n not in sys.modules))
+print("TEXT", sorted(n for n in {TEXT_MODULES!r} if n not in sys.modules))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -110,9 +122,11 @@ print("HOSTFIT", sorted(n for n in {HOST_FIT_MODULES!r} if n not in sys.modules)
     assert "VOC []" in out.stdout, out.stdout
     assert "RF []" in out.stdout, out.stdout
     assert "HOSTFIT []" in out.stdout, out.stdout
+    assert "TEXT []" in out.stdout, out.stdout
     assert int(re.search(r"LOADED (\d+)", out.stdout).group(1)) >= (
         25 + len(TRAINING_MODULES) + len(SERVING_MODULES) + len(LOADER_MODULES)
-        + len(VOC_MODULES) + len(RANDOM_FEATURES_MODULES) + len(HOST_FIT_MODULES))
+        + len(VOC_MODULES) + len(RANDOM_FEATURES_MODULES) + len(HOST_FIT_MODULES)
+        + len(TEXT_MODULES))
 
 
 def test_streaming_loader_imports_neither_torch_nor_jax():
@@ -333,6 +347,43 @@ def test_timit_entry_points_need_cuda_unless_given_the_cpu(monkeypatch, tmp_path
         lambda **kw: timit.main(argv, **kw),
         lambda **kw: timit.run(data, data, conf, **kw),
         lambda **kw: timit.build_pipeline(data, conf, **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    for call in calls:
+        out = call(device="cpu")
+        assert out == 0 or out is not None
+
+
+def test_text_entry_points_need_cuda_unless_given_the_cpu(monkeypatch, tmp_path):
+    from keystone_tpu_torch import convert
+    from keystone_tpu_torch.loaders.csv_loader import LabeledData
+    from keystone_tpu_torch.pipelines.text import amazon_reviews, newsgroups
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    texts = ["good great fine", "bad awful poor"] * 4
+    data = LabeledData.of(torch.tensor([1, 0] * 4, dtype=torch.int32), texts)
+    (tmp_path / "comp.graphics").mkdir()
+    for i, t in enumerate(texts):
+        (tmp_path / "comp.graphics" / f"{i}").write_text(t)
+    reviews = tmp_path / "r.json"
+    reviews.write_text("".join(f'{{"overall": {5 - 4 * (i % 2)}, "reviewText": "{t}"}}\n'
+                               for i, t in enumerate(texts)))
+    news = ["--trainLocation", str(tmp_path), "--testLocation", str(tmp_path)]
+    amazon = ["--trainLocation", str(reviews), "--testLocation", str(reviews)]
+    nconf = newsgroups.NewsgroupsConfig(common_features=16)
+    aconf = amazon_reviews.AmazonReviewsConfig(common_features=16, num_iters=2, hashing=True)
+    calls = [
+        lambda **kw: newsgroups.main(news, **kw),
+        lambda **kw: newsgroups.run(data, data, nconf, **kw),
+        lambda **kw: newsgroups.build_pipeline(data, nconf, **kw),
+        lambda **kw: amazon_reviews.main(amazon, **kw),
+        lambda **kw: amazon_reviews.run(data, data, aconf, **kw),
+        lambda **kw: amazon_reviews.build_pipeline(data, aconf, **kw),
+        lambda **kw: convert.text_from_numpy({"orders": [1], "num_features": 4,
+                                              "binarize": True,
+                                              "logistic": {"W": np.zeros((4, 2))}}, **kw),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
