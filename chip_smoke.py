@@ -8,6 +8,8 @@ Phases, in order; any failure exits non-zero:
 1. check that a CUDA card is there, and print its name and power limit;
 2. build the CUDA kernels from ``keystone_tpu_torch/csrc`` (nvcc, sm_90a)
    and print what ptxas reports of each: registers, shared memory, spills;
+   count the HMMA instructions in B3's kernels (cuobjdump) and require
+   them in its tiled path's two passes;
 3. hold each kernel against its plain PyTorch version on the card, at
    ragged shapes (random dense operators, and real SIFT and LCS operators
    cropped so their bands straddle the kernels' tiles, with a tile of zero
@@ -21,8 +23,12 @@ Phases, in order; any failure exits non-zero:
    scale's real SIFT operators of a 1,536 x 2,048 and a 2,048 x 300
    image), B2 at W = 2,048 (dense, and real LCS operators with and
    without their bands), B3 at (d, k) = (64, 256), (80, 256) and
-   (129, 257) at m = 1, 1,500 and 13,165, each timed beside its bound,
-   and ``TopKClassifier`` on tied rows against a stable host sort;
+   (129, 257) at m = 1, 1,500 and 13,165 and at (64, 1,100), past the
+   old bound on k, at m = 1,500, each timed beside its bound (B3's rows
+   also beside a tensor-core bound, with their cp.async copy width; the
+   phase-8 pair and the VOC chunk's shape by kernel, from
+   ``torch.profiler``), and ``TopKClassifier`` on tied rows
+   against a stable host sort;
 4. serve the ImageNetSiftLcsFV configuration (SIFT step 3 / bin 4 /
    4 scales, LCS 4/16/6, desc_dim 64, vocab 32 → 8,192 features, a
    seeded 8,192 x 1,000 linear head, top-5) through buckets (8, 64) of
@@ -87,7 +93,8 @@ Phases, in order; any failure exits non-zero:
    equal to the dense one; save the fitted
    pipeline and require a fresh ``python3`` process that loads it to
    score the test tar bit for bit as this one did, with the same MAP;
-   time B3 at one 375 x 500 image's descriptors with the fitted GMM.
+   time B3 at one 375 x 500 image's descriptors with the fitted GMM, and
+   at the fit's chunk of 64 such images.
 10. the random-features image apps, which reach no kernel of this repo
    (each kernel's launches in the phase are counted and printed: 0):
    write CIFAR binary records of 50,000 + 10,000 seeded images
@@ -161,6 +168,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -202,8 +210,12 @@ from keystone_tpu_torch.serving.featurize import (  # noqa: E402
 )
 
 # H100 SXM data sheet, dense, at the 700 W limit: float32 on the CUDA
-# cores (no tensor cores; the kernels run float32 FMA) and HBM3 rate
+# cores, TF32 on the tensor cores, and HBM3 rate. bound_ms counts every
+# kernel's operations at the float32 rate, as since PR 1; B3's tiled path
+# runs its products on the tensor cores in 3xTF32 (three TF32 products for
+# each float32 one), and its rows add bound_tc_ms at the TF32 rate
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 IMG, B = 256, 64
@@ -255,6 +267,51 @@ def bound(flops, nbytes):
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def fv_flops(B, m, d, k):
+    """B3's operations at B images of m descriptors: the four products
+    (8·d·k a descriptor) and the softmax, threshold and s0 (12·k)."""
+    return B * m * (8 * d * k + 12 * k)
+
+
+def fv_by_kernel(xs, means, variances, weights, thresh=1e-4):
+    """Device ms of each B3 kernel (the GMM terms, the tiled path's
+    fragment split, norm and statistics passes, the reduction) over one
+    call per x, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # host and device activity, as phase 5's profile. Called in phase 3: in
+    # phase 9, after the serving phases' sessions and graphs, the profiler
+    # saw none of B3's kernels on the card (an empty record, not a failure)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for x in xs:
+            fv_kernel.fisher_vector_stats(x, means, variances, weights, thresh)
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.key_averages():
+        name = re.search(r"(fv_\w+)", e.key)
+        if name and e.device_type == DeviceType.CUDA and e.device_time_total > 0:
+            by[name.group(1)] = by.get(name.group(1), 0.0) + e.device_time_total / 1e3
+    return by
+
+
+def hmma_counts(lib_path):
+    """HMMA instructions in each kernel of a built library, from
+    cuobjdump's SASS."""
+    cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        head = re.search(r"Function : .*?([a-z]+_[a-z_]*?kernel)(?:ILi|E)", ln)
+        if head:
+            fn = head.group(1)
+            counts.setdefault(fn, 0)
+        elif fn and "HMMA" in ln:
+            counts[fn] += 1
+    return counts
 
 
 def max_abs_err(got, want, rtol, atol, what):
@@ -385,21 +442,35 @@ def check_ragged(dev, gen):
             max_abs_err(g, w, RTOL_FV, ATOL_FV, f"fisher_vector_stats ragged k={k}")
 
 
-def _wide_row(name, got, want, rtol, atol, fn, plain, library, flops, nbytes, shapes):
+def _wide_row(name, got, want, rtol, atol, fn, plain, library, flops, nbytes, shapes, extra=None):
     """One wide-shape case: the kernel's error against its plain version,
     the kernel, the plain version and the one-call PyTorch yardstick
-    timed, and the bound."""
+    timed, and the bound (and ``extra`` keys, such as B3's tensor-core
+    bound and copy width, into the row and its line)."""
     err = max(max_abs_err(g, w, rtol, atol, f"{name} [{shapes}]") for g, w in zip(got, want))
     b_ms, b_by = bound(flops, nbytes)
     ms = time_ms(fn, calls=3, rounds=3, warmup=1)
     row = dict(name=name, shapes=shapes, max_abs_err=err, ms=ms,
                plain_ms=time_ms(plain, calls=1, rounds=1, warmup=1),
                library_ms=time_ms(library, calls=1, rounds=1, warmup=1),
-               bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms)
+               bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms, **(extra or {}))
+    more = "".join(f", {k} {v:.4f}" if isinstance(v, float) else f", {k} {v}"
+                   for k, v in (extra or {}).items())
     log(f"  {name} [{shapes}]: {ms:.3f} ms (plain {row['plain_ms']:.3f}, library "
-        f"{row['library_ms']:.3f}, bound {b_ms:.4f} by {b_by}, share {b_ms / ms:.3f}), "
+        f"{row['library_ms']:.3f}, bound {b_ms:.4f} by {b_by}, share {b_ms / ms:.3f}{more}), "
         f"max abs err {err:.3g}")
     return row
+
+
+def _fv_extra(xs, d, k):
+    """B3 rows' tensor-core bound in ms (the larger of 3 x the four
+    products' FLOPs at the TF32 rate, for 3xTF32, and the bytes at the
+    memory rate) and cp.async copy width (16, 8 or 4 bytes; the tiled
+    path's, by m and x's alignment)."""
+    nbytes = sum(4 * (x.numel() + 2 * d * k + k + x.shape[0] * (1 + 2 * d) * k) for x in xs)
+    tf32_flops = sum(3 * x.shape[0] * x.shape[2] * 8 * d * k for x in xs)
+    return {"bound_tc_ms": max(tf32_flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+            "copy_bytes": [fv_kernel.copy_bytes(x) for x in xs]}
 
 
 def sift_library(mag, t, ayt, ax):
@@ -418,7 +489,8 @@ def check_wide(dev, gen):
     scale's real SIFT operators of a 1,536 x 2,048 image and of a tall
     2,048 x 300 one; B2 at W = 2,048 dense and with real LCS operators,
     with and without their bands; B3 at (d, k) = (64, 256), (80, 256) and
-    (129, 257) at m = 1, 1,500 and 13,165; TopKClassifier on tied rows
+    (129, 257) at m = 1, 1,500 and 13,165, and (64, 1,100) at m = 1,500;
+    TopKClassifier on tied rows
     against a stable sort on the host, and its cost beside torch.topk.
     Each case held against its plain version on the card and timed."""
     def r(*shape):
@@ -488,10 +560,13 @@ def check_wide(dev, gen):
         band_flops(bands[0], bands[1], w, M, 12),
         4 * (z.numel() + at.numel() + bm.numel() + 12 * M * N), f"B=2 P=6 H={h} W={w} M={M} N={N}"))
     del z, want
-    for d, k in ((64, 256), (80, 256), (129, 257)):
+    # B3 past 64: (d, k) of the flagship at vocabulary 256, VOC, a shape
+    # past every tile, and k past the old bound of 1,024
+    for d, k, ms_ in ((64, 256, (1, 1500, 13165)), (80, 256, (1, 1500, 13165)),
+                      (129, 257, (1, 1500, 13165)), (64, 1100, (1500,))):
         means = r(d, k)
         variances, weights = 0.5 + r(d, k).abs(), torch.full((k,), 1 / k, device=dev)
-        for m in (1, 1500, 13165):
+        for m in ms_:
             x = r(2, d, m)
             args = (x, means, variances, weights)
             rows.append(_wide_row(
@@ -500,8 +575,8 @@ def check_wide(dev, gen):
                 lambda: fv_kernel.fisher_vector_stats(*args),
                 lambda: fv_kernel.fisher_vector_stats_plain(*args),
                 lambda: fv_library(*args, 1e-4),
-                2 * m * (8 * d * k + 12 * k), 4 * (x.numel() + 2 * d * k + k + 2 * (1 + 2 * d) * k),
-                f"B=2 d={d} k={k} m={m}"))
+                fv_flops(2, m, d, k), 4 * (x.numel() + 2 * d * k + k + 2 * (1 + 2 * d) * k),
+                f"B=2 d={d} k={k} m={m}", _fv_extra([x], d, k)))
     # B3 at phase 8's streaming shapes: both branches' descriptor counts of
     # a bucket of 64 images of 256², at the paper's vocabulary
     d, k = CONF["desc_dim"], 256
@@ -515,21 +590,25 @@ def check_wide(dev, gen):
         lambda: [fv_kernel.fisher_vector_stats(x, means, variances, weights) for x in xs],
         lambda: [fv_kernel.fisher_vector_stats_plain(x, means, variances, weights) for x in xs],
         lambda: [fv_library(x, means, variances, weights, 1e-4) for x in xs],
-        sum(B * x.shape[2] * (8 * d * k + 12 * k) for x in xs),
+        sum(fv_flops(B, x.shape[2], d, k) for x in xs),
         sum(4 * (x.numel() + 2 * d * k + k + B * (1 + 2 * d) * k) for x in xs),
-        f"B={B} d={d} k={k} m in (13165, 3136)"))
+        f"B={B} d={d} k={k} m in (13165, 3136)", _fv_extra(xs, d, k)))
     del got, want
-    if dev.type == "cuda":  # its device time by kernel: the two passes and their helpers
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for x in xs:
-                fv_kernel.fisher_vector_stats(x, means, variances, weights)
-            torch.cuda.synchronize()
-        rows[-1]["by_kernel_ms"] = {e.key.split("::")[-1].split("(")[0]: e.device_time_total / 1e3
-                                    for e in prof.key_averages() if e.device_time_total > 0}
-        log(f"    by kernel: {rows[-1]['by_kernel_ms']}")
-    del xs
+    by_kernel = {}
+    if dev.type == "cuda":  # device time by kernel: the passes and their helpers
+        by_kernel["phase8_pair"] = fv_by_kernel(xs, means, variances, weights)
+        del xs
+        # and at the VOC fit chunk's shape (phase 9 times it with the fitted GMM)
+        means = r(80, 256)
+        variances, weights = 0.5 + r(80, 256).abs(), torch.full((256,), 1 / 256, device=dev)
+        xs = [r(B, 80, 73866)]
+        by_kernel["voc_chunk"] = fv_by_kernel(xs, means, variances, weights)
+        del xs
+        log(f"  fisher_vector_stats by kernel (ms): phase 8's pair [B={B} d={d} k={k} m in "
+            f"(13165, 3136)] {by_kernel['phase8_pair']}; the VOC chunk's shape [B={B} d=80 "
+            f"k=256 m=73866, random data] {by_kernel['voc_chunk']}")
+    else:
+        del xs
     # ties: all-zero rows and integer scores in 0..3, against a stable sort
     # of the negated scores on the host (ties to the lower index)
     top = TopKClassifier(TOP_K)
@@ -543,7 +622,7 @@ def check_wide(dev, gen):
             "torch_topk_ms": time_ms(lambda: torch.topk(scores, TOP_K, dim=-1))}
     log(f"  TopKClassifier on tied rows equals a stable host sort; at 64 x {CLASSES}: stable sort "
         f"{topk['sort_ms']:.4f} ms, torch.topk {topk['torch_topk_ms']:.4f} ms")
-    return {"cases": rows, "top_k": topk}
+    return {"cases": rows, "top_k": topk, "fv_by_kernel_ms": by_kernel}
 
 
 def check_kernels(dev, gen):
@@ -621,11 +700,11 @@ def check_kernels(dev, gen):
         ):
             err = max(err, max_abs_err(g, w, RTOL_FV, ATOL_FV,
                                        f"fisher_vector_stats m={x.shape[2]} {name}"))
-    flops = sum(B * x.shape[2] * (8 * d * k + 12 * k) for x in xs)
+    flops = sum(fv_flops(B, x.shape[2], d, k) for x in xs)
     nbytes = sum(4 * (x.numel() + 2 * d * k + k + B * (1 + 2 * d) * k) for x in xs)
     b_ms, b_by = bound(flops, nbytes)
     rows.append(dict(
-        name="fisher_vector_stats", route="cuda",
+        name="fisher_vector_stats", route="cuda", **_fv_extra(xs, d, k),
         source="keystone_tpu_torch/csrc/fv_stats.cu",
         replaces="keystone_tpu/ops/images/fv_pallas.py:80",
         max_abs_err=err,
@@ -1819,16 +1898,17 @@ def voc_sift_fisher(dev, smi, n_train=P9_TRAIN, n_test=P9_TEST, sizes=P9_SIZES,
     errs = [max_abs_err(a, b, RTOL_FV, ATOL_FV, f"phase 9 fisher_vector_stats d={d} k={g.k} m={m}")
             for a, b in zip(fv_kernel.fisher_vector_stats(*args),
                             fv_kernel.fisher_vector_stats_plain(*args))]
-    b_ms, b_by = bound(2 * m * (8 * d * g.k + 12 * g.k), 4 * (x.numel() + 2 * d * g.k + g.k + (1 + 2 * d) * g.k))
+    b_ms, b_by = bound(fv_flops(1, m, d, g.k), 4 * (x.numel() + 2 * d * g.k + g.k + (1 + 2 * d) * g.k))
     b3 = {"shape": f"B=1 d={d} k={g.k} m={m} ({tuple(picked[0].image.shape)} image, fitted GMM)",
-          "max_abs_err": max(errs), "bound_ms": b_ms, "bound_by": b_by}
+          "max_abs_err": max(errs), "bound_ms": b_ms, "bound_by": b_by, **_fv_extra([x], d, g.k)}
     if on_card:
         b3.update(ms=time_ms(lambda: fv_kernel.fisher_vector_stats(*args)),
                   plain_ms=time_ms(lambda: fv_kernel.fisher_vector_stats_plain(*args)),
                   library_ms=time_ms(lambda: fv_library(*args)))
         b3["bound_share"] = b_ms / b3["ms"]
         log(f"  B3 [{b3['shape']}]: {b3['ms']:.3f} ms (plain {b3['plain_ms']:.3f}, library "
-            f"{b3['library_ms']:.3f}, bound {b_ms:.4f} by {b_by}, share {b3['bound_share']:.3f}), "
+            f"{b3['library_ms']:.3f}, bound {b_ms:.4f} by {b_by}, share {b3['bound_share']:.3f}, "
+            f"tensor-core bound {b3['bound_tc_ms']:.4f}, copies of {b3['copy_bytes']} bytes), "
             f"max abs err {b3['max_abs_err']:.3g} on {smi}")
     rec["b3_voc_shape"] = b3
     # and at the batch the fit gives it: a chunk of CHUNK_ROWS test images
@@ -1848,10 +1928,10 @@ def voc_sift_fisher(dev, smi, n_train=P9_TRAIN, n_test=P9_TEST, sizes=P9_SIZES,
     errs = [max_abs_err(a, b, RTOL_FV, ATOL_FV, f"phase 9 fisher_vector_stats B={nb} d={d} k={g.k} m={m}")
             for a, b in zip(fv_kernel.fisher_vector_stats(*args),
                             fv_kernel.fisher_vector_stats_plain(*args))]
-    b_ms, b_by = bound(2 * nb * m * (8 * d * g.k + 12 * g.k),
+    b_ms, b_by = bound(fv_flops(nb, m, d, g.k),
                        4 * (xb.numel() + 2 * d * g.k + g.k + nb * (1 + 2 * d) * g.k))
     b3b = {"shape": f"B={nb} d={d} k={g.k} m={m} (the fit's chunk of VOC images, fitted GMM)",
-           "max_abs_err": max(errs), "bound_ms": b_ms, "bound_by": b_by}
+           "max_abs_err": max(errs), "bound_ms": b_ms, "bound_by": b_by, **_fv_extra([xb], d, g.k)}
     if on_card:
         b3b.update({k: time_ms(fn, calls=3, rounds=3) for k, fn in (
             ("ms", lambda: fv_kernel.fisher_vector_stats(*args)),
@@ -1859,7 +1939,8 @@ def voc_sift_fisher(dev, smi, n_train=P9_TRAIN, n_test=P9_TEST, sizes=P9_SIZES,
             ("library_ms", lambda: fv_library(*args)))})
         b3b["bound_share"] = b_ms / b3b["ms"]
         log(f"  B3 [{b3b['shape']}]: {b3b['ms']:.3f} ms (plain {b3b['plain_ms']:.3f}, library "
-            f"{b3b['library_ms']:.3f}, bound {b_ms:.4f} by {b_by}, share {b3b['bound_share']:.3f}), "
+            f"{b3b['library_ms']:.3f}, bound {b_ms:.4f} by {b_by}, share {b3b['bound_share']:.3f}, "
+            f"tensor-core bound {b3b['bound_tc_ms']:.4f}, copies of {b3b['copy_bytes']} bytes), "
             f"max abs err {b3b['max_abs_err']:.3g} on {smi}")
     rec["b3_voc_chunk"] = b3b
     del xb, args
@@ -2964,6 +3045,11 @@ def main():
     for name, lines in ptxas.items():
         for ln in lines:
             log(f"ptxas {name}: {ln}")
+    # B3's tiled path runs its products on the tensor cores: HMMA in its
+    # norm and statistics kernels' SASS
+    hmma = hmma_counts(_cuda.build(["fv_stats"])["fv_stats"])
+    log(f"HMMA instructions in fv_stats.cu's kernels: {hmma}")
+    assert hmma.get("fv_norm_kernel", 0) > 0 and hmma.get("fv_stats_kernel", 0) > 0, hmma
 
     # -- 3. kernels against their plain versions ------------------------
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -1,6 +1,9 @@
 """Hold this checkout's SIFT and LCS kernels against another checkout's on
 one CUDA card: the same full-width inputs through both, the outputs
-compared bit for bit (but for the sign of a zero), each side timed.
+compared bit for bit (but for the sign of a zero), each side timed; and
+time both checkouts' Fisher-vector statistics kernel at the main paths'
+shapes, its outputs held together within the JAX package's bar (rtol
+1e-3, atol 1e-4), since a redesign may sum in another order.
 
     python3 compare_kernels.py OTHER_CHECKOUT
 
@@ -15,7 +18,11 @@ events (runs of 10 calls in a row, median of 5 runs). Inputs are those of
 the flagship's serving path at B = 64 images of 256²: the four SIFT
 scales' magnitude, orientation and sampling matrices, and the LCS planes
 and operators. They and the outputs pass through ``tmp/compare_kernels/``
-in this checkout, removed at the end.
+in this checkout, removed at the end. Each side makes the B3 inputs
+itself on the card from one seed (``FV_SHAPES``: VOC's chunk of 64
+images and one image at (d, k) = (80, 256), the flagship's streaming pair
+at vocabulary 256, a shape past every tile, and the serving shapes) and
+calls ``fv_kernel.fisher_vector_stats(x, means, variances, weights)``.
 
 Prints the card's name and power limit, then one JSON line; exits
 non-zero when an output differs beyond the sign of a zero.
@@ -38,6 +45,15 @@ WORK = os.path.join(ROOT, "tmp", "compare_kernels")
 IMG, B = 256, 64
 SIFT = dict(step=3, bin=4, num_scales=4, scale_step=1)
 LCS = dict(stride=4, stride_start=16, sub_patch_size=6)
+# B3: name -> (B, d, k, descriptor counts), and its bar
+FV_SHAPES = {
+    "voc_chunk": (64, 80, 256, (73866,)),
+    "voc_image": (1, 80, 256, (73866,)),
+    "flagship_vocab256": (64, 64, 256, (13165, 3136)),
+    "past_every_tile": (2, 129, 257, (13165,)),
+    "serving": (64, 64, 32, (13165, 3136)),
+}
+FV_RTOL, FV_ATOL = 1e-3, 1e-4
 
 
 def time_ms(fn, calls=10, rounds=5, warmup=2):
@@ -102,10 +118,37 @@ def worker(checkout, tag, save):
             "sandwich": kernels.plane_sandwich(*sandwich).cpu(),
         }
         torch.save(out, os.path.join(WORK, f"out_{tag}.pt"))
-    print(json.dumps({
+    times = {
         "sift_bin_sample_ms": time_ms(lambda: [kernels.sift_bin_sample(*s) for s in scales]),
         "plane_sandwich_ms": time_ms(lambda: kernels.plane_sandwich(*sandwich)),
-    }))
+    }
+    del scales, sandwich
+    from keystone_tpu_torch.ops.images import fv_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fv_out = {}
+    for name, (b, d, k, ms) in FV_SHAPES.items():
+        gmm = (torch.randn(d, k, device=dev, generator=gen),
+               0.5 + torch.randn(d, k, device=dev, generator=gen).abs(),
+               torch.full((k,), 1.0 / k, device=dev))
+        xs = [torch.randn(b, d, m, device=dev, generator=gen) for m in ms]
+        if save:
+            fv_out[name] = [t.cpu() for x in xs for t in fv_kernel.fisher_vector_stats(x, *gmm)]
+        calls = 3 if b * sum(ms) > 10**6 else 10
+        times[f"fisher_vector_stats_{name}_ms"] = time_ms(
+            lambda: [fv_kernel.fisher_vector_stats(x, *gmm) for x in xs], calls=calls)
+        del xs
+        torch.cuda.empty_cache()
+    if save:
+        torch.save(fv_out, os.path.join(WORK, f"fv_{tag}.pt"))
+    print(json.dumps(times))
+
+
+def fv_compare(a, b):
+    """The largest absolute difference, and the entries outside the B3 bar."""
+    err = (a - b).abs()
+    return {"entries": a.numel(), "max_abs_diff": float(err.max()),
+            "outside_bar": int((err > FV_ATOL + FV_RTOL * a.abs()).sum())}
 
 
 def compare(a, b):
@@ -151,11 +194,16 @@ def main():
                                 zip(outs["other"]["sift"], outs["this"]["sift"])],
             "plane_sandwich": [compare(outs["other"]["sandwich"], outs["this"]["sandwich"])],
         }
+        fv = {t: torch.load(os.path.join(WORK, f"fv_{t}.pt")) for t in ("other", "this")}
+        fv_diff = {name: [fv_compare(a, b) for a, b in zip(fv["other"][name], fv["this"][name])]
+                   for name in FV_SHAPES}
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(smi)
-    print(json.dumps({"card": smi, "other": other, "rounds": rounds, "diff": diff}))
-    if any(d["differing"] for ds in diff.values() for d in ds):
+    print(json.dumps({"card": smi, "other": other, "rounds": rounds, "diff": diff,
+                      "fisher_vector_stats": fv_diff}))
+    if any(d["differing"] for ds in diff.values() for d in ds) or any(
+            d["outside_bar"] for ds in fv_diff.values() for d in ds):
         sys.exit(1)
 
 

@@ -7,11 +7,14 @@
 
 On CUDA tensors this is the kernel in ``csrc/fv_stats.cu``, which forms
 the GMM terms on the card, never writes the (m, k) posterior to device
-memory and reduces its per-block partial sums in a fixed order (run-to-run
+memory and reduces its per-slab partial sums in a fixed order (run-to-run
 identical output); on CPU tensors it is the plain PyTorch version below.
-The kernel takes any ``d`` and ``k`` up to ``K_BOUND`` mixtures: past 64 of
-either it tiles them, with one pass for each descriptor's softmax and
-threshold sums over all ``k`` before any statistic.
+The kernel takes any ``d`` and ``k``. Up to 64 of both it runs float32 FMA
+on the CUDA cores; past 64 of either, its tiled path runs the four products
+on the tensor cores in 3xTF32 (each operand split into a TF32 high and low
+part), with one pass for each descriptor's max, softmax sum and
+thresholded sum over all ``k`` and one that forms each k tile's logits once
+and adds q's statistics.
 """
 
 from __future__ import annotations
@@ -22,15 +25,52 @@ import torch
 
 from keystone_tpu_torch import _cuda
 
-# Descriptors per block of the kernel's first pass, a multiple of its
+# Descriptors per block of the d, k <= 64 path, a multiple of its
 # 128-descriptor chunk. Two blocks fit on an SM, so a wave of the H100 is
 # 264 blocks; at B = 64 both serving descriptor counts give at least two:
 # m = 3,136 -> 9 slabs (576 blocks), m = 13,165 -> 35 slabs (2,240).
 ROWS_PER_BLOCK = 384
-# The kernel's one bound: its per-descriptor pass keeps 128 bytes of shared
-# memory per mixture. Four times the largest vocabulary of a configuration
-# of the JAX package (VOC's 256).
-K_BOUND = 1024
+# The tiled path's statistics pass runs one block of (slab, k tile of 64,
+# d tile of 128) per SM at a time; its slabs are as long as leaves about
+# this many blocks an SM, so that one image fills the card and the partial
+# sums (one (1 + 2d) x k set a slab) stay small beside x.
+TILED_BLOCKS_PER_SM = 4
+
+
+def tiled(d: int, k: int) -> bool:
+    """Whether the kernel takes its tiled path (tensor cores) at (d, k)."""
+    return d > 64 or k > 64
+
+
+def terms_floats(d: int, k: int) -> int:
+    """Floats of the kernel's terms scratch: inv_var, proj and const, then
+    (from a multiple of 4) their split into TF32 fragments, 512 floats per
+    16 mixtures and 8 rows of d (``frag_offset``, ``frag_floats`` in the
+    source)."""
+    head = -(-(2 * d + 1) * k // 4) * 4
+    return head + (-(-k // 16)) * (-(-d // 8)) * 512
+
+
+def rows_per_block(B: int, d: int, m: int, k: int, sms: int) -> int:
+    """Descriptors a block of the kernel's first (or, tiled, statistics)
+    pass takes: ``ROWS_PER_BLOCK`` on the d, k <= 64 path; on the tiled
+    path enough slabs for ``TILED_BLOCKS_PER_SM`` blocks on each of the
+    card's ``sms`` SMs, rounded up to the 128-descriptor multiple the
+    kernel takes."""
+    if not tiled(d, k):
+        return ROWS_PER_BLOCK
+    tiles = -(-k // 64) * -(-d // 128)
+    slabs = max(1, -(-TILED_BLOCKS_PER_SM * sms // (tiles * B)))
+    per_slab = -(-m // slabs)
+    return max(128, -(-per_slab // 128) * 128)
+
+
+def copy_bytes(x: torch.Tensor) -> int:
+    """The width of the tiled path's cp.async copies of x's rows (4·m bytes
+    apart): 16 where m % 4 == 0 and x is 16-byte aligned, 8 where m is even
+    (and x 8-byte aligned), else 4; as ``launch_tiled`` chooses."""
+    m, p = x.shape[-1], x.data_ptr()
+    return 16 if m % 4 == 0 and p % 16 == 0 else 8 if m % 2 == 0 and p % 8 == 0 else 4
 
 
 def gmm_terms(means, variances, weights):
@@ -79,13 +119,13 @@ def fisher_vector_stats(x, means, variances, weights, weight_threshold=1e-4):
         raise ValueError("x holds no descriptors")
     if not _cuda.on_cuda(x, means, variances, weights):
         return fisher_vector_stats_plain(x, means, variances, weights, weight_threshold)
-    if k > K_BOUND:
-        raise ValueError(f"the kernel takes k <= {K_BOUND} mixtures, got k={k}")
-    n_blocks = -(-m // ROWS_PER_BLOCK)
-    terms = torch.empty((2 * d + 1) * k, dtype=torch.float32, device=x.device)
-    # each descriptor's softmax and threshold sums, for the tiled path the
-    # kernel takes past d or k = 64 (it alone decides; 3/d of x's size)
-    norms = torch.empty((B, m, 3), dtype=torch.float32, device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    rows = rows_per_block(B, d, m, k, sms)
+    n_blocks = -(-m // rows)
+    terms = torch.empty(terms_floats(d, k), dtype=torch.float32, device=x.device)
+    # each descriptor's max, softmax sum and thresholded sum, for the tiled
+    # path (3/d of x's size)
+    norms = torch.empty((B, m, 3) if tiled(d, k) else (0,), dtype=torch.float32, device=x.device)
     partial = torch.empty((B, n_blocks, 1 + 2 * d, k), dtype=torch.float32, device=x.device)
     out = torch.empty((B, 1 + 2 * d, k), dtype=torch.float32, device=x.device)
     lib = _cuda.lib("fv_stats")
@@ -94,7 +134,7 @@ def fisher_vector_stats(x, means, variances, weights, weight_threshold=1e-4):
             x.data_ptr(), means.data_ptr(), variances.data_ptr(), weights.data_ptr(),
             float(weight_threshold), terms.data_ptr(), norms.data_ptr(), partial.data_ptr(),
             out.data_ptr(),
-            B, d, m, k, ROWS_PER_BLOCK, _cuda.stream(x),
+            B, d, m, k, rows, _cuda.stream(x),
         )
     _cuda.check(err, "ks_fv_stats")
     _cuda.count("fisher_vector_stats")

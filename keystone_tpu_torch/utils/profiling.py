@@ -1,10 +1,12 @@
-"""Thread-safe counters, latency reservoirs and phase timers (counterpart
-of ``keystone_tpu/utils/profiling.py``: ``Counter``, ``LatencyRecorder``,
-``PhaseTimer`` and ``_interp_percentile``, copied as they are).
+"""Tracing and profiling utilities (counterpart of
+``keystone_tpu/utils/profiling.py``: ``Counter``, ``LatencyRecorder``,
+``PhaseTimer`` and ``_interp_percentile`` copied as they are).
 
-The JAX module's ``trace`` wraps the JAX profiler; the port goes without
-it: ``torch.profiler.profile`` is the device trace here, and
-``chip_smoke.py`` opens it where it profiles a dispatch.
+- ``trace(dir)``: a ``torch.profiler`` trace (host, and the card's kernels
+  where there is one) around a block of pipeline work, written to ``dir``
+  as a Chrome trace; the JAX module's wraps the JAX profiler.
+- ``instrument_executor``: per-node wall time through a GraphExecutor's
+  ``node_hook`` (the interpret-layer profile).
 """
 
 from __future__ import annotations
@@ -12,11 +14,36 @@ from __future__ import annotations
 import collections
 import contextlib
 import logging
+import os
 import threading
 import time
 from typing import Deque, Dict, Iterator, Optional
 
 logger = logging.getLogger(__name__)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[None]:
+    """torch.profiler trace around a block of pipeline work: host activity,
+    and the card's kernels where CUDA is available, exported as a Chrome
+    trace (``trace_<pid>_<ns>.json``, viewable in Perfetto or
+    chrome://tracing) into ``log_dir``, which is made if missing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(
+            os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+        )
 
 
 class PhaseTimer:
@@ -166,3 +193,16 @@ class Counter:
     def snapshot(self) -> Dict:
         with self._lock:
             return dict(self._cells)
+
+
+def instrument_executor(executor) -> Dict:
+    """Record per-node wall time on a GraphExecutor via its ``node_hook``
+    (workflow/executor.py). Returns the (live) dict of node -> seconds,
+    accumulated as nodes execute."""
+    times: Dict = {}
+
+    def hook(graph_id, label, seconds):
+        times[graph_id] = times.get(graph_id, 0.0) + seconds
+
+    executor.node_hook = hook
+    return times

@@ -6,12 +6,14 @@ from keystone_tpu_torch.workflow.api import (  # noqa: F401
     FittedPipeline,
     FunctionNode,
     GatherTransformerOperator,
+    Identity,
     LabelEstimator,
     Pipeline,
     PipelineDataset,
     PipelineDatum,
     PipelineResult,
     Transformer,
+    transformer,
 )
 from keystone_tpu_torch.workflow.executor import (  # noqa: F401
     GraphExecutor,

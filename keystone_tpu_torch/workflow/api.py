@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Any, Dict, List, Sequence, Union
+from typing import Any, Callable, Dict, List, Sequence, Union
 
 import numpy as np
 import torch
@@ -326,6 +326,23 @@ class Transformer(Chainable, TransformerOperator):
         return type(self).__name__
 
 
+def transformer(fn: Callable[[Any], Any], name: str = None) -> Transformer:
+    """Factory: lift a plain function into a Transformer
+    (reference: Transformer.apply(f)). Nodes over the same ``fn`` share an
+    ``eq_key``, so the optimizer merges them as the JAX package's do."""
+
+    class _FnTransformer(Transformer):
+        def apply(self, x):
+            return fn(x)
+
+        def eq_key(self):
+            return ("fn", fn)
+
+    t = _FnTransformer()
+    t.__class__.__name__ = name or getattr(fn, "__name__", "fn")
+    return t
+
+
 class Estimator(Chainable, EstimatorOperator):
     """fit(Dataset) -> Transformer; splice-able into a pipeline."""
 
@@ -422,6 +439,17 @@ class GatherTransformerOperator(TransformerOperator):
 
     def eq_key(self) -> Any:
         return ("gather",)
+
+
+class Identity(Transformer):
+    def apply(self, x):
+        return x
+
+    def apply_batch(self, ds: Dataset) -> Dataset:
+        return ds
+
+    def eq_key(self):
+        return ("identity",)
 
 
 class FittedPipeline:

@@ -113,8 +113,92 @@ def test_fisher_vector_stats_plain_matches_jax_kernel_past_64(d, k, m):
 
 
 def test_fisher_vector_stats_bound_is_past_every_configuration():
-    assert fv_kernel.K_BOUND >= 4 * 256
-    assert not hasattr(fv_kernel, "MAX_D") and not hasattr(fv_kernel, "MAX_K")
+    """The kernel has no bound on d or k: nothing in the module to check
+    against (the old K_BOUND of 1,024 is gone with the tiled path's
+    per-mixture logit store)."""
+    for name in ("K_BOUND", "MAX_D", "MAX_K"):
+        assert not hasattr(fv_kernel, name), name
+
+
+def test_fisher_vector_stats_plain_matches_jax_kernel_past_the_old_k_bound():
+    """k = 1,100, past the 1,024 the kernel took before its tiled path kept
+    nothing per mixture; small d and m."""
+    rng = np.random.default_rng(6)
+    d, k, m = 8, 1100, 300
+    x = rng.standard_normal((1, d, m)).astype(np.float32)
+    means, variances, weights = _gmm(rng, d, k)
+    got = fv_kernel.fisher_vector_stats(_t(x), _t(means), _t(variances), _t(weights), 1e-4)
+    assert [tuple(g.shape) for g in got] == [(1, k), (1, d, k), (1, d, k)]
+    want = fisher_vector_stats_pallas(
+        jnp.asarray(x[0]), jnp.asarray(means), jnp.asarray(variances),
+        jnp.asarray(weights), 1e-4, interpret=True,
+    )
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g[0].numpy(), np.asarray(w), **FV_TOL)
+
+
+def _tf32(a):
+    """float32 -> TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as the kernel rounds (add half a TF32 ulp to the magnitude's
+    bits, clear the 13 bits TF32 drops)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the tiled path forms it: each operand split into a TF32
+    high and low part, lo·hi + hi·lo + hi·hi summed in float32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _mm_1xtf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _fv_stats_emulated(x, means, variances, weights, thresh, mm):
+    """One image's statistics with the four products done by ``mm`` and
+    the logits' two products in two accumulators, combined as the
+    reference combines them."""
+    inv_var, proj, const = fv_kernel.gmm_terms(means, variances, weights)
+    xt = x.T.contiguous()
+    logits = -0.5 * mm(xt * xt, inv_var) + mm(xt, proj) + const
+    q = torch.softmax(logits, dim=-1)
+    q = torch.where(q > thresh, q, torch.zeros(()))
+    q = q / q.sum(-1, keepdim=True)
+    m = x.shape[1]
+    return q.sum(0) / m, mm(x, q) / m, mm(x * x, q) / m
+
+
+def _past_bar(got, want):
+    """The largest excess of |got - want| over FV_TOL's bar (<= 0 passes)."""
+    return max(
+        float(np.max(np.abs(g.numpy() - np.asarray(w)) - (FV_TOL["atol"] + FV_TOL["rtol"] * np.abs(np.asarray(w)))))
+        for g, w in zip(got, want)
+    )
+
+
+@pytest.mark.parametrize("d,k,m,scale", [(80, 256, 2000, 1.0), (129, 257, 1000, 1.0), (80, 256, 2000, 10.0)])
+def test_3xtf32_arithmetic_matches_jax_kernel(d, k, m, scale):
+    """The tiled path's arithmetic (3xTF32 products, two-accumulator
+    logits), emulated in plain torch, against the JAX kernel in interpret
+    mode at VOC's (d, k), at a shape past every tile, and with x scaled
+    x10, where one TF32 product a term misses the bar: the split is what
+    keeps the reference's Precision.HIGHEST tolerances. (At x30 the logits
+    reach ~8e4 and even float64-exact logits miss the float32 reference
+    by more than the bar, so the bar there measures the reference's own
+    rounding.)"""
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((d, m)) * scale).astype(np.float32)
+    gmm = _gmm(rng, d, k)
+    want = fisher_vector_stats_pallas(*(jnp.asarray(a) for a in (x, *gmm)), 1e-4, interpret=True)
+    args = [_t(a) for a in (x, *gmm)]
+    got = _fv_stats_emulated(*args, 1e-4, _mm_3xtf32)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **FV_TOL)
+    if scale > 1.0:
+        assert _past_bar(_fv_stats_emulated(*args, 1e-4, _mm_1xtf32), want) > 0.0
 
 
 @pytest.mark.parametrize("banded", [False, True], ids=["dense", "sift_operators"])

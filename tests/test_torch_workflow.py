@@ -119,3 +119,79 @@ def test_dataset_padding_discipline():
     assert items.map(lambda v: v + 1).items()[1].tolist() == [1.0, 1.0]
     with pytest.raises(ValueError, match="shrink"):
         ds._pad_to(4)
+
+
+def _double_plus_one(x):
+    return x * 2.0 + 1.0
+
+
+def _fn_pipelines(api, Combiner):
+    """``transformer(fn)`` then ``Identity`` chained, and both gathered
+    beside a second ``transformer(fn)`` over the same ``fn``."""
+    chained = api.transformer(_double_plus_one, "double_plus_one").and_then(api.Identity())
+    gathered = api.Pipeline.gather(
+        [api.transformer(_double_plus_one), api.Identity(), api.transformer(_double_plus_one)]
+    ).and_then(Combiner())
+    return chained, gathered
+
+
+def test_transformer_and_identity_match_jax():
+    x = np.random.default_rng(3).standard_normal((5, 4)).astype(np.float32)
+    jchain, jgather = _fn_pipelines(japi, JCombiner)
+    tchain, tgather = _fn_pipelines(tapi, TCombiner)
+    assert tapi.transformer(_double_plus_one, "f").label == japi.transformer(_double_plus_one, "f").label == "f"
+    for jp, tp, width in ((jchain, tchain, 4), (jgather, tgather, 12)):
+        want = np.asarray(jp.apply(JDataset.from_array(jnp.asarray(x))).get().array())
+        got = tp.apply(TDataset.from_array(torch.as_tensor(x))).get().array().numpy()
+        assert got.shape == want.shape == (5, width)
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+        want1 = np.asarray(jp.apply(jnp.asarray(x[0])).get())
+        got1 = tp.apply(torch.as_tensor(x[0])).get()
+        np.testing.assert_allclose(np.asarray(got1), want1, rtol=1e-6, atol=1e-6)
+    assert tapi.Identity().apply_batch(TDataset.from_array(torch.ones(2, 3))).array().shape == (2, 3)
+
+
+def test_transformer_nodes_over_one_fn_merge_as_in_jax():
+    """The optimizer's common-subexpression merge keys on ``eq_key``: two
+    ``transformer(fn)`` nodes over one ``fn`` become one node, in both
+    packages; over two functions they stay two."""
+    x = np.ones((3, 4), np.float32)
+
+    def count(api, Dataset, asarray, fns):
+        res = api.Pipeline.gather([api.transformer(f) for f in fns]).apply(Dataset.from_array(asarray(x)))
+        g = res._executor.graph
+        return sum(type(op).__name__ in {f.__name__ for f in fns} for op in g.operators.values())
+
+    def other(v):
+        return v - 1.0
+
+    for fns, want in (((_double_plus_one, _double_plus_one), 1), ((_double_plus_one, other), 2)):
+        assert count(japi, JDataset, jnp.asarray, fns) == want
+        assert count(tapi, TDataset, torch.as_tensor, fns) == want
+
+
+def test_instrument_executor_times_each_node_of_a_fit():
+    from keystone_tpu.utils.profiling import instrument_executor as jinstrument
+    from keystone_tpu_torch.utils.profiling import instrument_executor as tinstrument
+
+    rng = np.random.default_rng(0)
+    train = rng.standard_normal((6, 4)).astype(np.float32)
+    jpipe = build(japi, JCombiner, jnp.asarray, lambda a: jnp.mean(a, axis=0),
+                  JDataset.from_array(jnp.asarray(train)), [])
+    tpipe = build(tapi, TCombiner, torch.as_tensor, lambda a: torch.mean(a, dim=0),
+                  TDataset.from_array(torch.as_tensor(train)), [])
+    jtimes, ttimes = jinstrument(jpipe.executor), tinstrument(tpipe.executor)
+    jpipe.fit()
+    tpipe.fit()
+    assert ttimes and len(ttimes) == len(jtimes)
+    assert set(map(str, ttimes)) == set(map(str, jtimes))
+    assert all(s >= 0.0 for s in ttimes.values())
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    from keystone_tpu_torch.utils.profiling import trace
+
+    with trace(str(tmp_path / "prof")):
+        tapi.transformer(_double_plus_one)(TDataset.from_array(torch.ones(4, 3))).get()
+    files = list((tmp_path / "prof").iterdir())
+    assert len(files) == 1 and files[0].suffix == ".json" and files[0].stat().st_size > 0
