@@ -154,6 +154,26 @@ Phases, in order; any failure exits non-zero:
    K 2, lambda 1e-2, bf16 data made on the card: fit seconds, Gram
    TFLOP/s, peak, G and AᵀY of the first 1,000,000 rows against float64
    and the mapper against the dense product.
+13. the last app and the remaining operators, which reach no kernel of
+   this repo (the launches in the phase are counted and printed: 0): (a)
+   ``StupidBackoffPipeline.main`` on a seeded Zipf corpus of 40,000 lines
+   of 20 words over 200,000 words written under the gitignored
+   ``tmp/phase13``, 1,000 sampled scores against a direct count over the
+   corpus, then ``python -m keystone_tpu_torch StupidBackoffPipeline`` in a
+   fresh process (exit 0, the same printed line); (b) ``CRFNEREstimator``
+   at the JAX defaults on 14,041 seeded sentences of CoNLL-2003 train's
+   203,621 tokens (longest 113, 9 BIO tags), decoded on 3,453: the fit's
+   seconds, epochs and steps/s, one training step eager and as a CUDA
+   graph replay, decode sentences/s, token accuracy beside
+   ``rule_ner_tag``'s (the JAX tests' bars), no BIO-invalid path, the
+   parameters after 5 epochs on 512 sentences against the CPU; then
+   ``CRFTaggerEstimator`` at 45 tags on the same shape for 100 epochs,
+   above each word's majority tag; (c) HOG (bin 8) and DAISY on 64 seeded images of 500 x
+   375 and on four mixed sizes: images/s, two images against the CPU
+   under the golden bar; (d) ``gram`` and ``qr_q`` at 1,048,576 x 1,024
+   float32: ms, max|QᵀQ − I|, ‖QR − A‖/‖A‖, ``gram`` against float64 on
+   65,536 rows, and of bf16 rows (float32 out); ``device_shuffle`` of
+   those rows against the host ``Shuffler``'s.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then, last, the result line ``{"ok": true, "device": {...}}``.
@@ -176,7 +196,7 @@ import sys
 import tarfile
 import threading
 import time
-from collections import deque
+from collections import Counter, deque
 
 import numpy as np
 import torch
@@ -3017,6 +3037,557 @@ def text_apps(dev, smi, news=P12_NEWS, amazon=P12_AMAZON, hashed=P12_AMAZON_HASH
     return rec
 
 
+# phase 13: the last app and the remaining operators (no kernel of this repo)
+# 13a: StupidBackoffPipeline on a seeded Zipf corpus of P13_SB lines of
+# P13_SB_WORDS words over P13_SB_VOCAB words (under 2^20, so the bit-packing
+# indexer takes every id); 1,000 sampled n-grams held against a direct count
+P13_SB, P13_SB_WORDS, P13_SB_VOCAB, P13_SB_CHECK = 40_000, 20, 200_000, 1_000
+# 13b: CoNLL-2003 English train's shape (sentences, tokens, longest
+# sentence) and testb's sentence count; WSJ's 45 POS tags, fit for half
+# of the JAX default's 200 epochs (the phase's time)
+P13_CONLL, P13_CONLL_TEST = (14_041, 203_621, 113), 3_453
+P13_POS_TAGS, P13_POS_EPOCHS = 45, 100
+P13_PARITY_ROWS, P13_PARITY_EPOCHS = 512, 5
+# the CRF's parameters after P13_PARITY_EPOCHS epochs, card against the CPU:
+# the largest entry difference and ‖Δ‖/‖CPU‖ (float32 sums in other orders
+# through five Adam steps; the CPU port against JAX read 2e-5 at most,
+# tests/test_torch_nlp_models.py)
+ATOL_CRF_CARD, RTOL_CRF_CARD_NORM = 1e-3, 1e-4
+# the JAX tests' bars for a trained NER tagger (tests/ops/test_crf.py)
+P13_MIN_NER_ACC, P13_NER_OVER_RULE = 0.9, 0.15
+# 13c: VOC's usual image size, a batch of them, and a mixed-size batch
+P13_IMG, P13_IMAGES = (500, 375), 64
+P13_MIXED = ((500, 375), (375, 500), (500, 333), (333, 500))
+# 13d: gram and qr_q at 1,048,576 x 1,024 float32 (4.3 GB); gram against
+# float64 on the first P13_CHECK_ROWS rows
+P13_QR, P13_CHECK_ROWS = (1 << 20, 1024), 65_536
+MAX_ORTHO_ERR, RTOL_QR, RTOL_GRAM = 1e-3, 1e-5, 1e-5
+
+
+def zipf_corpus(rng, lines, words, vocab):
+    """(lines, words) word ids of a Zipf law over ``vocab`` words."""
+    p = 1.0 / np.arange(1, vocab + 1) ** 1.05
+    cdf = np.cumsum(p / p.sum())
+    ids = np.searchsorted(cdf, rng.random((lines, words)))
+    return np.minimum(ids, vocab - 1)
+
+
+def stupid_backoff_app(dev, smi, root, lines=P13_SB, words=P13_SB_WORDS, vocab=P13_SB_VOCAB,
+                       checks=P13_SB_CHECK):
+    """13a: ``main()`` and ``python -m keystone_tpu_torch StupidBackoffPipeline``
+    on a written corpus; sampled scores against a direct count."""
+    from keystone_tpu_torch.ops.nlp import NaiveBitPackIndexer
+    from keystone_tpu_torch.pipelines.nlp import stupid_backoff_pipeline as sbp
+
+    rng = np.random.default_rng(13)
+    t = time.perf_counter()
+    ids = zipf_corpus(rng, lines, words, vocab)
+    text = _letters(vocab)[ids]  # (lines, words, 4) letters
+    rows = np.full((lines, words, 5), ord(" "), np.uint8)
+    rows[:, :, :4] = text
+    rows[:, -1, 4] = ord("\n")
+    path = os.path.join(root, "corpus.txt")
+    with open(path, "wb") as f:
+        f.write(rows.tobytes())
+    rec = {"lines": lines, "tokens": lines * words, "write_s": time.perf_counter() - t}
+    calls = {}
+    out = io.StringIO()
+    with recorded(sbp, "run", lambda: None, calls), contextlib.redirect_stdout(out):
+        t = time.perf_counter()
+        assert sbp.main(["--trainLocation", path]) == 0
+        rec["main_s"] = time.perf_counter() - t
+    printed = out.getvalue()
+    model, encoder = calls["run"]["out"]
+    rec.update(printed=printed.strip(), ngrams=len(model.ngram_counts), vocab=len(encoder.word_index))
+    # the bit-packing indexer takes every id of this vocabulary
+    top = max(encoder.word_index.values())
+    packer = NaiveBitPackIndexer()
+    assert [packer.unpack(packer.pack([top, top, top]), i) for i in range(3)] == [top] * 3
+
+    # the direct count, on the word ids the corpus was written from: each
+    # word's rank is the encoder's; counts of every bigram and trigram
+    rank = np.full(vocab, -1, np.int64)
+    words_seen = np.unique(ids)
+    spelled = _letters(vocab)
+    rank[words_seen] = [encoder.word_index[spelled[w].tobytes().decode()] for w in words_seen]
+    r = rank[ids]
+    assert (r >= 0).all()
+    V = np.int64(len(encoder.word_index))
+    uni = np.bincount(r.reshape(-1), minlength=int(V))
+    bi_keys, bi_counts = np.unique((r[:, :-1] * V + r[:, 1:]).reshape(-1), return_counts=True)
+    tri_keys, tri_counts = np.unique(((r[:, :-2] * V + r[:, 1:-1]) * V + r[:, 2:]).reshape(-1),
+                                     return_counts=True)
+    bi, tri = dict(zip(bi_keys.tolist(), bi_counts.tolist())), dict(zip(tri_keys.tolist(),
+                                                                        tri_counts.tolist()))
+    n_tokens = int(uni.sum())
+    assert model.num_tokens == n_tokens
+
+    def direct(g):
+        if len(g) == 3:
+            c = tri.get((g[0] * V + g[1]) * V + g[2], 0)
+            if c:
+                return c / bi[g[0] * V + g[1]]
+            return 0.4 * direct(g[1:])
+        c = bi.get(g[0] * V + g[1], 0)
+        if c:
+            return c / uni[g[0]]
+        return 0.4 * uni[g[1]] / n_tokens
+
+    seen = list(model.ngram_counts)
+    picks = [seen[i] for i in rng.choice(len(seen), checks // 2, replace=False)]
+    # unseen n-grams that back off once or twice, over words of the corpus
+    picks += [tuple(int(x) for x in rng.choice(int(V), k)) for k in (2, 3) for _ in range(checks // 4)]
+    worst = 0.0
+    for g in picks:
+        got, want = model.score(g), direct(g)
+        assert abs(got - want) <= 1e-12 * max(abs(want), 1e-300), (g, got, want)
+        worst = max(worst, abs(got - want))
+    rec.update(checked=len(picks), max_abs_err=worst)
+    # the run-pipeline entry in a fresh process prints what main() printed
+    t = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "keystone_tpu_torch", "StupidBackoffPipeline",
+                          "--trainLocation", path], capture_output=True, text=True, cwd=ROOT,
+                         timeout=600)
+    rec["cli_s"] = time.perf_counter() - t
+    assert cli.returncode == 0, cli.stderr[-2000:]
+    assert cli.stdout == printed, (cli.stdout, printed)
+    os.remove(path)
+    log(f"13a StupidBackoffPipeline main() on {lines} lines, {rec['tokens']} tokens "
+        f"({rec['vocab']} words, {rec['ngrams']} distinct 2- and 3-grams): {rec['main_s']:.3f} s; "
+        f"{rec['checked']} sampled scores equal the direct count; `python -m keystone_tpu_torch "
+        f"StupidBackoffPipeline` exited 0 in {rec['cli_s']:.3f} s and printed {printed.strip()!r}")
+    return rec
+
+
+def _lengths(rng, n, total, longest):
+    """``n`` sentence lengths in [1, longest], one of them ``longest``,
+    summing to ``total`` (a lognormal spread about the mean, then nudged)."""
+    mean = total / n
+    lens = np.clip(np.round(rng.lognormal(np.log(mean) - 0.18, 0.6, n)), 1, longest).astype(np.int64)
+    lens[0] = longest
+    while lens.sum() != total:
+        diff = int(total - lens.sum())
+        i = rng.integers(1, n, abs(diff))
+        np.add.at(lens, i, np.sign(diff))
+        lens[1:] = np.clip(lens[1:], 1, longest - 1)
+    return lens
+
+
+def _names(rng, count, offset, max_len=3):
+    """Capitalized pseudo-word names of 1 to ``max_len`` tokens."""
+    letters = _letters(offset + 4 * count)
+    out = []
+    for i in range(count):
+        k = int(rng.integers(1, max_len + 1))
+        out.append([letters[offset + 4 * i + j].tobytes().decode().capitalize() for j in range(k)])
+    return out
+
+
+def conll_like(rng, splits):
+    """Seeded BIO-tagged sentences of CoNLL-2003's shape, one list per
+    (sentences, tokens, longest) split: four entity types drawn from
+    gazetteers (a fifth of the names shared by LOC and ORG, so context
+    decides; the first split draws from four fifths of each gazetteer, so
+    later splits hold unseen names), each with cue words before and
+    after; lowercase Zipf fillers; entities capitalized, as in the data."""
+    types = ("PER", "ORG", "LOC", "MISC")
+    gaz = {t: _names(rng, 400, 20_000 + 2_000 * i) for i, t in enumerate(types)}
+    gaz["ORG"][:80] = gaz["LOC"][:80]
+    before = {"PER": ["minister", "coach", "striker", "president"], "ORG": ["club", "firm", "bank"],
+              "LOC": ["in", "at", "near", "from"], "MISC": ["the", "a", "several"]}
+    after = {"PER": ["said", "told"], "ORG": ["reported", "shares"], "LOC": ["hosted", "police"],
+             "MISC": ["fans", "league"]}
+    filler = [w.tobytes().decode() for w in _letters(5_000)]
+    out = []
+    for k, (n, total, longest) in enumerate(splits):
+        names = 320 if k == 0 else 400
+        fid = zipf_corpus(rng, 1, total, len(filler))[0]
+        sents, at = [], 0
+        for L in _lengths(rng, n, total, longest):
+            toks, tags = [], []
+            while len(toks) < L:
+                if rng.random() < 0.22:
+                    t = types[int(rng.integers(0, 4))]
+                    if rng.random() < 0.7 and len(toks) + 2 <= L:
+                        toks.append(before[t][int(rng.integers(0, len(before[t])))])
+                        tags.append("O")
+                    name = gaz[t][int(rng.integers(0, names))][: L - len(toks)]
+                    toks += name
+                    tags += ["B-" + t] + ["I-" + t] * (len(name) - 1)
+                    if rng.random() < 0.5 and len(toks) < L:
+                        toks.append(after[t][int(rng.integers(0, len(after[t])))])
+                        tags.append("O")
+                else:
+                    toks.append(filler[fid[at % total]])
+                    tags.append("O")
+                    at += 1
+            if tags[0] == "O":
+                toks[0] = toks[0].capitalize()
+            sents.append((toks, tags))
+        out.append(sents)
+    return out
+
+
+def wsj_like(rng, splits, n_tags=P13_POS_TAGS):
+    """Seeded POS-tagged sentences, one list per (sentences, tokens,
+    longest) split, from one hidden Markov model over ``n_tags`` tags:
+    sparse random transitions, a vocabulary of its own per tag, a fifth of
+    each tag's words shared with the next tag's (so context decides)."""
+    tags = [f"T{i:02d}" for i in range(n_tags)]
+    trans = rng.dirichlet(np.full(n_tags, 0.08), n_tags)
+    letters = _letters(60_000 + 400 * n_tags)
+    vocab = []
+    for i in range(n_tags):
+        size = int(rng.integers(20, 400))
+        lo = 60_000 + 400 * i
+        vocab.append([w.tobytes().decode() for w in letters[lo : lo + size]])
+    for i in range(n_tags):
+        nxt = vocab[(i + 1) % n_tags]
+        vocab[i] += nxt[: max(len(nxt) // 5, 1)]
+    out = []
+    for n, total, longest in splits:
+        sents = []
+        for L in _lengths(rng, n, total, longest):
+            t = int(rng.integers(0, n_tags))
+            toks, tg = [], []
+            for _ in range(L):
+                toks.append(vocab[t][int(rng.integers(0, len(vocab[t])))])
+                tg.append(tags[t])
+                t = int(rng.choice(n_tags, p=trans[t]))
+            sents.append((toks, tg))
+        out.append(sents)
+    return out
+
+
+def _token_acc(pred, sents):
+    ok = sum(p == g for ps, (_, gs) in zip(pred, sents) for p, g in zip(ps, gs))
+    return ok / sum(len(g) for _, g in sents)
+
+
+def _bio_valid(tags):
+    prev = "O"
+    for t in tags:
+        if t.startswith("I-") and prev not in {"B-" + t[2:], "I-" + t[2:]}:
+            return False
+        prev = t
+    return True
+
+
+def _rule_bio(tokens):
+    """``rule_ner_tag`` on the BIO scheme, as the JAX package's tagging test
+    maps it (PERSON -> PER, ORG and ENTITY -> ORG)."""
+    from keystone_tpu_torch.ops.nlp import rule_ner_tag
+
+    kind = {"PERSON": "PER", "ORG": "ORG", "ENTITY": "ORG"}
+    out, prev = [], "O"
+    for t in rule_ner_tag(tokens):
+        k = kind.get(t)
+        out.append("O" if k is None else ("I-" if prev == t else "B-") + k)
+        prev = t
+    return out
+
+
+def _profile_step(step, dev, top=6):
+    """One call of ``step`` under ``torch.profiler``: its kernels, their
+    device ms, and the ``top`` kernel names by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize(dev)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = Counter()
+    for e in kernels:
+        by_name[e.name[:90]] += e.device_time / 1e3
+    return {"kernels": len(kernels), "device_ms": sum(by_name.values()),
+            "top_ms": [[name, ms] for name, ms in by_name.most_common(top)]}
+
+
+def crf_step_times(dev, sentences, feature_fn, constrain_bio, steps=20):
+    """One training step of CRFNEREstimator's defaults on ``sentences``,
+    eager against a CUDA graph replay: ms a step, each over ``steps``
+    steps with one sync at the end, and one step of each by kernel."""
+    from keystone_tpu_torch.ops.nlp import crf
+
+    est = crf.CRFNEREstimator()
+    _, idx, tags, mask, tmask, smask = crf._prepare(sentences, feature_fn, est.hash_dim,
+                                                    constrain_bio)
+    tr = crf._CRFTrainer(idx, tags, mask, tmask, smask, est.hash_dim, est.lr, est.l2,
+                         est.batch_size, 2 * steps + crf._WARM_STEPS + 2, dev)
+    tr.sel.copy_(torch.randperm(len(idx), device=dev)[: est.batch_size])
+    out = {}
+    for mode in ("eager", "graph"):
+        if mode == "graph":
+            tr.capture()
+        else:
+            for _ in range(crf._WARM_STEPS):
+                tr.step()
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        for _ in range(steps):
+            tr.step()
+        torch.cuda.synchronize(dev)
+        out[f"{mode}_ms"] = (time.perf_counter() - t) / steps * 1e3
+        out[f"{mode}_profile"] = _profile_step(tr.step, dev)
+    out["capture_s"] = tr.capture_s
+    assert bool(torch.isfinite(tr.losses).all())
+    return out
+
+
+def crf_taggers(dev, smi, conll=P13_CONLL, conll_test=P13_CONLL_TEST, parity_rows=P13_PARITY_ROWS,
+                n_epochs=200, pos_epochs=P13_POS_EPOCHS):
+    """13b: CRF NER at CoNLL-2003 train's shape at the JAX defaults, then
+    the POS tagger at 45 tags for ``pos_epochs``; parameters card vs CPU on
+    a slice."""
+    from keystone_tpu_torch.ops.nlp import CRFNEREstimator, CRFTaggerEstimator, crf
+    from keystone_tpu_torch.ops.nlp.tagging import _emit_features, _emit_ner_features
+
+    n, total, longest = conll
+    # testb's sentences at train's mean length
+    test_split = (conll_test, int(round(total * conll_test / n)), longest)
+    t = time.perf_counter()
+    train, test = conll_like(np.random.default_rng(131), [conll, test_split])
+    rec = {"sentences": n, "tokens": sum(len(s) for s, _ in train),
+           "longest": max(len(s) for s, _ in train), "test_sentences": len(test),
+           "gen_s": time.perf_counter() - t}
+    assert rec["tokens"] == total and rec["longest"] == longest
+    data = Dataset.from_items(train)
+
+    if dev.type == "cuda":
+        rec["ner_step"] = crf_step_times(dev, train, _emit_ner_features, True)
+        st = rec["ner_step"]
+        log(f"13b CRF NER training step, batch 1024 x {longest} steps: eager "
+            f"{st['eager_ms']:.3f} ms, CUDA graph {st['graph_ms']:.3f} ms (captured in "
+            f"{st['capture_s']:.3f} s); a replayed step's {st['graph_profile']['kernels']} kernels "
+            f"take {st['graph_profile']['device_ms']:.3f} ms on the card, the most "
+            f"{st['graph_profile']['top_ms'][:3]}, on {smi}")
+
+    t = time.perf_counter()
+    ner = CRFNEREstimator(n_epochs=n_epochs, device=dev).fit(data)
+    rec["ner_fit_s"] = time.perf_counter() - t
+    st = dict(ner.fit_stats)
+    st["steps_per_s"] = st["steps"] / st["train_s"]
+    rec["ner_fit"] = st
+    t = time.perf_counter()
+    pred = ner.decode([s for s, _ in test])
+    rec["ner_decode_s"] = time.perf_counter() - t
+    rec["ner_decode_per_s"] = len(test) / rec["ner_decode_s"]
+    t = time.perf_counter()
+    one = [ner(s) for s, _ in test[:200]]
+    rec["ner_decode_one_per_s"] = 200 / (time.perf_counter() - t)
+    assert one == pred[:200], "one-sentence decode differs from the batched decode"
+    rec["ner_acc"] = _token_acc(pred, test)
+    rec["rule_acc"] = _token_acc([_rule_bio(s) for s, _ in test], test)
+    rec["ner_bio_invalid"] = sum(not _bio_valid(p) for p in pred)
+    log(f"13b CRF NER fit on {n} sentences, {total} tokens (longest {longest}): "
+        f"{rec['ner_fit_s']:.3f} s ({st['encode_s']:.3f} s encoding), {st['epochs']} epochs, "
+        f"{st['steps']} steps at {st['steps_per_s']:.1f} steps/s (graph {st['graph']}); decode "
+        f"{rec['ner_decode_per_s']:.1f} sentences/s batched, {rec['ner_decode_one_per_s']:.1f} one "
+        f"at a time; token accuracy {rec['ner_acc']:.4f} (rule_ner_tag {rec['rule_acc']:.4f}), "
+        f"{rec['ner_bio_invalid']} BIO-invalid paths of {len(test)} on {smi}")
+    assert rec["ner_bio_invalid"] == 0
+    assert rec["ner_acc"] > P13_MIN_NER_ACC and rec["ner_acc"] > rec["rule_acc"] + P13_NER_OVER_RULE, rec
+
+    # parameters after a few epochs on a slice, card against the port on the CPU
+    part = Dataset.from_items(train[:parity_rows])
+    card = CRFNEREstimator(n_epochs=P13_PARITY_EPOCHS, device=dev).fit(part)
+    host = CRFNEREstimator(n_epochs=P13_PARITY_EPOCHS, device="cpu").fit(part)
+    par = {}
+    for name in ("emit", "trans", "start"):
+        a, b = getattr(card, name), getattr(host, name)
+        ok = np.abs(b) < 1e8  # the folded -1e9 BIO masks are equal
+        assert np.array_equal(a[~ok], b[~ok]), name
+        par[name] = {"max_abs_err": float(np.abs(a[ok] - b[ok]).max()),
+                     "rel_norm": float(np.linalg.norm(a[ok] - b[ok]) / np.linalg.norm(b[ok]))}
+    rec["parity"] = par
+    log(f"13b CRF NER parameters after {P13_PARITY_EPOCHS} epochs on {parity_rows} sentences, "
+        f"card vs CPU: {par}")
+    for name, p in par.items():
+        assert p["max_abs_err"] <= ATOL_CRF_CARD and p["rel_norm"] <= RTOL_CRF_CARD_NORM, (name, p)
+
+    # the POS tagger at WSJ's 45 tags, same shape
+    t = time.perf_counter()
+    ptrain, ptest = wsj_like(np.random.default_rng(133), [conll, test_split])
+    rec["pos_gen_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    pos = CRFTaggerEstimator(n_epochs=pos_epochs, device=dev).fit(Dataset.from_items(ptrain))
+    rec["pos_fit_s"] = time.perf_counter() - t
+    pst = dict(pos.fit_stats)
+    pst["steps_per_s"] = pst["steps"] / pst["train_s"]
+    rec["pos_fit"] = pst
+    t = time.perf_counter()
+    ppred = pos.decode([s for s, _ in ptest])
+    rec["pos_decode_per_s"] = len(ptest) / (time.perf_counter() - t)
+    rec["pos_acc"] = _token_acc(ppred, ptest)
+    # the majority tag of each word in training, the baseline to beat
+    counts = {}
+    for toks, tg in ptrain:
+        for w, g in zip(toks, tg):
+            counts.setdefault(w, Counter())[g] += 1
+    common = Counter(g for _, tg in ptrain for g in tg).most_common(1)[0][0]
+    major = {w: c.most_common(1)[0][0] for w, c in counts.items()}
+    rec["pos_majority_acc"] = _token_acc([[major.get(w, common) for w in s] for s, _ in ptest], ptest)
+    log(f"13b CRF POS fit at {len(pos.tag_names)} tags on {n} sentences: {rec['pos_fit_s']:.3f} s, "
+        f"{pst['epochs']} epochs, {pst['steps']} steps at {pst['steps_per_s']:.1f} steps/s; decode "
+        f"{rec['pos_decode_per_s']:.1f} sentences/s; token accuracy {rec['pos_acc']:.4f} (each "
+        f"word's majority tag {rec['pos_majority_acc']:.4f}) on {smi}")
+    assert len(pos.tag_names) == P13_POS_TAGS
+    assert rec["pos_acc"] > rec["pos_majority_acc"], rec
+    return rec
+
+
+def image_descriptors(dev, smi, size=P13_IMG, count=P13_IMAGES, mixed=P13_MIXED):
+    """13c: HOG (bin 8) and DAISY (the defaults) on a batch of seeded
+    images and on a mixed-size batch; two images card vs CPU under the
+    golden bar."""
+    from keystone_tpu_torch.ops.images.daisy import DaisyExtractor
+    from keystone_tpu_torch.ops.images.hog import HogExtractor
+
+    g = torch.Generator().manual_seed(133)
+    imgs = torch.randint(0, 256, (count,) + size + (3,), generator=g, dtype=torch.uint8)
+    # smooth them a little so that gradients are not all noise
+    imgs = torch.nn.functional.avg_pool2d(imgs.permute(0, 3, 1, 2).float(), 3, 1, 1).permute(0, 2, 3, 1)
+    mixed_imgs = [imgs[i, : s[0], : s[1]].clone() if s[0] <= size[0] and s[1] <= size[1]
+                  else imgs[i].transpose(0, 1)[: s[0], : s[1]].clone() for i, s in enumerate(mixed)]
+    rec = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for name, card, host, x in (
+        ("hog", HogExtractor(8, device=dev), HogExtractor(8, device="cpu"), imgs),
+        ("daisy", DaisyExtractor(device=dev), DaisyExtractor(device="cpu"), imgs[..., 0]),
+    ):
+        xd = x.to(dev)
+        card.extract(xd[:2])  # warm
+        times = []
+        for _ in range(3):
+            sync()
+            t = time.perf_counter()
+            out = card.extract(xd)
+            sync()
+            times.append(time.perf_counter() - t)
+        assert bool(torch.isfinite(out).all())
+        t = time.perf_counter()
+        items = card.apply_batch(Dataset.from_items(mixed_imgs if name == "hog"
+                                                    else [m[..., 0] for m in mixed_imgs])).items()
+        sync()
+        mixed_s = time.perf_counter() - t
+        want = host.extract(x[:2])
+        diff = (out[:2].cpu() - want).abs()
+        within = float((diff <= 1e-3).float().mean())
+        rec[name] = {"images_per_s": count / min(times), "batch_s": times,
+                     "shape": list(out.shape), "mixed_images_per_s": len(mixed) / mixed_s,
+                     "mixed_shapes": [list(o.shape) for o in items],
+                     "within_1e-3": within, "max_abs_err": float(diff.max())}
+        log(f"13c {name} on {count} images of {size[0]} x {size[1]}: "
+            f"{rec[name]['images_per_s']:.1f} images/s (output {list(out.shape)}); mixed sizes "
+            f"{rec[name]['mixed_images_per_s']:.1f} images/s; two images card vs CPU: "
+            f"{within:.5f} within 1e-3, max {rec[name]['max_abs_err']:.3g}, on {smi}")
+        assert within >= 0.995 and float(diff.max()) <= 0.05, rec[name]
+        del xd, out
+    return rec
+
+
+def gram_and_qr(dev, smi, shape=P13_QR, check_rows=P13_CHECK_ROWS):
+    """13d: ``gram`` and ``qr_q`` at 1,048,576 x 1,024 float32, and
+    ``device_shuffle`` of a slice."""
+    from keystone_tpu_torch.parallel.linalg import gram, qr_q
+    from keystone_tpu_torch.parallel.shuffle import device_shuffle
+
+    n, d = shape
+    g = torch.Generator(device=dev).manual_seed(134)
+    A = torch.randn((n, d), generator=g, device=dev)
+    rec = {"n": n, "d": d, "bytes": A.numel() * 4}
+    for name, fn in (("gram", lambda: gram(A)), ("qr_q", lambda: qr_q(A))):
+        fn()  # the first call pays cuBLAS's and cuSOLVER's setup
+        ms = []
+        for _ in range(3):
+            if dev.type == "cuda":
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+            else:
+                t = time.perf_counter()
+                fn()
+                ms.append((time.perf_counter() - t) * 1e3)
+        rec[f"{name}_ms"] = ms
+    G = gram(A)
+    Q, R = qr_q(A)
+    rec["ortho_err"] = float((gram(Q) - torch.eye(d, device=dev)).abs().max())
+    rec["qr_rel_err"] = float(torch.linalg.norm(Q @ R - A) / torch.linalg.norm(A))
+    del Q, R
+    head = A[:check_rows]
+    G64 = head.double().T @ head.double()
+    rec["gram_rel_err"] = float((gram(head).double() - G64).abs().max() / G64.abs().max())
+    rec["gram_full_finite"] = bool(torch.isfinite(G).all())
+    # the one-device shuffle on the card: the host Shuffler's rows, pad rows zero
+    padded = torch.cat([head, torch.zeros((1000, d), device=dev)])
+    shuffled = device_shuffle(padded, check_rows, seed=13)
+    perm = torch.as_tensor(np.random.default_rng(13).permutation(check_rows), device=dev)
+    rec["shuffle_equal"] = bool(torch.equal(shuffled[:check_rows], head[perm])
+                                and not shuffled[check_rows:].any())
+    del padded, shuffled
+    b16 = gram(head.to(torch.bfloat16))
+    rec["bf16_dtype"] = str(b16.dtype)
+    exact = head.to(torch.bfloat16).double()
+    rec["bf16_rel_err"] = float((b16.double() - exact.T @ exact).abs().max()
+                                / (exact.T @ exact).abs().max())
+    flop = 2.0 * n * d * d
+    rec["gram_tflops"] = flop / (min(rec["gram_ms"]) / 1e3) / 1e12
+    log(f"13d gram at {n} x {d} float32: {min(rec['gram_ms']):.3f} ms ({rec['gram_tflops']:.1f} "
+        f"TFLOP/s), qr_q {min(rec['qr_q_ms']):.3f} ms; max|QᵀQ − I| {rec['ortho_err']:.3g}, "
+        f"‖QR − A‖/‖A‖ {rec['qr_rel_err']:.3g}; gram of {check_rows} rows against float64 "
+        f"{rec['gram_rel_err']:.3g}, of bf16 rows {rec['bf16_rel_err']:.3g} ({rec['bf16_dtype']}); "
+        f"device_shuffle of those rows equal to the host's: {rec['shuffle_equal']}, on {smi}")
+    assert rec["gram_full_finite"] and rec["shuffle_equal"]
+    assert rec["ortho_err"] <= MAX_ORTHO_ERR and rec["qr_rel_err"] <= RTOL_QR, rec
+    assert rec["gram_rel_err"] <= RTOL_GRAM and rec["bf16_rel_err"] <= RTOL_GRAM, rec
+    assert b16.dtype == torch.float32
+    del A, G, head, G64, b16, exact
+    return rec
+
+
+def last_app_and_operators(dev, smi, sb=None, crf=None, images=None, qr=None):
+    """Phase 13: 13a StupidBackoffPipeline (corpus under the gitignored
+    ``tmp/phase13``), 13b the CRF taggers, 13c HOG and DAISY, 13d ``gram``
+    and ``qr_q``. Each argument is a dict of keyword arguments of its
+    sub-phase. To rehearse it on the CPU at a small size:
+    ``last_app_and_operators(torch.device("cpu"), "cpu", sb=dict(lines=2000,
+    vocab=5000, checks=200), crf=dict(conll=(600, 8700, 113),
+    conll_test=150, parity_rows=64, n_epochs=20, pos_epochs=20),
+    images=dict(size=(64, 48), count=4, mixed=((64, 48), (48, 64), (64, 40),
+    (40, 64))), qr=dict(shape=(4096, 64), check_rows=1024))`` (about 15 s)."""
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "tmp", "phase13")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rec = {"card": smi}
+    t = time.perf_counter()
+    rec["stupid_backoff"] = stupid_backoff_app(dev, smi, root, **(sb or {}))
+    rec["stupid_backoff"]["phase_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rec["crf"] = crf_taggers(dev, smi, **(crf or {}))
+    rec["crf"]["phase_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rec["images"] = image_descriptors(dev, smi, **(images or {}))
+    rec["images"]["phase_s"] = time.perf_counter() - t
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    rec["linalg"] = gram_and_qr(dev, smi, **(qr or {}))
+    rec["linalg"]["phase_s"] = time.perf_counter() - t
+    shutil.rmtree(root, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 13 in {rec['phase_s']:.3f} s on {smi}")
+    return rec
+
+
+
 def _info(info):
     return None if info is None else {k: float(v) for k, v in info.items()}
 
@@ -3135,12 +3706,21 @@ def main():
     for r in rows:
         r["phase12_launches"] = _cuda.LAUNCHES[r["name"]]
     log(f"launches in phase 12: {dict(_cuda.LAUNCHES)}")
+    torch.cuda.empty_cache()
+
+    # -- 13. the last app and the remaining operators (no kernel of this repo)
+    _cuda.reset_launches()
+    last = last_app_and_operators(dev, smi)
+    for r in rows:
+        r["phase13_launches"] = _cuda.LAUNCHES[r["name"]]
+    log(f"launches in phase 13: {dict(_cuda.LAUNCHES)}")
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": rows, "wide": wide, "serve": served, "train": trained,
                    "stream": streamed, "files": files, "voc": voc_rec, "random_features": rf,
-                   "past_the_card": past, "text": text, "ptxas": ptxas}, f,
+                   "past_the_card": past, "text": text, "last_app": last,
+                   "ptxas": ptxas}, f,
                   indent=1, default=str)
     # the fit's launches and B3's error with the fitted GMMs are in
     # chip_smoke.json beside these

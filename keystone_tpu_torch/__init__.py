@@ -14,6 +14,9 @@ The entry points (``build_flagship_featurize_pipeline``,
 default and raise when CUDA is missing; they run on the CPU only when the
 caller passes ``device="cpu"``. This package never imports ``jax`` or
 ``keystone_tpu``.
+
+``python -m keystone_tpu_torch <App> [args]`` runs one of the eight apps
+(``-h`` lists them).
 """
 
 __version__ = "0.1.0"
@@ -21,10 +24,14 @@ __version__ = "0.1.0"
 _EXPORTS = {
     "Estimator": "keystone_tpu_torch.workflow",
     "FittedPipeline": "keystone_tpu_torch.workflow",
+    "FunctionNode": "keystone_tpu_torch.workflow",
+    "LabelEstimator": "keystone_tpu_torch.workflow",
     "Pipeline": "keystone_tpu_torch.workflow",
     "Transformer": "keystone_tpu_torch.workflow",
     "Dataset": "keystone_tpu_torch.parallel.dataset",
     "CompiledPipeline": "keystone_tpu_torch.serving.engine",
+    "MicroBatcher": "keystone_tpu_torch.serving",
+    "ServingMetrics": "keystone_tpu_torch.serving",
     "build_flagship_featurize_pipeline": "keystone_tpu_torch.serving.featurize",
 }
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Sequence
 
+import numpy as np
 import torch
 
 from keystone_tpu_torch.parallel.dataset import (
@@ -40,6 +41,26 @@ def stable_hash(term: Any) -> int:
     h = _FNV_OFFSET
     for b in str(term).encode("utf-8"):
         h = ((h ^ b) * _FNV_PRIME) & _MASK
+    return h
+
+
+def stable_hashes(terms: Sequence[Any]) -> np.ndarray:
+    """``stable_hash`` of every term as a uint64 array, computed a byte
+    position at a time over all terms at once (the values are equal)."""
+    enc = [str(t).encode("utf-8") for t in terms]
+    lens = np.fromiter(map(len, enc), np.int64, len(enc))
+    h = np.full(len(enc), _FNV_OFFSET, np.uint64)
+    if not enc or lens.max() == 0:
+        return h
+    # the bytes as a (terms, longest) matrix, zero past each term's end
+    buf = np.zeros((len(enc), int(lens.max())), np.uint8)
+    starts = np.repeat(np.cumsum(lens) - lens, lens)
+    cols = np.arange(int(lens.sum())) - starts
+    buf[np.repeat(np.arange(len(enc)), lens), cols] = np.frombuffer(b"".join(enc), np.uint8)
+    prime, mask = np.uint64(_FNV_PRIME), np.uint64(_MASK)
+    for j in range(buf.shape[1]):
+        step = ((h ^ buf[:, j]) * prime) & mask
+        h = np.where(lens > j, step, h)
     return h
 
 

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from keystone_tpu_torch.parallel.dataset import Dataset, csr_from_coo, is_sparse
+from keystone_tpu_torch.parallel.shuffle import device_shuffle
 from keystone_tpu_torch.workflow.api import Estimator, FunctionNode, Transformer
 
 
@@ -203,10 +204,11 @@ class Shuffler(Transformer):
     """Random permutation of examples (reference: repartition-based
     Shuffler), ``out[j] = x[perm[j]]`` with ``perm =
     default_rng(seed).permutation(n)`` as in the JAX package.
-    ``device=True`` permutes an array on its device (one gather, the pad
-    rows kept at the end, as the JAX package's ``lax.all_to_all`` path
-    keeps them); the default host path permutes on the host and returns
-    the ``n`` valid rows on the array's device. Both give the same rows."""
+    ``device=True`` permutes an array on its device
+    (``parallel/shuffle.device_shuffle``, the pad rows zero, as the JAX
+    package's ``lax.all_to_all`` path leaves them); the default host path
+    permutes on the host and returns the ``n`` valid rows on the array's
+    device. Both give the same rows."""
 
     def __init__(self, seed: int = 0, device: bool = False):
         self.seed = seed
@@ -216,13 +218,10 @@ class Shuffler(Transformer):
         return x
 
     def apply_batch(self, ds: Dataset) -> Dataset:
+        if ds.is_array and not isinstance(ds.padded(), tuple) and self.device:
+            return Dataset.from_array(device_shuffle(ds.padded(), ds.n, self.seed), n=ds.n)
         perm = np.random.default_rng(self.seed).permutation(ds.n)
         if ds.is_array and not isinstance(ds.padded(), tuple):
-            if self.device:
-                x = ds.padded()
-                order = torch.cat([torch.as_tensor(perm),
-                                   torch.arange(ds.n, x.shape[0])]).to(x.device)
-                return Dataset.from_array(x[order], n=ds.n)
             x = ds.array()
             return Dataset.from_array(x.cpu()[torch.as_tensor(perm)].to(x.device), n=ds.n)
         items = ds.items()

@@ -79,6 +79,18 @@ TEXT_MODULES = [
 ]
 
 
+# the last app's and the remaining operators' modules, which the walk must
+# reach too
+SLICE12_MODULES = [
+    "keystone_tpu_torch." + m for m in (
+        "__main__", "ops.nlp.word_frequency", "ops.nlp.stupid_backoff", "ops.nlp.tagging",
+        "ops.nlp.external", "ops.nlp.crf", "ops.images.conversions", "ops.images.daisy",
+        "ops.images.hog", "ops.images.image_utils", "parallel.shuffle", "pipelines.nlp",
+        "pipelines.nlp.stupid_backoff_pipeline",
+    )
+]
+
+
 def _port_sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:
@@ -108,6 +120,7 @@ print("VOC", sorted(n for n in {VOC_MODULES!r} if n not in sys.modules))
 print("RF", sorted(n for n in {RANDOM_FEATURES_MODULES!r} if n not in sys.modules))
 print("HOSTFIT", sorted(n for n in {HOST_FIT_MODULES!r} if n not in sys.modules))
 print("TEXT", sorted(n for n in {TEXT_MODULES!r} if n not in sys.modules))
+print("SLICE12", sorted(n for n in {SLICE12_MODULES!r} if n not in sys.modules))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -123,10 +136,11 @@ print("TEXT", sorted(n for n in {TEXT_MODULES!r} if n not in sys.modules))
     assert "RF []" in out.stdout, out.stdout
     assert "HOSTFIT []" in out.stdout, out.stdout
     assert "TEXT []" in out.stdout, out.stdout
+    assert "SLICE12 []" in out.stdout, out.stdout
     assert int(re.search(r"LOADED (\d+)", out.stdout).group(1)) >= (
         25 + len(TRAINING_MODULES) + len(SERVING_MODULES) + len(LOADER_MODULES)
         + len(VOC_MODULES) + len(RANDOM_FEATURES_MODULES) + len(HOST_FIT_MODULES)
-        + len(TEXT_MODULES))
+        + len(TEXT_MODULES) + len(SLICE12_MODULES))
 
 
 def test_streaming_loader_imports_neither_torch_nor_jax():
@@ -391,3 +405,48 @@ def test_text_entry_points_need_cuda_unless_given_the_cpu(monkeypatch, tmp_path)
     for call in calls:
         out = call(device="cpu")
         assert out == 0 or out is not None
+
+
+def test_slice12_entry_points_need_cuda_unless_given_the_cpu(monkeypatch, tmp_path):
+    from PIL import Image
+
+    from keystone_tpu_torch import __main__ as cli
+    from keystone_tpu_torch.ops.images import conversions, image_utils
+    from keystone_tpu_torch.ops.images.daisy import DaisyExtractor
+    from keystone_tpu_torch.ops.images.hog import HogExtractor
+    from keystone_tpu_torch.ops.nlp.crf import CRFNEREstimator, CRFTaggerEstimator
+    from keystone_tpu_torch.parallel.dataset import Dataset
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    img = np.random.default_rng(0).uniform(0, 255, (40, 40, 3)).astype(np.float32)
+    path = str(tmp_path / "x.png")
+    Image.fromarray(img.astype(np.uint8)).save(path)
+    pos = Dataset.from_items([(["the", "dog"], ["DT", "NN"]), (["a", "cat"], ["DT", "NN"])])
+    ner = Dataset.from_items([(["bob", "left"], ["B-PER", "O"])])
+    news = ["--trainLocation", str(tmp_path), "--testLocation", str(tmp_path)]
+    calls = [
+        lambda **kw: HogExtractor(8, **kw).apply(img),
+        lambda **kw: DaisyExtractor(**kw).apply(img[:, :, 0]),
+        lambda **kw: conversions.bytes_to_image(bytes(12), 2, 2, 3, **kw),
+        lambda **kw: image_utils.load_image(path, **kw),
+        lambda **kw: CRFTaggerEstimator(n_epochs=2, hash_dim=64, **kw).fit(pos),
+        lambda **kw: CRFNEREstimator(n_epochs=2, hash_dim=64, **kw).fit(ner),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    for call in calls:
+        assert call(device="cpu") is not None
+    # a tagger fit on the CPU decodes there; one unpickled with no device
+    # wants cuda
+    tagger = calls[4](device="cpu")
+    assert tagger(["the", "cat"]) == ["DT", "NN"]
+    tagger.__dict__.pop("_tables_cache")
+    tagger.device = None
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tagger(["the", "cat"])
+    # the run-pipeline entry hands the app its default device
+    (tmp_path / "comp.graphics").mkdir()
+    (tmp_path / "comp.graphics" / "0").write_text("good words here")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["NewsgroupsPipeline"] + news)
