@@ -174,6 +174,34 @@ Phases, in order; any failure exits non-zero:
    float32: ms, max|QᵀQ − I|, ‖QR − A‖/‖A‖, ``gram`` against float64 on
    65,536 rows, and of bf16 rows (float32 out); ``device_shuffle`` of
    those rows against the host ``Shuffler``'s.
+14. the request plane over HTTP: (a) phase 4's chain and head behind
+   ``Gateway(buckets=(8, 64), n_lanes=2, pipeline_depth=2,
+   max_delay_ms=5)`` and ``GatewayServer`` on an ephemeral port, loaded by
+   64 clients in flight in a separate ``python3`` (closed loop, 8 s,
+   JSON bodies of single 256² images encoded before the window): every
+   response's top-5 equal to the direct chain's at its bucket, req/s and
+   client p50/p99, admit → result and queue wait read back from
+   ``/metrics``, the JSON decode of one body alone, the mean coalesced
+   size, sheds, B1–B3 launches per dispatch (exactly 4 / 1 / 2), the
+   graph pools' bytes, and the device's idle share over a 2 s
+   ``torch.profiler`` window of every thread; (b) under the same load
+   ``POST /swap`` (no failed request across it; the new generation's
+   capture seconds and the peak reserved memory of two generations),
+   ``/profilez`` (its trace names B1–B3), ``/metrics`` (the gateway
+   families and ``keystone_device_memory_bytes``), ``/slz``, ``/debugz``,
+   then ``POST /drain`` (``/readyz`` 503, every admitted request
+   resolved); (c) ``python -m keystone_tpu_torch --admin-port 0
+   serve-gateway --gateway-port 0 --device-featurize flagship --img 256
+   --buckets 8,64 --lanes 2`` in a fresh process: one POST, the
+   process's first ``/profilez`` under 64 clients (its trace names B1
+   and B2, which the entry's chain launches), the admin endpoint's
+   ``/metrics`` and ``/healthz``, SIGTERM, exit 0, and what the
+   profiler session a Gateway opens before its lanes adds to start-up;
+   (d) the weighted solver on phase 6's features cast to bf16
+   against the float32 fit of the same values, ``Convolver(fast=True)``
+   against ``fast=False`` at RandomPatchCifar's shape (8e-3 of the
+   largest feature), with both times, and the filter convolution alone
+   with bf16 operands against float32 (why ``fast`` runs float32).
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then, last, the result line ``{"ok": true, "device": {...}}``.
@@ -222,6 +250,7 @@ from keystone_tpu_torch.ops.learning import kernel as krr  # noqa: E402
 from keystone_tpu_torch.ops.util.nodes import ClassLabelIndicators, TopKClassifier  # noqa: E402
 from keystone_tpu_torch.workflow.executor import PipelineEnv  # noqa: E402
 from keystone_tpu_torch.serving import MicroBatcher, ServingMetrics  # noqa: E402
+from keystone_tpu_torch.utils import profiling  # noqa: E402
 from keystone_tpu_torch.utils.chunks import CHUNK_ROWS  # noqa: E402
 from keystone_tpu_torch.workflow import api  # noqa: E402
 from keystone_tpu_torch.serving.featurize import (  # noqa: E402
@@ -1240,6 +1269,8 @@ def train_then_serve(dev, smi, classes=1000, per_class=TRAIN_PER_CLASS, solver_r
             stage_s[f"FV over the training set {branch}"] = sec
     (X, Y, model, sec), = stages.captured["solver"]
     stage_s["solver"] = sec
+    if keep is not None:
+        keep["solver_xy"] = (X.array(), Y.array())  # phase 14d's input
     Xs, Ys = X.array()[:solver_rows], Y.array()[:solver_rows]
     rec["solver"] = {"cg_iterations": int(model.solver_info["pcg_iterations"]),
                      "cg_exit_rel_residual": float(model.solver_info["pcg_max_rel_residual"]),
@@ -3587,6 +3618,594 @@ def last_app_and_operators(dev, smi, sb=None, crf=None, images=None, qr=None):
     return rec
 
 
+# -- phase 14: the gateway over the flagship's CUDA-graph engines -------------
+
+# lanes, stage depth and batching deadline: serve-gateway's defaults (the
+# buckets are the serving phases'); clients: requests in flight, seconds
+# of the measured window and the image pool
+P14_LANES, P14_DEPTH, P14_DELAY_MS = 2, 2, 5.0
+P14_IN_FLIGHT, P14_SECONDS, P14_POOL = 64, 8.0, 64
+# the device profile's window inside the measured one (start, length s):
+# at the window's start the server decodes the first 64 bodies back to
+# back; and /profilez's capture during the swap drill
+P14_PROFILE_AT_S, P14_PROFILE_S, P14_PROFILEZ_S = 4.0, 2.0, 2
+P14_ENTRY_EXIT_S = 30.0
+# 14c: the fresh entry's clients (in flight, seconds, image pool); its
+# first /profilez opens this long after they start
+P14C_IN_FLIGHT, P14C_SECONDS, P14C_POOL, P14C_PROFILEZ_AT_S = 64, 6.0, 16, 1.0
+# the JAX test's bar for Convolver(fast=True): its largest error against
+# fast=False over the largest feature (tests/ops/test_precision_policy.py)
+P14_FAST_CONV_BAR = 8e-3
+P14_CONV_IMAGES, P14_FILTER_IMAGES = 1024, 2000
+KERNEL_NAMES = ("sift_bin_sample", "plane_sandwich", "fisher_vector_stats")
+PER_DISPATCH = {"sift_bin_sample": 4, "plane_sandwich": 1, "fisher_vector_stats": 2}
+
+
+def gateway_clients(url, images_path, seconds, in_flight, out_path):
+    """Phase 14's client process: pre-encode one JSON body per image of
+    ``images_path`` (``{"instances": [image]}``), print ``ready``, wait for
+    ``go`` on stdin, then keep ``in_flight`` POST /predict in flight (one
+    thread each, closed loop) until ``seconds`` have passed or ``stop``
+    comes on stdin, and write every response (image index, status, top-5
+    or error reason, send and receive wall times) to ``out_path`` as JSON.
+    It runs in a process of its own, so it shares no GIL with the
+    server."""
+    import http.client
+    from urllib.parse import urlparse
+
+    u = urlparse(url)
+    images = np.load(images_path)
+    t = time.perf_counter()
+    bodies = [json.dumps({"instances": [im.tolist()]}).encode() for im in images]
+    encode_s = time.perf_counter() - t
+    print("ready", flush=True)
+    sys.stdin.readline()
+    results = []
+    t0 = time.time()
+    stop = threading.Event()
+    threading.Thread(target=lambda: (sys.stdin.readline(), stop.set()), daemon=True).start()
+    timer = threading.Timer(seconds, stop.set)
+    timer.daemon = True
+    timer.start()
+
+    def client(tid):
+        k = tid
+        while not stop.is_set():
+            i = k % len(bodies)
+            k += in_flight
+            t_send = time.time()
+            try:
+                conn = http.client.HTTPConnection(u.hostname, u.port, timeout=120)
+                conn.request("POST", "/predict", body=bodies[i],
+                             headers={"Content-Type": "application/json"})
+                r = conn.getresponse()
+                doc = json.loads(r.read())
+                conn.close()
+                what = doc["predictions"][0] if r.status == 200 else doc.get("reason", doc.get("error"))
+                results.append((i, r.status, what, t_send, time.time()))
+            except Exception as e:  # reported to the server process
+                results.append((i, -1, repr(e), t_send, time.time()))
+
+    threads = [threading.Thread(target=client, args=(tid,)) for tid in range(in_flight)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    with open(out_path, "w") as f:
+        json.dump({"start": t0, "end": time.time(), "encode_s": encode_s,
+                   "body_bytes": [len(b) for b in bodies], "results": results}, f)
+    print("done", flush=True)
+
+
+class ClientProcess:
+    """``gateway_clients`` in a fresh ``python3``, started and gated: the
+    constructor returns once the bodies are encoded, ``go()`` opens the
+    window, ``result()`` waits for the end and reads the record."""
+
+    def __init__(self, url, images_path, seconds, in_flight, out_path):
+        self.out_path = out_path
+        self.seconds = seconds
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--gateway-clients",
+             json.dumps([url, images_path, seconds, in_flight, out_path])],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+        )
+        line = self.proc.stdout.readline().strip()
+        assert line == "ready", line
+
+    def go(self):
+        self.proc.stdin.write("go\n")
+        self.proc.stdin.flush()
+        self.t_go = time.time()
+
+    def stop(self):
+        self.proc.stdin.write("stop\n")
+        self.proc.stdin.flush()
+
+    def result(self):
+        try:
+            self.proc.wait(timeout=self.seconds + 180)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        assert self.proc.returncode == 0, self.proc.returncode
+        with open(self.out_path) as f:
+            return json.load(f)
+
+
+def http_get(url, timeout=30, accept_errors=False):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        if not accept_errors:
+            raise
+        return e.code, e.read()
+
+
+def http_post(url, doc, timeout=120):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(doc).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, json.loads(r.read())
+
+
+def top5_by_bucket(engine, images, buckets):
+    """The chain's top-5 of every image when it rides a window of each
+    bucket (eager, zero pad rows, as a replay computes it)."""
+    out = {}
+    for b in buckets:
+        rows = []
+        for s in range(0, len(images), b):
+            chunk = images[s : s + b]
+            pad = np.zeros((b,) + images.shape[1:], np.uint8)
+            pad[: len(chunk)] = chunk
+            rows.append(engine._run_bucket(torch.as_tensor(pad).to(engine.device))[: len(chunk)]
+                        .cpu().numpy())
+        out[b] = np.concatenate(rows)
+    return out
+
+
+def check_responses(results, want, t_drain=None):
+    """Split the clients' responses: right (200 with the direct chain's
+    top-5 at one of the buckets), refused after the drain began (503
+    ``closed``), and failed (anything else)."""
+    ok, refused, failed = [], [], []
+    for i, status, what, t_send, t_recv in results:
+        if status == 200 and any(list(w[i]) == what for w in want.values()):
+            ok.append(t_recv - t_send)
+        elif status == 503 and what == "closed" and t_drain is not None and t_recv >= t_drain:
+            refused.append(t_recv - t_send)
+        else:
+            failed.append((i, status, what))
+    return ok, refused, failed
+
+
+def device_idle_share(trace_path, window_us):
+    """1 − (the union of the card's kernel, copy and set intervals) ÷ the
+    window, from a ``torch.profiler`` Chrome trace."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return 1.0 - busy / window_us, busy / 1e3, len(spans)
+
+
+def profilez_kernels(url):
+    """GET a ``/profilez`` URL and read its Chrome trace back: which of
+    B1–B3 it names, how many kernel names and events of each category."""
+    code, doc = http_get(url, accept_errors=True)
+    doc = json.loads(doc)
+    assert code == 200, doc
+    names, cats = set(), Counter()
+    for fname in doc["files"]:
+        with open(os.path.join(doc["trace_dir"], fname)) as f:
+            events = json.load(f)["traceEvents"]
+        cats.update(e.get("cat") for e in events)
+        names |= {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    seen = {k: any(s in n for n in names) for k, s in
+            (("sift_bin_sample", "sift_bin"), ("plane_sandwich", "sandwich"),
+             ("fisher_vector_stats", "fv_"))}
+    return {"files": doc["files"], "kernels_seen": seen, "kernel_names": len(names),
+            "events": dict(cats)}
+
+
+def gateway_latency(text, name):
+    """p50, p99 and mean ms of one gateway latency histogram, read back
+    from a ``/metrics`` scrape as a scraper would."""
+    from keystone_tpu_torch.observability import prometheus
+
+    buckets = prometheus.histogram_buckets(text, name, {"gateway": "phase14"})
+    samples = {s: v for s, labels, v in prometheus.parse_samples(text)
+               if labels.get("gateway") == "phase14" and s in (f"{name}_sum", f"{name}_count")}
+    q = {p: prometheus.quantile_from_buckets(p, buckets) for p in (0.5, 0.99)}
+    mean = samples[f"{name}_sum"] / samples[f"{name}_count"] if samples.get(f"{name}_count") else None
+    return {"p50_ms": q[0.5] and q[0.5] * 1e3, "p99_ms": q[0.99] and q[0.99] * 1e3,
+            "mean_ms": mean and mean * 1e3, "count": samples.get(f"{name}_count")}
+
+
+def lane_totals(gw):
+    dispatches = sum(lane.engine.metrics.dispatches.total for lane in gw.pool.lanes)
+    examples = sum(lane.engine.metrics.examples.total for lane in gw.pool.lanes)
+    return dispatches, examples
+
+
+def graph_pools(gw):
+    graphs = [g for lane in gw.pool.lanes for g in lane.engine.graph_report()]
+    return {"graphs": len(graphs), "pool_bytes": sum(g["pool_bytes"] for g in graphs),
+            "capture_s": sum(g["capture_s"] for g in graphs),
+            "buckets": sorted({g["bucket"] for g in graphs})}
+
+
+def serve_gateway(dev, smi, feat, model, img=IMG, seconds=P14_SECONDS, in_flight=P14_IN_FLIGHT,
+                  pool=P14_POOL, profile_at_s=P14_PROFILE_AT_S):
+    """Phase 14a and 14b: phase 4's chain and head behind ``Gateway`` and
+    ``GatewayServer`` (buckets (8, 64), 2 lanes, pipeline depth 2,
+    max_delay_ms 5), loaded over HTTP by ``in_flight`` clients in another
+    process; then the swap drill, ``/profilez``, the scrape and the drain
+    under load: the drill's clients run until the drain has flipped
+    ``/readyz``. To rehearse it on the CPU at a small size (no graphs, no
+    profile): ``serve_gateway(torch.device("cpu"), "cpu", feat, model,
+    img=48, seconds=2, in_flight=8, pool=8)`` with a 48² chain and its
+    head."""
+    from keystone_tpu_torch.gateway import Gateway, GatewayServer
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    root = os.path.join(ROOT, "tmp", "phase14")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rng = np.random.default_rng(23)
+    images = rng.integers(0, 256, (pool, img, img, 3), dtype=np.uint8)
+    images_path = os.path.join(root, "images.npy")
+    np.save(images_path, images)
+    rec = {"card": smi, "lanes": P14_LANES, "pipeline_depth": P14_DEPTH,
+           "max_delay_ms": P14_DELAY_MS, "buckets": list(BUCKETS), "in_flight": in_flight}
+
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reserved0 = torch.cuda.memory_reserved(dev)
+    t = time.perf_counter()
+    gw = Gateway(model, buckets=BUCKETS, n_lanes=P14_LANES, pipeline_depth=P14_DEPTH,
+                 max_delay_ms=P14_DELAY_MS, device_featurize=feat, device=dev,
+                 warmup_example=np.zeros((img, img, 3), np.uint8), name="phase14")
+    server = GatewayServer(gw, port=0, input_dtype=np.uint8).start()
+    rec["build_s"] = time.perf_counter() - t
+    rec["generation_1"] = graph_pools(gw)
+    if on_card:
+        rec["generation_1"]["reserved_bytes"] = torch.cuda.memory_reserved(dev) - reserved0
+    log(f"14a: gateway up in {rec['build_s']:.3f} s, {P14_LANES} lanes, graphs "
+        f"{rec['generation_1']} on {smi}")
+    try:
+        direct = model.compiled(buckets=BUCKETS, featurize=feat, device=dev, name="phase14-direct")
+        want = top5_by_bucket(direct, images, BUCKETS)
+        rec["direct_top5_differs_by_bucket"] = int((want[BUCKETS[0]] != want[BUCKETS[-1]]).any(1).sum())
+
+        # the server's JSON decode of one body, alone (the handler's own
+        # json.loads and np.asarray)
+        bodies = [json.dumps({"instances": [im.tolist()]}).encode() for im in images[:16]]
+        times = []
+        for body in bodies:
+            t = time.perf_counter()
+            np.asarray(json.loads(body)["instances"][0], dtype=np.uint8)
+            times.append(time.perf_counter() - t)
+        rec["decode_ms_alone"] = statistics.median(times) * 1e3
+        rec["body_bytes"] = len(bodies[0])
+
+        # -- 14a: the measured window --------------------------------------
+        clients = ClientProcess(server.url(), images_path, seconds, in_flight,
+                                os.path.join(root, "load.json"))
+        d0, e0 = lane_totals(gw)
+        shed0 = sum(gw.metrics.shed_count(r) for r in ("queue_full", "deadline", "slo_pressure"))
+        _cuda.reset_launches()
+        clients.go()
+        if on_card:
+            time.sleep(profile_at_s)
+            before = sum(_cuda.LAUNCHES.values())
+            trace_dir = os.path.join(root, "idle")
+            with profiling.trace(trace_dir):
+                tp = time.perf_counter()
+                time.sleep(P14_PROFILE_S)
+                torch.cuda.synchronize(dev)
+                window_us = (time.perf_counter() - tp) * 1e6
+            (trace,) = os.listdir(trace_dir)
+            idle, busy_ms, n_spans = device_idle_share(os.path.join(trace_dir, trace), window_us)
+            rec["profile"] = {"idle_share": idle, "busy_ms": busy_ms, "window_ms": window_us / 1e3,
+                              "device_spans": n_spans,
+                              "kernel_launches_in_window": sum(_cuda.LAUNCHES.values()) - before}
+            # a trace that saw none of the window's launches measured nothing
+            assert n_spans > 0 or rec["profile"]["kernel_launches_in_window"] == 0, rec["profile"]
+        load = clients.result()
+        launches = dict(_cuda.LAUNCHES)
+        d1, e1 = lane_totals(gw)
+        ok, _, failed = check_responses(load["results"], want)
+        assert not failed, failed[:5]
+        elapsed = max(r[4] for r in load["results"]) - load["start"]
+        lat = sorted(ok)
+        _, text = http_get(server.url("/metrics"))
+        text = text.decode()
+        dispatches = d1 - d0
+        rec["load"] = {
+            "seconds": elapsed, "requests": len(ok), "req_per_s": len(ok) / elapsed,
+            "p50_ms": lat[len(lat) // 2] * 1e3, "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3,
+            "client_encode_s": load["encode_s"], "dispatches": dispatches,
+            "mean_coalesced": (e1 - e0) / dispatches,
+            "sheds": sum(gw.metrics.shed_count(r) for r in ("queue_full", "deadline", "slo_pressure")) - shed0,
+            "admit_to_result": gateway_latency(text, "keystone_gateway_request_latency_seconds"),
+            "queue_wait": gateway_latency(text, "keystone_gateway_queue_wait_seconds"),
+            "launches": launches,
+            "launches_per_dispatch": {k: launches[k] / dispatches for k in launches},
+        }
+        L = rec["load"]
+        log(f"14a: {L['requests']} requests over HTTP in {elapsed:.3f} s: {L['req_per_s']:.1f} req/s, "
+            f"client p50 {L['p50_ms']:.1f} ms, p99 {L['p99_ms']:.1f} ms ({in_flight} in flight); "
+            f"admit -> result {L['admit_to_result']}; JSON decode of one {rec['body_bytes']}-byte body "
+            f"alone {rec['decode_ms_alone']:.2f} ms; mean coalesced {L['mean_coalesced']:.2f} over "
+            f"{dispatches} dispatches; sheds {L['sheds']}; launches {launches} "
+            f"({L['launches_per_dispatch']} per dispatch); device {rec.get('profile')} on {smi}")
+        want_launches = {k: PER_DISPATCH[k] * dispatches if on_card else 0 for k in KERNEL_NAMES}
+        assert launches == want_launches, (launches, want_launches)
+        if on_card:
+            assert all(launches[k] > 0 for k in KERNEL_NAMES), launches
+
+        # -- 14b: swap, profilez, scrape and drain under load ---------------
+        clients = ClientProcess(server.url(), images_path, 600, in_flight,
+                                os.path.join(root, "drill.json"))
+        clients.go()
+        time.sleep(min(2.0, seconds / 4))
+        t = time.perf_counter()
+        _, swapped = http_post(server.url("/swap"), {})
+        rec["swap"] = {"wall_s": time.perf_counter() - t, "answer": swapped,
+                       "generation_2": graph_pools(gw)}
+        if on_card:
+            rec["swap"]["peak_reserved_bytes"] = torch.cuda.max_memory_reserved(dev)
+            rec["swap"]["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+        log(f"14b: POST /swap under load answered {swapped} in {rec['swap']['wall_s']:.3f} s; new "
+            f"generation {rec['swap']['generation_2']}; peak reserved "
+            f"{rec['swap'].get('peak_reserved_bytes')} bytes on {smi}")
+        assert swapped["swapped"], swapped
+        launched = sum(_cuda.LAUNCHES.values())
+        rec["profilez"] = profilez_kernels(server.url(f"/profilez?seconds={P14_PROFILEZ_S}"))
+        rec["profilez"]["launches_meanwhile"] = sum(_cuda.LAUNCHES.values()) - launched
+        log(f"14b: /profilez?seconds={P14_PROFILEZ_S} during traffic: {rec['profilez']}")
+        if on_card:
+            assert all(rec["profilez"]["kernels_seen"].values()), rec["profilez"]
+        _, text = http_get(server.url("/metrics"))
+        text = text.decode()
+        families = ("keystone_gateway_requests_total", "keystone_gateway_request_latency_seconds",
+                    "keystone_gateway_engine_swaps_total", "keystone_gateway_shed_total",
+                    "keystone_device_memory_bytes", "keystone_device_info")
+        rec["families"] = {f: f"# TYPE {f} " in text for f in families}
+        assert all(rec["families"].values()), rec["families"]
+        rec["slz"], _ = http_get(server.url("/slz"))
+        rec["debugz"], _ = http_get(server.url("/debugz"))
+        assert rec["slz"] == 200 and rec["debugz"] == 200
+        t_drain = time.time()
+        code, _ = http_post(server.url("/drain"), {})
+        ready = None
+        for _ in range(100):
+            ready, _ = http_get(server.url("/readyz"), accept_errors=True)
+            if ready == 503:
+                break
+            time.sleep(0.1)
+        time.sleep(0.5)  # new arrivals meet the closed gateway
+        clients.stop()
+        drill = clients.result()
+        assert gw._drained.wait(60), "the drain did not finish"
+        want.update(top5_by_bucket(direct, images, [b for b in gw.buckets if b not in want]))
+        ok, refused, failed = check_responses(drill["results"], want, t_drain)
+        rec["drill"] = {"responses": len(drill["results"]), "ok": len(ok), "refused_after_drain": len(refused),
+                        "failed": len(failed), "readyz_after_drain": ready,
+                        "buckets_after_swap": list(gw.buckets),
+                        "queue_after_drain": gw.admission.queue_depth, "lane_load_after_drain": gw.pool.total_load()}
+        log(f"14b: drill {rec['drill']}; swaps counted {gw.metrics.swap_count()}")
+        assert not failed, failed[:5]
+        assert ready == 503, ready
+        assert rec["drill"]["queue_after_drain"] == 0 and rec["drill"]["lane_load_after_drain"] == 0
+    finally:
+        gw.close()
+        server.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def profiler_start_cost():
+    """Seconds of ``profiling.ready_device_tracing`` (the throwaway
+    profiler session a Gateway on the card opens before its lanes) in a
+    fresh process whose CUDA context is up: what it adds to a server's
+    start-up."""
+    code = ("import json, time, torch; torch.ones(1, device='cuda'); torch.cuda.synchronize(); "
+            "from keystone_tpu_torch.utils.profiling import ready_device_tracing; "
+            "t = time.perf_counter(); ready_device_tracing(); print(json.dumps(time.perf_counter() - t))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         check=True, timeout=120).stdout
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def gateway_entry(img=IMG):
+    """Phase 14c: ``python -m keystone_tpu_torch --admin-port 0
+    serve-gateway --gateway-port 0 --device-featurize flagship --img 256
+    --buckets 8,64 --lanes 2`` in a fresh process: read the listening
+    line, POST one image; under clients' load, the process's first
+    ``/profilez`` (on the admin endpoint) must name B1 and B2; scrape
+    the admin endpoint, SIGTERM."""
+    import signal
+
+    root = os.path.join(ROOT, "tmp", "phase14c")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    images_path = os.path.join(root, "images.npy")
+    np.save(images_path, np.random.default_rng(37).integers(
+        0, 256, (P14C_POOL, img, img, 3), dtype=np.uint8))
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "keystone_tpu_torch", "--admin-port", "0", "serve-gateway",
+         "--gateway-port", "0", "--device-featurize", "flagship", "--img", str(img),
+         "--buckets", "8,64", "--lanes", "2"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    rec, lines = {}, []
+    try:
+        admin = url = None
+        while url is None:
+            line = proc.stdout.readline()
+            assert line, f"the entry exited early: {lines}"
+            lines.append(line.rstrip())
+            if line.startswith("admin endpoint: "):
+                admin = line.split()[2]
+            elif line.startswith("{"):
+                url = json.loads(line)["listening"]
+        rec["up_s"] = time.perf_counter() - t
+        image = np.random.default_rng(29).integers(0, 256, (img, img, 3), dtype=np.uint8)
+        t = time.perf_counter()
+        code, doc = http_post(url + "/predict", {"instances": [image.tolist()]})
+        rec["predict"] = {"status": code, "ms": (time.perf_counter() - t) * 1e3,
+                          "outputs": len(doc["predictions"][0])}
+        assert code == 200 and np.isfinite(doc["predictions"][0]).all(), code
+        clients = ClientProcess(url, images_path, P14C_SECONDS, P14C_IN_FLIGHT,
+                                os.path.join(root, "load.json"))
+        clients.go()
+        time.sleep(P14C_PROFILEZ_AT_S)
+        rec["first_profilez"] = profilez_kernels(admin.rstrip("/") + f"/profilez?seconds={P14_PROFILEZ_S}")
+        load = clients.result()
+        statuses = Counter(r[1] for r in load["results"])
+        rec["load"] = {"in_flight": P14C_IN_FLIGHT, "statuses": dict(statuses)}
+        log(f"14c: the fresh process's first /profilez?seconds={P14_PROFILEZ_S} under "
+            f"{P14C_IN_FLIGHT} clients: {rec['first_profilez']}; responses {rec['load']}")
+        assert set(statuses) == {200}, statuses
+        # the entry's chain at its vocabulary of 16 runs the plain FV node
+        # (the fused B3 node from 32 up, as in the JAX package): B1 and B2
+        seen = rec["first_profilez"]["kernels_seen"]
+        assert seen["sift_bin_sample"] and seen["plane_sandwich"], rec["first_profilez"]
+        code_m, text = http_get(admin.rstrip("/") + "/metrics")
+        code_h, health = http_get(admin.rstrip("/") + "/healthz")
+        rec["admin"] = {"metrics": code_m, "healthz": code_h,
+                        "gateway_families": "keystone_gateway_requests_total" in text.decode(),
+                        "device_memory": "keystone_device_memory_bytes" in text.decode()}
+        assert code_m == 200 and code_h == 200 and health == b"ok\n", rec["admin"]
+        assert rec["admin"]["gateway_families"] and rec["admin"]["device_memory"], rec["admin"]
+        t = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=P14_ENTRY_EXIT_S)
+        rec["exit"] = {"code": rc, "s": time.perf_counter() - t}
+        assert rc == 0, (rc, lines)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"14c: the entry up in {rec['up_s']:.3f} s (imports, chain and graph captures), one POST "
+        f"{rec['predict']}, admin {rec['admin']}, SIGTERM -> exit {rec['exit']}")
+    return rec
+
+
+def repairs_on_card(dev, smi, solver_xy, conv_images=P14_CONV_IMAGES, filter_images=P14_FILTER_IMAGES):
+    """Phase 14d: the weighted solver on phase 6's features cast to bf16
+    against the float32 fit of the same bf16 values, and
+    ``Convolver(fast=True)`` against ``fast=False`` at RandomPatchCifar's
+    shape (32² images, 100 whitened 6x6x3 filters from
+    ``random_patch_cifar.build_filters``). To rehearse it on the CPU:
+    ``repairs_on_card(torch.device("cpu"), "cpu", (X, Y), conv_images=64,
+    filter_images=200)`` with a small float32 X and ±1 indicator Y."""
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    rec = {"card": smi}
+    X, Y = solver_xy
+    Xh = X.to(torch.bfloat16)
+    lam, w = TRAIN_CONF["lam"], TRAIN_CONF["mixture_weight"]
+    fits = {}
+    data = {"bf16": Xh, "float32 of the bf16 values": Xh.to(torch.float32)}
+    # in turns, so that neither side pays the first call's set-up alone
+    for name in ("bf16", "float32 of the bf16 values", "float32 of the bf16 values", "bf16"):
+        est = weighted_ls.BlockWeightedLeastSquaresEstimator(4096, 1, lam, w)
+        sync()
+        _reset_peak(dev)
+        base = torch.cuda.memory_allocated(dev) if on_card else 0
+        t = time.perf_counter()
+        m = est.fit(Dataset.from_array(data[name]), Dataset.from_array(Y))
+        sync()
+        r = fits.setdefault(name, {"s": [], "features_bytes": data[name].numel() * data[name].element_size()})
+        r["s"].append(time.perf_counter() - t)
+        r.update(peak_above_start=(_peak(dev) - base) if on_card else None,
+                 W=m.W.cpu(), intercept=m.intercept.cpu())
+    errs = {p: float((fits["bf16"][p] - fits["float32 of the bf16 values"][p]).abs().max())
+            for p in ("W", "intercept")}
+    rec["solver"] = {k: {f: v for f, v in r.items() if f not in ("W", "intercept")}
+                     for k, r in fits.items()}
+    rec["solver"]["max_abs_err"] = errs
+    rec["solver"]["shape"] = list(X.shape) + [Y.shape[1]]
+    log(f"14d: weighted solver on {rec['solver']['shape']} bf16 features against the float32 fit of "
+        f"the same values: max abs err {errs} (bar {ATOL_SOLVER}); {rec['solver']} on {smi}")
+    assert max(errs.values()) <= ATOL_SOLVER, errs
+
+    gen = np.random.default_rng(31)
+    imgs = torch.as_tensor(gen.integers(0, 256, (max(conv_images, filter_images), 32, 32, 3))
+                           .astype(np.float32), device=dev)
+    filters, whitener = rpc.build_filters(Dataset.from_array(imgs[:filter_images]), rpc.RandomCifarConfig())
+    x = imgs[:conv_images]
+    out, ms = {}, {}
+    for fast in (False, True):
+        conv = core.Convolver(filters, 32, 32, 3, whitener=whitener, fast=fast)
+        out[fast] = conv._convolve(x)
+        sync()
+        ms[fast] = time_ms(lambda: conv._convolve(x)) if on_card else None
+    err = float((out[True] - out[False]).abs().max() / out[False].abs().max())
+    # the filter convolution alone, float32 and with bf16 operands (what
+    # the TPU's DEFAULT precision would run): fast stays float32 unless
+    # bf16 wins here
+    xc = x.permute(0, 3, 1, 2).contiguous()
+    w = conv._weight(dev)
+    operands = {"float32": (xc, w), "bf16": (xc.to(torch.bfloat16), w.to(torch.bfloat16))}
+    filter_ms = {k: time_ms(lambda a=a, b=b: torch.nn.functional.conv2d(a, b)) if on_card else None
+                 for k, (a, b) in operands.items()}
+    rec["convolver_fast"] = {"images": conv_images, "filters": list(filters.shape), "err_over_max": err,
+                             "bar": P14_FAST_CONV_BAR, "ms_fast": ms[True], "ms_float32": ms[False],
+                             "filter_conv_ms": filter_ms}
+    log(f"14d: Convolver fast=True against fast=False on {conv_images} 32x32x3 images, filters "
+        f"{list(filters.shape)}: largest error over the largest feature {err:.3e} (bar "
+        f"{P14_FAST_CONV_BAR}); {ms[True]} ms against {ms[False]} ms; the filter convolution "
+        f"alone {filter_ms} ms on {smi}")
+    assert err <= P14_FAST_CONV_BAR, err
+    return rec
+
+
+def gateway_phase(dev, smi, feat, model, solver_xy):
+    """Phase 14: 14a and 14b (``serve_gateway``), 14c
+    (``gateway_entry``) and 14d (``repairs_on_card``)."""
+    t = time.perf_counter()
+    rec = {"served": serve_gateway(dev, smi, feat, model)}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    rec["entry"] = gateway_entry()
+    rec["entry"]["profiler_start_s"] = profiler_start_cost()
+    log(f"14c: the profiler's start-up session alone {rec['entry']['profiler_start_s']:.3f} s in a "
+        f"fresh process on {smi}")
+    rec["repairs"] = repairs_on_card(dev, smi, solver_xy)
+    rec["phase_s"] = time.perf_counter() - t
+    log(f"phase 14 in {rec['phase_s']:.3f} s on {smi}")
+    return rec
+
 
 def _info(info):
     return None if info is None else {k: float(v) for k, v in info.items()}
@@ -3648,6 +4267,7 @@ def main():
     keep = {}  # phase 11c's inputs, from phases 6 and 9
     t0 = time.perf_counter()
     trained = train_then_serve(dev, smi, keep=keep)
+    solver_xy = keep.pop("solver_xy")
     trained["phase_s"] = time.perf_counter() - t0
     log(f"phase 6 in {trained['phase_s']:.3f} s on {smi}")
     for r in rows:
@@ -3658,7 +4278,6 @@ def main():
 
     # -- 7. serve under a request stream --------------------------------
     streamed = serve_stream(dev, smi, feat, model)
-    del feat, model
     torch.cuda.empty_cache()
 
     # -- 8. real image files --------------------------------------------
@@ -3714,13 +4333,21 @@ def main():
     for r in rows:
         r["phase13_launches"] = _cuda.LAUNCHES[r["name"]]
     log(f"launches in phase 13: {dict(_cuda.LAUNCHES)}")
+    torch.cuda.empty_cache()
+
+    # -- 14. the gateway over HTTP, its entry, and the repairs ------------
+    gateway = gateway_phase(dev, smi, feat, model, solver_xy)
+    del feat, model, solver_xy
+    for r in rows:
+        r["phase14_launches"] = gateway["served"]["load"]["launches"][r["name"]]
+        r["phase14_launches_per_dispatch"] = gateway["served"]["load"]["launches_per_dispatch"][r["name"]]
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": rows, "wide": wide, "serve": served, "train": trained,
                    "stream": streamed, "files": files, "voc": voc_rec, "random_features": rf,
                    "past_the_card": past, "text": text, "last_app": last,
-                   "ptxas": ptxas}, f,
+                   "gateway": gateway, "ptxas": ptxas}, f,
                   indent=1, default=str)
     # the fit's launches and B3's error with the fitted GMMs are in
     # chip_smoke.json beside these
@@ -3735,4 +4362,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--gateway-clients"]:
+        gateway_clients(*json.loads(sys.argv[2]))
+    else:
+        main()

@@ -444,3 +444,17 @@ def text_from_numpy(params: dict, *, device=None):
     else:
         pipe = pipe.and_then(logistic_regression_from_numpy(params["logistic"], device=dev))
     return pipe.fit()
+
+
+def affine_params(fitted) -> list:
+    """numpy ``(W, b)`` of every ``tanh(x @ W + b)`` node of the demo
+    model (``serving/bench.py`` ``build_pipeline``) of either package, in
+    chain order."""
+    nodes = sorted(
+        ((nid, op) for nid, op in fitted.graph.operators.items()
+         if type(op).__name__ == "_Affine"),
+        key=lambda item: item[0].id,
+    )
+    if not nodes:
+        raise ValueError("no affine node in the pipeline")
+    return [(_host(op.W), _host(op.b)) for _, op in nodes]

@@ -1,0 +1,817 @@
+"""HTTP inference frontend: the network face of the gateway (counterpart
+of ``keystone_tpu/gateway/http.py``, single-model mode).
+
+A stdlib ``http.server`` on a background daemon thread, following the
+``observability/admin.py`` server pattern (nothing to install, ephemeral
+``port=0`` for tests/smoke, daemon threads per request). Routes:
+
+- ``POST /predict`` — body ``{"instances": [<example>, ...]}`` (each
+  instance one example WITHOUT the batch axis; numbers nest as JSON
+  arrays), optional ``"deadline_ms"``. Every instance is admitted
+  individually, so concurrent clients coalesce in the micro-batchers.
+  Under ``--device-featurize`` (``input_dtype=uint8``) instances are
+  RAW uint8 images — the staging path carries raw bytes and the fused
+  featurize∘model bucket graph does the rest on the card.
+  Responds ``{"predictions": [...]}``; typed errors map to status
+  codes: 429 shed (``Overloaded``: queue_full/deadline), 504 expired,
+  503 draining/closed, 400 malformed, 500 engine error. An inbound
+  W3C ``traceparent`` header (the fleet router sends one per forward)
+  is ADOPTED: every instance's admit → coalesce → dispatch span
+  chain, the latency exemplars, and any flight-recorder capture ride
+  the caller's trace id, and every response — success AND typed
+  shed — echoes it as ``X-Keystone-Trace`` (with tracing on and no
+  inbound context, this process roots the trace itself).
+- ``POST /predict/<model>``, ``GET /planz``, ``/attributionz``,
+  ``/driftz`` — the JAX package's model-zoo routes. The port serves one
+  model, so they answer as the JAX gateway does without ``--zoo``: a
+  typed 404 (``unknown_model`` with an empty ``registered`` list, or
+  ``no_zoo``).
+- ``GET /readyz`` — 200 while the gateway admits, 503 once draining.
+  READINESS, not liveness: the admin endpoint's ``/healthz`` answers
+  "is the process up", this answers "should the load balancer route
+  here" — a draining gateway is alive but not ready. With SLOs
+  declared, an active burn/pressure state is appended to the body
+  (still 200: burning means "send less", not "stop sending"). Every
+  response carries an ``X-Keystone-Load`` header (queued + in-lane
+  requests) — the fleet router's probes read this replica's routing
+  load from the same request its health comes from. A convenience
+  ``GET /healthz`` is also served for single-port deployments.
+- ``GET /metrics`` — Prometheus exposition of the (global) registry,
+  so a gateway-only deployment is scrapeable without the admin server
+  (latency-histogram buckets carry ``trace_id`` exemplars).
+- ``GET /slz`` / ``GET /debugz`` / ``GET /tracez`` — the SLO
+  burn-rate, flight-recorder, and recent-span surfaces, mirrored from
+  the admin endpoint for single-port deployments (``/tracez`` shows
+  the per-window ``microbatch.coalesce`` → ``pipeline.host_prep`` /
+  ``.upload`` / ``.compute`` / ``.deliver`` stage chains when the
+  lanes run pipelined and tracing is on).
+- ``GET /profilez?seconds=N`` — arm a ``torch.profiler`` trace around
+  the next N seconds of live traffic and list the capture directory
+  (a Chrome trace); 409 while another capture runs — mirrored from the
+  admin endpoint (``observability/profilez.py``) so a gateway-only
+  deployment can still grab a device trace. The server also runs the
+  device-memory sampler, so ``/metrics`` here carries the
+  ``keystone_device_memory_bytes`` and ``keystone_device_info``
+  families without an admin port.
+- ``POST /swap`` — force one lifecycle iteration
+  (``Gateway.rebucket(force=True)``); returns the active bucket set.
+  The smoke script's forced-swap drill.
+- ``POST /drain`` — begin graceful shutdown in the background;
+  ``/readyz`` flips 503 immediately, admitted requests resolve.
+- ``GET /chaosz`` / ``POST /chaosz`` — the fault-injection plane's
+  admin surface (``loadgen/faults.py``): GET lists the fault-point
+  catalog, armed specs, and fire counts; POST ``{"arm": {"point":
+  ..., "count": ..., "delay_ms": ..., "for_s": ..., "match": {...}}}``
+  arms a point in THIS process (400 for a point outside the catalog),
+  ``{"disarm": "<point>"}`` / ``{"disarm": "*"}`` clears. This is how
+  the load generator injects faults into a live gateway from outside.
+- ``POST /feedback``, ``GET|POST /lifecyclez`` — the JAX package's
+  online-lifecycle routes; without a lifecycle they answer its typed
+  404 ``no_lifecycle``.
+
+With ``--request-log`` (or ``GatewayServer(request_log=True)``) every
+``/predict`` instance also emits one structured JSON line — ``{"ts",
+"status", "latency_ms", "lane", "trace_id", "n_rows", "shape",
+"deadline_ms"}`` — so a flight-recorder trace id found at ``/debugz``
+is greppable straight from the process log, and the line carries
+enough to RECONSTRUCT the request (``n_rows`` = instances in the
+originating POST). Lines go to stdout by default;
+``--request-log FILE`` (or ``GatewayServer(request_log="path")``)
+appends them line-buffered to a JSONL file instead, so record/replay
+needs no process-output scraping.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import sys
+import threading
+import time
+from typing import Any, Optional
+from urllib.parse import parse_qs, urlparse
+
+import numpy as np
+import torch
+
+from keystone_tpu_torch.gateway.admission import Overloaded
+from keystone_tpu_torch.gateway.lifecycle import Gateway
+from keystone_tpu_torch.loadgen import faults
+from keystone_tpu_torch.observability import device as device_obs
+from keystone_tpu_torch.observability import flight as flight_mod
+from keystone_tpu_torch.observability import profilez as profilez_mod
+from keystone_tpu_torch.observability import prometheus
+from keystone_tpu_torch.observability import slo as slo_mod
+from keystone_tpu_torch.observability.httpd import (
+    BackgroundServer,
+    JsonHandler,
+    RequestLogWriter,
+    next_post_seq,
+)
+from keystone_tpu_torch.observability.registry import get_global_registry
+from keystone_tpu_torch.observability.tracing import (
+    TRACEPARENT_HEADER,
+    TRACE_RESPONSE_HEADER,
+    get_tracer,
+    new_trace_id,
+    parse_traceparent,
+    tracez_document,
+)
+
+logger = logging.getLogger(__name__)
+
+# generous server-side ceiling for waiting on one prediction; requests
+# with their own deadline wait deadline + slack instead
+RESULT_TIMEOUT_S = 60.0
+
+# the JAX gateway's model-zoo GET routes, answered as it answers them
+# when started without --zoo
+NO_ZOO_DETAIL = {
+    "/planz": "started without --zoo; /planz reports the model-zoo "
+              "placement plan",
+    "/attributionz": "started without --zoo; /attributionz reports the "
+                     "per-model device-cost ledger",
+    "/driftz": "started without --zoo; /driftz reports live-vs-plan "
+               "workload drift and the re-plan recommendation",
+}
+
+# serve-gateway flags of the JAX package that wait for the zoo, the
+# online lifecycle, model sharding, the fleet and the AOT store
+UNPORTED_FLAGS = (
+    "--zoo", "--optimize", "--max-resident", "--refit", "--refit-interval-s",
+    "--refit-min-samples", "--canary-fraction", "--shard-model", "--mesh-model",
+    "--register", "--advertise-url", "--aot-cache",
+)
+
+
+def _status_for(err: Overloaded) -> int:
+    if err.reason == "closed":
+        return 503
+    if err.reason == "expired":
+        return 504
+    return 429
+
+
+class _Handler(JsonHandler):
+    def _send(self, code, body, content_type, headers=None) -> None:
+        # every response of a traced /predict (success, typed shed,
+        # error) carries the trace id — the client's forensic handle
+        # into /debugz?trace_id= on whichever process served it
+        tid = getattr(self, "_trace_id", None)
+        if tid:
+            headers = {**(headers or {}), TRACE_RESPONSE_HEADER: tid}
+        super()._send(code, body, content_type, headers=headers)
+
+    def _send_error_json(self, code: int, error: str, **extra) -> None:
+        self._send_json({"error": error, **extra}, code=code)
+
+    @property
+    def gateway(self) -> Gateway:
+        return self.server.gateway  # type: ignore[attr-defined]
+
+    def do_GET(self) -> None:  # noqa: N802 (stdlib handler API)
+        url = urlparse(self.path)
+        path = url.path
+        self._trace_id = None  # per-request (keep-alive safety)
+        try:
+            if path == "/readyz":
+                # the load-report header: queued + in-lane requests,
+                # so the fleet router's probe reads this replica's
+                # routing load without a full /metrics scrape
+                load_headers = {
+                    "X-Keystone-Load": str(
+                        self.gateway.admission.queue_depth
+                        + self.gateway.pool.total_load()
+                    )
+                }
+                if self.gateway.ready:
+                    status = self.gateway.slo_status()
+                    if status is not None and (
+                        status["pressure"] > 0 or status["breaching"]
+                    ):
+                        # burning is visible here but still 200: the
+                        # LB should keep routing, admission itself is
+                        # doing the early shedding
+                        self._send_text(
+                            200,
+                            "ok (slo burning: "
+                            f"pressure={status['pressure']:.2f} "
+                            f"fast={status['burn_rate'].get('fast')})\n",
+                            headers=load_headers,
+                        )
+                    else:
+                        self._send_text(
+                            200, "ok\n", headers=load_headers
+                        )
+                else:
+                    self._send_text(
+                        503, "draining\n", headers=load_headers
+                    )
+            elif path == "/healthz":
+                self._send_text(200, "ok\n")
+            elif path == "/metrics":
+                registry = self.server.registry  # type: ignore[attr-defined]
+                body, ctype = prometheus.negotiate_render(
+                    registry.collect(), self.headers.get("Accept")
+                )
+                self._send(200, body.encode("utf-8"), ctype)
+            elif path in NO_ZOO_DETAIL:
+                # single-model deployment: the zoo routes answer as the
+                # JAX gateway's do without --zoo
+                self._send_error_json(
+                    404, "no_zoo", detail=NO_ZOO_DETAIL[path],
+                )
+            elif path == "/slz":
+                self._send_json(slo_mod.slz_status(), indent=1)
+            elif path == "/debugz":
+                q = parse_qs(url.query)
+                code, doc = flight_mod.debugz_document(
+                    q.get("trace_id", [None])[0],
+                    q.get("format", [""])[0],
+                )
+                self._send_json(doc, code=code, indent=1)
+            elif path == "/profilez":
+                q = parse_qs(url.query)
+                code, doc = profilez_mod.profilez_document(
+                    q.get("seconds", [None])[0]
+                )
+                self._send_json(doc, code=code, indent=1)
+            elif path == "/chaosz":
+                if not self.server.chaos_routes:  # type: ignore[attr-defined]
+                    self._send_error_json(
+                        404, "chaos_routes_disabled",
+                        detail="started with --no-chaosz",
+                    )
+                else:
+                    self._send_json(
+                        faults.get_injector().status(), indent=1
+                    )
+            elif path == "/lifecyclez":
+                self._send_error_json(
+                    404, "no_lifecycle",
+                    detail="started without --refit; /lifecyclez "
+                           "reports the online-lifecycle state "
+                           "machine per model",
+                )
+            elif path == "/tracez":
+                q = parse_qs(url.query)
+                self._send_json(
+                    tracez_document(
+                        get_tracer(),
+                        q.get("format", [""])[0],
+                        q["n"][0] if "n" in q else None,
+                    ),
+                    indent=1,
+                )
+            else:
+                self._send_text(
+                    404,
+                    "not found; try /predict /predict/<model> /planz "
+                    "/attributionz /driftz /readyz /healthz /metrics "
+                    "/slz /debugz /tracez /profilez /chaosz "
+                    "/lifecyclez\n",
+                )
+        except Exception as e:
+            logger.exception("gateway GET error for %s", self.path)
+            self._send_error_json(500, "internal", detail=str(e))
+
+    def _log_request(
+        self,
+        status: int,
+        latency_s: float,
+        lane: Optional[int] = None,
+        trace_id: Optional[str] = None,
+        error: Optional[str] = None,
+        n_rows: Optional[int] = None,
+        shape: Optional[tuple] = None,
+        deadline_ms: Optional[float] = None,
+    ) -> None:
+        """One structured JSON line per /predict instance
+        (``--request-log``): trace ids surfaced at /debugz are
+        greppable straight from the process log, and the
+        ``n_rows``/``shape``/``deadline_ms`` fields make the record
+        REPLAYABLE (``loadgen/trace.py`` reconstructs the request
+        from them; pre-loadgen readers can ignore the extra keys)."""
+        meta = getattr(self, "_log_meta", None) or {}
+        line = {
+            # arrival time (see do_POST), so replay preserves the
+            # recorded arrival pattern rather than completion order
+            "ts": round(getattr(self, "_t_wall", None) or time.time(), 6),
+            "path": "/predict",
+            "status": status,
+            "latency_ms": round(latency_s * 1e3, 3),
+            "lane": lane,
+            "trace_id": trace_id,
+            "n_rows": n_rows if n_rows is not None else meta.get("n_rows"),
+            "shape": (
+                list(shape) if shape is not None else meta.get("shape")
+            ),
+            "deadline_ms": (
+                deadline_ms if deadline_ms is not None
+                else meta.get("deadline_ms")
+            ),
+            "post_seq": meta.get("post_seq"),
+            # the JAX gateway's zoo field: always None here (the bare
+            # single-model route)
+            "model": meta.get("model"),
+        }
+        if error is not None:
+            line["error"] = error
+        self.server.write_request_log(line)  # type: ignore[attr-defined]
+
+    def do_POST(self) -> None:  # noqa: N802 (stdlib handler API)
+        path = urlparse(self.path).path
+        self._trace_id = None  # _predict adopts/mints; see _send
+        self._t_post = time.perf_counter()
+        # ARRIVAL wall time: request-log lines stamp this (not
+        # log-emit time, which for success lines is after the whole
+        # POST resolved) — the replayer treats ts as the arrival
+        # clock, so completion-time stamps would distort the recorded
+        # inter-arrival gaps by per-request latency
+        self._t_wall = time.time()
+        # request-log context for the error handlers below; _predict
+        # fills it once the body parses
+        self._log_meta = {}
+        try:
+            if path == "/predict" or path.startswith("/predict/"):
+                model_id = path[len("/predict/"):] if (
+                    path.startswith("/predict/")
+                ) else None
+                self._predict(model_id or None)
+            elif path == "/chaosz":
+                self._chaosz()
+            elif path == "/feedback" or path.startswith("/feedback/"):
+                self._send_error_json(
+                    404, "no_lifecycle",
+                    detail="started without --refit; /feedback feeds the "
+                           "streaming-refit accumulator",
+                )
+            elif path == "/lifecyclez":
+                self._send_error_json(
+                    404, "no_lifecycle", detail="started without --refit",
+                )
+            elif path == "/swap":
+                swapped = self.gateway.rebucket(force=True)
+                self._send_json(
+                    {
+                        "swapped": swapped,
+                        "buckets": list(self.gateway.buckets),
+                    }
+                )
+            elif path == "/drain":
+                threading.Thread(
+                    target=self.gateway.close,
+                    name="keystone-gateway-drain",
+                    daemon=True,
+                ).start()
+                self._send_json({"draining": True})
+            else:
+                self._send_text(
+                    404,
+                    "not found; try /predict /predict/<model> /swap "
+                    "/drain /chaosz /feedback /lifecyclez\n",
+                )
+        except Overloaded as e:
+            code = _status_for(e)
+            if path == "/predict" and self.server.request_log:  # type: ignore[attr-defined]
+                self._log_request(
+                    code, time.perf_counter() - self._t_post,
+                    error=e.reason,
+                )
+            self._send_error_json(
+                code, "overloaded", reason=e.reason,
+                detail=str(e),
+            )
+        except Exception as e:
+            logger.exception("gateway POST error for %s", self.path)
+            if path == "/predict" and self.server.request_log:  # type: ignore[attr-defined]
+                self._log_request(
+                    500, time.perf_counter() - self._t_post,
+                    error=str(e),
+                )
+            self._send_error_json(500, "internal", detail=str(e))
+
+    def _read_body(self) -> bytes:
+        length = int(self.headers.get("Content-Length", 0) or 0)
+        return self.rfile.read(length) if length else b""
+
+    def _chaosz(self) -> None:
+        """Arm/disarm fault points in this process (the load
+        generator's remote chaos control; see loadgen/faults.py)."""
+        if not self.server.chaos_routes:  # type: ignore[attr-defined]
+            self._send_error_json(
+                404, "chaos_routes_disabled",
+                detail="started with --no-chaosz",
+            )
+            return
+        injector = faults.get_injector()
+        try:
+            doc = json.loads(self._read_body() or b"{}")
+        except ValueError as e:
+            self._send_error_json(400, "bad_request", detail=str(e))
+            return
+        if "arm" in doc:
+            spec = doc["arm"]
+            if not isinstance(spec, dict) or "point" not in spec:
+                self._send_error_json(
+                    400, "bad_request",
+                    detail='arm wants {"point": ..., [count/delay_ms/'
+                           'for_s/match]}',
+                )
+                return
+            spec = dict(spec)
+            point = spec.pop("point")
+            if point not in faults.FAULT_POINTS:
+                self._send_error_json(
+                    400, "unknown_fault_point", point=point,
+                    known=sorted(faults.FAULT_POINTS),
+                )
+                return
+            try:
+                injector.arm(point, **spec)
+            except (TypeError, ValueError) as e:
+                self._send_error_json(400, "bad_request", detail=str(e))
+                return
+        elif "disarm" in doc:
+            point = doc["disarm"]
+            if point == "*":
+                injector.disarm_all()
+            else:
+                injector.disarm(point)
+        else:
+            self._send_error_json(
+                400, "bad_request",
+                detail='want {"arm": {...}} or {"disarm": "<point>|*"}',
+            )
+            return
+        self._send_json(injector.status(), indent=1)
+
+    def _predict(self, model_id: Optional[str] = None) -> None:
+        # W3C trace adoption FIRST, before the body can 400 or
+        # admission can shed: the router (or any tracing caller) sent
+        # a `traceparent`, and EVERY response — success, typed shed,
+        # malformed body — must echo the one trace id the fleet knows
+        # this request by. With no inbound context and tracing on,
+        # this process roots the trace itself (single-gateway mode).
+        ctx = parse_traceparent(self.headers.get(TRACEPARENT_HEADER))
+        if ctx is not None:
+            self._trace_id = ctx.trace_id
+        elif get_tracer().enabled:
+            self._trace_id = new_trace_id()
+        if model_id is not None:
+            # single-model deployment: no named routes exist at all
+            self._send_error_json(
+                404, "unknown_model", model=model_id, registered=[],
+                detail="single-model deployment (started without "
+                       "--zoo); POST bare /predict",
+            )
+            return
+        dtype = self.server.input_dtype  # type: ignore[attr-defined]
+        submit = self.gateway.predict
+        try:
+            doc = json.loads(self._read_body() or b"{}")
+            instances = doc["instances"]
+            if not isinstance(instances, list) or not instances:
+                raise ValueError("instances must be a non-empty list")
+        except (ValueError, KeyError, TypeError) as e:
+            self._send_error_json(400, "bad_request", detail=str(e))
+            return
+        deadline_ms = doc.get("deadline_ms")
+        if deadline_ms is not None and (
+            isinstance(deadline_ms, bool)
+            or not isinstance(deadline_ms, (int, float))
+            or deadline_ms <= 0
+        ):
+            self._send_error_json(
+                400, "bad_request",
+                detail=f"deadline_ms must be a positive number, "
+                       f"got {deadline_ms!r}",
+            )
+            return
+        try:
+            # OverflowError: an out-of-range integer against a narrow
+            # dtype (a 256 pixel under --device-featurize's uint8) is
+            # a malformed REQUEST — 400, not a 500 + stack trace
+            examples = [np.asarray(inst, dtype=dtype) for inst in instances]
+        except (ValueError, TypeError, OverflowError) as e:
+            self._send_error_json(400, "bad_request", detail=str(e))
+            return
+        # replay context for every log line this POST emits (including
+        # the typed-shed/error lines in do_POST's handlers): what the
+        # request WAS, so loadgen can reissue it
+        self._log_meta = {
+            "n_rows": len(examples),
+            "shape": list(examples[0].shape),
+            "deadline_ms": deadline_ms,
+            "post_seq": next_post_seq(),
+            "model": model_id,
+        }
+        # admit every instance BEFORE waiting on any: concurrent
+        # instances coalesce into shared micro-batch windows. Every
+        # instance of one POST shares the POST's trace id — the span
+        # trees of sibling instances interleave under one trace.
+        futures = []
+        try:
+            for ex in examples:
+                futures.append(
+                    submit(
+                        ex,
+                        deadline_ms=deadline_ms,
+                        trace_id=self._trace_id,
+                    )
+                )
+        except Overloaded:
+            # partial admission on a shed response: cancel what was
+            # already admitted so the engines don't burn overload-time
+            # cycles computing results this 429 discards
+            for f in futures:
+                f.cancel()
+            raise  # -> do_POST's typed handler
+        timeout = (
+            deadline_ms / 1e3 + 5.0
+            if deadline_ms is not None
+            else RESULT_TIMEOUT_S
+        )
+        try:
+            # the lanes resolve each future with the row as host numpy
+            # (serving/pipeline.py resolve_window_futures), serial and
+            # pipelined alike
+            preds = [np.asarray(f.result(timeout=timeout)) for f in futures]
+        except Overloaded:
+            # one instance shed/expired -> whole response is an error:
+            # cancel the siblings so engines don't compute answers this
+            # response discards (same reason as the admission path above)
+            for f in futures:
+                f.cancel()
+            raise
+        except Exception as e:
+            for f in futures:
+                f.cancel()
+            if self.server.request_log:  # type: ignore[attr-defined]
+                self._log_request(
+                    500, time.perf_counter() - self._t_post,
+                    error=str(e),
+                )
+            self._send_error_json(500, "prediction_failed", detail=str(e))
+            return
+        if self.server.request_log:  # type: ignore[attr-defined]
+            whole_post_s = time.perf_counter() - self._t_post
+            for ex, f in zip(examples, futures):
+                # per-request latency as the admission layer measured
+                # it (rides the future) — iterating result() above
+                # would charge every instance the wait on instance 0
+                self._log_request(
+                    200,
+                    getattr(f, "latency_s", None) or whole_post_s,
+                    lane=getattr(f, "lane_index", None),
+                    trace_id=getattr(f, "trace_id", None),
+                    n_rows=len(examples),
+                    shape=ex.shape,
+                    deadline_ms=deadline_ms,
+                )
+        self._send_json({"predictions": [p.tolist() for p in preds]})
+
+
+class GatewayServer(BackgroundServer, device_obs.MemorySamplerHost):
+    """The inference frontend over one ``Gateway``. ``start()`` binds
+    and serves on a daemon thread; ``stop()`` shuts the listener down
+    (the gateway itself drains via ``Gateway.close``/``/drain``)."""
+
+    handler_cls = _Handler
+    thread_name = "keystone-gateway-http"
+
+    def __init__(
+        self,
+        gateway: Gateway,
+        port: int = 0,
+        host: str = "127.0.0.1",
+        registry=None,
+        input_dtype: Any = np.float32,
+        request_log: Any = False,
+        chaos_routes: bool = True,
+    ):
+        """``request_log``: falsy = off; True = one JSON line per
+        /predict instance on stdout; a path string = append the lines
+        to that JSONL file, line-buffered. ``chaos_routes=False``
+        removes the /chaosz fault-injection surface from this
+        frontend (a production deployment that is not a chaos
+        experiment shouldn't expose sabotage routes to anyone who
+        can reach /predict)."""
+        super().__init__(port=port, host=host)
+        self.gateway = gateway
+        self.registry = (
+            registry if registry is not None else get_global_registry()
+        )
+        self.input_dtype = np.dtype(input_dtype)
+        self._request_log = RequestLogWriter(request_log)
+        self.request_log = self._request_log.enabled
+        self.chaos_routes = bool(chaos_routes)
+        # single-port deployments scrape THIS port: carry the device
+        # identity gauge and the memory sampler here too, same as the
+        # admin endpoint (refcounted — one thread per registry even
+        # when both servers run in one process)
+        device_obs.register_device_metrics(self.registry)
+
+    def _configure(self, httpd) -> None:
+        httpd.gateway = self.gateway
+        httpd.registry = self.registry
+        httpd.input_dtype = self.input_dtype
+        httpd.request_log = self.request_log
+        httpd.chaos_routes = self.chaos_routes
+        httpd.write_request_log = self.write_request_log
+
+    def write_request_log(self, line: dict) -> None:
+        """One record to the request log (stdout or the file)."""
+        self._request_log.write(line)
+
+    def start(self) -> "GatewayServer":
+        super().start()
+        self._start_memory_sampler()
+        return self
+
+    def stop(self) -> None:
+        self._stop_memory_sampler()
+        super().stop()
+        self._request_log.close()
+
+
+def main(argv=None, device=None) -> int:
+    """``python -m keystone_tpu_torch serve-gateway [--gateway-port N] ...``
+    — stand up the request plane over the demo model (``serving/bench.py``
+    ``build_pipeline``), or over a featurize chain and the demo model
+    with ``--device-featurize``, on ``device`` (``None`` means ``cuda``,
+    which raises when it is missing; tests pass ``device="cpu"``)."""
+    import argparse
+
+    from keystone_tpu_torch._device import resolve_device
+    from keystone_tpu_torch.serving.bench import build_pipeline
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    ap = argparse.ArgumentParser(
+        prog="keystone_tpu_torch serve-gateway", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+        epilog="not ported yet (each exits 2): " + " ".join(UNPORTED_FLAGS),
+    )
+    ap.add_argument("--gateway-port", "--port", dest="port", type=int,
+                    default=0, help="bind port (0 = ephemeral)")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--buckets", default="8,32,128")
+    ap.add_argument("--lanes", type=int, default=2)
+    ap.add_argument("--max-pending", type=int, default=1024)
+    ap.add_argument("--max-delay-ms", type=float, default=5.0)
+    ap.add_argument("--pipeline-depth", type=int, default=2,
+                    help="stage-queue depth of each lane's staged "
+                    "pipeline (host-prep/upload/compute/deliver "
+                    "overlap across windows); 0 = serial dispatch")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="default per-request deadline")
+    ap.add_argument("--rebucket-interval", type=float, default=None,
+                    help="seconds between autoscale/rebucket sweeps")
+    ap.add_argument("--slo-latency-ms", type=float, default=None,
+                    help="declare + enforce a latency SLO at this "
+                    "threshold: burn-rate gauges + /slz, admission "
+                    "tightening under sustained fast-window burn, and "
+                    "tail-sampled forensics at /debugz (enables span "
+                    "tracing)")
+    ap.add_argument("--trace", action="store_true",
+                    help="enable span tracing without declaring an "
+                    "SLO: /tracez fills, inbound W3C traceparent "
+                    "headers are adopted, and every /predict response "
+                    "carries X-Keystone-Trace")
+    ap.add_argument("--slo-target", type=float, default=0.99,
+                    help="fraction of requests that must make the "
+                    "latency threshold")
+    ap.add_argument("--flight-capacity", type=int, default=64,
+                    help="forensic ring size (requests)")
+    ap.add_argument("--request-log", nargs="?", const=True,
+                    default=False, metavar="FILE",
+                    help="one structured JSON line per /predict "
+                    "instance (status, latency_ms, lane, trace_id, "
+                    "plus the n_rows/shape/deadline_ms replay fields). "
+                    "Bare flag: stdout; with FILE: append line-buffered "
+                    "JSONL there")
+    ap.add_argument("--no-chaosz", action="store_true",
+                    help="disable the /chaosz fault-injection routes "
+                    "on this frontend (faults stay armable in-process "
+                    "via code/env)")
+    ap.add_argument("--d", type=int, default=256)
+    ap.add_argument("--hidden", type=int, default=512)
+    ap.add_argument("--depth", type=int, default=4)
+    ap.add_argument("--device-featurize", nargs="?", const="demo",
+                    choices=("demo", "flagship"), default=None,
+                    metavar="CHAIN",
+                    help="serve RAW uint8 images instead of float32 "
+                    "feature vectors: an image featurize chain "
+                    "(serving/featurize.py) runs in front of the model "
+                    "inside every bucket's CUDA graph, so /predict "
+                    "instances are (--img, --img, 3) uint8 arrays (--d "
+                    "is derived from the featurize output and ignored). "
+                    "CHAIN: 'demo' (bare flag; the dense-conv stack, "
+                    "default --img 16) or 'flagship' (the SIFT+LCS -> "
+                    "PCA -> GMM Fisher vector DAG on the port's CUDA "
+                    "kernels, default --img 64)")
+    ap.add_argument("--img", type=int, default=None,
+                    help="raw image edge length under "
+                    "--device-featurize (default: 16 for the demo "
+                    "chain, 64 for flagship)")
+    ap.add_argument("--no-cache", action="store_true",
+                    help="accepted for the JAX package's command lines "
+                    "and does nothing: the port keeps no compile cache "
+                    "(each lane captures its CUDA graphs at warmup)")
+    unported = sorted({a.split("=")[0] for a in argv} & set(UNPORTED_FLAGS))
+    if unported:
+        print(f"{', '.join(unported)}: not ported yet (the port's gateway "
+              "serves one model on one card)", flush=True)
+        return 2
+    args = ap.parse_args(argv)
+    dev = resolve_device(device)
+
+    if args.slo_latency_ms is not None or args.trace:
+        # the forensic chain (exemplars, flight records, burn gauges)
+        # keys off trace ids, so SLO mode implies tracing
+        from keystone_tpu_torch.observability import enable_tracing
+
+        enable_tracing()
+
+    featurize = None
+    input_dtype = np.float32
+    if args.device_featurize:
+        from keystone_tpu_torch.serving.featurize import (
+            build_featurize_pipeline,
+            build_flagship_featurize_pipeline,
+        )
+
+        if args.device_featurize == "flagship":
+            args.img = args.img if args.img is not None else 64
+            featurize, feat_d = build_flagship_featurize_pipeline(
+                img=args.img, device=dev
+            )
+        else:
+            args.img = args.img if args.img is not None else 16
+            featurize, feat_d = build_featurize_pipeline(img=args.img, device=dev)
+        args.d = feat_d  # the model consumes the featurize output
+        warmup_example = torch.zeros((args.img, args.img, 3), dtype=torch.uint8)
+        input_dtype = np.uint8
+    else:
+        warmup_example = torch.zeros((args.d,), dtype=torch.float32)
+    fitted = build_pipeline(
+        d=args.d, hidden=args.hidden, depth=args.depth, device=dev
+    )
+    gateway = Gateway(
+        fitted,
+        buckets=tuple(int(b) for b in args.buckets.split(",")),
+        n_lanes=args.lanes,
+        max_delay_ms=args.max_delay_ms,
+        pipeline_depth=args.pipeline_depth,
+        device_featurize=featurize,
+        device=dev,
+        warmup_example=warmup_example,
+        max_pending=args.max_pending,
+        default_deadline_ms=args.deadline_ms,
+        maintenance_interval_s=args.rebucket_interval,
+        slo_latency_s=(
+            args.slo_latency_ms / 1e3
+            if args.slo_latency_ms is not None else None
+        ),
+        slo_target=args.slo_target,
+        flight_capacity=args.flight_capacity,
+    )
+    gateway.install_signal_handlers()
+    # chaos experiments can pre-arm fault points from the environment
+    # (KEYSTONE_FAULTS="point=k:v,... ..."); absent env is a no-op.
+    # This must run AFTER the Gateway exists: trigger points
+    # (gateway.swap.force) disarm immediately when nothing has
+    # registered for them, so arming before construction would be a
+    # silent no-op.
+    faults.arm_from_env()
+    server = GatewayServer(
+        gateway, port=args.port, host=args.host,
+        input_dtype=input_dtype,
+        request_log=args.request_log,
+        chaos_routes=not args.no_chaosz,
+    ).start()
+    # the machine-parseable bound-address line FIRST: with --port 0
+    # (ephemeral — no port races) smoke scripts read the actual
+    # address off this one JSON line
+    print(
+        json.dumps(
+            {"listening": server.url().rstrip("/"), "role": "gateway"}
+        ),
+        flush=True,
+    )
+    print(
+        f"gateway: {server.url()} (POST /predict, "
+        "GET /readyz, GET /metrics, GET /slz, GET /debugz, "
+        "GET /profilez, POST /swap, POST /drain, GET|POST /chaosz)",
+        flush=True,
+    )
+    try:
+        while gateway.ready:
+            time.sleep(0.5)
+    except KeyboardInterrupt:
+        pass
+    # finish the drain (stop admitting, resolve in-flight windows), then
+    # stop the listener
+    gateway.close()
+    server.stop()
+    return 0

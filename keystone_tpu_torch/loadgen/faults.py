@@ -1,25 +1,41 @@
 """Fault injection plane: named fault points compiled into the hot
 paths as default-off no-ops (counterpart of
-``keystone_tpu/loadgen/faults.py``: the injector and its arm/fire
-surface).
+``keystone_tpu/loadgen/faults.py``).
 
-The port wires the two points its serving path keeps:
-
-- ``engine.dispatch.error`` — ``serving/engine.py`` ``compute_staged``
-  raises ``FaultInjected``, failing the whole window;
-- ``pipeline.host_prep.stall`` — ``serving/pipeline.py``'s host-prep
-  stage sleeps ``delay_ms`` per window, backing pressure up through the
-  bounded queues.
+The faults a production serving plane must absorb — a lane dying
+mid-window, a stalled host-prep stage, a forced engine swap under peak —
+are injected deliberately, at named points, while an experiment asserts
+the system's invariants. The points live in the real hot paths
+(``gateway/pool.py``, ``serving/engine.py``, ``serving/pipeline.py``,
+``gateway/lifecycle.py``), so an experiment exercises exactly the code
+traffic exercises.
 
 Cost contract: an UNARMED injector is a no-op on the hot path — one
-attribute read and one falsy check (``fire`` returns before touching any
-spec state). A spec can bound its own blast radius: ``count``
-(auto-disarm after N fires), ``for_s`` (auto-disarm on a wall clock)
-and ``match`` (fire only when the call site's context matches). Every
-fire counts on ``keystone_fault_injections_total{point}``.
+attribute read and one falsy check (``fire`` returns before touching
+any spec state, allocating nothing).
 
-Not ported yet (they wait for the port's loadgen): ``parse_fault_spec``
-and ``arm_from_env``, and the trigger points of the gateway.
+Arming, three ways (all land in the same process-global registry):
+
+- **code** — ``faults.arm("gateway.lane.kill", match={"lane": 0},
+  count=8)``;
+- **env** — ``KEYSTONE_FAULTS="pipeline.host_prep.stall=delay_ms:50
+  gateway.lane.kill=lane:0,count:8"`` parsed by ``arm_from_env()``
+  (the gateway's ``main`` calls it at startup);
+- **HTTP** — ``POST /chaosz`` on the gateway frontend
+  (``gateway/http.py``).
+
+A spec can bound its own blast radius: ``count`` (auto-disarm after N
+fires), ``for_s`` (auto-disarm on a wall clock), and ``match`` (fire
+only when the call site's context matches, e.g. one lane of a pool).
+Every fire counts on ``keystone_fault_injections_total{point}``.
+
+Fault points are *interpreted by their call sites*: an error point
+raises ``FaultInjected``, a stall point sleeps ``delay_ms``, and a
+**trigger** point (``gateway.swap.force``) invokes callbacks registered
+by the component (arming it IS the event). The catalog below is the
+contract the ``/chaosz`` route validates against: the JAX package's
+points of the telemetry exporter, the fleet router and the online
+lifecycle wait for those modules.
 """
 
 from __future__ import annotations
@@ -28,12 +44,19 @@ import dataclasses
 import logging
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 logger = logging.getLogger(__name__)
 
-# the wired points: name -> (kind, where/what)
+# the wired points: name -> (kind, where/what). /chaosz validates arms
+# against this catalog; the injector itself accepts any name so tests
+# and future subsystems can add points without touching this module.
 FAULT_POINTS: Dict[str, str] = {
+    "gateway.lane.kill": (
+        "error @ gateway/pool.py Lane.submit — requests routed to the "
+        "matched lane raise mid-flight; the pool's retry + health "
+        "machinery must absorb it (match: lane=<index>)"
+    ),
     "pipeline.host_prep.stall": (
         "stall @ serving/pipeline.py host-prep stage — the stage "
         "sleeps delay_ms per window, backing pressure up through the "
@@ -44,14 +67,25 @@ FAULT_POINTS: Dict[str, str] = {
         "dispatch raises, failing the whole window "
         "(match: engine=<name>)"
     ),
+    "gateway.swap.force": (
+        "trigger @ gateway/lifecycle.py — arming forces one live "
+        "engine swap (rebucket force=True) on a background thread "
+        "(match: gateway=<name>)"
+    ),
 }
+
+# points whose semantics are "arming IS the event" (no inline call
+# site consults them): one-shot per arm, never left armed — a
+# lingering trigger spec would pin the hot-path gate True with
+# nothing to fire
+TRIGGER_POINTS = frozenset({"gateway.swap.force"})
 
 
 class FaultInjected(RuntimeError):
     """The typed error an armed error-mode fault point raises. Carries
     the point name so forensics can tell injected faults from real
     ones; to the request plane it is deliberately indistinguishable
-    from any other engine failure (that is the experiment)."""
+    from any other lane/engine failure (that is the experiment)."""
 
     def __init__(self, point: str, **ctx: Any):
         self.point = point
@@ -115,7 +149,12 @@ class FaultInjector:
     def __init__(self, registry=None):
         self._lock = threading.Lock()
         self._specs: Dict[str, FaultSpec] = {}  # guarded-by: _lock
-        # total fires per point, kept across disarms
+        # point -> [(fn, ctx)]: components register trigger callbacks
+        # (e.g. the gateway's forced-swap); arming the point invokes
+        # them on a background thread
+        self._triggers: Dict[str, List] = {}  # guarded-by: _lock
+        # total fires per point, kept across disarms (the /chaosz
+        # "fired" audit; the Prometheus counter is the scrape surface)
         self._fired: Dict[str, int] = {}  # guarded-by: _lock
         # the hot-path gate: READ unlocked by design (one attribute
         # load per call site); every WRITE goes through _lock
@@ -129,8 +168,8 @@ class FaultInjector:
         self, point: str, ctx: Optional[Dict[str, Any]] = None
     ) -> Optional[FaultSpec]:
         """Ask whether ``point`` should fire. Returns the armed spec
-        (the call site interprets it — raise or sleep ``delay_ms``) or
-        None. The unarmed path is the no-op contract."""
+        (the call site interprets it — raise, sleep ``delay_ms``,
+        drop) or None. The unarmed path is the no-op contract."""
         if not self.armed:
             return None
         return self._fire_slow(point, ctx)
@@ -183,7 +222,8 @@ class FaultInjector:
         for_s: Optional[float] = None,
         match: Optional[Dict[str, Any]] = None,
     ) -> FaultSpec:
-        """Arm one point (re-arming replaces the spec)."""
+        """Arm one point (re-arming replaces the spec). Trigger points
+        invoke their registered callbacks once, on a daemon thread."""
         if count is not None and count < 1:
             raise ValueError(f"count must be >= 1, got {count}")
         if delay_ms < 0:
@@ -197,7 +237,51 @@ class FaultInjector:
         with self._lock:
             self._specs[point] = spec
             self.armed = True
+            triggers = list(self._triggers.get(point, ()))
         logger.warning("fault point %s ARMED: %s", point, spec.status())
+        to_run = [
+            (fn, ctx) for fn, ctx in triggers if spec.matches(ctx)
+        ]
+        one_shot = bool(triggers) or point in TRIGGER_POINTS
+        if one_shot and not to_run:
+            # a trigger point with nothing to run (no component
+            # registered, or the match excluded every registration):
+            # disarm NOW — leaving it armed would pin the hot-path
+            # gate forever with nothing to fire
+            logger.warning(
+                "fault point %s armed but no registered trigger "
+                "matched; disarming", point,
+            )
+            self.disarm(point)
+            return spec
+        if to_run:
+
+            def run_triggers():
+                for fn, ctx in to_run:
+                    fired = self._fire_slow(point, ctx)
+                    if fired is None:
+                        continue  # count/for_s exhausted mid-loop
+                    try:
+                        fn(fired)
+                    except Exception:
+                        logger.exception(
+                            "fault trigger for %s failed", point
+                        )
+                # trigger points are one-shot per arm: the event has
+                # happened, so the spec auto-disarms — a lingering
+                # trigger spec would pin the hot-path gate True (and
+                # the injector lock onto every request) forever.
+                # Disarm only OUR spec: a re-arm that raced this
+                # thread owns the slot now and must not be cancelled.
+                with self._lock:
+                    if self._specs.get(point) is spec:
+                        self._disarm_locked(point)
+
+            threading.Thread(
+                target=run_triggers,
+                name=f"keystone-chaos-{point}",
+                daemon=True,
+            ).start()
         return spec
 
     def _disarm_locked(self, point: str) -> bool:
@@ -218,7 +302,33 @@ class FaultInjector:
             self._specs.clear()
             self.armed = False
 
-    # -- introspection -----------------------------------------------------
+    # -- triggers (component-registered chaos actions) ---------------------
+
+    def register_trigger(
+        self,
+        point: str,
+        fn: Callable[[FaultSpec], None],
+        ctx: Optional[Dict[str, Any]] = None,
+    ) -> Callable[[], None]:
+        """Register ``fn`` to run when ``point`` is armed (subject to
+        the spec's ``match`` against ``ctx``). Returns an unregister
+        callable — components MUST call it on close, or a retired
+        instance keeps receiving chaos."""
+        entry = (fn, dict(ctx) if ctx else None)
+        with self._lock:
+            self._triggers.setdefault(point, []).append(entry)
+
+        def unregister() -> None:
+            with self._lock:
+                entries = self._triggers.get(point, [])
+                if entry in entries:
+                    entries.remove(entry)
+                if not entries:
+                    self._triggers.pop(point, None)
+
+        return unregister
+
+    # -- introspection (the /chaosz surface) -------------------------------
 
     def status(self) -> Dict[str, Any]:
         with self._lock:
@@ -278,15 +388,77 @@ def disarm_all() -> None:
     _INJECTOR.disarm_all()
 
 
+# -- env arming ------------------------------------------------------------
+
+_SPEC_KEYS = ("count", "delay_ms", "for_s")
+
+
+def parse_fault_spec(clause: str) -> Dict[str, Any]:
+    """One ``point[=k:v[,k:v...]]`` clause -> arm() kwargs (plus
+    ``point``). Keys outside count/delay_ms/for_s become ``match``
+    entries; match values parse as int when they look like one."""
+    clause = clause.strip()
+    if not clause:
+        raise ValueError("empty fault clause")
+    point, _, argstr = clause.partition("=")
+    point = point.strip()
+    kwargs: Dict[str, Any] = {"point": point}
+    match: Dict[str, Any] = {}
+    if argstr.strip():
+        for pair in argstr.split(","):
+            key, sep, val = pair.partition(":")
+            key, val = key.strip(), val.strip()
+            if not sep or not key:
+                raise ValueError(
+                    f"bad fault arg {pair!r} in {clause!r} "
+                    "(want key:value)"
+                )
+            if key == "count":
+                kwargs["count"] = int(val)
+            elif key == "delay_ms":
+                kwargs["delay_ms"] = float(val)
+            elif key == "for_s":
+                kwargs["for_s"] = float(val)
+            else:
+                try:
+                    match[key] = int(val)
+                except ValueError:
+                    match[key] = val
+    if match:
+        kwargs["match"] = match
+    return kwargs
+
+
+def arm_from_env(environ=None) -> List[FaultSpec]:
+    """Parse ``KEYSTONE_FAULTS`` (whitespace-separated clauses, see
+    ``parse_fault_spec``) and arm each point on the global injector.
+    The serving CLIs call this at startup; absent/empty env is a
+    no-op."""
+    import os
+
+    env = environ if environ is not None else os.environ
+    raw = env.get("KEYSTONE_FAULTS", "").strip()
+    if not raw:
+        return []
+    specs = []
+    for clause in raw.split():
+        kwargs = parse_fault_spec(clause)
+        point = kwargs.pop("point")
+        specs.append(_INJECTOR.arm(point, **kwargs))
+    return specs
+
+
 __all__ = [
     "FAULT_POINTS",
     "FaultInjected",
     "FaultInjector",
     "FaultSpec",
     "arm",
+    "arm_from_env",
     "armed",
     "disarm",
     "disarm_all",
     "fire",
     "get_injector",
+    "parse_fault_spec",
 ]

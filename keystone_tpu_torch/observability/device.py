@@ -12,6 +12,15 @@ table does on a CPU backend. ``device_memory_stats`` and
 ``host_memory_stats`` are the memory probes the weighted solver's and the
 auto-cache rule's budgets read.
 
+``register_device_metrics`` exports the table as the constant-1
+``keystone_device_info`` gauge, and ``DeviceMemorySampler`` publishes
+each card's in-use, peak and limit bytes (``torch.cuda.mem_get_info``
+and the caching allocator's peak) as
+``keystone_device_memory_bytes{device, kind, stat}``; without CUDA it
+publishes host RAM (``device="host"``) instead. The admin endpoint and
+the gateway frontend share one sampler thread per registry
+(``acquire_memory_sampler``, ``MemorySamplerHost``).
+
 The JAX module's cost-model extraction (``compiled_cost_model``) is not
 ported: the port has no compiler cost analysis to read, so the MFU and
 roofline series of ``ServingMetrics`` stay absent, as they do in the JAX
@@ -25,7 +34,7 @@ import os
 import re
 import sys
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -176,3 +185,219 @@ def host_memory_stats() -> Optional[Dict[str, int]]:
     except (ImportError, OSError):
         pass
     return stats or None
+
+
+def reset_device_table() -> None:
+    """Drop the cached table (tests that change what the table reads)."""
+    global _table
+    with _table_lock:
+        _table = None
+
+
+_ENV_CHIP_HBM = "KEYSTONE_CHIP_HBM_BYTES"
+
+
+def chip_hbm_bytes() -> Optional[int]:
+    """The per-card memory budget: ``$KEYSTONE_CHIP_HBM_BYTES`` when set,
+    else the smallest ``hbm_bytes_limit`` of the table's device kinds;
+    None when neither knows (the CPU)."""
+    env = os.environ.get(_ENV_CHIP_HBM)
+    if env:
+        try:
+            return int(float(env))
+        except ValueError:
+            logger.warning("ignoring unparseable %s=%r", _ENV_CHIP_HBM, env)
+    limits = [row["hbm_bytes_limit"] for row in device_table() if row.get("hbm_bytes_limit")]
+    return min(limits) if limits else None
+
+
+def register_device_metrics(registry) -> None:
+    """Export the detected table as the constant-1 info gauge
+    ``keystone_device_info{kind, platform, count, peak_flops}``; the
+    table is read once, every scrape reads the cache."""
+    def cells():
+        return {
+            (row["kind"], row["platform"], str(row["count"]),
+             str(row["peak_flops"] or "unknown")): 1.0
+            for row in device_table()
+        }
+
+    registry.gauge_func(
+        "keystone_device_info",
+        cells,
+        "constant 1 labeled with the detected device kind/count/peaks",
+        ("kind", "platform", "count", "peak_flops"),
+    )
+
+
+# the device_memory_stats keys the sampler exports, as their `stat` label
+_SAMPLED_STATS = (
+    ("bytes_in_use", "in_use"),
+    ("peak_bytes_in_use", "peak"),
+    ("bytes_limit", "limit"),
+)
+
+
+class DeviceMemorySampler:
+    """Background thread publishing ``device_memory_stats`` of every card
+    as ``keystone_device_memory_bytes{device, kind, stat}`` gauges.
+
+    Without CUDA the device list is the CPU alone, which reports no
+    device stats, and one host-RAM series set (``device="host"``,
+    ``kind="host-ram"``) publishes instead, as the JAX sampler does on a
+    CPU backend. ``sample_once()`` is the testable core; ``start()``
+    samples at once, then every ``interval_s`` on a daemon thread."""
+
+    def __init__(
+        self,
+        registry=None,
+        interval_s: float = 10.0,
+        devices: Optional[Sequence[Any]] = None,
+    ):
+        from keystone_tpu_torch.observability.registry import get_global_registry
+
+        self.registry = registry if registry is not None else get_global_registry()
+        self.interval_s = float(interval_s)
+        self._devices = devices
+        self._gauge = self.registry.gauge(
+            "keystone_device_memory_bytes",
+            "device allocator memory (absent on backends without "
+            "stats; device=\"host\" rows are host RAM)",
+            ("device", "kind", "stat"),
+        )
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def _device_list(self) -> Sequence[Any]:
+        if self._devices is not None:
+            return self._devices
+        if torch.cuda.is_available():
+            return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        return [torch.device("cpu")]
+
+    def sample_once(self) -> int:
+        """Publish one sample of every device; returns the number of
+        device series sets written (0 = no device reported stats)."""
+        published = 0
+        devices = self._device_list()
+        # an empty device list must stay an absent family, not pass for
+        # a healthy CPU host
+        all_cpu = bool(devices)
+        for i, dev in enumerate(devices):
+            dev = torch.device(dev)
+            if dev.type != "cpu":
+                all_cpu = False
+            stats = device_memory_stats(dev)
+            if not stats:
+                continue
+            published += 1
+            kind = torch.cuda.get_device_name(dev)
+            for key, stat in _SAMPLED_STATS:
+                if key in stats:
+                    self._gauge.set(float(stats[key]), (str(i), kind, stat))
+        if not published and all_cpu:
+            host = host_memory_stats()
+            if host:
+                for key, stat in _SAMPLED_STATS:
+                    if key in host:
+                        self._gauge.set(float(host[key]), ("host", "host-ram", stat))
+        return published
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            try:
+                self.sample_once()
+            except Exception:
+                logger.exception("device memory sample failed")
+
+    def start(self) -> "DeviceMemorySampler":
+        if self._thread is not None:
+            return self
+        self._stop.clear()  # restartable (server stop/start cycles)
+        try:
+            self.sample_once()
+        except Exception:
+            logger.exception("initial device memory sample failed")
+        self._thread = threading.Thread(
+            target=self._loop, name="keystone-device-memory", daemon=True
+        )
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2.0)
+            self._thread = None
+
+
+# one sampler thread per registry, shared by the admin endpoint and the
+# gateway frontend of one process
+_samplers_lock = threading.Lock()
+_samplers: Dict[int, List] = {}  # id(registry) -> [sampler, refcount]
+
+
+def acquire_memory_sampler(registry=None, interval_s: float = 10.0) -> DeviceMemorySampler:
+    """Start (or share) the memory sampler of a registry. Each
+    ``acquire`` pairs with one ``release_memory_sampler``; the thread
+    stops when the last holder releases. A shared sampler takes the
+    tightest interval asked for."""
+    from keystone_tpu_torch.observability.registry import get_global_registry
+
+    registry = registry if registry is not None else get_global_registry()
+    with _samplers_lock:
+        entry = _samplers.get(id(registry))
+        if entry is None:
+            entry = _samplers[id(registry)] = [
+                DeviceMemorySampler(registry=registry, interval_s=interval_s).start(), 0,
+            ]
+        elif interval_s < entry[0].interval_s:
+            entry[0].interval_s = float(interval_s)
+        entry[1] += 1
+        return entry[0]
+
+
+def release_memory_sampler(sampler: DeviceMemorySampler) -> None:
+    with _samplers_lock:
+        entry = _samplers.get(id(sampler.registry))
+        if entry is None or entry[0] is not sampler:
+            sampler.stop()  # not shared (constructed directly)
+            return
+        entry[1] -= 1
+        if entry[1] <= 0:
+            del _samplers[id(sampler.registry)]
+            sampler.stop()
+
+
+class MemorySamplerHost:
+    """Mixin for endpoint servers with a ``registry``: hold the shared
+    memory sampler between ``_start_memory_sampler()`` (after the server
+    comes up) and ``_stop_memory_sampler()`` (before it goes down). Both
+    are idempotent."""
+
+    _mem_sampler: Optional[DeviceMemorySampler] = None
+
+    def _start_memory_sampler(self) -> None:
+        if self._mem_sampler is None:
+            self._mem_sampler = acquire_memory_sampler(registry=self.registry)
+
+    def _stop_memory_sampler(self) -> None:
+        if self._mem_sampler is not None:
+            release_memory_sampler(self._mem_sampler)
+            self._mem_sampler = None
+
+
+__all__ = [
+    "DeviceMemorySampler",
+    "MemorySamplerHost",
+    "acquire_memory_sampler",
+    "chip_hbm_bytes",
+    "device_memory_stats",
+    "device_table",
+    "host_memory_stats",
+    "peaks_for",
+    "peaks_of",
+    "register_device_metrics",
+    "release_memory_sampler",
+    "reset_device_table",
+]

@@ -35,9 +35,13 @@ through ``block_ls``'s pooled pinned buffers and copy stream, at most
 class, as reweighted single-output block coordinate descent.
 
 All products are float32 ``torch.matmul``s (TF32 off on the card), the
-counterpart of the JAX package's ``Precision.HIGHEST``. The bf16 data path
-(the TPU's limb-split products) is not ported: bf16 or fp16 features
-raise ``NotImplementedError``.
+counterpart of the JAX package's ``Precision.HIGHEST``. bf16 and fp16
+features stay in their dtype in storage (in memory, in the class-grouped
+copy and in host blocks); each column block is upcast to float32 where
+the solver reads it, which is exact, since every bf16 or fp16 value is a
+float32. The JAX package takes bf16 blocks through 3-limb bf16 products
+with float32 outputs (``_limb3``), made for the TPU's MXU; both compute
+float32 products of the same bf16 values.
 """
 
 from __future__ import annotations
@@ -56,6 +60,12 @@ from keystone_tpu_torch.workflow.api import LabelEstimator
 
 def _eye(b: int, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(b, dtype=like.dtype, device=like.device)
+
+
+def _block(X, start, width):
+    """Columns [start, start + width) of ``X`` in float32: a bf16 or fp16
+    X is upcast one block at a time, never whole."""
+    return X[:, start : start + width].to(torch.float32)
 
 
 def _chunk_moments(Xc, r_g, inv):
@@ -83,7 +93,7 @@ def _class_chunk_stats(Xg, R, wt, counts, class_ids, c0, start, *, G, m, width):
     (G,)."""
     D = Xg.shape[1]
     C = R.shape[1]
-    Xc = Xg.reshape(-1, m, D)[c0 : c0 + G, :, start : start + width]
+    Xc = Xg.reshape(-1, m, D)[c0 : c0 + G, :, start : start + width].to(torch.float32)
     wc = wt[c0 : c0 + G]
     inv = 1.0 / counts[c0 : c0 + G]
     Rc = R.reshape(-1, m, C)[c0 : c0 + G]
@@ -96,8 +106,7 @@ def _class_chunk_stats(Xg, R, wt, counts, class_ids, c0, start, *, G, m, width):
 def _class_chunk_stats_gathered(X, R, idx_c, wt_c, counts_c, class_ids, start, *, width):
     """``_class_chunk_stats`` on the original layout: the chunk's rows are
     gathered, padded only to the chunk's own largest class."""
-    Xb = X[:, start : start + width]
-    Xc = Xb[idx_c] * wt_c[:, :, None]
+    Xc = _block(X, start, width)[idx_c] * wt_c[:, :, None]
     inv = 1.0 / counts_c
     r_g = R[idx_c, class_ids[:, None]] * wt_c
     cmean, cxtr, rlm = _chunk_moments(Xc, r_g, inv)
@@ -107,16 +116,16 @@ def _class_chunk_stats_gathered(X, R, idx_c, wt_c, counts_c, class_ids, start, *
 def _group_rows(X, Y, idx, wt, joint_label_mean):
     """One gather into the class-grouped layout: Xg (C·m, D) with padded
     slots zero, and the initial residual R (C·m, C) = (Y − jlm)·wt in the
-    same row order."""
+    same row order. Xg keeps X's dtype (the weights are 0/1)."""
     flat = idx.reshape(-1)
     w = wt.reshape(-1)
-    Xg = X[flat] * w[:, None]
+    Xg = X[flat] * w[:, None].to(X.dtype)
     R = (Y[flat] - joint_label_mean[None, :]) * w[:, None]
     return Xg, R
 
 
 def _pop_stats(X, R, mask, start, *, width, n):
-    Xb = X[:, start : start + width]
+    Xb = _block(X, start, width)
     pop_mean = torch.sum(Xb * mask[:, None], dim=0) / n
     pop_cov = torch.matmul(Xb.T, Xb) / n - torch.outer(pop_mean, pop_mean)
     pop_xtr = torch.matmul(Xb.T, R) / n
@@ -140,7 +149,7 @@ def _batched_psd_solve(A, B, lam):
 
 
 def _apply_delta(X, R, delta, start, *, width):
-    return R - torch.matmul(X[:, start : start + width], delta)
+    return R - torch.matmul(_block(X, start, width), delta)
 
 
 def _device_memory_limit(device: torch.device) -> int:
@@ -158,13 +167,6 @@ def _device_memory_limit(device: torch.device) -> int:
         # the data itself and the OS
         return (host["bytes_limit"] - host["bytes_in_use"]) // 4
     return 4 * 1024**3
-
-
-def _check_float32(dtype: torch.dtype) -> None:
-    if dtype in (torch.bfloat16, torch.float16):
-        raise NotImplementedError(
-            f"the port's weighted solver takes float32 features, got {dtype}"
-        )
 
 
 def _precond_inverse(pop_cov, w, lam):
@@ -210,7 +212,7 @@ def _pcg_block_core(X, R, P, Wb, inv_counts, valid, start, w, lam,
                 + w(1−w)·δ_c(δ_cᵀv) + λv
     so no (C, b, b) covariance is formed. Returns (Wb_new, R_new,
     jointMeans (C, b), exit max relative residual, CG iterations)."""
-    Xb = X[:, start : start + width]
+    Xb = _block(X, start, width)
     gram = torch.matmul(Xb.T, Xb)
     pop_xtr = torch.matmul(Xb.T, R) / n  # (b, C)
     cmean = torch.matmul(P.T, Xb) * inv_counts[:, None]  # (C, b)
@@ -349,9 +351,8 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
         data = data.to_array_mode()
         labels = labels.to_array_mode()
         X = data.padded()
-        _check_float32(X.dtype)
-        # float32 throughout, as the JAX package computes with x64 off
-        X = X.to(torch.float32)
+        # float32 products of each block, as the JAX package computes
+        # with x64 off; X itself keeps its dtype
         Y = labels.padded().to(device=X.device, dtype=torch.float32)
         n = data.n
         D = X.shape[1]
@@ -395,8 +396,6 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
         iteration, so the host never runs ahead of the card by more than
         the next slab's upload."""
         blocks_host = data.host_blocks
-        for b in blocks_host:
-            _check_float32(b.dtype)
         dev = data.device
         lab = labels.to_array_mode()
         if lab.padded_n != data.padded_n:
@@ -579,7 +578,7 @@ def _rwls_block_step(X, mu_b, B, y_zm, res, Wb, aTa, lam, start, *, width, first
         res   = res' + B ∘ (X̃ W_new)
     with X̃ the block centered by the class's joint feature mean and its
     pad rows (B = 0) zeroed."""
-    Xb = X[:, start : start + width]
+    Xb = _block(X, start, width)
     Xzm = (Xb - mu_b[None, :]) * (B > 0).to(Xb.dtype)[:, None]
     BX = Xzm * B[:, None]
     if first_pass:
@@ -609,8 +608,6 @@ class PerClassWeightedLeastSquaresEstimator(LabelEstimator):
     def fit(self, data: Dataset, labels: Dataset) -> BlockLinearMapper:
         data = data.to_array_mode()
         X = data.padded()
-        _check_float32(X.dtype)
-        X = X.to(torch.float32)
         dev = X.device
         Y = labels.to_array_mode().padded().to(device=dev, dtype=torch.float32)
         n = data.n
@@ -624,15 +621,18 @@ class PerClassWeightedLeastSquaresEstimator(LabelEstimator):
         if bool((counts == 0).any()):
             raise ValueError("every class needs at least one example")
 
-        # the means in float64, as the JAX package takes them in numpy
-        pop_mean = torch.sum(X * mask[:, None], dim=0) / n
+        blocks = [(s, min(s + self.block_size, D) - s) for s in range(0, D, self.block_size)]
+        # the means in float64, as the JAX package takes them in numpy;
+        # the sums in float32, one block at a time
         onehot = torch.zeros((pn, C), dtype=torch.float32, device=dev)
         onehot[torch.arange(n, device=dev), class_of] = 1.0
-        class_means = torch.matmul(onehot.T, X).to(torch.float64) / counts[:, None]
+        pop_sum = torch.cat([torch.sum(_block(X, s, wd) * mask[:, None], dim=0) for s, wd in blocks])
+        class_sums = torch.cat([torch.matmul(onehot.T, _block(X, s, wd)) for s, wd in blocks], dim=1)
+        pop_mean = pop_sum / n
+        class_means = class_sums.to(torch.float64) / counts[:, None]
         jfm = class_means * w + pop_mean.to(torch.float64)[None, :] * (1.0 - w)
         joint_label_mean = (2.0 * w + 2.0 * (1.0 - w) * counts / n - 1.0).to(torch.float32)
 
-        blocks = [(s, min(s + self.block_size, D) - s) for s in range(0, D, self.block_size)]
         W = torch.zeros((D, C), dtype=torch.float32, device=dev)
         neg_wt = (1.0 - w) / n
         for c in range(C):

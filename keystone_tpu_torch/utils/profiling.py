@@ -22,20 +22,48 @@ from typing import Deque, Dict, Iterator, Optional
 logger = logging.getLogger(__name__)
 
 
+_device_ready = False
+_device_ready_lock = threading.Lock()
+
+
+def ready_device_tracing() -> None:
+    """Open and close one throwaway ``torch.profiler`` session on the
+    card, once per process. A gateway calls it before it builds its
+    lanes: on an H100, device traces of a process whose lanes were built
+    before its first profiler session held none of the lanes' activity,
+    while with this session first they do. (A plain thread replaying a
+    graph made before the first session is traced either way; what in
+    the lanes' set-up hides them is not known.)"""
+    global _device_ready
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with _device_ready_lock:
+        if _device_ready:
+            return
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+        _device_ready = True
+
+
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[None]:
     """torch.profiler trace around a block of pipeline work: host activity,
-    and the card's kernels where CUDA is available, exported as a Chrome
-    trace (``trace_<pid>_<ns>.json``, viewable in Perfetto or
-    chrome://tracing) into ``log_dir``, which is made if missing."""
+    and the card's kernels where CUDA is available, of every thread of the
+    process (as the JAX profiler traces the whole process: a serving
+    lane's replays run on its own threads), exported as a Chrome trace
+    (``trace_<pid>_<ns>.json``, viewable in Perfetto or chrome://tracing)
+    into ``log_dir``, which is made if missing."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    prof = profile(activities=activities)
+    prof = profile(activities=activities,
+                   experimental_config=_ExperimentalConfig(profile_all_threads=True))
     prof.start()
     try:
         yield

@@ -140,10 +140,15 @@ def test_host_fit_warns_or_raises_like_the_in_device_fit():
               pcg_tol=1e-7, convergence_check="raise")
     with pytest.raises(RuntimeError, match="iteration cap"):
         twls.BlockWeightedLeastSquaresEstimator(**kw).fit(_host(X, [128]), tds(Y))
-    with pytest.raises(NotImplementedError, match="float32"):
-        twls.BlockWeightedLeastSquaresEstimator(8, 1, 0.1, 0.5).fit(
-            Dataset.from_host_blocks([torch.as_tensor(X[:, :8]).to(torch.bfloat16)], device="cpu"),
-            tds(Y))
+    # bf16 host blocks fit as the JAX package fits the same bf16 values
+    bf16 = [b.astype(jnp.bfloat16) for b in _split(X[:, :16], [8, 8])]
+    got = twls.BlockWeightedLeastSquaresEstimator(8, 1, 0.1, 0.5).fit(
+        Dataset.from_host_blocks([torch.as_tensor(b.astype(np.float32)).to(torch.bfloat16)
+                                  for b in bf16], device="cpu"), tds(Y))
+    want = jwls.BlockWeightedLeastSquaresEstimator(8, 1, 0.1, 0.5).fit(
+        JDataset.from_host_blocks(bf16), JDataset.of(Y))
+    np.testing.assert_allclose(np_(got.W), np.asarray(want.W), atol=SOLVER_TOL)
+    np.testing.assert_allclose(np_(got.intercept), np.asarray(want.intercept), atol=SOLVER_TOL)
 
 
 # -- the streamed flagship composition --------------------------------------

@@ -1,6 +1,6 @@
 """The random-features image nodes of ``keystone_tpu_torch/ops/images/core.py``
 on the CPU, held against the JAX package on the same seeded numpy inputs:
-Convolver (plain, normalized, whitened; ``fast`` raises),
+Convolver (plain, normalized, whitened, ``fast``),
 Pooler, SymmetricRectifier, ImageVectorizer's channel-major layout,
 Cropper, Windower, both patchers and RandomImageTransformer. Bars are the
 JAX tests' own (tests/ops/test_images.py): atol 1e-3 for the Convolver,
@@ -20,6 +20,7 @@ from keystone_tpu_torch.parallel.dataset import Dataset
 from keystone_tpu_torch.utils import chunks
 
 CONV_ATOL = 1e-3
+FAST_BAR = 8e-3
 
 
 def np_(x):
@@ -66,11 +67,37 @@ def test_convolver_matches_jax(case):
 
 
 def test_convolver_fast_raises():
-    """The JAX package's TPU DEFAULT precision switch is not ported: the
-    card's counterpart (cuDNN TF32) is a process-wide switch."""
+    """``fast=True`` runs (the float32 path, so it equals ``fast=False``)
+    within the JAX test's bar of the JAX package's ``fast=True``: 8e-3 of
+    the largest feature (tests/ops/test_precision_policy.py)."""
     j, t, imgs = _conv_pair("cifar", np.random.default_rng(1))
-    with pytest.raises(NotImplementedError):
-        tcore.Convolver(t.filters, 32, 32, 3, whitener=t.whitener, fast=True)
+    fast = tcore.Convolver(t.filters, 32, 32, 3, whitener=t.whitener, fast=True)
+    exact = np_(t.apply_batch(Dataset.from_array(torch.as_tensor(imgs))))
+    got = np_(fast.apply_batch(Dataset.from_array(torch.as_tensor(imgs))))
+    jfast = jcore.Convolver(jnp.asarray(np_(t.filters)), 32, 32, 3, whitener=j.whitener, fast=True)
+    want = np_(jfast.apply_batch(JDataset.from_array(jnp.asarray(imgs))))
+    np.testing.assert_array_equal(got, exact)
+    assert np.abs(got - want).max() / np.abs(want).max() < FAST_BAR
+
+
+@pytest.mark.parametrize("case", ["plain", "normalized", "whitened", "cifar"])
+def test_convolver_fast_matches_jax(case):
+    """``fast=True`` in every configuration, batched and one image at a
+    time, against the JAX package's ``fast=True`` at the JAX test's bar,
+    and equal to the port's ``fast=False``."""
+    j, t, imgs = _conv_pair(case, np.random.default_rng(4))
+    fast = tcore.Convolver(t.filters, t.img_width, t.img_height, t.img_channels,
+                           whitener=t.whitener, normalize_patches=t.normalize_patches, fast=True)
+    jfast = jcore.Convolver(jnp.asarray(np_(t.filters)), t.img_width, t.img_height,
+                            t.img_channels, whitener=j.whitener,
+                            normalize_patches=t.normalize_patches, fast=True)
+    want = np_(jfast.apply_batch(JDataset.from_array(jnp.asarray(imgs))))
+    exact = np_(t.apply_batch(Dataset.from_array(torch.as_tensor(imgs))))
+    got = np_(fast.apply_batch(Dataset.from_array(torch.as_tensor(imgs))))
+    one = np.stack([fast.apply(torch.as_tensor(im)).numpy() for im in imgs])
+    np.testing.assert_array_equal(got, exact)
+    for mine in (got, one):
+        assert np.abs(mine - want).max() / np.abs(want).max() < FAST_BAR
 
 
 def test_convolver_in_chunks_equals_one_batch(monkeypatch):

@@ -91,6 +91,17 @@ SLICE12_MODULES = [
 ]
 
 
+# the request plane's front door, which the walk must reach too
+GATEWAY_MODULES = [
+    "keystone_tpu_torch." + m for m in (
+        "gateway", "gateway.admission", "gateway.metrics", "gateway.pool",
+        "gateway.lifecycle", "gateway.http", "observability.httpd", "observability.admin",
+        "observability.flight", "observability.slo", "observability.profilez",
+        "serving.bench",
+    )
+]
+
+
 def _port_sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:
@@ -121,6 +132,7 @@ print("RF", sorted(n for n in {RANDOM_FEATURES_MODULES!r} if n not in sys.module
 print("HOSTFIT", sorted(n for n in {HOST_FIT_MODULES!r} if n not in sys.modules))
 print("TEXT", sorted(n for n in {TEXT_MODULES!r} if n not in sys.modules))
 print("SLICE12", sorted(n for n in {SLICE12_MODULES!r} if n not in sys.modules))
+print("GATEWAY", sorted(n for n in {GATEWAY_MODULES!r} if n not in sys.modules))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -137,10 +149,34 @@ print("SLICE12", sorted(n for n in {SLICE12_MODULES!r} if n not in sys.modules))
     assert "HOSTFIT []" in out.stdout, out.stdout
     assert "TEXT []" in out.stdout, out.stdout
     assert "SLICE12 []" in out.stdout, out.stdout
+    assert "GATEWAY []" in out.stdout, out.stdout
     assert int(re.search(r"LOADED (\d+)", out.stdout).group(1)) >= (
         25 + len(TRAINING_MODULES) + len(SERVING_MODULES) + len(LOADER_MODULES)
         + len(VOC_MODULES) + len(RANDOM_FEATURES_MODULES) + len(HOST_FIT_MODULES)
-        + len(TEXT_MODULES) + len(SLICE12_MODULES))
+        + len(TEXT_MODULES) + len(SLICE12_MODULES) + len(GATEWAY_MODULES))
+
+
+def test_importing_the_gateway_loads_no_jax_and_starts_no_cuda():
+    """``import keystone_tpu_torch.gateway`` (and the admin endpoint)
+    neither loads JAX nor initialises CUDA: a card is touched only when
+    an engine is built on it."""
+    code = f"""
+import sys
+sys.path.insert(0, {ROOT!r})
+import torch
+import keystone_tpu_torch.gateway
+import keystone_tpu_torch.observability
+from keystone_tpu_torch.gateway.http import main
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "keystone_tpu"))
+print("BAD", bad, "CUDA", torch.cuda.is_initialized())
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=ROOT, env=env,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD [] CUDA False" in out.stdout, out.stdout
 
 
 def test_streaming_loader_imports_neither_torch_nor_jax():

@@ -156,17 +156,24 @@ def test_stupid_backoff_main_and_cli_print_what_jax_prints(tmp_path):
 
 
 def test_cli_lists_the_eight_apps_and_refuses_the_plane():
+    """The eight apps and serve-gateway run; the rest of the plane (and
+    serve-gateway's zoo, lifecycle, sharding, fleet and AOT flags) says
+    "not ported yet" and exits 2."""
     from keystone_tpu import __main__ as jcli
 
     assert sorted(cli.APPS) == sorted(jcli.APPS)
     rc, out = _run_main(cli.main, ["-h"])
     assert rc == 0 and all(f"  {app}\n" in out for app in jcli.APPS)
+    assert "  serve-gateway" in out and "--admin-port N" in out
     assert _run_main(cli.main, [])[0] == 2
-    for argv in (["serve-gateway"], ["serve-bench"], ["bench-diff", "a", "b"],
-                 ["--admin-port", "0", "NewsgroupsPipeline"],
-                 ["--gateway-port", "0"], ["--otlp-endpoint", "http://x"]):
+    for argv in (["serve-bench"], ["bench-diff", "a", "b"], ["serve-router"],
+                 ["serve-gateway", "--zoo", "spec.json"],
+                 ["--gateway-port", "0", "--shard-model"], ["--otlp-endpoint", "http://x"]):
         rc, out = _run_main(cli.main, argv)
         assert rc == 2 and "not ported yet" in out, argv
+    for argv in (["--gateway-port", "x"], ["--gateway-port", "0", "NewsgroupsPipeline"],
+                 ["--admin-port", "x"]):
+        assert _run_main(cli.main, argv)[0] == 2, argv
     rc, out = _run_main(cli.main, ["NoSuchApp"])
     assert rc == 2 and "unknown app" in out
 

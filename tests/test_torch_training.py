@@ -449,14 +449,71 @@ def test_block_weighted_layout_follows_the_memory_budget(monkeypatch):
 
 
 def test_block_weighted_rejects_what_it_does_not_port():
+    """Bad options raise as in the JAX package; bf16 features fit, as the
+    JAX package fits them (its chol bar, tests/ops/test_weighted_ls.py)."""
     X, Y, _ = _weighted_problem(n=40, D=8, C=2, seed=1)
     est = twls.BlockWeightedLeastSquaresEstimator(8, 1, 0.1, 0.5)
-    with pytest.raises(NotImplementedError, match="float32"):
-        est.fit(Dataset.from_array(torch.as_tensor(X).to(torch.bfloat16)), tds(Y))
+    got = est.fit(Dataset.from_array(torch.as_tensor(X).to(torch.bfloat16)), tds(Y))
+    want = jwls.BlockWeightedLeastSquaresEstimator(8, 1, 0.1, 0.5).fit(
+        JDataset.from_array(jnp.asarray(X, jnp.bfloat16)), JDataset.from_array(jnp.asarray(Y)))
+    np.testing.assert_allclose(np_(got.W), np.asarray(want.W), atol=SOLVER_TOL)
+    np.testing.assert_allclose(np_(got.intercept), np.asarray(want.intercept), atol=SOLVER_TOL)
     for bad in (dict(solve="lu"), dict(layout="rows"), dict(convergence_check="loud")):
         with pytest.raises(ValueError):
             twls.BlockWeightedLeastSquaresEstimator(8, 1, 0.1, 0.5, **bad).fit(tds(X), tds(Y))
     assert est.weight == jwls.BlockWeightedLeastSquaresEstimator(8, 1, 0.1, 0.5).weight == 4
+
+
+@pytest.mark.parametrize("solve,block,dtype", [
+    ("chol", 10, "bfloat16"), ("chol", 4, "bfloat16"), ("pcg", 10, "bfloat16"),
+    ("pcg", 4, "bfloat16"), ("chol", 4, "float16"),
+])
+def test_block_weighted_low_precision_features_match_jax(solve, block, dtype):
+    """bf16 (and fp16) features, as the JAX package fits the same values,
+    at its tests' chol/pcg bars (tests/ops/test_weighted_ls.py)."""
+    X, Y, _ = _weighted_problem()
+    kw = dict(class_chunk=2, solve=solve, pcg_tol=1e-6)
+    got = twls.BlockWeightedLeastSquaresEstimator(block, 2, 0.1, 0.6, **kw).fit(
+        Dataset.from_array(torch.as_tensor(X).to(getattr(torch, dtype))), tds(Y))
+    want = jwls.BlockWeightedLeastSquaresEstimator(block, 2, 0.1, 0.6, **kw).fit(
+        JDataset.from_array(jnp.asarray(X, getattr(jnp, dtype))), JDataset.from_array(jnp.asarray(Y)))
+    np.testing.assert_allclose(np_(got.W), np.asarray(want.W), atol=SOLVER_TOL)
+    np.testing.assert_allclose(np_(got.intercept), np.asarray(want.intercept), atol=SOLVER_TOL)
+
+
+def test_per_class_bf16_features_match_jax():
+    X, Y, _ = _weighted_problem()
+    got = twls.PerClassWeightedLeastSquaresEstimator(4, 2, 0.1, 0.6).fit(
+        Dataset.from_array(torch.as_tensor(X).to(torch.bfloat16)), tds(Y))
+    want = jwls.PerClassWeightedLeastSquaresEstimator(4, 2, 0.1, 0.6).fit(
+        JDataset.from_array(jnp.asarray(X, jnp.bfloat16)), JDataset.from_array(jnp.asarray(Y)))
+    np.testing.assert_allclose(np_(got.W), np.asarray(want.W), atol=SOLVER_TOL)
+    np.testing.assert_allclose(np_(got.intercept), np.asarray(want.intercept), atol=SOLVER_TOL)
+
+
+@pytest.mark.parametrize("solve,layout", [("pcg", "auto"), ("chol", "grouped"), ("chol", "gathered")])
+def test_bf16_features_are_upcast_one_block_at_a_time(monkeypatch, solve, layout):
+    """The whole X is never float32: each read takes one block, and the
+    class-grouped copy keeps bf16."""
+    X, Y, _ = _weighted_problem(n=60, D=24, C=3, seed=2)
+    widths, grouped = [], []
+    block, group = twls._block, twls._group_rows
+
+    def spy_block(X_, start, width):
+        widths.append(width)
+        return block(X_, start, width)
+
+    def spy_group(X_, *a):
+        out = group(X_, *a)
+        grouped.append(out[0].dtype)
+        return out
+
+    monkeypatch.setattr(twls, "_block", spy_block)
+    monkeypatch.setattr(twls, "_group_rows", spy_group)
+    twls.BlockWeightedLeastSquaresEstimator(8, 1, 0.1, 0.5, solve=solve, layout=layout).fit(
+        Dataset.from_array(torch.as_tensor(X).to(torch.bfloat16)), tds(Y))
+    assert widths and max(widths) == 8
+    assert grouped == ([torch.bfloat16] if layout == "grouped" else [])
 
 
 # -- the whole slice ---------------------------------------------------------
