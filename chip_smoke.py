@@ -202,6 +202,31 @@ Phases, in order; any failure exits non-zero:
    against ``fast=False`` at RandomPatchCifar's shape (8e-3 of the
    largest feature), with both times, and the filter convolution alone
    with bf16 operands against float32 (why ``fast`` runs float32).
+15. the fleet tier and the model zoo: (a) ``serve-router`` and two
+   ``serve-gateway --device-featurize flagship --img 256 --trace
+   --register`` replicas, each a ``python -m keystone_tpu_torch`` process
+   of its own started one after another, every one exporting spans to a
+   stdlib OTLP collector in this process: a routed and a direct answer
+   against the eager chain here, the router's stitched ``/debugz`` of a
+   routed request (both tiers, not partial, phases summing to the total
+   within 1 ms), 64 clients for 8 s through the router and straight at
+   one replica (req/s, p50/p99, each replica's share, every answer
+   right), the federated ``/metrics`` count against the replicas' own,
+   ``kill -9`` of one replica under load and its restart on its port (no
+   failed request; ``/fleetz`` shows it unhealthy, then healthy), SIGTERM
+   (deregistered, exit 0), and spans from all three processes with their
+   ``service.name`` and ``replica``; (b) ``serve-gateway --zoo`` with two
+   flagship models of one featurize chain and the demo model,
+   ``--optimize --max-resident 2``, registered with that router:
+   ``/planz`` shows one shared unit, ``/predict/<model>`` through the
+   router, ``/attributionz`` shares summing to 1, ``/driftz`` flagging
+   the demo model after a shifted size mix; in this process, the shared
+   unit's one graph per bucket, its replay launching B1 and B2 as often
+   as a solo flagship replay, each head within rtol 1e-4 / atol 1e-5 of
+   its solo engine, the featurize token alike on the card and the CPU,
+   and an LRU cycle (page-in and eviction seconds, reserved and allocated
+   memory); (c) ex/s at bucket 64 of the shared unit against two solo
+   units serving both models.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then, last, the result line ``{"ok": true, "device": {...}}``.
@@ -3641,15 +3666,15 @@ KERNEL_NAMES = ("sift_bin_sample", "plane_sandwich", "fisher_vector_stats")
 PER_DISPATCH = {"sift_bin_sample": 4, "plane_sandwich": 1, "fisher_vector_stats": 2}
 
 
-def gateway_clients(url, images_path, seconds, in_flight, out_path):
-    """Phase 14's client process: pre-encode one JSON body per image of
-    ``images_path`` (``{"instances": [image]}``), print ``ready``, wait for
-    ``go`` on stdin, then keep ``in_flight`` POST /predict in flight (one
-    thread each, closed loop) until ``seconds`` have passed or ``stop``
-    comes on stdin, and write every response (image index, status, top-5
-    or error reason, send and receive wall times) to ``out_path`` as JSON.
-    It runs in a process of its own, so it shares no GIL with the
-    server."""
+def gateway_clients(url, images_path, seconds, in_flight, out_path, path="/predict"):
+    """Phase 14's (and 15's) client process: pre-encode one JSON body per
+    image of ``images_path`` (``{"instances": [image]}``), print ``ready``,
+    wait for ``go`` on stdin, then keep ``in_flight`` POSTs to ``path``
+    (``/predict`` or ``/predict/<model>``) in flight (one thread each,
+    closed loop) until ``seconds`` have passed or ``stop`` comes on
+    stdin, and write every response (image index, status, top-5 or error
+    reason, send and receive wall times) to ``out_path`` as JSON. It runs
+    in a process of its own, so it shares no GIL with the server."""
     import http.client
     from urllib.parse import urlparse
 
@@ -3676,7 +3701,7 @@ def gateway_clients(url, images_path, seconds, in_flight, out_path):
             t_send = time.time()
             try:
                 conn = http.client.HTTPConnection(u.hostname, u.port, timeout=120)
-                conn.request("POST", "/predict", body=bodies[i],
+                conn.request("POST", path, body=bodies[i],
                              headers={"Content-Type": "application/json"})
                 r = conn.getresponse()
                 doc = json.loads(r.read())
@@ -3702,12 +3727,12 @@ class ClientProcess:
     constructor returns once the bodies are encoded, ``go()`` opens the
     window, ``result()`` waits for the end and reads the record."""
 
-    def __init__(self, url, images_path, seconds, in_flight, out_path):
+    def __init__(self, url, images_path, seconds, in_flight, out_path, path="/predict"):
         self.out_path = out_path
         self.seconds = seconds
         self.proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--gateway-clients",
-             json.dumps([url, images_path, seconds, in_flight, out_path])],
+             json.dumps([url, images_path, seconds, in_flight, out_path, path])],
             stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
         )
         line = self.proc.stdout.readline().strip()
@@ -4207,6 +4232,636 @@ def gateway_phase(dev, smi, feat, model, solver_xy):
     return rec
 
 
+# -- phase 15: the fleet tier and the model zoo -------------------------------
+
+# clients as phase 14's (requests in flight, seconds of a window, image
+# pool); a server process's start-up bound (CUDA context, the profiler
+# session, graph captures) and exit bound
+P15_IN_FLIGHT, P15_SECONDS, P15_POOL = 64, 8.0, 64
+P15_UP_S, P15_EXIT_S = 240.0, 60.0
+# the kill drill: the kill this long into the clients' window, then the
+# bounds on the router seeing it, on the restarted replica serving again,
+# and the clients' run after that
+P15_KILL_AT_S, P15_DETECT_S, P15_RECOVER_S, P15_AFTER_S = 3.0, 30.0, 60.0, 2.0
+# the zoo: two flagship models of one featurize chain (serve-gateway's
+# flagship widths, heads of different seeds) and the demo model; the
+# shifted size mix of 15b's drift check (the plan's baseline is single
+# rows)
+P15_DEMO_D = 256
+P15_DRIFT_SIZE = 8
+
+
+def p15_spec(img=IMG, pinned=True):
+    """The zoo's spec: two flagship models of one featurize chain (its
+    serving widths, heads of different seeds) and the demo model."""
+    return {"models": [
+        {"name": "flagship-a", "device_featurize": "flagship", "img": img, "hidden": 512,
+         "depth": 4, "seed": 1, "buckets": list(BUCKETS), "lanes": 2, "default": True,
+         "pinned": pinned, "expected_sizes": {"1": 100}},
+        {"name": "flagship-b", "device_featurize": "flagship", "img": img, "hidden": 512,
+         "depth": 4, "seed": 2, "buckets": list(BUCKETS), "lanes": 2, "pinned": pinned,
+         "expected_sizes": {"1": 100}},
+        {"name": "demo", "d": P15_DEMO_D, "hidden": 512, "depth": 4, "seed": 3, "buckets": [8, 32],
+         "lanes": 1, "expected_sizes": {"1": 100}},
+    ]}
+P15_TIMES = 5  # 15c: median of this many timed bucket-64 dispatches
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class ServerProcess:
+    """``python -m keystone_tpu_torch <argv>`` in a fresh process (on the
+    CPU, the same entry given ``device="cpu"``), its stdout drained on a
+    thread (JSON lines queued), its stderr appended to ``log_path``."""
+
+    def __init__(self, argv, log_path, dev):
+        import queue
+
+        self.argv = argv
+        self._log = open(log_path, "a")
+        entry = ["-m", "keystone_tpu_torch"] if dev.type == "cuda" else [
+            "-c", "import sys; from keystone_tpu_torch.__main__ import main; "
+                  "sys.exit(main(sys.argv[1:], device='cpu'))"]
+        self.proc = subprocess.Popen([sys.executable] + entry + argv, cwd=ROOT,
+                                     stdout=subprocess.PIPE, stderr=self._log, text=True)
+        self.lines = []
+        self._docs = queue.Queue()
+        threading.Thread(target=self._drain, daemon=True).start()
+
+    def _drain(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip())
+            if line.startswith("{"):
+                with contextlib.suppress(ValueError):
+                    self._docs.put(json.loads(line))
+        self._docs.put(None)
+
+    def wait_json(self, key, timeout=P15_UP_S):
+        """The first JSON stdout line holding ``key``."""
+        import queue
+
+        deadline = time.time() + timeout
+        while True:
+            try:
+                doc = self._docs.get(timeout=max(0.1, deadline - time.time()))
+            except queue.Empty:
+                raise AssertionError(f"{self.argv}: no {key!r} line in {timeout} s: "
+                                     f"{self.lines[-5:]}") from None
+            if doc is None:
+                raise AssertionError(f"{self.argv} exited ({self.proc.poll()}): {self.lines[-10:]}")
+            if key in doc:
+                return doc
+
+    def stop(self, timeout=P15_EXIT_S):
+        """SIGTERM, then the exit code and the seconds to it."""
+        import signal
+
+        t = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        rc = self.proc.wait(timeout=timeout)
+        return rc, time.perf_counter() - t
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._log.close()
+
+
+class OtlpCollector:
+    """A stdlib OTLP/HTTP collector on an ephemeral port: the resource
+    attributes and span names of every batch POSTed to ``/v1/traces``.
+    A body that does not parse (an exporter killed mid-POST) is counted
+    in ``bad_bodies``."""
+
+    def __init__(self):
+        import http.server
+
+        batches = self.batches = []
+        bad = self.bad_bodies = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):  # noqa: N802
+                try:
+                    doc = json.loads(self.rfile.read(int(self.headers.get("Content-Length", 0))))
+                except ValueError:
+                    bad.append(self.path)
+                    self.send_error(400)
+                    return
+                for rs in doc.get("resourceSpans", []):
+                    attrs = {a["key"]: next(iter(a["value"].values()))
+                             for a in rs["resource"]["attributes"]}
+                    names = [s["name"] for ss in rs["scopeSpans"] for s in ss["spans"]]
+                    batches.append((self.path, attrs, names))
+                self.send_response(200)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+            def log_message(self, *a):
+                pass
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
+
+    def by_process(self):
+        """(service.name, replica) -> spans received and their names."""
+        out = {}
+        for path, attrs, names in list(self.batches):
+            assert path == "/v1/traces", path
+            row = out.setdefault((attrs.get("service.name"), attrs.get("replica")),
+                                 {"spans": 0, "names": set()})
+            row["spans"] += len(names)
+            row["names"].update(names)
+        return out
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def fleetz(url):
+    return json.loads(http_get(url + "/fleetz")[1])
+
+
+def requests_ok(url):
+    """``keystone_gateway_requests_total{status="ok"}`` summed over a
+    ``/metrics`` scrape."""
+    from keystone_tpu_torch.observability import prometheus
+
+    text = http_get(url + "/metrics")[1].decode()
+    return sum(v for n, labels, v in prometheus.parse_samples(text)
+               if n == "keystone_gateway_requests_total" and labels.get("status") == "ok")
+
+
+def post_traced(url, doc, trace_id, timeout=120):
+    """POST with a W3C ``traceparent``; returns (status, body, the
+    ``X-Keystone-Trace`` header)."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(doc).encode(), headers={
+        "Content-Type": "application/json", "traceparent": f"00-{trace_id}-00f067aa0ba902b7-01"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, json.loads(r.read()), r.headers.get("X-Keystone-Trace")
+
+
+def window_stats(res, want, what):
+    """req/s and client p50/p99 ms of one clients' window, every response
+    held against the eager chain's output of its image (at either
+    bucket): returns the record, raises on any failed or wrong one."""
+    lat, failed = [], []
+    for i, status, what_got, t_send, t_recv in res["results"]:
+        if status != 200:
+            failed.append((i, status, what_got))
+            continue
+        got = np.asarray(what_got, np.float32)
+        if not any(np.allclose(got, w[i], rtol=RTOL_FEAT, atol=ATOL_FEAT) for w in want.values()):
+            failed.append((i, "wrong", float(np.abs(got - want[8][i]).max())))
+            continue
+        lat.append(t_recv - t_send)
+    assert not failed and lat, f"{what}: {len(failed)} failed of {len(res['results'])}: {failed[:5]}"
+    span = res["end"] - res["start"]
+    return {"requests": len(lat), "req_s": len(lat) / span, "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3, "seconds": span}
+
+
+def fleet_drill(dev, smi, root, images_path, collector, img=IMG, seconds=P15_SECONDS,
+                in_flight=P15_IN_FLIGHT):
+    """Phase 15a: ``serve-router`` and two flagship ``serve-gateway
+    --trace --register`` replicas, each a process of its own on the card,
+    every one exporting spans to ``collector``. Returns the record, the
+    router's URL and its process (15b registers with it)."""
+    log_path = os.path.join(root, "servers.log")
+    rec, procs = {}, []
+    images = np.load(images_path)
+    try:
+        ports = {n: free_port() for n in ("router", "a", "b")}
+        urls = {n: f"http://127.0.0.1:{p}" for n, p in ports.items()}
+        rurl = urls.pop("router")
+        t = time.perf_counter()
+        # the router is host-only: it starts beside the first replica,
+        # which retries its registration until the router listens
+        router = ServerProcess(["--otlp-endpoint", collector.url, "--otlp-service", "keystone-router",
+                                "--otlp-replica", "router", "serve-router", "--router-port",
+                                str(ports["router"]), "--probe-interval", "0.5",
+                                "--recovery-after", "2"], log_path, dev)
+        procs.append(router)
+
+        def start_replica(n):
+            return ServerProcess(
+                ["--otlp-endpoint", collector.url, "--otlp-service", "keystone-gateway",
+                 "--otlp-replica", f"replica-{n}", "serve-gateway", "--gateway-port", str(ports[n]),
+                 "--device-featurize", "flagship", "--img", str(img), "--buckets", "8,64",
+                 "--lanes", "2", "--trace", "--register", rurl], log_path, dev)
+
+        replicas = {}
+        for n in ("a", "b"):  # one after another: each takes a CUDA context and captures
+            replicas[n] = start_replica(n)
+            procs.append(replicas[n])
+            if n == "a":
+                assert router.wait_json("listening")["listening"] == rurl
+                rec["router_up_s"] = time.perf_counter() - t
+            assert replicas[n].wait_json("listening")["listening"] == urls[n]
+            rec[f"replica_{n}_up_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+        deadline = time.time() + 60
+        while time.time() < deadline and sum(r["healthy"] and r["ready"]
+                                             for r in fleetz(rurl)["replicas"]) < 2:
+            time.sleep(0.2)
+        roster = fleetz(rurl)
+        assert [r["state"] for r in roster["replicas"]] == ["healthy"] * 2, roster
+        log(f"15a: router up in {rec['router_up_s']:.3f} s, replicas in {rec['replica_a_up_s']:.3f} "
+            f"and {rec['replica_b_up_s']:.3f} s (one after another)")
+
+        # -- right answers: the eager chain in this process at both buckets
+        from keystone_tpu_torch.serving.bench import build_pipeline
+
+        feat, d = build_flagship_featurize_pipeline(img=img, device=dev)
+        head = build_pipeline(d=d, hidden=512, depth=4, device=dev)  # serve-gateway's defaults
+        want = {}
+        for b in BUCKETS:
+            rows = []
+            for s in range(0, len(images), b):
+                pad = np.zeros((b,) + images.shape[1:], np.uint8)
+                chunk = images[s : s + b]
+                pad[: len(chunk)] = chunk
+                with torch.no_grad():
+                    out = head._batch_run(feat._batch_run(torch.as_tensor(pad, device=dev)))
+                rows.append(out[: len(chunk)].cpu().numpy())
+            want[b] = np.concatenate(rows)
+        del feat, head
+        trace_id = os.urandom(16).hex()
+        code, doc, echoed = post_traced(rurl + "/predict", {"instances": [images[0].tolist()]}, trace_id)
+        assert code == 200 and echoed == trace_id, (code, echoed)
+        rec["max_abs_err"] = {"router": max_abs_err(np.asarray(doc["predictions"][0], np.float32),
+                                                    want[8][0], RTOL_FEAT, ATOL_FEAT,
+                                                    "15a: the router's answer against the eager chain")}
+        code, doc = http_post(urls["a"] + "/predict", {"instances": [images[0].tolist()]})
+        rec["max_abs_err"]["replica"] = max_abs_err(np.asarray(doc["predictions"][0], np.float32),
+                                                    want[8][0], RTOL_FEAT, ATOL_FEAT,
+                                                    "15a: a replica's answer against the eager chain")
+        # -- the stitched trace of that routed request, from both tiers
+        stitched = json.loads(http_get(rurl + f"/debugz?trace_id={trace_id}")[1])
+        phases = stitched["phases_ms"]
+        rec["stitched"] = {"processes": stitched["processes"], "partial": stitched["partial"],
+                           "total_ms": stitched["total_ms"], "phases_ms": phases,
+                           "spans": len(stitched["spans"])}
+        log(f"15a: stitched /debugz of a routed request: {rec['stitched']}")
+        assert stitched["partial"] is False, stitched["partial_detail"]
+        assert stitched["processes"][0] == "router" and len(stitched["processes"]) == 2
+        assert stitched["processes"][1].startswith("replica:127.0.0.1:"), stitched["processes"]
+        assert abs(sum(phases.values()) - stitched["total_ms"]) <= 1.0, stitched
+        assert phases["device"] > 0, phases
+
+        # -- 64 clients through the router, then straight at one replica
+        before = {n: requests_ok(u) for n, u in urls.items()}
+        clients = ClientProcess(rurl, images_path, seconds, in_flight,
+                                os.path.join(root, "routed.json"))
+        clients.go()
+        rec["routed"] = window_stats(clients.result(), want, "15a through the router")
+        served = {n: requests_ok(u) - before[n] for n, u in urls.items()}
+        assert sum(served.values()) == rec["routed"]["requests"], (served, rec["routed"])
+        rec["routed"]["replica_share"] = {n: v / sum(served.values()) for n, v in served.items()}
+        clients = ClientProcess(urls["a"], images_path, seconds, in_flight,
+                                os.path.join(root, "direct.json"))
+        clients.go()
+        rec["direct"] = window_stats(clients.result(), want, "15a straight at a replica")
+        log(f"15a: {in_flight} clients for {seconds} s through the router {rec['routed']}; "
+            f"straight at one replica {rec['direct']} on {smi}")
+        # -- the federated scrape against the replicas' own
+        fed, own = requests_ok(rurl), sum(requests_ok(u) for u in urls.values())
+        rec["federated_requests_ok"] = {"router": fed, "replicas": own}
+        assert fed == own, rec["federated_requests_ok"]
+
+        # -- kill -9 one replica under load, restart it on its port
+        drill = ClientProcess(rurl, images_path, 600, in_flight, os.path.join(root, "drill.json"))
+        drill.go()
+        time.sleep(P15_KILL_AT_S)
+        name_b = urls["b"].split("//")[1]
+
+        def state_b():
+            row = next((r for r in fleetz(rurl)["replicas"] if r["name"] == name_b), None)
+            return row and (row["state"], row["ready"])
+
+        replicas["b"].kill()
+        t_kill = time.perf_counter()
+        seen = []
+        while time.perf_counter() - t_kill < P15_DETECT_S:
+            st = state_b()
+            if not seen or seen[-1][1] != st:
+                seen.append((round(time.perf_counter() - t_kill, 3), st))
+            if st and st[0] in ("unhealthy", "unreachable"):
+                break
+            time.sleep(0.1)
+        assert seen and seen[-1][1] and seen[-1][1][0] in ("unhealthy", "unreachable"), seen
+        rec["kill"] = {"detected_s": seen[-1][0]}
+        t = time.perf_counter()
+        replicas["b"] = start_replica("b")
+        procs.append(replicas["b"])
+        replicas["b"].wait_json("listening")
+        rec["kill"]["restart_up_s"] = time.perf_counter() - t
+        while time.perf_counter() - t_kill < P15_DETECT_S + P15_RECOVER_S + rec["kill"]["restart_up_s"]:
+            st = state_b()
+            if seen[-1][1] != st:
+                seen.append((round(time.perf_counter() - t_kill, 3), st))
+            if st == ("healthy", True) and requests_ok(urls["b"]) > 0:
+                break
+            time.sleep(0.1)
+        rec["kill"]["states_after_kill_s"] = seen
+        assert seen[-1][1] == ("healthy", True), seen
+        rec["kill"]["recovered_s"] = seen[-1][0]
+        time.sleep(P15_AFTER_S)
+        drill.stop()
+        res = drill.result()
+        rec["kill"]["clients"] = window_stats(res, want, "15a across the kill -9")
+        rec["kill"]["restarted_served"] = requests_ok(urls["b"])
+        log(f"15a: kill -9 of replica b under {in_flight} clients: {rec['kill']}")
+
+        # -- graceful exits: each replica deregisters, drains, exits 0
+        for n in ("a", "b"):
+            rc, s = replicas[n].stop()
+            rec[f"replica_{n}_exit"] = {"code": rc, "s": s}
+            assert rc == 0, (n, rc, replicas[n].lines[-5:])
+        assert fleetz(rurl)["replicas"] == [], fleetz(rurl)
+        return rec, rurl, router
+    except BaseException:
+        for p in procs:
+            p.kill()
+        raise
+
+
+def zoo_entry(dev, smi, root, rurl, collector, img=IMG):
+    """Phase 15b over HTTP: ``serve-gateway --zoo`` with the three-model
+    spec, ``--optimize --max-resident 2``, registered with 15a's router:
+    ``/planz`` shows the flagship pair in one shared unit, each model
+    answers ``/predict/<model>`` through the router (the demo model pages
+    in on its first request), ``/attributionz`` shares sum to 1 on the
+    zoo and through the router, ``/driftz`` flags the demo model after a
+    shifted size mix; SIGTERM, exit 0, the roster empty."""
+    spec_path = os.path.join(root, "zoo.json")
+    with open(spec_path, "w") as f:
+        json.dump(p15_spec(img), f)
+    log_path = os.path.join(root, "servers.log")
+    rec = {}
+    t = time.perf_counter()
+    zoo = ServerProcess(["--otlp-endpoint", collector.url, "--otlp-service", "keystone-gateway",
+                         "--otlp-replica", "zoo", "serve-gateway", "--gateway-port", "0",
+                         "--zoo", spec_path, "--optimize", "--max-resident", "2", "--trace",
+                         "--register", rurl], log_path, dev)
+    try:
+        rec["plan"] = zoo.wait_json("plan")["plan"]
+        line = zoo.wait_json("listening")
+        zurl = line["listening"]
+        rec["up_s"] = time.perf_counter() - t
+        assert line["models"] == ["flagship-a", "flagship-b", "demo"], line
+        deadline = time.time() + 30
+        while time.time() < deadline and not fleetz(rurl)["replicas"]:
+            time.sleep(0.2)
+        assert fleetz(rurl)["replicas"][0]["models"] == ["demo", "flagship-a", "flagship-b"]
+        planz = json.loads(http_get(zurl + "/planz")[1])
+        actual = planz["actual"]
+        assert actual["flagship-a"]["shared_with"] == ["flagship-b"], actual
+        assert actual["flagship-b"]["shared_with"] == ["flagship-a"], actual
+        assert actual["demo"]["resident"] is False, actual
+        image = np.random.default_rng(43).integers(0, 256, (img, img, 3), dtype=np.uint8)
+        x = np.random.default_rng(44).standard_normal(P15_DEMO_D).astype(np.float32)
+        rec["predict_ms"] = {}
+        outs = {}
+        for model, inst in (("flagship-a", image.tolist()), ("flagship-b", image.tolist()),
+                            ("demo", x.tolist())):
+            t = time.perf_counter()
+            code, doc = http_post(rurl + f"/predict/{model}", {"instances": [inst]})
+            rec["predict_ms"][model] = (time.perf_counter() - t) * 1e3
+            outs[model] = np.asarray(doc["predictions"][0])
+            assert code == 200 and np.isfinite(outs[model]).all(), (model, code)
+        assert not np.allclose(outs["flagship-a"], outs["flagship-b"])
+        actual = json.loads(http_get(zurl + "/planz")[1])["actual"]
+        rec["resident_after"] = {m: row["resident"] for m, row in actual.items()}
+        # both flagship models are pinned (the shared unit is hosted at
+        # start-up), so the demo model pages in over the cap of 2
+        assert rec["resident_after"] == {"flagship-a": True, "flagship-b": True, "demo": True}
+        for src, url in (("zoo", zurl), ("router", rurl)):
+            doc = json.loads(http_get(url + "/attributionz")[1])
+            shares = [e["device_seconds_share"] for e in doc["models"].values()]
+            rec[f"attribution_{src}"] = {m: e["device_seconds_share"] for m, e in doc["models"].items()}
+            assert sorted(doc["models"]) == ["demo", "flagship-a", "flagship-b"], doc["models"]
+            assert abs(sum(shares) - 1.0) <= 1e-9, shares
+        for _ in range(32):  # the drift detector's min_rows
+            code, _ = http_post(zurl + "/predict/demo", {"instances": [x.tolist()] * P15_DRIFT_SIZE})
+            assert code == 200
+        drift = json.loads(http_get(zurl + "/driftz")[1])
+        rec["drift"] = {"scores": drift["scores"], "drifted": drift["drifted"],
+                        "router": json.loads(http_get(rurl + "/driftz")[1])["drifted"]}
+        assert drift["drifted"] == ["demo"] and rec["drift"]["router"] == ["demo"], rec["drift"]
+        assert drift["recommendation"] and "changes" in drift["recommendation"], drift
+        rc, s = zoo.stop()
+        rec["exit"] = {"code": rc, "s": s}
+        assert rc == 0, zoo.lines[-5:]
+        assert fleetz(rurl)["replicas"] == []
+        log(f"15b: the zoo up in {rec['up_s']:.3f} s; /predict/<model> through the router "
+            f"{rec['predict_ms']} ms; resident {rec['resident_after']}; attribution "
+            f"{rec['attribution_router']}; drift {rec['drift']}; exit {rec['exit']}")
+        return rec
+    finally:
+        zoo.kill()
+
+
+def zoo_in_process(dev, smi, root, img=IMG):
+    """Phase 15b's engine half and 15c, in this process: the spec's
+    flagship pair hosted together is ONE shared unit (one graph per
+    bucket per lane), whose replay launches B1 and B2 as often as a solo
+    flagship replay; each head within RTOL_FEAT/ATOL_FEAT of its solo
+    engine; ex/s at bucket 64 of the shared unit against the two solo
+    engines; the featurize token alike on the card and the CPU; then the
+    LRU cycle at ``max_resident=2`` with every model unpinned: the demo
+    model's page-in evicts the shared unit, which drains on a background
+    thread while the demo model serves, and releases its graphs
+    (page-in and eviction seconds; ``memory_reserved`` and
+    ``memory_allocated`` before, after the page-in and after the
+    eviction, then after ``empty_cache``)."""
+    from keystone_tpu_torch.serving.featurize import featurize_token
+    from keystone_tpu_torch.zoo import ModelZoo, load_zoo_spec
+
+    spec_path = os.path.join(root, "zoo-unpinned.json")
+    with open(spec_path, "w") as f:
+        json.dump(p15_spec(img, pinned=False), f)
+    on_card = dev.type == "cuda"
+
+    def memory():
+        if not on_card:
+            return None, None
+        torch.cuda.synchronize(dev)
+        return torch.cuda.memory_reserved(dev), torch.cuda.memory_allocated(dev)
+
+    rec = {}
+    zoo = ModelZoo(load_zoo_spec(spec_path, device=dev), max_resident=2, device=dev)
+    solo = {}
+    try:
+        t = time.perf_counter()
+        assert zoo.host(["flagship-a", "flagship-b"]) == [("flagship-a", "flagship-b")]
+        rec["shared_page_in_s"] = time.perf_counter() - t
+        unit = zoo._by_model["flagship-a"]
+        assert unit.shared and unit is zoo._by_model["flagship-b"]
+        graphs = [g for lane in unit.gateway.pool.lanes for g in lane.engine.graph_report()]
+        rec["shared_graphs"] = [{k: g[k] for k in ("bucket", "capture_s", "pool_bytes", "launches")}
+                                for g in graphs]
+        for lane in unit.gateway.pool.lanes:  # one graph per bucket for the whole group
+            assert sorted(g["bucket"] for g in lane.engine.graph_report()) == (
+                list(BUCKETS) if on_card else [])
+        shared = unit.gateway.pool.lanes[0].engine
+        builts = {m: zoo._built(m) for m in ("flagship-a", "flagship-b")}
+        example = torch.zeros((img, img, 3), dtype=torch.uint8)
+        for m, b in builts.items():
+            solo[m] = b.fitted.compiled(BUCKETS, featurize=b.featurize, device=dev,
+                                        name=f"phase15-solo-{m}")
+            solo[m].warmup(example=example)
+        per_replay = {"shared": {g["bucket"]: g["launches"] for g in shared.graph_report()},
+                      "solo": {g["bucket"]: g["launches"] for g in solo["flagship-a"].graph_report()}}
+        for b in BUCKETS if on_card else ():
+            for k in ("sift_bin_sample", "plane_sandwich"):
+                assert per_replay["shared"][b][k] == per_replay["solo"][b][k] > 0, per_replay
+        rec["launches_per_replay"] = per_replay
+        images = np.random.default_rng(45).integers(0, 256, (B, img, img, 3), dtype=np.uint8)
+
+        def counted(fn):
+            before = dict(_cuda.LAUNCHES)
+            out = fn()
+            return out, {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+
+        out, rec["live_launches_shared"] = counted(lambda: shared.apply(images, sync=True))
+        want, rec["live_launches_solo"] = counted(lambda: solo["flagship-a"].apply(images, sync=True))
+        for k in ("sift_bin_sample", "plane_sandwich"):  # the CPU runs the plain versions
+            assert rec["live_launches_shared"][k] == rec["live_launches_solo"][k] > (-1 if not on_card
+                                                                                   else 0), rec
+        rec["head_max_abs_err"] = {
+            m: max_abs_err(out[m], solo[m].apply(images, sync=True), RTOL_FEAT, ATOL_FEAT,
+                           f"15b: head {m} of the shared unit against its solo engine")
+            for m in solo}
+        # -- 15c: both flagship models on the same 64 images, bucket 64
+        def timed(fn):
+            fn()
+            ts = []
+            for _ in range(P15_TIMES):
+                t = time.perf_counter()
+                fn()
+                ts.append(time.perf_counter() - t)
+            return statistics.median(ts)
+
+        t_shared = timed(lambda: shared.apply(images, sync=True))
+        t_solo = timed(lambda: [solo[m].apply(images, sync=True) for m in solo])
+        rec["cse"] = {"bucket": B, "shared_ms": t_shared * 1e3, "solo_pair_ms": t_solo * 1e3,
+                      "shared_ex_s": B / t_shared, "solo_ex_s": B / t_solo, "speedup": t_solo / t_shared}
+        log(f"15c: both flagship models on {B} images: one shared unit {rec['cse']['shared_ms']:.3f} ms "
+            f"({rec['cse']['shared_ex_s']:.1f} ex/s), two solo units {rec['cse']['solo_pair_ms']:.3f} ms "
+            f"({rec['cse']['solo_ex_s']:.1f} ex/s), x{rec['cse']['speedup']:.3f} on {smi}")
+        cpu_feat, _ = build_flagship_featurize_pipeline(img=img, device="cpu")
+        rec["token_card_equals_cpu"] = featurize_token(builts["flagship-a"].featurize) == \
+            featurize_token(cpu_feat)
+        assert rec["token_card_equals_cpu"]
+        for e in solo.values():
+            e.release_graphs()
+        solo.clear()
+
+        # -- the LRU cycle: the demo model's page-in evicts the shared unit,
+        # -- which drains its windows in flight while the demo model serves
+        if on_card:
+            torch.cuda.empty_cache()  # the solo engines' pools, released above
+        rec["shared_pool_bytes"] = sum(g["pool_bytes"] for g in rec["shared_graphs"])
+        mem = {"before": memory()}
+        in_flight = [zoo.predict(images[i], "flagship-a") for i in range(len(images))]
+        x = np.zeros(P15_DEMO_D, np.float32)
+        t = time.perf_counter()
+        zoo.predict(x, "demo").result(timeout=120)
+        rec["demo_page_in_s"] = time.perf_counter() - t
+        assert "flagship-a" not in zoo._by_model and "demo" in zoo._by_model
+        demo_unit = zoo._by_model["demo"]
+        served = 0
+        while unit.retired is None:  # the other unit keeps replaying
+            zoo.predict(x, "demo").result(timeout=60)
+            served += 1
+            assert time.perf_counter() - t < 120, "the evicted unit did not retire"
+        rec["eviction"] = dict(unit.retired)
+        rec["demo_served_during_eviction"] = served
+        rec["in_flight_max_abs_err"] = max(  # the evicted unit's windows all resolved
+            max_abs_err(np.asarray(f.result(timeout=60)), out["flagship-a"][i].cpu(), RTOL_FEAT,
+                        ATOL_FEAT, "15b: a request in flight across the eviction")
+            for i, f in enumerate(in_flight))
+        mem["after_page_in_and_eviction"] = memory()
+        rec["demo_pool_bytes"] = sum(g["pool_bytes"] for lane in demo_unit.gateway.pool.lanes
+                                     for g in lane.engine.graph_report())
+        if on_card:
+            torch.cuda.empty_cache()
+            mem["after_empty_cache"] = memory()
+            freed = mem["after_page_in_and_eviction"][0] - mem["after_empty_cache"][0]
+            # the evicted unit's pools stay cached until empty_cache returns them
+            assert freed >= 0.5 * rec["shared_pool_bytes"] > 0, (freed, rec["shared_pool_bytes"], mem)
+        rec["memory"] = {k: {"reserved": r, "allocated": a} for k, (r, a) in mem.items()}
+        log(f"15b: shared unit paged in in {rec['shared_page_in_s']:.3f} s (graph pools "
+            f"{rec['shared_pool_bytes']} B); the demo model's page-in {rec['demo_page_in_s']:.3f} s "
+            f"evicted it with {len(in_flight)} requests in flight: {rec['eviction']}, {served} demo "
+            f"requests meanwhile; memory {rec['memory']} on {smi}")
+        return rec
+    finally:
+        for e in solo.values():
+            e.release_graphs()
+        zoo.close()
+
+
+def fleet_and_zoo(dev, smi, img=IMG, seconds=P15_SECONDS, in_flight=P15_IN_FLIGHT, pool=P15_POOL):
+    """Phase 15: 15a (``fleet_drill``), 15b (``zoo_entry`` over HTTP and
+    ``zoo_in_process``) and 15c (in ``zoo_in_process``), and the spans
+    the OTLP collector received from every server process. To rehearse
+    it on the CPU at a small size: ``fleet_and_zoo(torch.device("cpu"),
+    "cpu", img=48, seconds=2, in_flight=8, pool=8)``."""
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "tmp", "phase15")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    images_path = os.path.join(root, "images.npy")
+    np.save(images_path, np.random.default_rng(41).integers(0, 256, (pool, img, img, 3),
+                                                             dtype=np.uint8))
+    collector = OtlpCollector()
+    router = None
+    rec = {"card": smi}
+    try:
+        rec["fleet"], rurl, router = fleet_drill(dev, smi, root, images_path, collector, img=img,
+                                                 seconds=seconds, in_flight=in_flight)
+        rec["zoo"] = zoo_entry(dev, smi, root, rurl, collector, img=img)
+        rc, s = router.stop()
+        rec["router_exit"] = {"code": rc, "s": s}
+        assert rc == 0, router.lines[-5:]
+        got = collector.by_process()
+        rec["otlp"] = {f"{svc}/{rep}": {"spans": row["spans"], "names": sorted(row["names"])}
+                       for (svc, rep), row in got.items()}
+        rec["otlp_bad_bodies"] = len(collector.bad_bodies)
+        log(f"15a: OTLP spans received by process: {rec['otlp']}")
+        for key, name in ((("keystone-router", "router"), "router.forward"),
+                          (("keystone-gateway", "replica-a"), "gateway.admit"),
+                          (("keystone-gateway", "replica-b"), "gateway.admit")):
+            assert key in got and name in got[key]["names"], (key, rec["otlp"])
+        rec["engines"] = zoo_in_process(dev, smi, root, img=img)
+    finally:
+        if router is not None:
+            router.kill()
+        collector.close()
+        # the server processes' logs, kept beside the record
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with contextlib.suppress(OSError):
+            shutil.copy(os.path.join(root, "servers.log"),
+                        os.path.join(ROOT, "chiprun_out", "phase15_servers.log"))
+        shutil.rmtree(root, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 15 in {rec['phase_s']:.3f} s on {smi}")
+    return rec
+
+
 def _info(info):
     return None if info is None else {k: float(v) for k, v in info.items()}
 
@@ -4341,13 +4996,23 @@ def main():
     for r in rows:
         r["phase14_launches"] = gateway["served"]["load"]["launches"][r["name"]]
         r["phase14_launches_per_dispatch"] = gateway["served"]["load"]["launches_per_dispatch"][r["name"]]
+    torch.cuda.empty_cache()
+
+    # -- 15. the fleet tier and the model zoo ------------------------------
+    _cuda.reset_launches()
+    fleet_zoo = fleet_and_zoo(dev, smi)
+    for r in rows:
+        r["phase15_launches"] = _cuda.LAUNCHES[r["name"]]
+    log(f"launches in phase 15 (this process: the zoo's engines): {dict(_cuda.LAUNCHES)}")
+    # the zoo's flagship chain is vocab 16: the plain FV node, as in JAX
+    assert _cuda.LAUNCHES["sift_bin_sample"] > 0 and _cuda.LAUNCHES["plane_sandwich"] > 0
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": rows, "wide": wide, "serve": served, "train": trained,
                    "stream": streamed, "files": files, "voc": voc_rec, "random_features": rf,
                    "past_the_card": past, "text": text, "last_app": last,
-                   "gateway": gateway, "ptxas": ptxas}, f,
+                   "gateway": gateway, "fleet_zoo": fleet_zoo, "ptxas": ptxas}, f,
                   indent=1, default=str)
     # the fit's launches and B3's error with the fitted GMMs are in
     # chip_smoke.json beside these

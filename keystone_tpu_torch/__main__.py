@@ -5,14 +5,17 @@ Reference: bin/run-pipeline.sh selects the pipeline class by fully
 qualified name as argv[1]; here short app names map to the app modules'
 ``main``, which run on ``cuda`` (StupidBackoffPipeline is host work).
 
-The request plane's front door is ported: ``--admin-port N`` (the
-observability endpoint), ``--gateway-port N`` and ``serve-gateway`` (the
-HTTP gateway over the demo model or, with ``--device-featurize
-flagship``, over the flagship's CUDA-graph engines;
-``keystone_tpu_torch/gateway/http.py``). The rest of the plane — the
-``--otlp-*`` flags and the other ``serve-*``, ``bench-diff`` and
-``keystone-lint`` subcommands — is not ported yet: given one, the entry
-says so and exits 2.
+The request plane's front door and fleet tier are ported:
+``--admin-port N`` (the observability endpoint), ``--otlp-endpoint URL``
+with ``--otlp-service`` and ``--otlp-replica`` (OTLP/HTTP span export),
+``--gateway-port N`` and ``serve-gateway`` (the HTTP gateway over the
+demo model, over the flagship's CUDA-graph engines with
+``--device-featurize flagship``, or over a model zoo with ``--zoo``;
+``keystone_tpu_torch/gateway/http.py``) and ``serve-router`` (the fleet
+router over ``serve-gateway`` replicas, host-only;
+``keystone_tpu_torch/fleet/router.py``). The rest of the plane — the
+other ``serve-*``, ``bench-diff`` and ``keystone-lint`` subcommands — is
+not ported yet: given one, the entry says so and exits 2.
 """
 
 from __future__ import annotations
@@ -31,24 +34,76 @@ APPS = {
     "StupidBackoffPipeline": "keystone_tpu_torch.pipelines.nlp.stupid_backoff_pipeline",
 }
 
-# the JAX package's request-plane flags and subcommands not ported yet
-PLANE_FLAGS = ("--otlp-endpoint", "--otlp-service", "--otlp-replica")
-PLANE_APPS = ("serve-bench", "serve-router", "serve-loadgen",
-              "serve-autoscale", "serve-capacity-plan", "serve-lifecycle",
-              "serve-aot-build", "bench-diff", "keystone-lint")
+# the JAX package's request-plane subcommands not ported yet
+PLANE_APPS = ("serve-bench", "serve-loadgen", "serve-autoscale",
+              "serve-capacity-plan", "serve-lifecycle", "serve-aot-build",
+              "bench-diff", "keystone-lint")
 
 
 def _not_ported(what: str) -> int:
     print(f"{what} is not ported yet: keystone_tpu_torch runs the apps, "
-          "serve-gateway and the admin endpoint")
+          "serve-gateway, serve-router and the admin endpoint")
     return 2
 
 
-def main(argv=None) -> int:
+def _otlp(argv) -> int:
+    """Peel ``--otlp-endpoint URL`` (and ``--otlp-service``,
+    ``--otlp-replica``) off ``argv`` and install an OTLP/HTTP span
+    exporter over the global tracer (tracing on). Returns 0, or 2 for a
+    malformed flag."""
+    i = argv.index("--otlp-endpoint")
+    try:
+        endpoint = argv[i + 1]
+        if endpoint.startswith("-"):
+            raise ValueError(endpoint)
+    except (IndexError, ValueError):
+        print("--otlp-endpoint requires a collector URL "
+              "(e.g. http://127.0.0.1:4318)")
+        return 2
+    del argv[i : i + 2]
+
+    def peel_value(flag, default):
+        if flag not in argv:
+            return default
+        j = argv.index(flag)
+        try:
+            value = argv[j + 1]
+            if value.startswith("-"):
+                raise ValueError(value)
+        except (IndexError, ValueError):
+            raise SystemExit(f"{flag} requires a value") from None
+        del argv[j : j + 2]
+        return value
+
+    import os
+    import socket
+
+    # resource identity: which SERVICE (router vs gateway vs app) and
+    # which REPLICA this process is, so that a collector lays the fleet's
+    # halves of one trace out as the router's stitched /debugz does
+    default_service = (
+        f"keystone-{argv[0].removeprefix('serve-')}"
+        if argv and not argv[0].startswith("-")
+        else "keystone-tpu"
+    )
+    service = peel_value("--otlp-service", default_service)
+    replica = peel_value("--otlp-replica", f"{socket.gethostname()}:{os.getpid()}")
+    from keystone_tpu_torch.observability import OtlpSpanExporter, enable_tracing
+
+    enable_tracing()
+    exporter = OtlpSpanExporter(
+        endpoint, service_name=service, resource_attrs={"replica": replica}
+    )
+    exporter.install()
+    print(f"otlp export: {exporter.endpoint} "
+          f"(service.name={service} replica={replica})", flush=True)
+    return 0
+
+
+def main(argv=None, device=None) -> int:
+    """Run ``argv``'s app. ``device`` goes to ``serve-gateway`` (``None``
+    means ``cuda``; rehearsals on the CPU pass ``"cpu"``)."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    for flag in PLANE_FLAGS:
-        if flag in argv:
-            return _not_ported(flag)
     if "--admin-port" in argv:
         # observability plane: /metrics, /varz, /healthz, /tracez, /slz,
         # /debugz and /profilez on a background thread, span tracing on.
@@ -66,6 +121,12 @@ def main(argv=None) -> int:
         server = start_admin_server(port=port)
         print(f"admin endpoint: {server.url()} "
               "(/metrics /varz /healthz /tracez /profilez)", flush=True)
+    if "--otlp-endpoint" in argv:
+        # OTLP/HTTP span export on a background thread (stdlib urllib);
+        # peeled before app dispatch like --admin-port
+        rc = _otlp(argv)
+        if rc:
+            return rc
     gateway_port = None
     if "--gateway-port" in argv:
         # request plane: `python -m keystone_tpu_torch --gateway-port N`
@@ -95,19 +156,27 @@ def main(argv=None) -> int:
             logging.getLogger(mod).setLevel(logging.DEBUG)
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m keystone_tpu_torch [--debug-optimizer] "
-              "[--admin-port N] [--gateway-port N] <AppName> [app args...]")
+              "[--admin-port N] [--otlp-endpoint URL [--otlp-service S] "
+              "[--otlp-replica R]] [--gateway-port N] <AppName> [app args...]")
         print("apps:")
         for name in sorted(APPS):
             print(f"  {name}")
-        print("  serve-gateway  (HTTP request plane over the demo model, or "
+        print("  serve-gateway  (HTTP request plane over the demo model, "
               "with --device-featurize flagship over the flagship's CUDA-graph "
-              "engines; keystone_tpu_torch/gateway/)")
+              "engines, or with --zoo over a model zoo; --register ROUTER_URL "
+              "joins a fleet; keystone_tpu_torch/gateway/)")
+        print("  serve-router   (the fleet router over serve-gateway replicas: "
+              "least-loaded routing with retry, /fleetz, federated /metrics, "
+              "stitched /debugz; keystone_tpu_torch/fleet/)")
         print("options:")
         print("  --gateway-port N shorthand for `serve-gateway --gateway-port N` "
               "(N=0 picks an ephemeral port)")
         print("  --admin-port N   serve /metrics /varz /healthz /tracez /slz "
               "/debugz /profilez on http://127.0.0.1:N (N=0: ephemeral)")
-        print("not ported yet: " + ", ".join(PLANE_APPS + PLANE_FLAGS))
+        print("  --otlp-endpoint URL  export finished spans to an OTLP/HTTP "
+              "collector's /v1/traces (--otlp-service and --otlp-replica name "
+              "the process)")
+        print("not ported yet: " + ", ".join(PLANE_APPS))
         return 0 if argv else 2
     app = argv[0]
     if app == "serve-gateway":
@@ -116,7 +185,11 @@ def main(argv=None) -> int:
         rest = argv[1:]
         if gateway_port is not None:
             rest = ["--gateway-port", str(gateway_port)] + rest
-        return serve_gateway_main(rest)
+        return serve_gateway_main(rest, device=device)
+    if app == "serve-router":
+        from keystone_tpu_torch.fleet.router import main as serve_router_main
+
+        return serve_router_main(argv[1:])
     if app in PLANE_APPS:
         return _not_ported(app)
     if app not in APPS:

@@ -1,5 +1,5 @@
 """HTTP inference frontend: the network face of the gateway (counterpart
-of ``keystone_tpu/gateway/http.py``, single-model mode).
+of ``keystone_tpu/gateway/http.py``: one model, or a model zoo).
 
 A stdlib ``http.server`` on a background daemon thread, following the
 ``observability/admin.py`` server pattern (nothing to install, ephemeral
@@ -21,11 +21,19 @@ A stdlib ``http.server`` on a background daemon thread, following the
   the caller's trace id, and every response — success AND typed
   shed — echoes it as ``X-Keystone-Trace`` (with tracing on and no
   inbound context, this process roots the trace itself).
-- ``POST /predict/<model>``, ``GET /planz``, ``/attributionz``,
-  ``/driftz`` — the JAX package's model-zoo routes. The port serves one
-  model, so they answer as the JAX gateway does without ``--zoo``: a
-  typed 404 (``unknown_model`` with an empty ``registered`` list, or
-  ``no_zoo``).
+- ``POST /predict/<model>`` — the model-zoo route (``--zoo``): same
+  body, routed to the named model (``zoo/host.py`` ``ModelZoo``) with
+  that model's input dtype; bare ``/predict`` serves the zoo's default
+  model. An unknown id is a typed 404 ``{"error": "unknown_model",
+  "model": ..., "registered": [...]}`` (the fleet router passes it
+  through verbatim). Without ``--zoo`` the route 404s the same way
+  with an empty ``registered`` list.
+- ``GET /planz`` — zoo mode: the applied ``PlacementPlan`` (or none)
+  next to every model's actual shape (resident, lanes, buckets,
+  shared-prefix membership); ``GET /attributionz`` — the per-model
+  device-cost ledger; ``GET /driftz`` — live-vs-plan request-size
+  drift with the re-plan recommendation. Without ``--zoo`` each answers
+  the typed 404 ``no_zoo``, as the JAX gateway does.
 - ``GET /readyz`` — 200 while the gateway admits, 503 once draining.
   READINESS, not liveness: the admin endpoint's ``/healthz`` answers
   "is the process up", this answers "should the load balancer route
@@ -54,8 +62,8 @@ A stdlib ``http.server`` on a background daemon thread, following the
   ``keystone_device_memory_bytes`` and ``keystone_device_info``
   families without an admin port.
 - ``POST /swap`` — force one lifecycle iteration
-  (``Gateway.rebucket(force=True)``); returns the active bucket set.
-  The smoke script's forced-swap drill.
+  (``Gateway.rebucket(force=True)``, or every resident unit's in zoo
+  mode); returns the active bucket set.
 - ``POST /drain`` — begin graceful shutdown in the background;
   ``/readyz`` flips 503 immediately, admitted requests resolve.
 - ``GET /chaosz`` / ``POST /chaosz`` — the fault-injection plane's
@@ -79,12 +87,22 @@ originating POST). Lines go to stdout by default;
 ``--request-log FILE`` (or ``GatewayServer(request_log="path")``)
 appends them line-buffered to a JSONL file instead, so record/replay
 needs no process-output scraping.
+
+``main`` (``serve-gateway``) takes the JAX package's fleet and zoo
+flags: ``--register ROUTER_URL`` (repeatable) self-registers the
+replica with a fleet router (``fleet/router.py``; ``--advertise-url``
+names the URL to register), ``--zoo SPEC.json`` serves a model zoo,
+with ``--optimize`` (host under the placement plan) and
+``--max-resident N`` (LRU cap). On SIGTERM a registered replica
+deregisters from its routers first and then drains, so the routers
+stop sending before it starts refusing (the JAX package drains first).
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import signal
 import sys
 import threading
 import time
@@ -124,8 +142,7 @@ logger = logging.getLogger(__name__)
 # with their own deadline wait deadline + slack instead
 RESULT_TIMEOUT_S = 60.0
 
-# the JAX gateway's model-zoo GET routes, answered as it answers them
-# when started without --zoo
+# the model-zoo GET routes' answers without --zoo, as the JAX gateway's
 NO_ZOO_DETAIL = {
     "/planz": "started without --zoo; /planz reports the model-zoo "
               "placement plan",
@@ -135,12 +152,11 @@ NO_ZOO_DETAIL = {
                "workload drift and the re-plan recommendation",
 }
 
-# serve-gateway flags of the JAX package that wait for the zoo, the
-# online lifecycle, model sharding, the fleet and the AOT store
+# serve-gateway flags of the JAX package that wait for the online
+# lifecycle, model sharding and the AOT store
 UNPORTED_FLAGS = (
-    "--zoo", "--optimize", "--max-resident", "--refit", "--refit-interval-s",
-    "--refit-min-samples", "--canary-fraction", "--shard-model", "--mesh-model",
-    "--register", "--advertise-url", "--aot-cache",
+    "--refit", "--refit-interval-s", "--refit-min-samples", "--canary-fraction",
+    "--shard-model", "--mesh-model", "--aot-cache",
 )
 
 
@@ -166,15 +182,34 @@ class _Handler(JsonHandler):
         self._send_json({"error": error, **extra}, code=code)
 
     @property
+    def zoo(self):
+        return self.server.zoo  # type: ignore[attr-defined]
+
+    @property
     def gateway(self) -> Gateway:
-        return self.server.gateway  # type: ignore[attr-defined]
+        gw = self.server.gateway  # type: ignore[attr-defined]
+        if gw is None:
+            # zoo mode: single-gateway routes act on the DEFAULT
+            # model's unit
+            zoo = self.zoo
+            return zoo.gateway_for(zoo.registry.default_id)
+        return gw
 
     def do_GET(self) -> None:  # noqa: N802 (stdlib handler API)
         url = urlparse(self.path)
         path = url.path
         self._trace_id = None  # per-request (keep-alive safety)
         try:
-            if path == "/readyz":
+            if path == "/readyz" and self.zoo is not None:
+                # zoo readiness: every RESIDENT unit admitting; load
+                # is the sum across units (cold models hold no queue)
+                zoo = self.zoo
+                load_headers = {"X-Keystone-Load": str(zoo.total_load())}
+                if zoo.ready:
+                    self._send_text(200, "ok\n", headers=load_headers)
+                else:
+                    self._send_text(503, "draining\n", headers=load_headers)
+            elif path == "/readyz":
                 # the load-report header: queued + in-lane requests,
                 # so the fleet router's probe reads this replica's
                 # routing load without a full /metrics scrape
@@ -215,12 +250,18 @@ class _Handler(JsonHandler):
                     registry.collect(), self.headers.get("Accept")
                 )
                 self._send(200, body.encode("utf-8"), ctype)
-            elif path in NO_ZOO_DETAIL:
+            elif path in NO_ZOO_DETAIL and self.zoo is None:
                 # single-model deployment: the zoo routes answer as the
                 # JAX gateway's do without --zoo
                 self._send_error_json(
                     404, "no_zoo", detail=NO_ZOO_DETAIL[path],
                 )
+            elif path == "/planz":
+                self._send_json(self.zoo.planz(), indent=1)
+            elif path == "/attributionz":
+                self._send_json(self.zoo.attributionz(), indent=1)
+            elif path == "/driftz":
+                self._send_json(self.zoo.driftz(), indent=1)
             elif path == "/slz":
                 self._send_json(slo_mod.slz_status(), indent=1)
             elif path == "/debugz":
@@ -311,8 +352,8 @@ class _Handler(JsonHandler):
                 else meta.get("deadline_ms")
             ),
             "post_seq": meta.get("post_seq"),
-            # the JAX gateway's zoo field: always None here (the bare
-            # single-model route)
+            # zoo mode: which named model served the instance (None on
+            # the bare single-model route; replay targets the same id)
             "model": meta.get("model"),
         }
         if error is not None:
@@ -351,16 +392,22 @@ class _Handler(JsonHandler):
                     404, "no_lifecycle", detail="started without --refit",
                 )
             elif path == "/swap":
-                swapped = self.gateway.rebucket(force=True)
-                self._send_json(
-                    {
-                        "swapped": swapped,
-                        "buckets": list(self.gateway.buckets),
-                    }
-                )
+                if self.zoo is not None:
+                    self._send_json({"swapped": self.zoo.rebucket(force=True)})
+                else:
+                    swapped = self.gateway.rebucket(force=True)
+                    self._send_json(
+                        {
+                            "swapped": swapped,
+                            "buckets": list(self.gateway.buckets),
+                        }
+                    )
             elif path == "/drain":
                 threading.Thread(
-                    target=self.gateway.close,
+                    target=(
+                        self.zoo.close if self.zoo is not None
+                        else self.gateway.close
+                    ),
                     name="keystone-gateway-drain",
                     daemon=True,
                 ).start()
@@ -458,7 +505,27 @@ class _Handler(JsonHandler):
             self._trace_id = ctx.trace_id
         elif get_tracer().enabled:
             self._trace_id = new_trace_id()
-        if model_id is not None:
+        # model resolution before the body parse: an unknown id is a
+        # typed 404 regardless of payload shape, and the error carries
+        # the registered ids so the client can correct itself
+        zoo = self.zoo
+        if zoo is not None:
+            from keystone_tpu_torch.zoo.registry import UnknownModel
+
+            try:
+                model_id, spec = zoo.resolve(model_id)
+            except UnknownModel as e:
+                self._send_error_json(
+                    404, "unknown_model", model=e.model_id,
+                    registered=list(e.registered),
+                )
+                return
+            dtype = np.dtype(spec.input_dtype)
+
+            def submit(ex, **kw):
+                return zoo.predict(ex, model_id, **kw)
+
+        elif model_id is not None:
             # single-model deployment: no named routes exist at all
             self._send_error_json(
                 404, "unknown_model", model=model_id, registered=[],
@@ -466,8 +533,9 @@ class _Handler(JsonHandler):
                        "--zoo); POST bare /predict",
             )
             return
-        dtype = self.server.input_dtype  # type: ignore[attr-defined]
-        submit = self.gateway.predict
+        else:
+            dtype = self.server.input_dtype  # type: ignore[attr-defined]
+            submit = self.gateway.predict
         try:
             doc = json.loads(self._read_body() or b"{}")
             instances = doc["instances"]
@@ -506,6 +574,10 @@ class _Handler(JsonHandler):
             "post_seq": next_post_seq(),
             "model": model_id,
         }
+        if zoo is not None:
+            # one drift observation per POST: the request's SIZE is its
+            # instance count, the unit of the planner's histograms
+            zoo.observe_request(model_id, len(examples))
         # admit every instance BEFORE waiting on any: concurrent
         # instances coalesce into shared micro-batch windows. Every
         # instance of one POST shares the POST's trace id — the span
@@ -573,22 +645,24 @@ class _Handler(JsonHandler):
 
 
 class GatewayServer(BackgroundServer, device_obs.MemorySamplerHost):
-    """The inference frontend over one ``Gateway``. ``start()`` binds
-    and serves on a daemon thread; ``stop()`` shuts the listener down
-    (the gateway itself drains via ``Gateway.close``/``/drain``)."""
+    """The inference frontend over one ``Gateway`` or one ``ModelZoo``.
+    ``start()`` binds and serves on a daemon thread; ``stop()`` shuts the
+    listener down (the gateway itself drains via
+    ``Gateway.close``/``/drain``)."""
 
     handler_cls = _Handler
     thread_name = "keystone-gateway-http"
 
     def __init__(
         self,
-        gateway: Gateway,
+        gateway: Optional[Gateway] = None,
         port: int = 0,
         host: str = "127.0.0.1",
         registry=None,
         input_dtype: Any = np.float32,
         request_log: Any = False,
         chaos_routes: bool = True,
+        zoo=None,
     ):
         """``request_log``: falsy = off; True = one JSON line per
         /predict instance on stdout; a path string = append the lines
@@ -596,9 +670,17 @@ class GatewayServer(BackgroundServer, device_obs.MemorySamplerHost):
         removes the /chaosz fault-injection surface from this
         frontend (a production deployment that is not a chaos
         experiment shouldn't expose sabotage routes to anyone who
-        can reach /predict)."""
+        can reach /predict). ``zoo`` (a ``ModelZoo``) replaces
+        ``gateway``: /predict/<model> routes by id, bare /predict
+        serves the default model with ITS input dtype, and /planz,
+        /attributionz and /driftz answer from the zoo."""
+        if (gateway is None) == (zoo is None):
+            raise ValueError(
+                "GatewayServer wants exactly one of gateway= or zoo="
+            )
         super().__init__(port=port, host=host)
         self.gateway = gateway
+        self.zoo = zoo
         self.registry = (
             registry if registry is not None else get_global_registry()
         )
@@ -614,6 +696,7 @@ class GatewayServer(BackgroundServer, device_obs.MemorySamplerHost):
 
     def _configure(self, httpd) -> None:
         httpd.gateway = self.gateway
+        httpd.zoo = self.zoo
         httpd.registry = self.registry
         httpd.input_dtype = self.input_dtype
         httpd.request_log = self.request_log
@@ -635,12 +718,68 @@ class GatewayServer(BackgroundServer, device_obs.MemorySamplerHost):
         self._request_log.close()
 
 
+def register_with_router(
+    router_url: str,
+    own_url: str,
+    attempts: int = 30,
+    interval_s: float = 1.0,
+    cancel: Optional[threading.Event] = None,
+    models=None,
+) -> bool:
+    """POST this gateway's base URL to a fleet router's ``/registerz``
+    (``serve-gateway --register``). Retries: replicas and their router
+    launch concurrently, so the router may not be listening yet — the
+    registration is idempotent per URL, a later success is as good as
+    a first one. ``cancel`` stops the retry loop: the retirement path
+    sets it before deregistering, or a straggling retry could
+    re-register a replica that is already exiting. ``models``
+    advertises the zoo model ids this replica serves (zoo mode) so
+    the router can route ``/predict/<model>`` to it."""
+    from keystone_tpu_torch.fleet.client import REGISTER_ROUTE, post_roster
+
+    for attempt in range(attempts):
+        if cancel is not None and cancel.is_set():
+            return False
+        try:
+            post_roster(
+                router_url, REGISTER_ROUTE, own_url, timeout_s=10,
+                models=models,
+            )
+            logger.info(
+                "registered %s with router %s", own_url, router_url
+            )
+            return True
+        except Exception as e:
+            if attempt == attempts - 1:
+                logger.warning(
+                    "could not register with router %s after %d "
+                    "attempts: %s", router_url, attempts, e,
+                )
+            if cancel is not None:
+                if cancel.wait(interval_s):
+                    return False
+            else:
+                time.sleep(interval_s)
+    return False
+
+
+def deregister_from_router(router_url: str, own_url: str) -> bool:
+    """POST this gateway's base URL to a fleet router's
+    ``/deregisterz`` — the exit half of ``register_with_router``. ONE
+    short attempt (``fleet/client.try_deregister``): a dead router must
+    not stall a process exit."""
+    from keystone_tpu_torch.fleet.client import try_deregister
+
+    return try_deregister(router_url, own_url, timeout_s=3.0)
+
+
 def main(argv=None, device=None) -> int:
     """``python -m keystone_tpu_torch serve-gateway [--gateway-port N] ...``
     — stand up the request plane over the demo model (``serving/bench.py``
-    ``build_pipeline``), or over a featurize chain and the demo model
-    with ``--device-featurize``, on ``device`` (``None`` means ``cuda``,
-    which raises when it is missing; tests pass ``device="cpu"``)."""
+    ``build_pipeline``), over a featurize chain and the demo model with
+    ``--device-featurize``, or over a model zoo with ``--zoo``, on
+    ``device`` (``None`` means ``cuda``, which raises when it is missing;
+    tests pass ``device="cpu"``)."""
     import argparse
 
     from keystone_tpu_torch._device import resolve_device
@@ -694,6 +833,42 @@ def main(argv=None, device=None) -> int:
                     help="disable the /chaosz fault-injection routes "
                     "on this frontend (faults stay armable in-process "
                     "via code/env)")
+    ap.add_argument("--register", action="append", default=[],
+                    metavar="ROUTER_URL",
+                    help="self-register this replica with a fleet "
+                    "router (POST {url} to ROUTER_URL/registerz, "
+                    "retried in the background; repeatable). The "
+                    "router probes /readyz and scrapes /metrics from "
+                    "then on; on SIGTERM the replica deregisters, then "
+                    "drains")
+    ap.add_argument("--advertise-url", default=None, metavar="URL",
+                    help="the base URL to register (and for the "
+                    "router to reach this replica at); the default "
+                    "advertises the BIND address")
+    ap.add_argument("--zoo", default=None, metavar="SPEC.json",
+                    help="serve a MODEL ZOO instead of one model: a "
+                    "JSON spec of named models (keystone_tpu_torch/zoo/"
+                    "registry.py has the format). POST /predict/<model> "
+                    "routes by id, bare /predict serves the spec's "
+                    "default model, GET /planz reports plan-vs-actual. "
+                    "Co-hosted models with IDENTICAL featurize chains "
+                    "share one engine that computes the prefix once per "
+                    "window, one CUDA graph per bucket. Ignores the "
+                    "single-model flags (--d/--hidden/--depth/"
+                    "--device-featurize/--buckets/--lanes)")
+    ap.add_argument("--optimize", action="store_true",
+                    help="with --zoo: run the placement optimizer "
+                    "(zoo/optimizer.py) over the spec's expected-size "
+                    "histograms, measured param bytes and the card's "
+                    "memory, and host each model with the PLANNED "
+                    "buckets/lanes")
+    ap.add_argument("--max-resident", type=int, default=None,
+                    metavar="N",
+                    help="with --zoo: cap how many models hold engines "
+                    "at once; over the cap the least-recently-used "
+                    "unpinned model is evicted (drains in the background, "
+                    "its graphs released) and pages back in on its next "
+                    "request (default: all models resident)")
     ap.add_argument("--d", type=int, default=256)
     ap.add_argument("--hidden", type=int, default=512)
     ap.add_argument("--depth", type=int, default=4)
@@ -720,8 +895,8 @@ def main(argv=None, device=None) -> int:
                     "(each lane captures its CUDA graphs at warmup)")
     unported = sorted({a.split("=")[0] for a in argv} & set(UNPORTED_FLAGS))
     if unported:
-        print(f"{', '.join(unported)}: not ported yet (the port's gateway "
-              "serves one model on one card)", flush=True)
+        print(f"{', '.join(unported)}: not ported yet (the port has no "
+              "online lifecycle, model sharding or AOT store)", flush=True)
         return 2
     args = ap.parse_args(argv)
     dev = resolve_device(device)
@@ -735,7 +910,40 @@ def main(argv=None, device=None) -> int:
 
     featurize = None
     input_dtype = np.float32
-    if args.device_featurize:
+    zoo = None
+    gateway = None
+    if args.zoo:
+        from keystone_tpu_torch.zoo import ModelZoo, load_zoo_spec
+
+        model_registry = load_zoo_spec(args.zoo, device=dev)
+        zoo = ModelZoo(model_registry, max_resident=args.max_resident, device=dev)
+        if args.optimize:
+            from keystone_tpu_torch.observability.device import chip_hbm_bytes
+            from keystone_tpu_torch.zoo.optimizer import ChipBudget, plan_placement
+
+            # plan BEFORE hosting: profiles(build=True) materializes
+            # params so params_nbytes is measured, not guessed; apply_plan
+            # pins each profile's histogram as the drift baseline
+            profiles = zoo.profiles(build=True)
+            budget = ChipBudget(hbm_bytes=chip_hbm_bytes(), n_chips=1)
+            zoo.apply_plan(
+                plan_placement(profiles, budget),
+                budget=budget,
+                profiles=profiles,
+            )
+            print(json.dumps({"plan": zoo.plan.to_dict()}), flush=True)
+        if args.max_resident is None:
+            # everything resident up-front: one host() call, so CSE
+            # groups form across the whole spec
+            zoo.host()
+        else:
+            # capped: warm the pinned set + the default model now,
+            # the rest page in on first request
+            want = [s.model_id for s in model_registry if s.pinned]
+            if model_registry.default_id not in want:
+                want.append(model_registry.default_id)
+            zoo.host(want)
+    elif args.device_featurize:
         from keystone_tpu_torch.serving.featurize import (
             build_featurize_pipeline,
             build_flagship_featurize_pipeline,
@@ -752,31 +960,32 @@ def main(argv=None, device=None) -> int:
         args.d = feat_d  # the model consumes the featurize output
         warmup_example = torch.zeros((args.img, args.img, 3), dtype=torch.uint8)
         input_dtype = np.uint8
-    else:
-        warmup_example = torch.zeros((args.d,), dtype=torch.float32)
-    fitted = build_pipeline(
-        d=args.d, hidden=args.hidden, depth=args.depth, device=dev
-    )
-    gateway = Gateway(
-        fitted,
-        buckets=tuple(int(b) for b in args.buckets.split(",")),
-        n_lanes=args.lanes,
-        max_delay_ms=args.max_delay_ms,
-        pipeline_depth=args.pipeline_depth,
-        device_featurize=featurize,
-        device=dev,
-        warmup_example=warmup_example,
-        max_pending=args.max_pending,
-        default_deadline_ms=args.deadline_ms,
-        maintenance_interval_s=args.rebucket_interval,
-        slo_latency_s=(
-            args.slo_latency_ms / 1e3
-            if args.slo_latency_ms is not None else None
-        ),
-        slo_target=args.slo_target,
-        flight_capacity=args.flight_capacity,
-    )
-    gateway.install_signal_handlers()
+    if zoo is None:
+        if not args.device_featurize:
+            warmup_example = torch.zeros((args.d,), dtype=torch.float32)
+        fitted = build_pipeline(
+            d=args.d, hidden=args.hidden, depth=args.depth, device=dev
+        )
+        gateway = Gateway(
+            fitted,
+            buckets=tuple(int(b) for b in args.buckets.split(",")),
+            n_lanes=args.lanes,
+            max_delay_ms=args.max_delay_ms,
+            pipeline_depth=args.pipeline_depth,
+            device_featurize=featurize,
+            device=dev,
+            warmup_example=warmup_example,
+            max_pending=args.max_pending,
+            default_deadline_ms=args.deadline_ms,
+            maintenance_interval_s=args.rebucket_interval,
+            slo_latency_s=(
+                args.slo_latency_ms / 1e3
+                if args.slo_latency_ms is not None else None
+            ),
+            slo_target=args.slo_target,
+            flight_capacity=args.flight_capacity,
+        )
+    plane = zoo if zoo is not None else gateway
     # chaos experiments can pre-arm fault points from the environment
     # (KEYSTONE_FAULTS="point=k:v,... ..."); absent env is a no-op.
     # This must run AFTER the Gateway exists: trigger points
@@ -789,29 +998,80 @@ def main(argv=None, device=None) -> int:
         input_dtype=input_dtype,
         request_log=args.request_log,
         chaos_routes=not args.no_chaosz,
+        zoo=zoo,
     ).start()
+    advertised = args.advertise_url or server.url().rstrip("/")
+    # set on retirement, BEFORE deregistering: a registration retry that
+    # outlives it must not re-add this replica to the roster
+    cancel_registration = threading.Event()
+    retire_lock = threading.Lock()
+
+    def retire() -> None:
+        """Leave every router's roster, then drain: the routers stop
+        forwarding before this replica starts refusing with 503. Runs
+        once; a second caller waits for the first."""
+        with retire_lock:
+            if cancel_registration.is_set():
+                return
+            cancel_registration.set()
+            for router_url in args.register:
+                deregister_from_router(router_url, advertised)
+            plane.close()
+
+    def handle(signum, frame):
+        logger.info("gateway: signal %d, deregistering and draining", signum)
+        threading.Thread(target=retire, name="keystone-gateway-retire",
+                         daemon=True).start()
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            signal.signal(sig, handle)
+        except ValueError:
+            pass  # not the main thread (embedded use)
     # the machine-parseable bound-address line FIRST: with --port 0
     # (ephemeral — no port races) smoke scripts read the actual
     # address off this one JSON line
     print(
         json.dumps(
-            {"listening": server.url().rstrip("/"), "role": "gateway"}
+            {
+                "listening": server.url().rstrip("/"),
+                "role": "gateway",
+                **({"models": list(zoo.registry.ids())} if zoo is not None else {}),
+            }
         ),
         flush=True,
     )
+    zoo_routes = (
+        "POST /predict/<model>, GET /planz, GET /attributionz, "
+        "GET /driftz, " if zoo is not None else ""
+    )
     print(
-        f"gateway: {server.url()} (POST /predict, "
+        f"gateway: {server.url()} (POST /predict, {zoo_routes}"
         "GET /readyz, GET /metrics, GET /slz, GET /debugz, "
         "GET /profilez, POST /swap, POST /drain, GET|POST /chaosz)",
         flush=True,
     )
+    for router_url in args.register:
+        # background: registration retries must not delay serving. Zoo
+        # mode advertises the registry's model ids so the router can
+        # route /predict/<model> here.
+        threading.Thread(
+            target=register_with_router,
+            args=(router_url, advertised),
+            kwargs={
+                "cancel": cancel_registration,
+                "models": list(zoo.registry.ids()) if zoo is not None else None,
+            },
+            name="keystone-gateway-register",
+            daemon=True,
+        ).start()
     try:
-        while gateway.ready:
+        while plane.ready:
             time.sleep(0.5)
     except KeyboardInterrupt:
         pass
-    # finish the drain (stop admitting, resolve in-flight windows), then
-    # stop the listener
-    gateway.close()
+    # a /drain or a signal ended the loop: finish the retirement (or
+    # wait for the signal's), then stop the listener
+    retire()
     server.stop()
     return 0

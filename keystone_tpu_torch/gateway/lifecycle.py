@@ -43,9 +43,10 @@ state is surfaced in ``/readyz``'s body (still 200 — burning is a
 Not ported yet: ``param_sharding`` (one card holds the model whole) and
 ``aot_store`` (a CUDA graph cannot be serialized); either one given as
 anything but its default raises ``NotImplementedError``.
-The JAX gateway's hooks for the online lifecycle and the zoo
-(``build_model_batcher``, ``swap_model``, ``engine_factory=``) come with
-those modules.
+``engine_factory=`` is the zoo's seam (``zoo/host.py`` builds
+shared-prefix engines through it); the JAX gateway's hooks for the
+online lifecycle (``build_model_batcher``, ``swap_model``) come with that
+module.
 """
 
 from __future__ import annotations
@@ -135,6 +136,11 @@ class Gateway:
     param_sharding,
     aot_store:         not ported yet; anything but the default raises
                        ``NotImplementedError``.
+    engine_factory:    optional override, ``callable(buckets) ->
+                       (lane_name -> engine)`` — replaces the
+                       ``fitted.compiled()`` factory for every engine
+                       generation (the zoo builds shared-prefix
+                       multi-head engines through this seam).
     device:            where every lane engine stages and runs (the
                        fitted pipeline's parameters must live there);
                        ``None`` means ``cuda``.
@@ -179,6 +185,7 @@ class Gateway:
         param_sharding=None,
         aot_store="auto",
         device=None,
+        engine_factory=None,
         max_pending: int = 1024,
         default_deadline_ms: Optional[float] = None,
         maintenance_interval_s: Optional[float] = None,
@@ -214,6 +221,7 @@ class Gateway:
         # initial lanes, rebucket replacements, and warm-pool swaps all
         # carry the same device-side featurize stage
         self._device_featurize = device_featurize
+        self._engine_factory = engine_factory
         self._rebucket_k = rebucket_k or len(self._buckets)
         self.metrics = GatewayMetrics(registry=registry, gateway=name)
         if resolve_device(device).type == "cuda":
@@ -310,6 +318,9 @@ class Gateway:
             self._maint.start()
 
     def _factory_for(self, buckets):
+        if self._engine_factory is not None:
+            return self._engine_factory(buckets)
+
         def factory(lane_name: str):
             return self.fitted.compiled(
                 buckets=buckets, name=lane_name,

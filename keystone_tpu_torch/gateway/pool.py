@@ -31,8 +31,9 @@ replica set needs beyond execution:
   callers. Deterministically-bad requests still fail: the retry lane
   reproduces the error and it propagates.
 
-The JAX pool's hooks for the online lifecycle and the zoo (shadow
-mirror, canary router, ``pick``, ``status``) come with those modules.
+``status()`` is the zoo's ``/planz`` snapshot of a pool. The JAX pool's
+hooks for the online lifecycle (shadow mirror, canary router, ``pick``)
+come with that module.
 
 ``swap()`` is the live-engine-replacement primitive the lifecycle loop
 drives: build + warm replacements for every lane FIRST (any failure
@@ -211,6 +212,18 @@ class EnginePool:
             )
             for i in range(n_lanes)
         ]
+
+    def status(self) -> dict:
+        """One inspection snapshot per pool — what ``/planz`` reports
+        as a model's ACTUAL placement (lane count, the lanes' current
+        bucket list, health/load) next to the optimizer's plan."""
+        return {
+            "lanes": len(self.lanes),
+            "healthy_lanes": self.healthy_lanes(),
+            "buckets": list(self.lanes[0].engine.buckets),
+            "free_capacity": self.free_capacity(),
+            "total_load": self.total_load(),
+        }
 
     def lane_name(self, index: int) -> str:
         return f"{self.name}-lane{index}"

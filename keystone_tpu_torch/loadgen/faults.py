@@ -34,8 +34,7 @@ raises ``FaultInjected``, a stall point sleeps ``delay_ms``, and a
 **trigger** point (``gateway.swap.force``) invokes callbacks registered
 by the component (arming it IS the event). The catalog below is the
 contract the ``/chaosz`` route validates against: the JAX package's
-points of the telemetry exporter, the fleet router and the online
-lifecycle wait for those modules.
+points but the online lifecycle's, which waits for that module.
 """
 
 from __future__ import annotations
@@ -66,6 +65,39 @@ FAULT_POINTS: Dict[str, str] = {
         "error @ serving/engine.py compute_staged — the bucket "
         "dispatch raises, failing the whole window "
         "(match: engine=<name>)"
+    ),
+    "otlp.export.blackhole": (
+        "drop @ observability/otlp.py — span batches are dropped "
+        "instead of POSTed, simulating a dead collector with zero "
+        "connect/timeout cost"
+    ),
+    "router.replica.blackhole": (
+        "drop @ fleet/router.py _forward — the fleet router drops "
+        "the matched replica's /predict responses after the replica "
+        "did the work (a return-path partition); the router's "
+        "retry-on-another-replica + replica health machinery must "
+        "absorb it (match: replica=<host:port> or index=<registration "
+        "order>)"
+    ),
+    "router.replica.partition": (
+        "error @ fleet/router.py _forward — the router<->replica "
+        "link is severed BEFORE the forward dials (the matched "
+        "replica never sees the request; the request-path complement "
+        "of router.replica.blackhole's return-path drop). The "
+        "router's retry-on-another-replica + replica health must "
+        "absorb it like a connection refusal — the autoscale drill "
+        "partitions a replica mid-scale-up and the loadgen verdict "
+        "must stay green (match: replica=<host:port> or "
+        "index=<registration order>)"
+    ),
+    "router.trace.drop": (
+        "drop @ fleet/router.py _predict — the W3C traceparent "
+        "header is stripped off the matched forward, so the replica "
+        "never sees the router's trace id and mints its own; serving "
+        "must be unaffected and the router's /debugz stitch must "
+        "degrade to a partial router-side tree counted on "
+        "keystone_trace_stitch_partial_total (match: "
+        "replica=<host:port> or index=<registration order>)"
     ),
     "gateway.swap.force": (
         "trigger @ gateway/lifecycle.py — arming forces one live "

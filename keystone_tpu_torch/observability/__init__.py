@@ -15,8 +15,10 @@
 - ``device.py``: the card's table, the device-info gauge and the memory
   sampler.
 
-The JAX package's span stitching, OTLP export, attribution and drift
-modules wait for the fleet and the zoo.
+- ``otlp.py``: OTLP/HTTP span export; ``stitch.py``: the fleet router's
+  cross-process trace stitching and phase decomposition.
+- ``attribution.py``: the per-model device-cost ledger; ``drift.py``: live
+  request-size mixtures scored against the placement plan's (the zoo).
 """
 
 from keystone_tpu_torch.observability.admin import (
@@ -25,13 +27,22 @@ from keystone_tpu_torch.observability.admin import (
     start_admin_server,
     stop_admin_server,
 )
+from keystone_tpu_torch.observability.attribution import (
+    AttributionLedger,
+    EngineAttribution,
+    RowClaimQueue,
+    attribution_document,
+    attribution_from_samples,
+)
 from keystone_tpu_torch.observability.device import (
     DeviceMemorySampler,
     device_memory_stats,
     device_table,
     peaks_for,
 )
+from keystone_tpu_torch.observability.drift import DriftDetector, psi
 from keystone_tpu_torch.observability.flight import FlightRecord, FlightRecorder
+from keystone_tpu_torch.observability.otlp import OtlpSpanExporter
 from keystone_tpu_torch.observability.registry import (
     DEFAULT_HISTOGRAM_BUCKETS,
     Exemplar,
@@ -43,6 +54,11 @@ from keystone_tpu_torch.observability.registry import (
     reset_global_registry,
 )
 from keystone_tpu_torch.observability.slo import Slo, SloMonitor
+from keystone_tpu_torch.observability.stitch import (
+    StitchedTrace,
+    TraceStitcher,
+    phase_decomposition,
+)
 from keystone_tpu_torch.observability.tracing import (
     Span,
     TraceContext,
@@ -56,8 +72,19 @@ from keystone_tpu_torch.observability.tracing import (
 
 __all__ = [
     "AdminServer",
+    "AttributionLedger",
     "DEFAULT_HISTOGRAM_BUCKETS",
     "DeviceMemorySampler",
+    "DriftDetector",
+    "EngineAttribution",
+    "OtlpSpanExporter",
+    "RowClaimQueue",
+    "StitchedTrace",
+    "TraceStitcher",
+    "attribution_document",
+    "attribution_from_samples",
+    "phase_decomposition",
+    "psi",
     "Exemplar",
     "FlightRecord",
     "FlightRecorder",

@@ -48,8 +48,12 @@ def _leading_dim(tree: Any) -> int:
 
 
 def _tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """``fn`` over the leaves of a tree of tuples and dicts (a shared
+    prefix's outputs are a dict keyed by model id), keeping its shape."""
     if isinstance(tree, tuple):
         return tuple(_tree_map(fn, t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, t) for k, t in tree.items()}
     return fn(tree)
 
 

@@ -372,6 +372,26 @@ class CompiledPipeline:
             a.record_stream(caller)
         return valid
 
+    def release_graphs(self) -> int:
+        """Drop every captured graph and its private memory pool, once no
+        window will dispatch here again (a zoo unit's lanes are closed).
+        Waits only for this engine's own compute stream, and does not
+        empty the caching allocator (``empty_cache`` would synchronize
+        the whole card, other units' replays included): the freed pool
+        stays reserved until the next ``empty_cache``, which every
+        capture calls first. Returns the number of graphs released; a
+        later dispatch captures anew."""
+        with self._fn_lock, self._replay_lock:
+            graphs = list(self._graphs.values())
+            self._graphs.clear()
+            if graphs and self.device.type == "cuda":
+                self._compute_stream.synchronize()
+            for g in graphs:
+                g.static_in = g.static_out = None
+                g.refs.clear()
+                g.graph.reset()
+        return len(graphs)
+
     def graph_report(self) -> List[Dict[str, Any]]:
         """One entry per captured graph: bucket, capture seconds (warm
         pass included), the bytes its private memory pool reserved, and
@@ -489,6 +509,10 @@ def _spec_map(fn, spec: Any) -> Any:
 
 
 def _zip_cat(outs: List[Any]) -> Any:
+    """Concatenate chunked outputs leaf by leaf (tuples, and a shared
+    prefix's dict of heads)."""
+    if isinstance(outs[0], dict):
+        return {k: _zip_cat([o[k] for o in outs]) for k in outs[0]}
     if isinstance(outs[0], tuple):
         return tuple(_zip_cat([o[i] for o in outs]) for i in range(len(outs[0])))
     return torch.cat(outs, dim=0)

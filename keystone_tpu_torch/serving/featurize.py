@@ -15,10 +15,17 @@ Two chains:
 Parameters are drawn from ``np.random.default_rng(seed)`` in the same
 order as the JAX package (for the flagship: SIFT's PCA, SIFT's GMM means,
 then LCS's), so both packages freeze identical parameters from one seed.
+
+``pipeline_token`` (the JAX package's ``serving/aot.py:161``; it lives
+here until the port has an AOT module) and ``featurize_token`` are the
+content digest of a fitted pipeline: the zoo's proof that two co-hosted
+models' featurize chains compute the same function (``zoo/cse.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 from typing import Any, Optional, Tuple, Union
 
 import numpy as np
@@ -251,10 +258,104 @@ def build_flagship_featurize_pipeline(
     return pipe.fit(), 2 * 2 * desc_dim * vocab
 
 
+def _hash_update(h, value: Any) -> None:
+    """Fold one operator attribute into a pipeline token, every component
+    framed (a type tag and a terminator: unframed, ``(1, 23)`` and
+    ``(12, 3)`` would both fold to ``123``). Tensors and arrays hash by
+    shape, dtype and bytes, read on the host, so a tensor on the card and
+    its copy on the CPU hash alike; containers and nested dataclasses (a
+    Fisher vector's GMM) recurse; primitives hash by repr; anything else
+    contributes its type name only."""
+    if isinstance(value, torch.Tensor):
+        t = value.detach().cpu().contiguous()
+        h.update(b"a<" + str(tuple(t.shape)).encode() + b"|" + str(t.dtype).encode() + b"|")
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+        h.update(b">")
+    elif isinstance(value, (np.ndarray, np.generic)):
+        arr = np.asarray(value)
+        h.update(b"a<" + str(arr.shape).encode() + b"|" + str(arr.dtype).encode() + b"|")
+        h.update(arr.tobytes())
+        h.update(b">")
+    elif isinstance(value, (str, bytes, int, float, bool, type(None))):
+        h.update(b"p<" + repr(value).encode() + b">")
+    elif isinstance(value, dict):
+        h.update(b"d<")
+        for k in sorted(value, key=repr):
+            h.update(b"k<" + repr(k).encode() + b">")
+            _hash_update(h, value[k])
+        h.update(b">")
+    elif isinstance(value, (list, tuple)):
+        h.update(b"l<")
+        for v in value:
+            _hash_update(h, v)
+        h.update(b">")
+    elif dataclasses.is_dataclass(value) and not isinstance(value, type):
+        h.update(b"o<" + type(value).__qualname__.encode() + b"|")
+        for f in dataclasses.fields(value):
+            h.update(b"f<" + f.name.encode() + b">")
+            _hash_update(h, getattr(value, f.name, None))
+        h.update(b">")
+    else:
+        h.update(b"t<" + type(value).__qualname__.encode() + b">")
+
+
+def operator_state(op) -> dict:
+    """One operator's parameters by name: its declared dataclass fields
+    (transformers are dataclasses whose fields are their parameters),
+    else its ``__dict__``, without the underscore-prefixed caches that
+    appear once it has run."""
+    if dataclasses.is_dataclass(op):
+        state = {f.name: getattr(op, f.name, None) for f in dataclasses.fields(op)}
+    else:
+        state = getattr(op, "__dict__", None) or {}
+    return {k: v for k, v in state.items() if not k.startswith("_")}
+
+
+def pipeline_token(fitted) -> str:
+    """Content digest of a ``FittedPipeline``: for each node in
+    topological order its id and its dependencies (the wiring), its
+    operator's class and every declared field (parameters by shape, dtype
+    and bytes; ``operator_state``), then the sink. Equal tokens mean the
+    same operators, wired the same way, with the same parameters.
+    Memoized on the pipeline (a ``FittedPipeline`` does not change once
+    fit)."""
+    cached = getattr(fitted, "_pipeline_token", None)
+    if cached is not None:
+        return cached
+    h = hashlib.sha256()
+    for nid in fitted._topo:
+        op = fitted.graph.operators[nid]
+        h.update(
+            b"n<" + repr(nid).encode() + b"|"
+            + ",".join(repr(d) for d in fitted.graph.dependencies[nid]).encode()
+            + b">"
+        )
+        h.update(b"op<" + type(op).__qualname__.encode() + b">")
+        state = operator_state(op)
+        for name in sorted(state):
+            h.update(b"f<" + name.encode() + b">")
+            _hash_update(h, state[name])
+    h.update(b"s<" + repr(fitted.graph.sink_dependencies[fitted.sink]).encode() + b">")
+    token = h.hexdigest()
+    fitted._pipeline_token = token
+    return token
+
+
+def featurize_token(fitted) -> str:
+    """Content digest of a fitted featurize chain: the zoo's grouping key
+    (``zoo/cse.py``). The same digest as ``pipeline_token``: two chains
+    share a prefix only when their operators, wiring and parameters are
+    equal."""
+    return pipeline_token(fitted)
+
+
 __all__ = [
     "build_featurize_pipeline",
     "build_flagship_featurize_pipeline",
+    "featurize_token",
     "flagship_branches",
     "flagship_pipeline",
     "flagship_prefixes",
+    "operator_state",
+    "pipeline_token",
 ]

@@ -73,7 +73,10 @@ _SENTINEL = object()
 
 
 def tree_leaves(tree: Any) -> List[Any]:
-    """The leaves of a tree of (nested) tuples, in order."""
+    """The leaves of a tree of (nested) tuples and dicts, in order (a
+    dict's in its key order, as ``_tree_map`` rebuilds it)."""
+    if isinstance(tree, dict):
+        tree = tuple(tree.values())
     if isinstance(tree, tuple):
         return [leaf for t in tree for leaf in tree_leaves(t)]
     return [tree]

@@ -1,0 +1,148 @@
+"""Cross-model featurize CSE: compute shared prefixes once per window
+(counterpart of ``keystone_tpu/zoo/cse.py``).
+
+KeystoneML's rule engine deduplicates common subexpressions across a
+training DAG; the serving-plane analogue is co-hosted models whose
+fused featurize chains are the SAME chain. Detection is by content,
+not by name: two models share a prefix iff their featurize pipelines'
+``featurize_token``s — the SHA-256 digest of operator classes, wiring,
+and every parameter tensor (``serving/featurize.pipeline_token``) — are
+equal (``featurize_groups``).
+
+``SharedPrefixEngine`` then hosts one whole group behind one engine:
+each bucket's ``_run_bucket`` computes ``feat = featurize(raw)`` ONCE
+and fans the activations out to every member's head, in sorted model
+order —
+
+    {model_a: head_a(feat), model_b: head_b(feat), ...}
+
+— and on the card that whole function is captured as ONE CUDA graph per
+bucket (``serving/engine.py``), so a shared replay launches the
+featurize chain's kernels (B1, B2) as often as one solo flagship replay
+does. Dict outputs ride the window plumbing: the engine clones every
+leaf of the graph's static output, the lanes copy every leaf to the
+host, and each request's future resolves to its own row of every head;
+the zoo picks (or fans out) from it. The engine's own compile/dispatch
+counters are the measurement seam: one capture per bucket and one
+dispatch per window for the whole group, where solo hosting pays one of
+each PER MODEL.
+
+``split_cost_model`` returns None: the port has no compiler cost
+analysis to lower the prefix and each head alone, which is the degraded
+path the JAX package documents — per-model attribution over a shared
+engine falls back to pure row-share splitting
+(``observability/attribution.EngineAttribution``). There is no AOT
+store to keep off (a CUDA graph cannot be serialized), and
+``param_sharding`` raises, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from keystone_tpu_torch.observability.attribution import RowClaimQueue
+from keystone_tpu_torch.serving.engine import CompiledPipeline
+from keystone_tpu_torch.serving.featurize import featurize_token
+
+logger = logging.getLogger(__name__)
+
+
+def featurize_groups(
+    featurizers: Dict[str, Any]
+) -> List[Tuple[str, ...]]:
+    """Group model ids by identical featurize token. ``featurizers``
+    maps model id -> fitted featurize pipeline (models without one
+    simply aren't candidates — pass only those that have one). Returns
+    sorted id tuples, groups of one included: the caller decides that
+    only len >= 2 groups earn a shared engine."""
+    by_token: Dict[str, List[str]] = {}
+    for model_id in sorted(featurizers):
+        fitted = featurizers[model_id]
+        try:
+            token = featurize_token(fitted)
+        except Exception:
+            # an unfingerprintable chain can't PROVE it equals another,
+            # so it never shares
+            logger.info(
+                "cse: featurize of %s not fingerprintable; hosting "
+                "solo", model_id, exc_info=True,
+            )
+            token = f"_unhashable:{model_id}"
+        by_token.setdefault(token, []).append(model_id)
+    return sorted(
+        tuple(ids) for ids in by_token.values()
+    )
+
+
+class SharedPrefixEngine(CompiledPipeline):
+    """One engine serving a whole CSE group. ``heads`` maps model id
+    -> fitted head pipeline; ``featurize`` is the group's (verified
+    identical) fused prefix. Outputs are dicts keyed by model id, one
+    entry per head, from one CUDA graph per bucket (eagerly on the
+    CPU)."""
+
+    def __init__(
+        self,
+        featurize,
+        heads: Dict[str, Any],
+        buckets: Sequence[int],
+        **kwargs,
+    ):
+        if featurize is None:
+            raise ValueError(
+                "SharedPrefixEngine needs the shared featurize prefix"
+            )
+        if len(heads) < 1:
+            raise ValueError("need at least one head")
+        # deterministic head order: the captured graph's output dict
+        # must not depend on dict insertion order at the call site
+        self.heads = {mid: heads[mid] for mid in sorted(heads)}
+        kwargs.pop("aot_store", None)
+        # param sharding binds ONE pipeline's params; host sharded
+        # models solo instead of silently sharding only the primary head
+        if kwargs.get("param_sharding"):
+            raise ValueError(
+                "SharedPrefixEngine does not compose with "
+                "param_sharding; host sharded models solo"
+            )
+        kwargs.pop("param_sharding", None)
+        super().__init__(
+            next(iter(self.heads.values())),
+            buckets,
+            featurize=featurize,
+            **kwargs,
+        )
+        # row claims enqueued at submit time (by the zoo, or directly
+        # when the engine is driven standalone), drained FIFO per
+        # dispatched window; the zoo replaces this with a UNIT-level
+        # queue shared across lanes
+        self.claims = RowClaimQueue()
+
+    # -- attribution seams -------------------------------------------------
+
+    def claim_rows(self, model_id: str, rows: float) -> None:
+        """Declare that ``rows`` of upcoming window traffic belong to
+        ``model_id``."""
+        self.claims.claim(model_id, rows)
+
+    def drain_claims(self, n_valid: float) -> Dict[str, float]:
+        """Consume claims covering ``n_valid`` dispatched rows ->
+        ``{model: rows}`` (see ``RowClaimQueue.drain``)."""
+        return self.claims.drain(n_valid)
+
+    def split_cost_model(
+        self, bucket: int
+    ) -> Optional[Tuple[float, Dict[str, float]]]:
+        """``(prefix_flops, {model: head_flops})`` for one bucket: always
+        None here (no compiler cost analysis), so attribution splits by
+        row share."""
+        return None
+
+    def _run_bucket(self, staged: Any) -> Any:
+        """The shared prefix once, then every head on its output."""
+        feat = self.featurize._batch_run(staged)
+        return {mid: head._batch_run(feat) for mid, head in self.heads.items()}
+
+
+__all__ = ["SharedPrefixEngine", "featurize_groups"]

@@ -270,7 +270,8 @@ def test_metrics_chaosz_and_readyz(demo_pair):
     code, doc = _post(tsrv.url("/chaosz"), {"arm": {"point": "gateway.lane.kill", "count": 1,
                                                     "match": {"lane": 0}}})
     assert code == 200 and "gateway.lane.kill" in doc["armed"]
-    assert _post(tsrv.url("/chaosz"), {"arm": {"point": "router.replica.blackhole"}})[0] == 400
+    # a point of the JAX package's catalog the port does not wire yet
+    assert _post(tsrv.url("/chaosz"), {"arm": {"point": "lifecycle.refit.poison"}})[0] == 400
     code, doc = _post(tsrv.url("/chaosz"), {"disarm": "*"})
     assert code == 200 and doc["armed"] == {}
     code, text = _get(tsrv.url("/readyz"))

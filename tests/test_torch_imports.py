@@ -102,6 +102,16 @@ GATEWAY_MODULES = [
 ]
 
 
+# the fleet tier's and the model zoo's modules, which the walk must reach too
+FLEET_ZOO_MODULES = [
+    "keystone_tpu_torch." + m for m in (
+        "fleet", "fleet.registry", "fleet.client", "fleet.router", "zoo", "zoo.registry",
+        "zoo.optimizer", "zoo.cse", "zoo.host", "observability.otlp", "observability.stitch",
+        "observability.attribution", "observability.drift",
+    )
+]
+
+
 def _port_sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:
@@ -133,6 +143,7 @@ print("HOSTFIT", sorted(n for n in {HOST_FIT_MODULES!r} if n not in sys.modules)
 print("TEXT", sorted(n for n in {TEXT_MODULES!r} if n not in sys.modules))
 print("SLICE12", sorted(n for n in {SLICE12_MODULES!r} if n not in sys.modules))
 print("GATEWAY", sorted(n for n in {GATEWAY_MODULES!r} if n not in sys.modules))
+print("FLEETZOO", sorted(n for n in {FLEET_ZOO_MODULES!r} if n not in sys.modules))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -150,10 +161,12 @@ print("GATEWAY", sorted(n for n in {GATEWAY_MODULES!r} if n not in sys.modules))
     assert "TEXT []" in out.stdout, out.stdout
     assert "SLICE12 []" in out.stdout, out.stdout
     assert "GATEWAY []" in out.stdout, out.stdout
+    assert "FLEETZOO []" in out.stdout, out.stdout
     assert int(re.search(r"LOADED (\d+)", out.stdout).group(1)) >= (
         25 + len(TRAINING_MODULES) + len(SERVING_MODULES) + len(LOADER_MODULES)
         + len(VOC_MODULES) + len(RANDOM_FEATURES_MODULES) + len(HOST_FIT_MODULES)
-        + len(TEXT_MODULES) + len(SLICE12_MODULES) + len(GATEWAY_MODULES))
+        + len(TEXT_MODULES) + len(SLICE12_MODULES) + len(GATEWAY_MODULES)
+        + len(FLEET_ZOO_MODULES))
 
 
 def test_importing_the_gateway_loads_no_jax_and_starts_no_cuda():
@@ -177,6 +190,33 @@ print("BAD", bad, "CUDA", torch.cuda.is_initialized())
     )
     assert out.returncode == 0, out.stderr
     assert "BAD [] CUDA False" in out.stdout, out.stdout
+
+
+def test_importing_the_fleet_and_the_zoo_loads_no_jax_and_starts_no_cuda():
+    """The router, the zoo and their observability import without JAX or
+    a CUDA context; a spec file loads into a registry without touching a
+    device (params materialize at page-in)."""
+    code = f"""
+import json, sys, tempfile
+sys.path.insert(0, {ROOT!r})
+import torch
+import keystone_tpu_torch.fleet, keystone_tpu_torch.zoo
+from keystone_tpu_torch.fleet.router import main
+from keystone_tpu_torch.observability import OtlpSpanExporter, TraceStitcher, DriftDetector
+from keystone_tpu_torch.zoo import load_zoo_spec
+path = tempfile.mktemp(suffix=".json")
+json.dump({{"models": [{{"name": "m", "device_featurize": "flagship", "img": 256}}]}}, open(path, "w"))
+reg = load_zoo_spec(path)
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "keystone_tpu"))
+print("BAD", bad, "CUDA", torch.cuda.is_initialized(), "IDS", reg.ids())
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=ROOT, env=env,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD [] CUDA False IDS ('m',)" in out.stdout, out.stdout
 
 
 def test_streaming_loader_imports_neither_torch_nor_jax():

@@ -156,21 +156,40 @@ def test_stupid_backoff_main_and_cli_print_what_jax_prints(tmp_path):
 
 
 def test_cli_lists_the_eight_apps_and_refuses_the_plane():
-    """The eight apps and serve-gateway run; the rest of the plane (and
-    serve-gateway's zoo, lifecycle, sharding, fleet and AOT flags) says
-    "not ported yet" and exits 2."""
+    """The eight apps, serve-gateway (with --zoo and --register) and
+    serve-router run, and --otlp-* is peeled; the rest of the plane (and
+    serve-gateway's lifecycle, sharding and AOT flags) says "not ported
+    yet" and exits 2."""
     from keystone_tpu import __main__ as jcli
 
     assert sorted(cli.APPS) == sorted(jcli.APPS)
     rc, out = _run_main(cli.main, ["-h"])
     assert rc == 0 and all(f"  {app}\n" in out for app in jcli.APPS)
     assert "  serve-gateway" in out and "--admin-port N" in out
+    assert "  serve-router" in out and "--otlp-endpoint URL" in out
     assert _run_main(cli.main, [])[0] == 2
-    for argv in (["serve-bench"], ["bench-diff", "a", "b"], ["serve-router"],
-                 ["serve-gateway", "--zoo", "spec.json"],
-                 ["--gateway-port", "0", "--shard-model"], ["--otlp-endpoint", "http://x"]):
+    for argv in (["serve-bench"], ["bench-diff", "a", "b"], ["serve-loadgen"],
+                 ["--gateway-port", "0", "--shard-model"],
+                 ["serve-gateway", "--refit"]):
         rc, out = _run_main(cli.main, argv)
         assert rc == 2 and "not ported yet" in out, argv
+    # the fleet and zoo run: serve-router's and serve-gateway's own
+    # argument checks answer (argparse exits 2 on a bad value, -h 0)
+    for argv, want in ((["serve-router", "-h"], 0), (["serve-router", "--router-port", "x"], 2),
+                       (["serve-gateway", "--zoo"], 2), (["serve-gateway", "--register"], 2),
+                       (["--otlp-endpoint"], 2), (["--otlp-endpoint", "-x"], 2)):
+        try:
+            rc, out = _run_main(cli.main, argv)
+        except SystemExit as e:
+            rc, out = e.code, ""
+        assert rc == want and "not ported yet" not in out, argv
+    rc, out = _run_main(cli.main, ["--otlp-endpoint", "http://127.0.0.1:9", "--otlp-service", "s",
+                                   "--otlp-replica", "r", "-h"])
+    assert rc == 0 and "otlp export: http://127.0.0.1:9/v1/traces (service.name=s replica=r)" in out
+    from keystone_tpu_torch.observability import disable_tracing, get_tracer
+
+    get_tracer()._sinks.clear()  # the exporter installed above
+    disable_tracing()
     for argv in (["--gateway-port", "x"], ["--gateway-port", "0", "NewsgroupsPipeline"],
                  ["--admin-port", "x"]):
         assert _run_main(cli.main, argv)[0] == 2, argv

@@ -4,8 +4,11 @@ Prometheus rendering, content negotiation, parsing, merging and quantiles
 (equal strings and values), SLO burn rates under one scripted clock,
 flight-recorder captures, ``parse_fault_spec``/``arm_from_env`` and the
 trigger points, the device-info gauge and the memory sampler (host RAM on
-the CPU), ``/profilez`` and the admin endpoint. Every HTTP call has its
-own timeout of a few seconds."""
+the CPU), ``/profilez`` and the admin endpoint; the fleet's and the
+zoo's observability — OTLP span encoding and export, the stitcher's
+phase decomposition and stitched documents, the attribution ledger and
+drift detection — on the same span records, charges, claims and
+histograms. Every HTTP call has its own timeout of a few seconds."""
 
 import json
 import re
@@ -16,7 +19,14 @@ import urllib.request
 import numpy as np
 import pytest
 
+import http.server
+import threading
+
 from keystone_tpu.loadgen import faults as jfaults
+from keystone_tpu.observability import attribution as jattr
+from keystone_tpu.observability import drift as jdrift
+from keystone_tpu.observability import otlp as jotlp
+from keystone_tpu.observability import stitch as jstitch
 from keystone_tpu.observability import device as jdevice
 from keystone_tpu.observability import flight as jflight
 from keystone_tpu.observability import profilez as jprofilez
@@ -26,6 +36,10 @@ from keystone_tpu.observability import slo as jslo
 from keystone_tpu.observability import tracing as jtracing
 from keystone_tpu_torch.loadgen import faults as tfaults
 from keystone_tpu_torch.observability import admin as tadmin
+from keystone_tpu_torch.observability import attribution as tattr
+from keystone_tpu_torch.observability import drift as tdrift
+from keystone_tpu_torch.observability import otlp as totlp
+from keystone_tpu_torch.observability import stitch as tstitch
 from keystone_tpu_torch.observability import device as tdevice
 from keystone_tpu_torch.observability import flight as tflight
 from keystone_tpu_torch.observability import profilez as tprofilez
@@ -38,9 +52,11 @@ HTTP_TIMEOUT_S = 5
 
 PKGS = {
     "jax": dict(prom=jprom, registry=jregistry, slo=jslo, flight=jflight, tracing=jtracing,
-                faults=jfaults, device=jdevice),
+                faults=jfaults, device=jdevice, otlp=jotlp, stitch=jstitch, attr=jattr,
+                drift=jdrift),
     "torch": dict(prom=tprom, registry=tregistry, slo=tslo, flight=tflight, tracing=ttracing,
-                  faults=tfaults, device=tdevice),
+                  faults=tfaults, device=tdevice, otlp=totlp, stitch=tstitch, attr=tattr,
+                  drift=tdrift),
 }
 
 
@@ -254,8 +270,12 @@ def test_trigger_runs_on_arm_and_unregister_stops_it():
 def test_fault_catalog_is_the_wired_points():
     assert set(tfaults.FAULT_POINTS) == {
         "gateway.lane.kill", "pipeline.host_prep.stall", "engine.dispatch.error",
-        "gateway.swap.force"}
+        "gateway.swap.force", "otlp.export.blackhole", "router.replica.blackhole",
+        "router.replica.partition", "router.trace.drop"}
     assert set(tfaults.FAULT_POINTS) <= set(jfaults.FAULT_POINTS)
+    for point in ("otlp.export.blackhole", "router.replica.blackhole",
+                  "router.replica.partition", "router.trace.drop"):
+        assert tfaults.FAULT_POINTS[point] == jfaults.FAULT_POINTS[point]
 
 
 # -- device ------------------------------------------------------------------
@@ -351,3 +371,268 @@ def test_admin_endpoint_routes():
         assert _get(server.url("/attributionz"))[0] == 404
     finally:
         server.stop()
+
+
+# -- OTLP: the same span records encode to the same wire documents ------------
+
+
+def _span_records(m):
+    """Finished spans of every attribute kind, with and without a parent
+    and a trace id, as the package's own ``Span``."""
+    Span = m["tracing"].Span
+    return [
+        Span("gateway.admit", 7, None, 1_700_000_000.125, 0.0031, 11,
+             {"gateway": "g", "rows": 3, "ok": True, "share": 0.25},
+             trace_id="0af7651916cd43dd8448eb211c80319c"),
+        Span("serving.dispatch", 9, 7, 1_700_000_000.2, 0.012, 12,
+             {"bucket": 64}, trace_id="0af7651916cd43dd8448eb211c80319c"),
+        Span("orphan", 2**64 + 5, None, 1_699_999_999.5, 0.5, 13, {}),
+    ]
+
+
+def test_span_to_otlp_and_encode_spans_equal_jax():
+    def run(m):
+        spans = _span_records(m)
+        body = m["otlp"].encode_spans(spans, "keystone-gateway",
+                                      resource_attrs={"replica": "127.0.0.1:8001"})
+        scope = body["resourceSpans"][0]["scopeSpans"][0].pop("scope")
+        return [m["otlp"].span_to_otlp(s) for s in spans], body, scope
+
+    (jspans, jbody, jscope), (tspans, tbody, tscope) = both(run)
+    assert tspans == jspans and tbody == jbody
+    # the instrumentation scope names each package
+    assert jscope == {"name": "keystone_tpu.observability"}
+    assert tscope == {"name": "keystone_tpu_torch.observability"}
+    assert tspans[0]["startTimeUnixNano"] == str(int(1_700_000_000.125 * 1e9))
+    assert tspans[2]["traceId"] == "f" * 32 and tspans[2]["spanId"] == "0000000000000005"
+
+
+class _Collector:
+    """A stdlib OTLP/HTTP collector on an ephemeral port: every POST body
+    to ``/v1/traces`` is kept."""
+
+    def __init__(self):
+        bodies = self.bodies = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):  # noqa: N802
+                n = int(self.headers.get("Content-Length", 0))
+                bodies.append((self.path, json.loads(self.rfile.read(n))))
+                self.send_response(200)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+            def log_message(self, *a):
+                pass
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def test_otlp_exporter_batches_spans_to_a_collector_and_counts_a_blackhole():
+    collector = _Collector()
+    reg = tregistry.MetricsRegistry()
+    tracer = ttracing.Tracer()
+    exporter = totlp.OtlpSpanExporter(collector.url, service_name="keystone-router",
+                                      resource_attrs={"replica": "r1"}, batch_size=2,
+                                      flush_interval_s=0.05, registry=reg).install(tracer)
+    try:
+        for i in range(5):
+            with tracer.span("router.forward", attempt=i):
+                pass
+        assert exporter.flush(timeout_s=HTTP_TIMEOUT_S)
+        paths = {p for p, _ in collector.bodies}
+        assert paths == {"/v1/traces"}
+        names = [s["name"] for _, b in collector.bodies
+                 for s in b["resourceSpans"][0]["scopeSpans"][0]["spans"]]
+        assert names == ["router.forward"] * 5
+        attrs = collector.bodies[0][1]["resourceSpans"][0]["resource"]["attributes"]
+        assert {"key": "service.name", "value": {"stringValue": "keystone-router"}} in attrs
+        assert {"key": "replica", "value": {"stringValue": "r1"}} in attrs
+        tfaults.arm("otlp.export.blackhole", count=1)
+        with tracer.span("dropped"):
+            pass
+        assert exporter.flush(timeout_s=HTTP_TIMEOUT_S)
+        text = tprom.render(reg.collect())
+        assert 'keystone_otlp_spans_total{result="exported"} 5' in text
+        assert 'keystone_otlp_posts_total{result="blackhole"} 1' in text
+    finally:
+        tfaults.disarm_all()
+        exporter.shutdown()
+        collector.close()
+
+
+# -- the stitcher: phase decomposition and stitched documents -------------------
+
+
+def _stitch_spans(staged):
+    """One routed request's span dicts: the router's two forward attempts
+    (the first failed over) and the winning replica's admit → coalesce →
+    dispatch chain (serial lanes) or stage spans (staged lanes)."""
+    t = 1_700_000_000.0
+
+    def sp(name, sid, parent, start, ms, process, **attrs):
+        return {"name": name, "span_id": sid, "parent_id": parent, "trace_id": "ab" * 16,
+                "start_s": t + start, "duration_ms": ms, "thread_id": 1, "attrs": attrs,
+                "process": process}
+
+    spans = [sp("router.forward", "router:1", None, 0.0, 3.0, "router", replica="a:1", attempt=0),
+             sp("router.forward", "router:2", None, 0.004, 40.0, "router", replica="b:2", attempt=1),
+             sp("gateway.admit", "replica:a:1:5", None, 0.0005, 1.0, "replica:a:1"),
+             sp("gateway.admit", "replica:b:2:5", None, 0.005, 0.5, "replica:b:2")]
+    if staged:
+        spans += [sp("microbatch.coalesce", "replica:b:2:6", None, 0.007, 5.0, "replica:b:2"),
+                  sp("pipeline.host_prep", "replica:b:2:7", None, 0.012, 2.0, "replica:b:2"),
+                  sp("pipeline.upload", "replica:b:2:8", None, 0.014, 1.5, "replica:b:2"),
+                  sp("pipeline.compute", "replica:b:2:9", None, 0.016, 9.5, "replica:b:2"),
+                  sp("pipeline.deliver", "replica:b:2:10", None, 0.026, 2.0, "replica:b:2")]
+    else:
+        spans += [sp("microbatch.coalesce", "replica:b:2:6", None, 0.007, 16.0, "replica:b:2"),
+                  sp("serving.dispatch", "replica:b:2:7", "replica:b:2:6", 0.012, 10.0,
+                     "replica:b:2")]
+    return spans
+
+
+@pytest.mark.parametrize("case", ["serial", "staged", "router_only", "no_router"])
+def test_phase_decomposition_equals_jax(case):
+    spans = _stitch_spans(staged=case == "staged")
+    if case == "router_only":
+        spans = [s for s in spans if s["process"] == "router"]
+    elif case == "no_router":
+        spans = [s for s in spans if s["process"] != "router"]
+    want, got = both(lambda m: m["stitch"].phase_decomposition(spans, "router"))
+    assert got == want
+    if case in ("serial", "staged"):
+        assert sum(got["phases_ms"].values()) == pytest.approx(got["total_ms"], abs=1e-2)
+        assert got["phases_ms"]["device"] > 0 and got["phases_ms"]["queue_wait"] > 0
+
+
+def test_qualify_spans_and_stitched_trace_documents_equal_jax():
+    raw = [{"name": "gateway.admit", "span_id": 5, "parent_id": 99, "start_s": 1.0,
+            "duration_ms": 2.0, "thread_id": 3, "attrs": {"gateway": "g"}},
+           {"name": "serving.dispatch", "span_id": 6, "parent_id": 5, "start_s": 1.001,
+            "duration_ms": 1.0, "thread_id": 3, "attrs": {}}]
+    spans = _stitch_spans(staged=False)
+
+    def run(m):
+        q = m["stitch"].qualify_spans(raw, "replica:h:1")
+        st = m["stitch"].StitchedTrace(
+            trace_id="ab" * 16, spans=spans, processes=["router", "replica:a:1", "replica:b:2"],
+            partial=True, partial_detail=["a:1: no spans"],
+            phases=m["stitch"].phase_decomposition(spans, "router"))
+        return q, st.to_dict(), st.to_chrome_trace()
+
+    want, got = both(run)
+    assert got == want
+    assert got[0][0]["parent_id"] is None and got[0][1]["parent_id"] == "replica:h:1:5"
+
+
+# -- attribution: the same charges and claims give the same documents ----------
+
+
+def _attribution_script(m):
+    """A solo engine's and a shared engine's dispatch facts into one
+    ledger, with row claims, completion seconds and staging bytes."""
+    reg = m["registry"].MetricsRegistry()
+    ledger = m["attr"].AttributionLedger()
+    ledger.register(reg)
+    solo = m["attr"].EngineAttribution(ledger, ("solo",))
+    claims = m["attr"].RowClaimQueue()
+    shared = m["attr"].EngineAttribution(ledger, ("a", "b"), shares_fn=claims.drain,
+                                         split_cost_fn=lambda b: None)
+    split = m["attr"].EngineAttribution(
+        ledger, ("a", "b"), shares_fn=claims.drain,
+        split_cost_fn=lambda b: (1e9, {"a": 2e8, "b": 5e8}))
+    solo.on_dispatch(8, 5, 3, 1e6, None, 4096)
+    solo.on_complete(0.002)
+    for mid, rows in (("a", 3), ("b", 1), ("a", 0.5), ("b", 0.5), ("b", 6)):
+        claims.claim(mid, rows)
+    shared.on_dispatch(8, 4, 4, 0.0, None, 8192)
+    shared.on_dispatch(8, 1, 7, 0.0, 0.004, 8192)
+    shared.on_complete(0.01)
+    split.on_dispatch(64, 6, 58, 3e9, 0.02, 65536)
+    shared.on_dispatch(8, 3, 5, 0.0, None, None)  # unclaimed: an even split
+    shared.on_complete(0.003)
+    ledger.set_staging_bytes("a", 1024.0)
+    ledger.set_staging_bytes("solo", None)
+    text = m["prom"].render(reg.collect())
+    return (m["attr"].attribution_document(ledger, top_k=2), text,
+            m["attr"].attribution_from_samples(m["prom"].parse_samples(text), top_k=2),
+            ledger.totals(), len(claims))
+
+
+def test_attribution_documents_equal_jax():
+    want, got = both(_attribution_script)
+    assert got[0] == want[0] and got[2] == want[2] and got[3] == want[3] and got[4] == want[4]
+    assert got[1] == want[1]
+    doc = got[0]
+    shares = [e["device_seconds_share"] for e in doc["models"].values()]
+    assert sum(shares) == pytest.approx(1.0, abs=1e-12)
+    assert doc["totals"]["device_seconds"] == pytest.approx(0.002 + 0.004 + 0.01 + 0.02 + 0.003)
+
+
+def test_row_claim_queue_drains_as_jax():
+    def run(m):
+        q = m["attr"].RowClaimQueue()
+        out = []
+        for op in (("claim", "a", 2), ("claim", "b", 3), ("drain", 1), ("claim", "a", 0),
+                   ("drain", 3.5), ("drain", 4), ("claim", "c", 1), ("drain", 0)):
+            if op[0] == "claim":
+                q.claim(op[1], op[2])
+            else:
+                out.append(q.drain(op[1]))
+        return out, len(q)
+
+    want, got = both(run)
+    assert got == want
+
+
+# -- drift: psi and the detector's flags ----------------------------------------
+
+
+def test_psi_agrees_within_1e12():
+    rng = np.random.default_rng(17)
+    for _ in range(50):
+        sizes = rng.choice(np.arange(1, 65), size=rng.integers(1, 12), replace=False)
+        base = {int(k): float(v) for k, v in zip(sizes, rng.integers(0, 500, len(sizes)))}
+        sizes = rng.choice(np.arange(1, 65), size=rng.integers(1, 12), replace=False)
+        live = {int(k): float(v) for k, v in zip(sizes, rng.integers(0, 500, len(sizes)))}
+        want, got = jdrift.psi(base, live), tdrift.psi(base, live)
+        if want is None:
+            assert got is None
+        else:
+            assert abs(got - want) <= 1e-12
+    assert tdrift.psi({}, {1: 2.0}) is None
+
+
+def _drift_script(m):
+    now = [0.0]
+    reg = m["registry"].MetricsRegistry()
+    det = m["drift"].DriftDetector(min_rows=8, window_s=10.0, clock=lambda: now[0])
+    det.register(reg)
+    det.set_baseline("alpha", {1: 90, 8: 10})
+    det.set_baseline("beta", {1: 50, 64: 50})
+    out = []
+    for t, model, sizes in ((1.0, "alpha", [1] * 9 + [8]), (2.0, "beta", [1, 64] * 5),
+                            (3.0, "alpha", [64] * 12), (20.0, "beta", [64] * 4),
+                            (21.0, "alpha", [1] * 10)):
+        now[0] = t
+        for size in sizes:
+            det.observe(model, size)
+        out.append((det.drifted(), {k: round(v, 12) for k, v in det.scores().items()}))
+    doc = det.document()
+    text = m["prom"].render(reg.collect())
+    det.set_baseline("alpha", {})
+    return out, doc, text, det.drifted()
+
+
+def test_drift_flags_and_documents_equal_jax():
+    want, got = both(_drift_script)
+    assert got == want
+    assert got[0][2][0] == ["alpha"]  # 64-row requests against a plan of 1s and 8s
