@@ -227,6 +227,33 @@ Phases, in order; any failure exits non-zero:
    and an LRU cycle (page-in and eviction seconds, reserved and allocated
    memory); (c) ex/s at bucket 64 of the shared unit against two solo
    units serving both models.
+16. the load generator and the online model lifecycle: (a) phase 4's
+   chain and head (B1–B3) behind ``Gateway`` and ``GatewayServer`` with a
+   request log, float32 instances (the loadgen's payloads are float32
+   normals, which a uint8 server refuses): a trace recorded from 8 of
+   phase 14's uint8 clients, 120 of its POSTs replayed open-loop by
+   ``python -m keystone_tpu_torch serve-loadgen --target URL --trace
+   FILE`` at 2.5 req/s with ``gateway.lane.kill`` armed over ``/chaosz``
+   12 s into the run for 10 s (smoke-chaos's other bounds): a green
+   verdict, at least 20 requests before, during and after the fault, the
+   injection on ``/metrics``, B1–B3 launched in this process during the
+   replay, offered (from the arrivals) and served req/s, the server's
+   p50/p99, the seconds to p99 recovery; (b) ``serve-gateway
+   --refit --d 256 --hidden 512 --depth 4`` in a process of its own fed by
+   ``serve-loadgen --feedback-fraction 0.5 --teacher
+   hidden=512,depth=4,head_seed=7`` at 150 req/s: ``/lifecyclez`` walks
+   idle → shadow → canary → promoted, then ``lifecycle.refit.poison``
+   armed over ``/chaosz`` rolls the next candidate back (reason and
+   counter), verdicts green, SIGTERM exit 0; in this process the same
+   gateway and controller ticked by hand under 150 req/s: a candidate's
+   build and each swap's seconds, outputs after a post-promotion
+   rollback bitwise equal to the incumbent's, a poisoned candidate
+   rolled back within one tick of its shadow start, and
+   ``memory_allocated`` after it within one version's graph pools of the
+   baseline; (c) ``serve-loadgen --self-gateway --synthetic 2000
+   --arrivals lognormal --rate 400`` in this process (green), and the
+   same generator over the same gateway three times: open-loop p50/p99
+   of each run.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then, last, the result line ``{"ok": true, "device": {...}}``.
@@ -4391,14 +4418,20 @@ def fleetz(url):
     return json.loads(http_get(url + "/fleetz")[1])
 
 
-def requests_ok(url):
-    """``keystone_gateway_requests_total{status="ok"}`` summed over a
-    ``/metrics`` scrape."""
+def metric_sum(url, name, **labels):
+    """The samples of ``name`` on a ``/metrics`` scrape that carry
+    ``labels``, summed over their other labels."""
     from keystone_tpu_torch.observability import prometheus
 
     text = http_get(url + "/metrics")[1].decode()
-    return sum(v for n, labels, v in prometheus.parse_samples(text)
-               if n == "keystone_gateway_requests_total" and labels.get("status") == "ok")
+    return sum(v for n, lab, v in prometheus.parse_samples(text)
+               if n == name and all(lab.get(k) == want for k, want in labels.items()))
+
+
+def requests_ok(url):
+    """``keystone_gateway_requests_total{status="ok"}`` summed over a
+    ``/metrics`` scrape."""
+    return metric_sum(url, "keystone_gateway_requests_total", status="ok")
 
 
 def post_traced(url, doc, trace_id, timeout=120):
@@ -4862,6 +4895,486 @@ def fleet_and_zoo(dev, smi, img=IMG, seconds=P15_SECONDS, in_flight=P15_IN_FLIGH
     return rec
 
 
+# -- phase 16: the load generator and the online model lifecycle ---------------
+
+# 16a: the trace is recorded from phase 14's clients (requests in flight,
+# seconds, image pool) and replayed at this offered rate: the replay's
+# bodies are float32 JSON, ~4.2 MB a 256² image, which the replaying
+# process encodes at ~0.3 s apiece on one CPU core (and the server
+# decodes at ~0.2 s), so a few per second is what one Python process can
+# offer
+P16A_IN_FLIGHT, P16A_RECORD_S, P16A_POOL, P16A_RATE = 8, 10.0, 16, 2.5
+# the replayed trace: this many of the recording's POSTs, after the
+# clients' first ones, which they all send at once; the fault comes late
+# and lasts long enough that each window (before, during, after) holds
+# at least P16A_MIN_WINDOW requests; the other chaos bounds are
+# bin/smoke-chaos.sh's
+P16A_POSTS, P16A_MIN_WINDOW = 120, 20
+P16A_CHAOS = ["--fault", "gateway.lane.kill=lane:0", "--fault-at", "12", "--fault-for", "10",
+              "--settle-s", "4", "--recovery-s", "10", "--p99-factor", "2.0",
+              "--max-shed-rate", "0.8"]
+# 16b: serve-gateway --refit at its default width and bin/smoke-rollout.sh's
+# flags; the poison's chunk count as smoke-rollout arms it
+P16B_WIDTH = dict(d=256, hidden=512, depth=4)
+P16B_REFIT = ["--buckets", "4,8", "--refit-interval-s", "0.5", "--refit-min-samples", "128",
+              "--canary-fraction", "0.25"]
+P16B_LOADS = ((2500, 1), (2500, 2))  # (requests, seed) of the labeled runs, at 150 req/s
+P16B_RATE, P16B_FEEDBACK, P16B_HEAD_SEED, P16B_POISON_CHUNKS = 150, 0.5, 7, 16
+# 16b's in-process lifecycle: feedback rows a candidate is solved from,
+# the closed loop's requests a second (the drill's rate), probes
+P16B_ROWS, P16B_PROBES = 400, 8
+# 16c: open-loop lognormal arrivals into --self-gateway's gateway, the
+# same workload run this many times over one gateway (its p99 varied
+# about tenfold between chip runs)
+P16C_REQUESTS, P16C_RATE, P16C_RUNS = 2000, 400.0, 3
+P16_RUN_S = 300.0  # a loadgen process's bound
+
+
+def _finished(proc, what, timeout=P16_RUN_S):
+    """A ``serve-loadgen`` process (a ``ServerProcess``) waited for: its
+    exit code must be 0 (a green verdict); returns its one-line JSON
+    documents merged."""
+    rc = proc.proc.wait(timeout=timeout)
+    time.sleep(0.2)  # the drain thread's last lines
+    assert rc == 0, (what, rc, proc.lines[-40:])
+    docs = [json.loads(ln) for ln in proc.lines if ln.startswith("{") and ln.endswith("}")]
+    return {k: v for d in docs for k, v in d.items()}
+
+
+def chaos_drill(dev, smi, feat, model, root, img=IMG, record_s=P16A_RECORD_S,
+                in_flight=P16A_IN_FLIGHT, pool=P16A_POOL, rate=P16A_RATE, posts=P16A_POSTS,
+                min_window=P16A_MIN_WINDOW):
+    """Phase 16a: phase 4's chain and head (vocab 32, so B3 runs) behind
+    ``Gateway`` and ``GatewayServer(request_log=FILE)``, phase 14's
+    configuration but float32 instances: the loadgen replays a trace with
+    float32 normals, which a uint8 server refuses (400) wherever a value
+    is below 0 or past 255. A trace recorded from phase 14's uint8
+    clients (``posts`` POSTs after the clients' simultaneous first
+    ones), then ``serve-loadgen --target URL --trace FILE`` at ``rate``
+    with a lane killed mid-run over ``POST /chaosz``: a green verdict,
+    at least ``min_window`` requests before, during and after the
+    fault, the injection on ``/metrics``, B1–B3 launched in this process
+    during the replay."""
+    from keystone_tpu_torch.gateway import Gateway, GatewayServer
+    from keystone_tpu_torch.loadgen import trace as trace_mod
+
+    rec = {"rate": rate}
+    log_path = os.path.join(root, "requests.jsonl")
+    t = time.perf_counter()
+    gw = Gateway(model, buckets=BUCKETS, n_lanes=P14_LANES, pipeline_depth=P14_DEPTH,
+                 max_delay_ms=P14_DELAY_MS, device_featurize=feat, device=dev,
+                 warmup_example=np.zeros((img, img, 3), np.float32), name="phase16a")
+    server = GatewayServer(gw, input_dtype=np.float32, request_log=log_path).start()
+    url = server.url().rstrip("/")
+    rec["build_s"] = time.perf_counter() - t
+    try:
+        images_path = os.path.join(root, "images.npy")
+        np.save(images_path, np.random.default_rng(47).integers(0, 256, (pool, img, img, 3),
+                                                                 dtype=np.uint8))
+        clients = ClientProcess(url, images_path, record_s, in_flight,
+                                os.path.join(root, "record.json"))
+        clients.go()
+        res = clients.result()
+        assert all(r[1] == 200 for r in res["results"]), [r for r in res["results"] if r[1] != 200][:3]
+        recorded = open(log_path).read().splitlines()
+        n_recorded = len(recorded)
+        seqs = list(dict.fromkeys(json.loads(ln)["post_seq"] for ln in recorded))
+        assert len(seqs) >= in_flight + posts, (len(seqs), in_flight + posts)
+        kept = set(seqs[in_flight : in_flight + posts])
+        trace_path = os.path.join(root, "trace.jsonl")
+        with open(trace_path, "w") as f:
+            f.writelines(ln + "\n" for ln in recorded if json.loads(ln)["post_seq"] in kept)
+        events = trace_mod.load_trace(trace_path)
+        span = events[-1].ts - events[0].ts
+        rec["trace"] = {"recorded_posts": len(seqs), "requests": len(events), "span_s": span,
+                        "req_s": len(events) / span}
+        speed = rate * span / len(events)
+        rec["speed"] = speed
+        log(f"16a: recorded {rec['trace']} from {in_flight} uint8 clients; replay at speed "
+            f"{speed:.4f} = {rate} req/s")
+        fired0 = metric_sum(url, "keystone_fault_injections_total", point="gateway.lane.kill")
+        report_path = os.path.join(root, "chaos_verdict.json")
+        _cuda.reset_launches()
+        t = time.perf_counter()
+        lg = ServerProcess(["serve-loadgen", "--target", url, "--trace", trace_path, "--speed",
+                            repr(speed), "--report", report_path] + P16A_CHAOS,
+                           os.path.join(root, "loadgen.log"), dev)
+        out = _finished(lg, "16a serve-loadgen")
+        rec["run_s"] = time.perf_counter() - t
+        launches = dict(_cuda.LAUNCHES)
+        verdict = json.load(open(report_path))
+        stats = verdict["stats"]
+        rec["verdict"] = {"passed": verdict["passed"],
+                          "invariants": {i["name"]: i["detail"] for i in verdict["invariants"]}}
+        rec["workload"] = out["workload"]
+        ok = stats["by_status"].get("ok", 0)
+        rec["stats"] = {k: stats[k] for k in (
+            "issued", "by_status", "shed_rate", "duration_s", "max_behind_ms", "ready_recovery_s",
+            "pre_fault_p99_ms", "during_fault_p99_ms", "post_fault_p99_ms", "p99_recovery_s",
+            "recovered_p99_ms", "injections", "fault_windows")}
+        rec["planned_req_s"] = stats["issued"] / (out["workload"]["duration_s"] / speed)
+        # the server's request log: arrivals, and admission to result
+        lines = [json.loads(ln) for ln in open(log_path).read().splitlines()[n_recorded:]]
+        lat = [ln["latency_ms"] for ln in lines if ln["status"] == 200]
+        # offered: the POSTs' issue times as the server stamped their
+        # arrival; each fault window's requests, on the run's clock
+        # (which starts with the first POST)
+        arrivals = sorted({ln["post_seq"]: ln["ts"] for ln in lines}.values())
+        rec["offered_req_s"] = (len(arrivals) - 1) / (arrivals[-1] - arrivals[0])
+        fw = stats["fault_windows"][0]
+        rel = [a - arrivals[0] for a in arrivals]
+        rec["window_requests"] = {"before": sum(r < fw["t_arm"] for r in rel),
+                                  "during": sum(fw["t_arm"] <= r < fw["t_clear"] for r in rel),
+                                  "after": sum(r >= fw["t_clear"] for r in rel)}
+        rec["served_req_s"] = len(lat) / (max(ln["ts"] + ln["latency_ms"] / 1e3 for ln in lines)
+                                          - min(ln["ts"] for ln in lines))
+        rec["server_latency_ms"] = {"p50": float(np.percentile(lat, 50)),
+                                    "p99": float(np.percentile(lat, 99)), "requests": len(lat)}
+        rec["fault_injections"] = metric_sum(url, "keystone_fault_injections_total",
+                                          point="gateway.lane.kill") - fired0
+        rec["launches"] = launches
+        rec["launches_per_request"] = {k: v / max(ok, 1) for k, v in launches.items()}
+        log(f"16a: verdict {rec['verdict']}; {rec['stats']}; offered {rec['offered_req_s']:.3f} "
+            f"req/s (planned {rec['planned_req_s']:.3f}), served {rec['served_req_s']:.3f}; "
+            f"requests a window {rec['window_requests']}; server-side admit -> result "
+            f"{rec['server_latency_ms']}; injections {rec['fault_injections']}; launches "
+            f"{launches} on {smi}")
+        assert verdict["passed"], rec["verdict"]
+        assert rec["fault_injections"] > 0 and stats["injections"]["gateway.lane.kill"] > 0, rec
+        assert ok == stats["issued"], stats["by_status"]
+        assert min(rec["window_requests"].values()) >= min_window, rec["window_requests"]
+        if dev.type == "cuda":
+            assert all(launches[k] > 0 for k in KERNEL_NAMES), launches
+    finally:
+        server.stop()
+        gw.close()
+    return rec
+
+
+def _walk_subsequence(seen, want=("idle", "shadow", "canary", "promoted")):
+    it = iter(s for s, _ in seen)
+    return all(stage in it for stage in want)
+
+
+def rollout_drill(dev, smi, root, width=P16B_WIDTH, refit=P16B_REFIT, loads=P16B_LOADS,
+                  rate=P16B_RATE, settle_s=30.0):
+    """Phase 16b over HTTP: ``serve-gateway --refit`` in a process of its
+    own, fed by ``serve-loadgen --feedback-fraction --teacher`` (labels
+    from a teacher whose head differs from the served model's): its
+    ``/lifecyclez`` walks idle → shadow → canary → promoted; then
+    ``lifecycle.refit.poison`` is armed over ``/chaosz`` and the next
+    candidate rolls back (its reason on ``/lifecyclez``, the counter on
+    ``/metrics``); every loadgen verdict green; SIGTERM, exit 0."""
+    rec = {}
+    log_path = os.path.join(root, "servers.log")
+    w = [f"--{k}={v}" for k, v in width.items()]
+    t = time.perf_counter()
+    srv = ServerProcess(["serve-gateway", "--gateway-port", "0", "--refit"] + w + refit, log_path, dev)
+    procs = [srv]
+    try:
+        url = srv.wait_json("listening")["listening"]
+        rec["up_s"] = time.perf_counter() - t
+        st = json.loads(http_get(url + "/lifecyclez")[1])["models"]["default"]
+        assert (st["state"], st["version"]) == ("idle", 0), st
+        teacher = f"hidden={width['hidden']},depth={width['depth']},head_seed={P16B_HEAD_SEED}"
+
+        def start(n, seed):
+            p = ServerProcess(["serve-loadgen", "--target", url, f"--d={width['d']}", "--synthetic",
+                               str(n), "--rate", str(rate), "--seed", str(seed),
+                               "--feedback-fraction", str(P16B_FEEDBACK), "--teacher", teacher,
+                               "--report", os.path.join(root, f"rollout{seed}.json")],
+                              os.path.join(root, "loadgen.log"), dev)
+            procs.append(p)
+            return p
+
+        # the labeled runs one after another until the poisoned candidate
+        # rolled back (the first promotion arms the poison); the policy
+        # ticks on for settle_s after the last run's traffic ends
+        t0 = time.perf_counter()
+        pending, runs = list(loads), []
+        current = start(*pending.pop(0))
+        seen, promoted, rolled, ended = [], None, None, None
+        while rolled is None and (ended is None or time.perf_counter() - ended < settle_s):
+            st = json.loads(http_get(url + "/lifecyclez")[1])["models"]["default"]
+            now = round(time.perf_counter() - t0, 3)
+            if not seen or seen[-1][0] != st["state"]:
+                seen.append((st["state"], now))
+            if promoted is None and st["promotions"] >= 1:
+                promoted = dict(st, t_s=now)
+                http_post(url + "/chaosz", {"arm": {"point": "lifecycle.refit.poison",
+                                                    "count": P16B_POISON_CHUNKS}})
+            elif promoted is not None and metric_sum(url, "keystone_lifecycle_rollbacks_total") >= 1:
+                rolled = dict(st, t_s=now)
+            if current is not None and current.proc.poll() is not None:
+                runs.append(_finished(current, "16b serve-loadgen"))
+                current = start(*pending.pop(0)) if pending else None
+                if current is None:
+                    ended = time.perf_counter()
+            time.sleep(0.2)
+        if current is not None:
+            runs.append(_finished(current, "16b serve-loadgen"))
+        rec["stages_seen"] = seen
+        rec["promoted"] = promoted
+        rec["rolled_back"] = rolled
+        rec["loadgen"] = [{"workload": r["workload"], "feedback": r["feedback"]} for r in runs]
+        rec["rollbacks"] = {reason: metric_sum(url, "keystone_lifecycle_rollbacks_total", reason=reason)
+                            for reason in ("accuracy", "shadow_diff", "canary_errors", "slo_burn")}
+        rec["poison_fired"] = metric_sum(url, "keystone_fault_injections_total",
+                                      point="lifecycle.refit.poison")
+        text = http_get(url + "/metrics")[1].decode()
+        rec["families"] = sorted({ln.split("{")[0].split(" ")[0] for ln in text.splitlines()
+                                  if ln.startswith("keystone_lifecycle_")})
+        log(f"16b: /lifecyclez stages {seen}; promoted {promoted}; rolled back {rolled}; "
+            f"rollbacks {rec['rollbacks']}; loadgen {rec['loadgen']} on {smi}")
+        assert promoted is not None and _walk_subsequence(seen), seen
+        assert promoted["errors"]["candidate"] < promoted["errors"]["incumbent"], promoted
+        assert rolled is not None and rolled["state"] == "rolled_back", (rolled, seen)
+        assert rolled["last_reason"] in ("accuracy", "shadow_diff"), rolled
+        assert rec["rollbacks"][rolled["last_reason"]] >= 1 and rec["poison_fired"] > 0, rec
+        for fam in ("keystone_lifecycle_state", "keystone_lifecycle_version",
+                    "keystone_lifecycle_refit_samples_total", "keystone_lifecycle_shadow_pairs_total",
+                    "keystone_lifecycle_canary_requests_total", "keystone_lifecycle_promotions_total",
+                    "keystone_lifecycle_rollbacks_total"):
+            assert fam in rec["families"], (fam, rec["families"])
+        rc, s = srv.stop()
+        rec["exit"] = {"code": rc, "s": s}
+        assert rc == 0, srv.lines[-5:]
+        return rec
+    finally:
+        for p in procs:
+            p.kill()
+
+
+def lifecycle_in_process(dev, smi, width=P16B_WIDTH, rows=P16B_ROWS, probes=P16B_PROBES,
+                         rate=P16B_RATE):
+    """Phase 16b in this process: ``serve-gateway --refit``'s gateway and
+    controller (its default width, buckets (4, 8), 2 lanes), ticked by
+    hand under a closed loop of ``rate`` requests a second: the seconds of
+    a candidate's solve and build and of each ``swap_model``, outputs
+    after a post-promotion rollback bitwise equal to the incumbent's
+    (probes one at a time, load paused: one bucket), a poisoned candidate
+    rolled back, and ``memory_allocated`` after the last rollback within
+    one version's graph pools of where it stood before the first
+    candidate."""
+    from keystone_tpu_torch.gateway import Gateway
+    from keystone_tpu_torch.lifecycle.controller import LifecycleController
+    from keystone_tpu_torch.lifecycle.teacher import teacher_labels
+    from keystone_tpu_torch.loadgen import faults
+    from keystone_tpu_torch.serving.bench import affine_head, build_split_pipeline
+
+    on_card = dev.type == "cuda"
+    d, hidden, depth = width["d"], width["hidden"], width["depth"]
+    base, W0, b0 = build_split_pipeline(d=d, hidden=hidden, depth=depth, device=dev)
+
+    def head(W, b):
+        return affine_head(W, b, device=dev)
+
+    gw = Gateway(base.and_then(head(W0, b0)), buckets=(4, 8), n_lanes=2, device=dev,
+                 warmup_example=torch.zeros(d), name="phase16b")
+    ctl = LifecycleController(gw, base=base, head_builder=head, feature_dim=hidden, out_dim=d,
+                              name="phase16b", canary_fraction=0.25, min_refit_samples=128)
+    rng = np.random.default_rng(53)
+    xs = rng.standard_normal((64, d)).astype(np.float32)
+    probe_x = rng.standard_normal((probes, d)).astype(np.float32)
+    stop, paused, served = threading.Event(), threading.Event(), [0]
+
+    def load():
+        k = 0
+        while not stop.is_set():
+            if paused.is_set():
+                time.sleep(0.01)
+                continue
+            gw.predict(xs[k % len(xs)]).result(timeout=60)
+            served[0] += 1
+            k += 1
+            time.sleep(1.0 / rate)
+
+    def outputs():
+        paused.set()
+        time.sleep(0.1)  # the loop's last request resolved
+        try:
+            return np.stack([np.asarray(gw.predict(x).result(timeout=60)) for x in probe_x])
+        finally:
+            paused.clear()
+
+    def labeled(n, seed):
+        X = np.random.default_rng(seed).standard_normal((n, d)).astype(np.float32)
+        return X, teacher_labels(X, d, hidden, depth, head_seed=P16B_HEAD_SEED)
+
+    def tick_until(stage, bound_s=60.0):
+        t = time.perf_counter()
+        while time.perf_counter() - t < bound_s:
+            time.sleep(0.5)
+            t1 = time.perf_counter()
+            st = ctl.tick()
+            tick_s = time.perf_counter() - t1
+            if st["state"] == stage:
+                return st, tick_s
+        raise AssertionError(f"16b: no {stage} within {bound_s} s: {ctl.status()}")
+
+    rec = {}
+    loader = threading.Thread(target=load, name="phase16b-load", daemon=True)
+    try:
+        if on_card:
+            # cuBLAS keeps a 32 MiB workspace for each (thread's handle,
+            # stream) that ran a product, for the process's life (captured
+            # graphs hold its address: it is never freed under them), and
+            # engines take their streams from PyTorch's pool of 32: touch
+            # every pooled stream and the current one on this thread
+            # (which captures every graph and runs the refit below) before
+            # the baseline, so that no first-use workspace counts as growth
+            a = torch.ones(8, 8, device=dev)
+            a @ a
+            for _ in range(64):
+                with torch.cuda.stream(torch.cuda.Stream(dev)):
+                    a @ a
+            torch.cuda.synchronize(dev)
+            mem0 = torch.cuda.memory_allocated(dev)
+            res0 = torch.cuda.memory_reserved(dev)
+        pools = sum(g["pool_bytes"] for lane in gw.pool.lanes for g in lane.engine.graph_report())
+        rec["version_pool_bytes"] = pools
+        incumbent_out = outputs()
+        loader.start()
+        ctl.add_feedback(*labeled(rows, 1))
+        t = time.perf_counter()
+        st = ctl.tick()
+        rec["candidate_build_s"] = time.perf_counter() - t  # drain, solve, build + captures
+        assert st["state"] == "shadow", st
+        st, rec["canary_tick_s"] = tick_until("canary")
+        st, rec["promote_swap_s"] = tick_until("promoted")  # swap_model: 2 lanes' captures
+        rec["promoted"] = {"version": st["version"], "errors": st["errors"]}
+        promoted_out = outputs()
+        assert not np.array_equal(promoted_out, incumbent_out)
+        t = time.perf_counter()
+        st = ctl.force_rollback("phase16b")
+        rec["rollback_swap_s"] = time.perf_counter() - t
+        assert st["state"] == "rolled_back", st
+        restored = outputs()
+        rec["rollback_bitwise_equal"] = bool(np.array_equal(restored, incumbent_out))
+        rec["rollback_max_abs_diff"] = float(np.abs(restored - incumbent_out).max())
+        # a poisoned candidate: caught within one tick of its shadow start
+        faults.arm("lifecycle.refit.poison", count=P16B_POISON_CHUNKS)
+        ctl.add_feedback(*labeled(rows, 2))
+        t = time.perf_counter()
+        st = ctl.tick()
+        rec["poisoned_build_s"] = time.perf_counter() - t
+        assert st["state"] == "shadow", st
+        st = ctl.tick()
+        rec["poisoned"] = {"state": st["state"], "reason": st["last_reason"], "errors": st["errors"]}
+        assert (st["state"], st["last_reason"]) == ("rolled_back", "accuracy"), st
+        faults.disarm("lifecycle.refit.poison")
+        stop.set()
+        loader.join(timeout=60)
+        rec["requests_served"] = served[0]
+        if on_card:
+            torch.cuda.synchronize(dev)
+            rec["memory"] = {"allocated_before": mem0,
+                             "allocated_after": torch.cuda.memory_allocated(dev),
+                             "reserved_before": res0,
+                             "reserved_after": torch.cuda.memory_reserved(dev)}
+        log(f"16b in process: {rec} on {smi}")
+        assert rec["rollback_bitwise_equal"], rec["rollback_max_abs_diff"]
+        if on_card:
+            grew = rec["memory"]["allocated_after"] - rec["memory"]["allocated_before"]
+            assert grew <= pools, (grew, pools)
+    finally:
+        stop.set()
+        faults.disarm("lifecycle.refit.poison")
+        ctl.close()
+        gw.close()
+    return rec
+
+
+def open_loop(dev, smi, requests=P16C_REQUESTS, rate=P16C_RATE, runs=P16C_RUNS):
+    """Phase 16c: ``serve-loadgen --self-gateway --synthetic N --arrivals
+    lognormal --rate R`` in this process on the card (its green verdict),
+    then the same generator over the same gateway (``--self-gateway``'s:
+    the demo model at d 64, buckets (4, 16), 2 lanes) ``runs`` times with
+    the reports kept: open-loop p50/p99 of each run."""
+    from keystone_tpu_torch.gateway import Gateway
+    from keystone_tpu_torch.loadgen import cli as loadgen_cli
+    from keystone_tpu_torch.loadgen import invariants, runner
+    from keystone_tpu_torch.loadgen import trace as trace_mod
+    from keystone_tpu_torch.serving.bench import build_pipeline
+
+    argv = ["--self-gateway", "--synthetic", str(requests), "--arrivals", "lognormal", "--rate",
+            str(rate)]
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = loadgen_cli.main(argv, device=dev)
+    rec = {"cli_s": time.perf_counter() - t}
+    text = out.getvalue()
+    verdict = json.loads(text[text.index("\n") + 1:])
+    rec["cli_verdict"] = {"passed": verdict["passed"], "stats": {
+        k: verdict["stats"][k] for k in ("issued", "by_status", "duration_s", "max_behind_ms")}}
+    assert rc == 0 and verdict["passed"], text[-2000:]
+    d = 64  # --self-gateway's defaults
+    gw = Gateway(build_pipeline(d=d, hidden=d, depth=2, device=dev), buckets=(4, 16), n_lanes=2,
+                 warmup_example=torch.zeros(d), device=dev, name="phase16c")
+    try:
+        events = trace_mod.synthesize(requests, arrivals="lognormal", rate=rate, shape=(d,))
+        rec["open_loop"] = []
+        for _ in range(runs):
+            report = runner.LoadGenerator(runner.InprocTarget(gw, default_shape=(d,))).run(events)
+            lat = report.latencies()
+            check = invariants.InvariantChecker().check(report)
+            rec["open_loop"].append({
+                "requests": len(lat), "offered_req_s": requests / (events[-1].ts or 1.0),
+                "served_req_s": len(lat) / report.duration_s,
+                "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+                "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+                "max_behind_ms": report.stats()["max_behind_ms"], "passed": check.passed})
+            assert check.passed and len(lat) == requests, check.to_json()
+        log(f"16c: {rec} on {smi}")
+    finally:
+        gw.close()
+    return rec
+
+
+def loadgen_and_lifecycle(dev, smi, feat, model, img=IMG, chaos=None, rollout=None, inproc=None,
+                          openloop=None):
+    """Phase 16: 16a (``chaos_drill``), 16b (``rollout_drill`` over HTTP,
+    ``lifecycle_in_process``) and 16c (``open_loop``). The ``chaos``,
+    ``rollout``, ``inproc`` and ``openloop`` dicts override those
+    functions' sizes. To rehearse it on the CPU at a small size, with a
+    48² chain and head: ``loadgen_and_lifecycle(torch.device("cpu"),
+    "cpu", feat, model, img=48, chaos=dict(record_s=6, rate=4),
+    rollout=dict(width=dict(d=24, hidden=32, depth=3), refit=["--buckets",
+    "4,8", "--refit-interval-s", "0.5", "--refit-min-samples", "32",
+    "--canary-fraction", "0.25"], loads=((1500, 1), (1500, 2))),
+    inproc=dict(width=dict(d=24, hidden=32, depth=3)),
+    openloop=dict(requests=300, rate=200))`` (about 90 s)."""
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "tmp", "phase16")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rec = {"card": smi}
+    try:
+        t = time.perf_counter()
+        rec["chaos"] = chaos_drill(dev, smi, feat, model, root, img=img, **(chaos or {}))
+        rec["chaos"]["phase_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        rec["rollout"] = rollout_drill(dev, smi, root, **(rollout or {}))
+        rec["rollout"]["phase_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        rec["lifecycle"] = lifecycle_in_process(dev, smi, **(inproc or {}))
+        rec["lifecycle"]["phase_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        rec["open_loop"] = open_loop(dev, smi, **(openloop or {}))
+        rec["open_loop"]["phase_s"] = time.perf_counter() - t
+    finally:
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        for name in ("servers.log", "loadgen.log"):
+            with contextlib.suppress(OSError):
+                shutil.copy(os.path.join(root, name),
+                            os.path.join(ROOT, "chiprun_out", f"phase16_{name}"))
+        shutil.rmtree(root, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 16 in {rec['phase_s']:.3f} s on {smi}")
+    return rec
+
+
 def _info(info):
     return None if info is None else {k: float(v) for k, v in info.items()}
 
@@ -4992,7 +5505,7 @@ def main():
 
     # -- 14. the gateway over HTTP, its entry, and the repairs ------------
     gateway = gateway_phase(dev, smi, feat, model, solver_xy)
-    del feat, model, solver_xy
+    del solver_xy
     for r in rows:
         r["phase14_launches"] = gateway["served"]["load"]["launches"][r["name"]]
         r["phase14_launches_per_dispatch"] = gateway["served"]["load"]["launches_per_dispatch"][r["name"]]
@@ -5006,13 +5519,22 @@ def main():
     log(f"launches in phase 15 (this process: the zoo's engines): {dict(_cuda.LAUNCHES)}")
     # the zoo's flagship chain is vocab 16: the plain FV node, as in JAX
     assert _cuda.LAUNCHES["sift_bin_sample"] > 0 and _cuda.LAUNCHES["plane_sandwich"] > 0
+    torch.cuda.empty_cache()
+
+    # -- 16. the load generator and the online model lifecycle ------------
+    lifecycle = loadgen_and_lifecycle(dev, smi, feat, model)
+    del feat, model
+    for r in rows:
+        r["phase16a_launches"] = lifecycle["chaos"]["launches"][r["name"]]
+        r["phase16a_launches_per_request"] = lifecycle["chaos"]["launches_per_request"][r["name"]]
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": rows, "wide": wide, "serve": served, "train": trained,
                    "stream": streamed, "files": files, "voc": voc_rec, "random_features": rf,
                    "past_the_card": past, "text": text, "last_app": last,
-                   "gateway": gateway, "fleet_zoo": fleet_zoo, "ptxas": ptxas}, f,
+                   "gateway": gateway, "fleet_zoo": fleet_zoo, "loadgen_lifecycle": lifecycle,
+                   "ptxas": ptxas}, f,
                   indent=1, default=str)
     # the fit's launches and B3's error with the fitted GMMs are in
     # chip_smoke.json beside these

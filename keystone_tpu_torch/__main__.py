@@ -5,17 +5,21 @@ Reference: bin/run-pipeline.sh selects the pipeline class by fully
 qualified name as argv[1]; here short app names map to the app modules'
 ``main``, which run on ``cuda`` (StupidBackoffPipeline is host work).
 
-The request plane's front door and fleet tier are ported:
-``--admin-port N`` (the observability endpoint), ``--otlp-endpoint URL``
-with ``--otlp-service`` and ``--otlp-replica`` (OTLP/HTTP span export),
-``--gateway-port N`` and ``serve-gateway`` (the HTTP gateway over the
-demo model, over the flagship's CUDA-graph engines with
-``--device-featurize flagship``, or over a model zoo with ``--zoo``;
-``keystone_tpu_torch/gateway/http.py``) and ``serve-router`` (the fleet
+The request plane's front door, fleet tier, load generator and online
+lifecycle are ported: ``--admin-port N`` (the observability endpoint),
+``--otlp-endpoint URL`` with ``--otlp-service`` and ``--otlp-replica``
+(OTLP/HTTP span export), ``--gateway-port N`` and ``serve-gateway`` (the
+HTTP gateway over the demo model, with ``--refit`` its online lifecycle,
+over the flagship's CUDA-graph engines with ``--device-featurize
+flagship``, or over a model zoo with ``--zoo``;
+``keystone_tpu_torch/gateway/http.py``), ``serve-router`` (the fleet
 router over ``serve-gateway`` replicas, host-only;
-``keystone_tpu_torch/fleet/router.py``). The rest of the plane — the
-other ``serve-*``, ``bench-diff`` and ``keystone-lint`` subcommands — is
-not ported yet: given one, the entry says so and exits 2.
+``keystone_tpu_torch/fleet/router.py``), ``serve-loadgen`` (open-loop
+replay, chaos and the invariant verdict; ``loadgen/cli.py``) and
+``serve-lifecycle`` (status, tick and rollback over HTTP, stdlib only;
+``lifecycle/cli.py``). The rest of the plane — the other ``serve-*``,
+``bench-diff`` and ``keystone-lint`` subcommands — is not ported yet:
+given one, the entry says so and exits 2.
 """
 
 from __future__ import annotations
@@ -35,14 +39,14 @@ APPS = {
 }
 
 # the JAX package's request-plane subcommands not ported yet
-PLANE_APPS = ("serve-bench", "serve-loadgen", "serve-autoscale",
-              "serve-capacity-plan", "serve-lifecycle", "serve-aot-build",
-              "bench-diff", "keystone-lint")
+PLANE_APPS = ("serve-bench", "serve-autoscale", "serve-capacity-plan",
+              "serve-aot-build", "bench-diff", "keystone-lint")
 
 
 def _not_ported(what: str) -> int:
     print(f"{what} is not ported yet: keystone_tpu_torch runs the apps, "
-          "serve-gateway, serve-router and the admin endpoint")
+          "serve-gateway, serve-router, serve-loadgen, serve-lifecycle and "
+          "the admin endpoint")
     return 2
 
 
@@ -101,8 +105,9 @@ def _otlp(argv) -> int:
 
 
 def main(argv=None, device=None) -> int:
-    """Run ``argv``'s app. ``device`` goes to ``serve-gateway`` (``None``
-    means ``cuda``; rehearsals on the CPU pass ``"cpu"``)."""
+    """Run ``argv``'s app. ``device`` goes to ``serve-gateway`` and
+    ``serve-loadgen`` (``None`` means ``cuda``; rehearsals on the CPU
+    pass ``"cpu"``)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--admin-port" in argv:
         # observability plane: /metrics, /varz, /healthz, /tracez, /slz,
@@ -168,6 +173,11 @@ def main(argv=None, device=None) -> int:
         print("  serve-router   (the fleet router over serve-gateway replicas: "
               "least-loaded routing with retry, /fleetz, federated /metrics, "
               "stitched /debugz; keystone_tpu_torch/fleet/)")
+        print("  serve-loadgen  (open-loop trace replay or synthetic arrivals "
+              "against a gateway, chaos timelines, the invariant verdict; "
+              "keystone_tpu_torch/loadgen/)")
+        print("  serve-lifecycle (status, tick or rollback of a serve-gateway "
+              "--refit lifecycle over HTTP; keystone_tpu_torch/lifecycle/)")
         print("options:")
         print("  --gateway-port N shorthand for `serve-gateway --gateway-port N` "
               "(N=0 picks an ephemeral port)")
@@ -190,6 +200,15 @@ def main(argv=None, device=None) -> int:
         from keystone_tpu_torch.fleet.router import main as serve_router_main
 
         return serve_router_main(argv[1:])
+    if app == "serve-loadgen":
+        from keystone_tpu_torch.loadgen.cli import main as serve_loadgen_main
+
+        return serve_loadgen_main(argv[1:], device=device)
+    if app == "serve-lifecycle":
+        # stdlib-only HTTP client: no torch import for operator controls
+        from keystone_tpu_torch.lifecycle.cli import main as lifecycle_main
+
+        return lifecycle_main(argv[1:])
     if app in PLANE_APPS:
         return _not_ported(app)
     if app not in APPS:

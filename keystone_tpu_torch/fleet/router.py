@@ -104,6 +104,7 @@ POST. Tracing is ON by default (``--no-trace`` opts out).
 
 from __future__ import annotations
 
+import http.client
 import json
 import logging
 import threading
@@ -505,9 +506,8 @@ class _RouterHandler(JsonHandler):
                     )
                 continue
             except Exception as e:
-                # transport-layer surprises urllib does NOT wrap as
-                # OSError (http.client.BadStatusLine, IncompleteRead,
-                # ...) propagate to do_POST's 500 handler — but the
+                # any other surprise propagates to do_POST's 500
+                # handler — but the
                 # attempt span must still record (or the forensics
                 # for exactly the failed request lose its forward
                 # hop), and the request log still gets its
@@ -694,10 +694,12 @@ class _RouterHandler(JsonHandler):
                     ) from e
                 # typed shed (429/504) or a client 4xx: the gateway's
                 # verdict about THIS request — propagate verbatim
-            except (TimeoutError, OSError) as e:
+            except (TimeoutError, OSError, http.client.HTTPException) as e:
                 # URLError (connection refused/reset) and socket
                 # timeouts are both OSError here: the replica process
-                # never produced an answer
+                # never produced an answer; nor did one that died
+                # between its headers and its body (IncompleteRead, a
+                # kill -9 mid-response)
                 raise ReplicaUnavailable(
                     f"{replica.name}: {type(e).__name__}: {e}"
                 ) from e

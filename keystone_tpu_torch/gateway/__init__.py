@@ -23,8 +23,11 @@ Everything publishes through the observability plane:
 and request-latency series, and ``gateway.admit`` spans parenting the
 ``microbatch.coalesce`` -> ``serving.dispatch`` chain.
 
-Not ported yet: the model zoo, the online lifecycle, model sharding,
-fleet registration and the AOT store.
+The model zoo (``keystone_tpu_torch/zoo``), fleet registration
+(``http.register_with_router``) and the online lifecycle's hooks
+(``EnginePool.set_mirror``/``set_canary``, ``Gateway.build_model_batcher``
+/``swap_model``, ``POST /feedback`` and ``/lifecyclez``) are ported;
+model sharding and the AOT store are not.
 """
 
 from keystone_tpu_torch.gateway.admission import AdmissionController, Overloaded

@@ -73,9 +73,14 @@ A stdlib ``http.server`` on a background daemon thread, following the
   arms a point in THIS process (400 for a point outside the catalog),
   ``{"disarm": "<point>"}`` / ``{"disarm": "*"}`` clears. This is how
   the load generator injects faults into a live gateway from outside.
-- ``POST /feedback``, ``GET|POST /lifecyclez`` — the JAX package's
-  online-lifecycle routes; without a lifecycle they answer its typed
-  404 ``no_lifecycle``.
+- ``POST /feedback`` (and ``/feedback/<model>``) — body
+  ``{"instances": [[...]], "labels": [[...]]}``: queue labeled examples
+  for the streaming refit (``lifecycle/controller.py``); ``GET
+  /lifecyclez`` reports every model's refit → shadow → canary state,
+  ``POST /lifecyclez`` ``{"tick": true}`` forces a policy tick and
+  ``{"rollback": true[, "model": m]}`` a rollback (``serve-lifecycle``).
+  Without a lifecycle they answer the typed 404 ``no_lifecycle``; an
+  unknown model, ``unknown_lifecycle_model``.
 
 With ``--request-log`` (or ``GatewayServer(request_log=True)``) every
 ``/predict`` instance also emits one structured JSON line — ``{"ts",
@@ -88,8 +93,12 @@ originating POST). Lines go to stdout by default;
 appends them line-buffered to a JSONL file instead, so record/replay
 needs no process-output scraping.
 
-``main`` (``serve-gateway``) takes the JAX package's fleet and zoo
-flags: ``--register ROUTER_URL`` (repeatable) self-registers the
+``main`` (``serve-gateway``) takes the JAX package's lifecycle, fleet
+and zoo flags: ``--refit`` (with ``--refit-interval-s``,
+``--refit-min-samples`` and ``--canary-fraction``) runs the online
+lifecycle over the demo model, split at its last layer
+(``serving/bench.build_split_pipeline``) so that the head refits in
+closed form; single-model mode only, as in JAX. ``--register ROUTER_URL`` (repeatable) self-registers the
 replica with a fleet router (``fleet/router.py``; ``--advertise-url``
 names the URL to register), ``--zoo SPEC.json`` serves a model zoo,
 with ``--optimize`` (host under the placement plan) and
@@ -152,12 +161,9 @@ NO_ZOO_DETAIL = {
                "workload drift and the re-plan recommendation",
 }
 
-# serve-gateway flags of the JAX package that wait for the online
-# lifecycle, model sharding and the AOT store
-UNPORTED_FLAGS = (
-    "--refit", "--refit-interval-s", "--refit-min-samples", "--canary-fraction",
-    "--shard-model", "--mesh-model", "--aot-cache",
-)
+# serve-gateway flags of the JAX package that wait for model sharding
+# and the AOT store
+UNPORTED_FLAGS = ("--shard-model", "--mesh-model", "--aot-cache")
 
 
 def _status_for(err: Overloaded) -> int:
@@ -184,6 +190,16 @@ class _Handler(JsonHandler):
     @property
     def zoo(self):
         return self.server.zoo  # type: ignore[attr-defined]
+
+    @property
+    def lifecycle(self):
+        """The LifecycleManager, if this frontend runs one — set
+        directly (``--refit``) or attached to the zoo
+        (``ModelZoo.attach_lifecycle``)."""
+        mgr = self.server.lifecycle  # type: ignore[attr-defined]
+        if mgr is None and self.zoo is not None:
+            mgr = getattr(self.zoo, "lifecycle", None)
+        return mgr
 
     @property
     def gateway(self) -> Gateway:
@@ -288,12 +304,15 @@ class _Handler(JsonHandler):
                         faults.get_injector().status(), indent=1
                     )
             elif path == "/lifecyclez":
-                self._send_error_json(
-                    404, "no_lifecycle",
-                    detail="started without --refit; /lifecyclez "
-                           "reports the online-lifecycle state "
-                           "machine per model",
-                )
+                if self.lifecycle is None:
+                    self._send_error_json(
+                        404, "no_lifecycle",
+                        detail="started without --refit; /lifecyclez "
+                               "reports the online-lifecycle state "
+                               "machine per model",
+                    )
+                else:
+                    self._send_json(self.lifecycle.status(), indent=1)
             elif path == "/tracez":
                 q = parse_qs(url.query)
                 self._send_json(
@@ -382,15 +401,12 @@ class _Handler(JsonHandler):
             elif path == "/chaosz":
                 self._chaosz()
             elif path == "/feedback" or path.startswith("/feedback/"):
-                self._send_error_json(
-                    404, "no_lifecycle",
-                    detail="started without --refit; /feedback feeds the "
-                           "streaming-refit accumulator",
-                )
+                model_id = path[len("/feedback/"):] if (
+                    path.startswith("/feedback/")
+                ) else None
+                self._feedback(model_id or None)
             elif path == "/lifecyclez":
-                self._send_error_json(
-                    404, "no_lifecycle", detail="started without --refit",
-                )
+                self._lifecyclez_post()
             elif path == "/swap":
                 if self.zoo is not None:
                     self._send_json({"swapped": self.zoo.rebucket(force=True)})
@@ -492,6 +508,82 @@ class _Handler(JsonHandler):
             )
             return
         self._send_json(injector.status(), indent=1)
+
+    def _feedback(self, model_id: Optional[str] = None) -> None:
+        """Queue one labeled batch for the streaming refit. Body:
+        ``{"instances": [[...], ...], "labels": [[...], ...]}``. The
+        accumulation itself happens at policy-tick time, off this
+        request path — the handler only validates shapes and appends
+        to the controller's buffer."""
+        mgr = self.lifecycle
+        if mgr is None:
+            self._send_error_json(
+                404, "no_lifecycle",
+                detail="started without --refit; /feedback feeds the "
+                       "streaming-refit accumulator",
+            )
+            return
+        controller = mgr.get(model_id)
+        if controller is None:
+            self._send_error_json(
+                404, "unknown_lifecycle_model", model=model_id,
+                known=mgr.models(),
+            )
+            return
+        try:
+            doc = json.loads(self._read_body() or b"{}")
+            instances = doc["instances"]
+            labels = doc["labels"]
+        except (ValueError, KeyError, TypeError) as e:
+            self._send_error_json(
+                400, "bad_request",
+                detail='want {"instances": [[...]], "labels": '
+                       f'[[...]]}} ({e})',
+            )
+            return
+        try:
+            n = controller.add_feedback(instances, labels)
+        except (ValueError, RuntimeError) as e:
+            self._send_error_json(400, "bad_request", detail=str(e))
+            return
+        self._send_json({"queued": n, "model": controller.name})
+
+    def _lifecyclez_post(self) -> None:
+        """Operator controls (``serve-lifecycle``): ``{"tick": true}``
+        forces one policy tick on every controller; ``{"rollback":
+        true[, "model": m]}`` forces a rollback on one controller."""
+        mgr = self.lifecycle
+        if mgr is None:
+            self._send_error_json(
+                404, "no_lifecycle",
+                detail="started without --refit",
+            )
+            return
+        try:
+            doc = json.loads(self._read_body() or b"{}")
+        except ValueError as e:
+            self._send_error_json(400, "bad_request", detail=str(e))
+            return
+        if doc.get("tick"):
+            self._send_json({"ticked": mgr.tick_all()}, indent=1)
+        elif doc.get("rollback"):
+            controller = mgr.get(doc.get("model"))
+            if controller is None:
+                self._send_error_json(
+                    404, "unknown_lifecycle_model",
+                    model=doc.get("model"), known=mgr.models(),
+                )
+                return
+            self._send_json(
+                {"rolled_back": controller.force_rollback("manual")},
+                indent=1,
+            )
+        else:
+            self._send_error_json(
+                400, "bad_request",
+                detail='want {"tick": true} or {"rollback": true'
+                       '[, "model": m]}',
+            )
 
     def _predict(self, model_id: Optional[str] = None) -> None:
         # W3C trace adoption FIRST, before the body can 400 or
@@ -663,6 +755,7 @@ class GatewayServer(BackgroundServer, device_obs.MemorySamplerHost):
         request_log: Any = False,
         chaos_routes: bool = True,
         zoo=None,
+        lifecycle=None,
     ):
         """``request_log``: falsy = off; True = one JSON line per
         /predict instance on stdout; a path string = append the lines
@@ -673,7 +766,12 @@ class GatewayServer(BackgroundServer, device_obs.MemorySamplerHost):
         can reach /predict). ``zoo`` (a ``ModelZoo``) replaces
         ``gateway``: /predict/<model> routes by id, bare /predict
         serves the default model with ITS input dtype, and /planz,
-        /attributionz and /driftz answer from the zoo."""
+        /attributionz and /driftz answer from the zoo. ``lifecycle`` (a
+        ``LifecycleManager``) turns on the online-lifecycle surface:
+        ``POST /feedback`` streams labeled examples into the refit,
+        ``GET /lifecyclez`` reports every model's refit→shadow→canary
+        state, ``POST /lifecyclez`` forces a policy tick or a rollback
+        (``serve-lifecycle``)."""
         if (gateway is None) == (zoo is None):
             raise ValueError(
                 "GatewayServer wants exactly one of gateway= or zoo="
@@ -681,6 +779,7 @@ class GatewayServer(BackgroundServer, device_obs.MemorySamplerHost):
         super().__init__(port=port, host=host)
         self.gateway = gateway
         self.zoo = zoo
+        self.lifecycle = lifecycle
         self.registry = (
             registry if registry is not None else get_global_registry()
         )
@@ -697,6 +796,7 @@ class GatewayServer(BackgroundServer, device_obs.MemorySamplerHost):
     def _configure(self, httpd) -> None:
         httpd.gateway = self.gateway
         httpd.zoo = self.zoo
+        httpd.lifecycle = self.lifecycle
         httpd.registry = self.registry
         httpd.input_dtype = self.input_dtype
         httpd.request_log = self.request_log
@@ -776,7 +876,8 @@ def deregister_from_router(router_url: str, own_url: str) -> bool:
 def main(argv=None, device=None) -> int:
     """``python -m keystone_tpu_torch serve-gateway [--gateway-port N] ...``
     — stand up the request plane over the demo model (``serving/bench.py``
-    ``build_pipeline``), over a featurize chain and the demo model with
+    ``build_pipeline``), with ``--refit`` the online lifecycle over it,
+    over a featurize chain and the demo model with
     ``--device-featurize``, or over a model zoo with ``--zoo``, on
     ``device`` (``None`` means ``cuda``, which raises when it is missing;
     tests pass ``device="cpu"``)."""
@@ -869,6 +970,31 @@ def main(argv=None, device=None) -> int:
                     "unpinned model is evicted (drains in the background, "
                     "its graphs released) and pages back in on its next "
                     "request (default: all models resident)")
+    ap.add_argument("--refit", action="store_true",
+                    help="run the ONLINE MODEL LIFECYCLE over the "
+                    "demo model: POST /feedback streams labeled "
+                    "examples into an incremental normal-equations "
+                    "refit of the model's head; each solved candidate "
+                    "walks shadow -> canary -> promoted (atomic "
+                    "engine swap) or auto-rolls back on the accuracy/"
+                    "SLO gates. GET /lifecyclez reports the state "
+                    "machine; serve-lifecycle drives it remotely. "
+                    "Single-model mode only (not --zoo/"
+                    "--device-featurize)")
+    ap.add_argument("--refit-interval-s", type=float, default=2.0,
+                    metavar="S",
+                    help="with --refit: background policy-tick "
+                    "period; 0 disables the thread (tick via POST "
+                    "/lifecyclez, e.g. serve-lifecycle tick)")
+    ap.add_argument("--refit-min-samples", type=int, default=256,
+                    metavar="N",
+                    help="with --refit: fresh feedback rows required "
+                    "before a new candidate is solved")
+    ap.add_argument("--canary-fraction", type=float, default=0.25,
+                    metavar="F",
+                    help="with --refit: deterministic fraction of "
+                    "live requests the canary stage routes to the "
+                    "candidate")
     ap.add_argument("--d", type=int, default=256)
     ap.add_argument("--hidden", type=int, default=512)
     ap.add_argument("--depth", type=int, default=4)
@@ -896,9 +1022,16 @@ def main(argv=None, device=None) -> int:
     unported = sorted({a.split("=")[0] for a in argv} & set(UNPORTED_FLAGS))
     if unported:
         print(f"{', '.join(unported)}: not ported yet (the port has no "
-              "online lifecycle, model sharding or AOT store)", flush=True)
+              "model sharding or AOT store)", flush=True)
         return 2
     args = ap.parse_args(argv)
+    if args.refit and (args.zoo or args.device_featurize):
+        print(
+            "--refit wants the plain demo model (not --zoo / "
+            "--device-featurize)",
+            flush=True,
+        )
+        return 2
     dev = resolve_device(device)
 
     if args.slo_latency_ms is not None or args.trace:
@@ -960,12 +1093,32 @@ def main(argv=None, device=None) -> int:
         args.d = feat_d  # the model consumes the featurize output
         warmup_example = torch.zeros((args.img, args.img, 3), dtype=torch.uint8)
         input_dtype = np.uint8
+    refit_base = refit_head = None
     if zoo is None:
         if not args.device_featurize:
             warmup_example = torch.zeros((args.d,), dtype=torch.float32)
-        fitted = build_pipeline(
-            d=args.d, hidden=args.hidden, depth=args.depth, device=dev
-        )
+        if args.refit:
+            # the SAME model build_pipeline serves (identical rng
+            # draws, the same outputs), split at the last layer so the
+            # lifecycle can refit the head in closed form and rebuild
+            # candidates as base.and_then(affine_head(W, b))
+            from keystone_tpu_torch.serving.bench import (
+                affine_head,
+                build_split_pipeline,
+            )
+
+            refit_base, head_w, head_b = build_split_pipeline(
+                d=args.d, hidden=args.hidden, depth=args.depth, device=dev
+            )
+
+            def refit_head(W, b):
+                return affine_head(W, b, device=dev)
+
+            fitted = refit_base.and_then(refit_head(head_w, head_b))
+        else:
+            fitted = build_pipeline(
+                d=args.d, hidden=args.hidden, depth=args.depth, device=dev
+            )
         gateway = Gateway(
             fitted,
             buckets=tuple(int(b) for b in args.buckets.split(",")),
@@ -993,12 +1146,33 @@ def main(argv=None, device=None) -> int:
     # registered for them, so arming before construction would be a
     # silent no-op.
     faults.arm_from_env()
+    lifecycle = None
+    if args.refit:
+        from keystone_tpu_torch.lifecycle import LifecycleManager
+        from keystone_tpu_torch.lifecycle.controller import LifecycleController
+
+        lifecycle = LifecycleManager()
+        lifecycle.add(
+            LifecycleController(
+                gateway,
+                base=refit_base,
+                head_builder=refit_head,
+                feature_dim=args.hidden,
+                out_dim=args.d,
+                name="default",
+                canary_fraction=args.canary_fraction,
+                min_refit_samples=args.refit_min_samples,
+                interval_s=args.refit_interval_s or None,
+            ),
+            default=True,
+        )
     server = GatewayServer(
         gateway, port=args.port, host=args.host,
         input_dtype=input_dtype,
         request_log=args.request_log,
         chaos_routes=not args.no_chaosz,
         zoo=zoo,
+        lifecycle=lifecycle,
     ).start()
     advertised = args.advertise_url or server.url().rstrip("/")
     # set on retirement, BEFORE deregistering: a registration retry that
@@ -1016,6 +1190,10 @@ def main(argv=None, device=None) -> int:
             cancel_registration.set()
             for router_url in args.register:
                 deregister_from_router(router_url, advertised)
+            if lifecycle is not None:
+                # stop the refit/tick plane BEFORE draining the gateway:
+                # a tick mid-drain would race swap_model against close()
+                lifecycle.close()
             plane.close()
 
     def handle(signum, frame):
@@ -1045,8 +1223,13 @@ def main(argv=None, device=None) -> int:
         "POST /predict/<model>, GET /planz, GET /attributionz, "
         "GET /driftz, " if zoo is not None else ""
     )
+    lifecycle_routes = (
+        "POST /feedback, GET|POST /lifecyclez, "
+        if lifecycle is not None else ""
+    )
     print(
         f"gateway: {server.url()} (POST /predict, {zoo_routes}"
+        f"{lifecycle_routes}"
         "GET /readyz, GET /metrics, GET /slz, GET /debugz, "
         "GET /profilez, POST /swap, POST /drain, GET|POST /chaosz)",
         flush=True,

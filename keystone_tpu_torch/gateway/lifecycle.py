@@ -40,13 +40,25 @@ warmed) — the admin endpoint's ``/healthz`` stays the liveness probe
 state is surfaced in ``/readyz``'s body (still 200 — burning is a
 "stop sending so fast", not a "stop sending").
 
+- **the online lifecycle's hooks** — ``build_model_batcher`` builds a
+  candidate's own engine (one CUDA graph per bucket, captured at once)
+  and micro-batcher over this gateway's serving config, and
+  ``swap_model`` rotates every lane onto engines built from another
+  fitted pipeline (promotion, and rollback to the incumbent).
+
+Every swap (``rebucket``, ``swap_engines``, ``swap_model``) retires the
+engines it displaced (``CompiledPipeline.retire``): once the windows
+the lanes took for them have computed, the last of them releases their
+graphs and private memory pools, without ``empty_cache``, so the memory
+a generation holds does not pile up over the versions a lifecycle walks
+through.
+
 Not ported yet: ``param_sharding`` (one card holds the model whole) and
 ``aot_store`` (a CUDA graph cannot be serialized); either one given as
 anything but its default raises ``NotImplementedError``.
 ``engine_factory=`` is the zoo's seam (``zoo/host.py`` builds
-shared-prefix engines through it); the JAX gateway's hooks for the
-online lifecycle (``build_model_batcher``, ``swap_model``) come with that
-module.
+shared-prefix engines through it); a gateway on it cannot build engines
+from a fitted pipeline, so its lifecycle hooks raise, as in JAX.
 """
 
 from __future__ import annotations
@@ -56,6 +68,8 @@ import signal
 import threading
 from concurrent.futures import Future
 from typing import Any, Dict, Optional, Sequence
+
+import torch
 
 from keystone_tpu_torch._device import resolve_device
 from keystone_tpu_torch.gateway.admission import AdmissionController, Overloaded
@@ -68,6 +82,7 @@ from keystone_tpu_torch.serving.autoscale import (
     predicted_efficiency,
     suggest_buckets,
 )
+from keystone_tpu_torch.serving.batching import MicroBatcher
 from keystone_tpu_torch.serving.engine import DEFAULT_BUCKETS
 from keystone_tpu_torch.utils.profiling import ready_device_tracing
 
@@ -84,6 +99,9 @@ SLO_SHED_BURN = 4.0
 
 SLO_SUSTAIN_SAMPLES = 2
 SLO_PRESSURE = 0.75
+
+# swap_model's "keep the store as it is" default (the JAX signature)
+_UNCHANGED = object()
 
 
 def _fmt_eff(eff) -> str:
@@ -222,6 +240,10 @@ class Gateway:
         # carry the same device-side featurize stage
         self._device_featurize = device_featurize
         self._engine_factory = engine_factory
+        # the lanes' batching config, which a candidate's batcher copies
+        self._max_delay_ms = max_delay_ms
+        self._pipeline_depth = pipeline_depth
+        self._host_featurize = host_featurize
         self._rebucket_k = rebucket_k or len(self._buckets)
         self.metrics = GatewayMetrics(registry=registry, gateway=name)
         if resolve_device(device).type == "cuda":
@@ -354,6 +376,11 @@ class Gateway:
     @property
     def buckets(self) -> tuple:
         return self._buckets
+
+    @property
+    def device(self) -> torch.device:
+        """Where the lane engines stage and run."""
+        return resolve_device(self._device)
 
     # -- SLO watchdog ------------------------------------------------------
 
@@ -515,6 +542,77 @@ class Gateway:
             warmup_example=self._warmup_example,
         )
 
+    def build_model_batcher(self, fitted, *, name: str, aot_store=None) -> MicroBatcher:
+        """One engine + micro-batcher for a DIFFERENT fitted pipeline
+        over THIS gateway's serving config (buckets, device featurize,
+        windowing) — the candidate plane the lifecycle loop points
+        shadow and canary traffic at. Deliberately NOT a pool lane: the
+        candidate serves copies/fractions, never owns routing, and is
+        closed by its controller. With a warmup example every bucket's
+        graph is captured here, so that no capture lands in the shadow
+        or canary traffic. ``aot_store``: not ported; anything but None
+        raises ``NotImplementedError``."""
+        if self._engine_factory is not None:
+            raise RuntimeError(
+                f"gateway {self.name} runs on an engine-factory "
+                "override (zoo CSE plane); its engines aren't "
+                "buildable from a fitted pipeline"
+            )
+        if aot_store is not None:
+            raise NotImplementedError(
+                "build_model_batcher(aot_store=) is not ported yet: the port "
+                "keeps no executable store"
+            )
+        engine = fitted.compiled(
+            buckets=self._buckets,
+            name=name,
+            featurize=self._device_featurize,
+            device=self._device,
+        )
+        if self._warmup_example is not None:
+            engine.warmup(example=self._warmup_example)
+        return MicroBatcher(
+            engine,
+            max_delay_ms=self._max_delay_ms,
+            pipeline_depth=self._pipeline_depth,
+            host_featurize=self._host_featurize,
+        )
+
+    def swap_model(self, fitted, *, aot_store=_UNCHANGED) -> bool:
+        """Re-point the gateway at a DIFFERENT fitted pipeline and
+        rotate every lane onto engines built from it — the promotion
+        (and rollback) primitive: build + warm outside the pool lock,
+        then the same atomic per-lane ``swap_engine`` a rebucket uses,
+        so in-flight windows finish on the old model and nothing is
+        dropped. Returns False when ``close()`` won the race (nothing
+        rotated); on a build failure the previous fitted is restored
+        and the old engines keep serving. Rolling BACK a promotion is
+        just ``swap_model(incumbent)`` — engines recaptured from the
+        identical fitted pipeline. ``aot_store``: not ported; anything
+        but the default raises ``NotImplementedError``."""
+        if self._engine_factory is not None:
+            raise RuntimeError(
+                f"gateway {self.name} runs on an engine-factory "
+                "override (zoo CSE plane); swap_model cannot rebuild "
+                "its engines from a fitted pipeline"
+            )
+        if aot_store is not _UNCHANGED:
+            raise NotImplementedError(
+                "swap_model(aot_store=) is not ported yet: the port keeps "
+                "no executable store"
+            )
+        with self._swap_lock:
+            prev_fitted = self.fitted
+            self.fitted = fitted
+            try:
+                ok = self._build_and_swap(self._buckets)
+            except Exception:
+                self.fitted = prev_fitted
+                raise
+            if not ok:
+                self.fitted = prev_fitted
+            return ok
+
     def swap_engines(
         self, buckets: Sequence[int], background: bool = False
     ):
@@ -574,7 +672,7 @@ class Gateway:
                 # the fresh engines are dropped, nothing rotated
                 return False
             try:
-                self.pool.swap(
+                displaced = self.pool.swap(
                     self._factory_for(buckets), engines=engines
                 )
             except RuntimeError:
@@ -584,6 +682,10 @@ class Gateway:
                     return False
                 raise
             self._buckets = buckets
+            # the windows the lanes took before the swap finish on the
+            # displaced engines; then their graphs and pools go
+            for engine in displaced:
+                engine.retire()
         return True
 
     def _chaos_forced_swap(self, spec) -> None:

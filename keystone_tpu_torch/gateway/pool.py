@@ -31,9 +31,12 @@ replica set needs beyond execution:
   callers. Deterministically-bad requests still fail: the retry lane
   reproduces the error and it propagates.
 
-``status()`` is the zoo's ``/planz`` snapshot of a pool. The JAX pool's
-hooks for the online lifecycle (shadow mirror, canary router, ``pick``)
-come with that module.
+``status()`` is the zoo's ``/planz`` snapshot of a pool. The online
+lifecycle plugs in through ``set_mirror`` (a shadow mirror sees a copy
+of every submit, off the response path) and ``set_canary`` (a canary
+router serves the deterministic fraction ``canary_takes`` of submits
+from the candidate, falling back to the lanes on any candidate failure);
+``pick`` is the routing decision, public.
 
 ``swap()`` is the live-engine-replacement primitive the lifecycle loop
 drives: build + warm replacements for every lane FIRST (any failure
@@ -64,6 +67,21 @@ RECOVERY_AFTER_S = 5.0
 
 # EngineFactory(lane_name) -> a fresh engine for that lane
 EngineFactory = Callable[[str], CompiledPipeline]
+
+
+def canary_takes(seq: int, fraction: float) -> bool:
+    """The DETERMINISTIC canary decision for request number ``seq``
+    (0-based): True exactly when the integer part of ``seq·fraction``
+    advances, i.e. of any n consecutive requests ``floor(n·fraction)``
+    (±1) are canaried — evenly spread, no RNG, reproducible. The
+    lifecycle's ``CanaryRouter`` drives ``submit()`` with this; it is
+    a module function so the policy tests can pin its arithmetic
+    without a pool."""
+    if fraction <= 0.0:
+        return False
+    if fraction >= 1.0:
+        return True
+    return int((seq + 1) * fraction) > int(seq * fraction)
 
 
 class Lane:
@@ -200,6 +218,13 @@ class EnginePool:
         self._lane_capacity = lane_capacity
         self._lock = threading.Lock()
         self._closed = False  # guarded-by: _lock
+        # lifecycle hooks (duck-typed; see lifecycle/routes.py): a
+        # mirror sees a COPY of every submit off the response path, a
+        # canary serves a deterministic fraction ON it. Plain attribute
+        # writes — submit() reads each once, so the disarmed cost is
+        # two attribute reads and None-checks per request
+        self._mirror = None
+        self._canary = None
         self._free_listeners: List[Callable[[], None]] = []
         self.lanes: List[Lane] = [
             Lane(
@@ -254,6 +279,26 @@ class EnginePool:
 
     # -- routing -----------------------------------------------------------
 
+    def set_mirror(self, mirror) -> None:
+        """Install (or clear, with None) the shadow mirror — every
+        subsequent ``submit()`` also hands the example + primary
+        future to ``mirror.observe`` off the response path."""
+        self._mirror = mirror
+
+    def set_canary(self, canary) -> None:
+        """Install (or clear, with None) the canary router — it takes
+        a deterministic fraction of subsequent ``submit()``s onto the
+        candidate engine, falling back to the lanes on failure."""
+        self._canary = canary
+
+    def pick(self, exclude: Sequence[Lane] = ()) -> Optional[Lane]:
+        """The routing decision ``submit()`` uses, public: the
+        least-loaded healthy lane (unhealthy lanes only when nothing
+        else is left). The canary fraction rides ON TOP of this — a
+        canaried request bypasses the lanes entirely, everything else
+        lands here."""
+        return self._pick(exclude)
+
     def _pick(self, exclude: Sequence[Lane]) -> Optional[Lane]:
         candidates = [
             l for l in self.lanes if l.healthy and l not in exclude
@@ -276,7 +321,26 @@ class EnginePool:
         if self._closed:
             raise RuntimeError("EnginePool is closed")
         out: Future = Future()
-        self._submit_once(example, parent_span_id, out, tried=[])
+        canary = self._canary
+        if canary is not None and canary.takes():
+            # a deterministic fraction serves from the candidate
+            # engine; the router falls back to the incumbent lanes on
+            # any candidate failure, so callers never see one
+            canary.route(
+                example, parent_span_id, out,
+                lambda: self._submit_once(
+                    example, parent_span_id, out, tried=[]
+                ),
+            )
+        else:
+            self._submit_once(example, parent_span_id, out, tried=[])
+        mirror = self._mirror
+        if mirror is not None:
+            # off the response path: the mirror copies the example to
+            # the candidate and diffs outputs in completion callbacks;
+            # it must never raise (and ShadowMirror.observe doesn't),
+            # and `out` is already on its way either way
+            mirror.observe(example, out)
         return out
 
     def _submit_once(

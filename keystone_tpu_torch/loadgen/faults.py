@@ -34,7 +34,8 @@ raises ``FaultInjected``, a stall point sleeps ``delay_ms``, and a
 **trigger** point (``gateway.swap.force``) invokes callbacks registered
 by the component (arming it IS the event). The catalog below is the
 contract the ``/chaosz`` route validates against: the JAX package's
-points but the online lifecycle's, which waits for that module.
+points, every one wired (``lifecycle.refit.poison`` in
+``lifecycle/refit.py``).
 """
 
 from __future__ import annotations
@@ -89,6 +90,15 @@ FAULT_POINTS: Dict[str, str] = {
         "partitions a replica mid-scale-up and the loadgen verdict "
         "must stay green (match: replica=<host:port> or "
         "index=<registration order>)"
+    ),
+    "lifecycle.refit.poison": (
+        "corrupt @ lifecycle/refit.py RefitAccumulator — one "
+        "accumulated feedback chunk's targets are scaled to garbage "
+        "BEFORE they fold into the normal equations (the held-out "
+        "buffer stays clean), so the next solved candidate is wrong; "
+        "the lifecycle's accuracy gate must catch it on the held-out "
+        "comparison and auto-roll the candidate back within one "
+        "policy tick (match: model=<id>)"
     ),
     "router.trace.drop": (
         "drop @ fleet/router.py _predict — the W3C traceparent "

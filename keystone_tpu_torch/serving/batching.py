@@ -287,7 +287,9 @@ class MicroBatcher:
             self._n_pending -= len(batch)
             self.metrics.set_queue_depth(self._n_pending)
             # snapshot under the lock so a concurrent swap_engine cannot
-            # split a window across two engines
+            # split a window across two engines; the hold lets a
+            # displaced engine's retire() wait for this window
+            self.engine.hold_window()
             return batch, self.engine
 
     def _loop(self) -> None:
@@ -317,6 +319,9 @@ class MicroBatcher:
         enqueued = [t for _, _, t, _ in batch]
         metrics = engine.metrics
         metrics.record_coalesce(len(batch))
+        # the window's hold on its engine (_take_batch): the pipeline
+        # drops it once the window computed, the serial path here
+        piped = False
         try:
             with get_tracer().span(
                 "microbatch.coalesce",
@@ -325,6 +330,7 @@ class MicroBatcher:
                 window=len(batch),
             ) as span:
                 if self._pipeline is not None:
+                    piped = True
                     # blocks while the prep queue is full — the lane's
                     # backpressure point
                     self._pipeline.submit_window(
@@ -338,3 +344,6 @@ class MicroBatcher:
             for fut in futures:
                 if not fut.done():
                     fut.set_exception(e)
+        finally:
+            if not piped:
+                engine.drop_window()

@@ -50,14 +50,21 @@ def _draws(d: int, hidden: int, depth: int, seed: int) -> List[Tuple[np.ndarray,
     ]
 
 
+def _param(a, dev) -> torch.Tensor:
+    """A float32 copy of ``a`` (numpy, or a tensor on any device) on ``dev``."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device=dev, dtype=torch.float32).clone()
+    return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+
 def affine_chain(layers, device=None):
-    """A fitted chain of ``tanh(x @ W + b)`` nodes from numpy ``(W, b)``
-    pairs, on ``device`` (``None`` means ``cuda``)."""
+    """A fitted chain of ``tanh(x @ W + b)`` nodes from ``(W, b)`` pairs
+    (numpy, or tensors: a refit's solved head), on ``device`` (``None``
+    means ``cuda``)."""
     dev = resolve_device(device)
     pipe = None
     for W, b in layers:
-        node = _Affine(torch.tensor(np.asarray(W, np.float32), device=dev),
-                       torch.tensor(np.asarray(b, np.float32), device=dev))
+        node = _Affine(_param(W, dev), _param(b, dev))
         pipe = node.to_pipeline() if pipe is None else pipe.and_then(node)
     return pipe.to_pipeline().fit()
 

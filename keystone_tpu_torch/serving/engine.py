@@ -172,6 +172,12 @@ class CompiledPipeline:
         # pinned staging buffers of the serial path (the lane pipeline
         # keeps its own pool)
         self._staging = HostBufferPool(max_per_key=2)
+        # windows a MicroBatcher took for this engine and has not
+        # computed yet; once ``retire`` was called, the last of them to
+        # finish releases the graphs
+        self._windows = 0
+        self._retired = False
+        self._windows_lock = threading.Lock()
         if self.device.type == "cuda":
             self._copy_stream = torch.cuda.Stream(self.device)
             self._compute_stream = torch.cuda.Stream(self.device)
@@ -391,6 +397,31 @@ class CompiledPipeline:
                 g.refs.clear()
                 g.graph.reset()
         return len(graphs)
+
+    def hold_window(self) -> None:
+        """A batcher took one window for this engine (under the lock its
+        ``swap_engine`` takes, so a swap cannot slip in between)."""
+        with self._windows_lock:
+            self._windows += 1
+
+    def drop_window(self) -> None:
+        """That window's compute finished, or the window failed: the last
+        window of a retired engine releases its graphs."""
+        with self._windows_lock:
+            self._windows -= 1
+            last = self._retired and self._windows == 0
+        if last:
+            self.release_graphs()
+
+    def retire(self) -> int:
+        """The release of an engine a swap displaced, without waiting:
+        its graphs go now if no window a batcher took for it is still
+        computing, else when the last of them finishes (``drop_window``).
+        Returns the graphs released now."""
+        with self._windows_lock:
+            self._retired = True
+            now = self._windows == 0
+        return self.release_graphs() if now else 0
 
     def graph_report(self) -> List[Dict[str, Any]]:
         """One entry per captured graph: bucket, capture seconds (warm

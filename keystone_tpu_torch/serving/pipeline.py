@@ -226,7 +226,7 @@ class _Window:
     __slots__ = (
         "examples", "futures", "enqueued", "engine", "parent_span_id",
         "tree", "rows", "bucket", "host_tree", "pool_key", "pool_gen",
-        "device_tree", "ready", "valid", "fallback", "t_compute0",
+        "device_tree", "ready", "valid", "fallback", "t_compute0", "held",
     )
 
     def __init__(self, examples, futures, enqueued, engine, parent_span_id):
@@ -247,6 +247,7 @@ class _Window:
         self.fallback = False     # rows > engine.max_bucket: serial
         # chunked apply inside the compute stage
         self.t_compute0 = 0.0
+        self.held = True          # the engine's window hold (coalesce)
 
 
 class LanePipeline:
@@ -354,9 +355,19 @@ class LanePipeline:
             if outbox is not None:
                 outbox.put(w)
 
+    @staticmethod
+    def _drop_engine(w: _Window) -> None:
+        """Give up the window's hold on its engine (taken at coalesce):
+        once the window computed, or failed."""
+        if w.held:
+            w.held = False
+            w.engine.drop_window()
+
     def _fail_window(self, w: _Window, err: Exception) -> None:
         """Resolve every future with the stage error (never hang
-        callers) and recycle any pooled buffer the window held."""
+        callers), recycle any pooled buffer the window held and drop
+        its hold on the engine."""
+        self._drop_engine(w)
         if w.pool_key is not None:
             if w.ready is not None:
                 # the copy may still be reading the pinned buffer
@@ -435,10 +446,12 @@ class LanePipeline:
             # largest bucket): the engine's chunked serial apply
             w.valid = engine.apply(w.tree, sync=True)
             w.tree = None
+            self._drop_engine(w)
             return
         w.valid = engine.compute_staged(w.device_tree, w.rows, w.bucket, w.ready)
         w.device_tree = None
         engine.synchronize()
+        self._drop_engine(w)
         engine.metrics.record_dispatch_complete(
             time.perf_counter() - w.t_compute0
         )

@@ -227,6 +227,54 @@ def test_router_retries_on_a_dead_replica_and_fleetz_shows_it():
         b.gateway.close(timeout=WAIT_S)
 
 
+def test_router_retries_a_replica_that_dies_mid_response():
+    """A replica that sends its headers and then closes the connection
+    before its body (a ``kill -9`` mid-response) is retried on another
+    replica, as a refused connection is."""
+    import http.server
+
+    class Dying(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):
+            self.send_response(200)
+            self.send_header("Content-Length", "2")
+            self.end_headers()
+            self.wfile.write(b"ok")
+
+        def do_POST(self):
+            self.rfile.read(int(self.headers["Content-Length"]))
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", "1000")
+            self.end_headers()
+            self.wfile.write(b'{"predictions"')
+            self.close_connection = True
+
+        def log_message(self, *args):
+            pass
+
+    dying = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Dying)
+    threading.Thread(target=dying.serve_forever, daemon=True).start()
+    router = RouterServer(registry=MetricsRegistry(), probe_interval_s=60.0).start()
+    url = router.url().rstrip("/")
+    a = Replica("mid-a")
+    try:
+        for r in (a.url, f"http://127.0.0.1:{dying.server_port}"):
+            fclient.post_roster(url, fclient.REGISTER_ROUTE, r, timeout_s=HTTP_TIMEOUT_S)
+        router.fleet.probe_once()
+        release = _steer(router, a)  # the pick goes to the dying replica first
+        try:
+            code, doc, _ = _post(url + "/predict", {"instances": [_xs(1)[0].tolist()]})
+        finally:
+            release()
+        assert code == 200 and len(doc["predictions"]) == 1, doc
+        assert router.metrics.retry_count() == 1
+    finally:
+        router.stop()
+        a.close()
+        dying.shutdown()
+        dying.server_close()
+
+
 def test_typed_sheds_pass_through_the_router_verbatim():
     router = RouterServer(registry=MetricsRegistry(), probe_interval_s=0.1).start()
     url = router.url().rstrip("/")

@@ -270,8 +270,8 @@ def test_metrics_chaosz_and_readyz(demo_pair):
     code, doc = _post(tsrv.url("/chaosz"), {"arm": {"point": "gateway.lane.kill", "count": 1,
                                                     "match": {"lane": 0}}})
     assert code == 200 and "gateway.lane.kill" in doc["armed"]
-    # a point of the JAX package's catalog the port does not wire yet
-    assert _post(tsrv.url("/chaosz"), {"arm": {"point": "lifecycle.refit.poison"}})[0] == 400
+    # a point outside the catalog (the port's is the JAX package's whole)
+    assert _post(tsrv.url("/chaosz"), {"arm": {"point": "no.such.point"}})[0] == 400
     code, doc = _post(tsrv.url("/chaosz"), {"disarm": "*"})
     assert code == 200 and doc["armed"] == {}
     code, text = _get(tsrv.url("/readyz"))
@@ -484,7 +484,18 @@ def test_entry_without_a_card_raises():
         thttp.main(["--gateway-port", "0", "--d", "8", "--hidden", "8", "--depth", "2"])
 
 
-@pytest.mark.parametrize("flag", thttp.UNPORTED_FLAGS)
+LIFECYCLE_FLAGS = ("--refit", "--refit-interval-s", "--refit-min-samples", "--canary-fraction")
+
+
+@pytest.mark.parametrize("flag", LIFECYCLE_FLAGS + thttp.UNPORTED_FLAGS)
 def test_unported_flags_exit_2(flag, capsys):
-    assert thttp.main([flag, "x"], device="cpu") == 2
-    assert "not ported yet" in capsys.readouterr().out
+    """The sharding and AOT flags exit 2, not ported yet; the lifecycle's
+    parse, and --refit over the flagship chain exits 2 as JAX's entry
+    does (its message, before any model is built)."""
+    if flag in thttp.UNPORTED_FLAGS:
+        assert thttp.main([flag, "x"], device="cpu") == 2
+        assert "not ported yet" in capsys.readouterr().out
+        return
+    argv = ["--refit", "--device-featurize"] + ([] if flag == "--refit" else [flag, "1"])
+    assert thttp.main(argv, device="cpu") == 2
+    assert "--refit wants the plain demo model" in capsys.readouterr().out

@@ -112,6 +112,17 @@ FLEET_ZOO_MODULES = [
 ]
 
 
+# the load generator's and the online lifecycle's modules, which the walk
+# must reach too
+LOADGEN_LIFECYCLE_MODULES = [
+    "keystone_tpu_torch." + m for m in (
+        "loadgen.trace", "loadgen.runner", "loadgen.invariants", "loadgen.cli", "lifecycle",
+        "lifecycle.policy", "lifecycle.teacher", "lifecycle.metrics", "lifecycle.routes",
+        "lifecycle.refit", "lifecycle.controller", "lifecycle.manager", "lifecycle.cli",
+    )
+]
+
+
 def _port_sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:
@@ -144,6 +155,7 @@ print("TEXT", sorted(n for n in {TEXT_MODULES!r} if n not in sys.modules))
 print("SLICE12", sorted(n for n in {SLICE12_MODULES!r} if n not in sys.modules))
 print("GATEWAY", sorted(n for n in {GATEWAY_MODULES!r} if n not in sys.modules))
 print("FLEETZOO", sorted(n for n in {FLEET_ZOO_MODULES!r} if n not in sys.modules))
+print("LOADGENLIFECYCLE", sorted(n for n in {LOADGEN_LIFECYCLE_MODULES!r} if n not in sys.modules))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -162,11 +174,12 @@ print("FLEETZOO", sorted(n for n in {FLEET_ZOO_MODULES!r} if n not in sys.module
     assert "SLICE12 []" in out.stdout, out.stdout
     assert "GATEWAY []" in out.stdout, out.stdout
     assert "FLEETZOO []" in out.stdout, out.stdout
+    assert "LOADGENLIFECYCLE []" in out.stdout, out.stdout
     assert int(re.search(r"LOADED (\d+)", out.stdout).group(1)) >= (
         25 + len(TRAINING_MODULES) + len(SERVING_MODULES) + len(LOADER_MODULES)
         + len(VOC_MODULES) + len(RANDOM_FEATURES_MODULES) + len(HOST_FIT_MODULES)
         + len(TEXT_MODULES) + len(SLICE12_MODULES) + len(GATEWAY_MODULES)
-        + len(FLEET_ZOO_MODULES))
+        + len(FLEET_ZOO_MODULES) + len(LOADGEN_LIFECYCLE_MODULES))
 
 
 def test_importing_the_gateway_loads_no_jax_and_starts_no_cuda():
@@ -217,6 +230,41 @@ print("BAD", bad, "CUDA", torch.cuda.is_initialized(), "IDS", reg.ids())
     )
     assert out.returncode == 0, out.stderr
     assert "BAD [] CUDA False IDS ('m',)" in out.stdout, out.stdout
+
+
+def test_loadgen_loads_only_faults_and_the_lifecycle_cli_no_torch():
+    """A serving process imports ``keystone_tpu_torch.loadgen`` for its
+    fault points alone: the driver half (trace, runner, invariants, cli)
+    resolves lazily, as in the JAX package. ``serve-lifecycle``'s client
+    imports neither torch nor jax."""
+    code = f"""
+import sys
+sys.path.insert(0, {ROOT!r})
+import keystone_tpu_torch.loadgen as lg
+import keystone_tpu_torch.lifecycle.cli
+half = sorted(m for m in ("trace", "runner", "invariants", "cli")
+              if "keystone_tpu_torch.loadgen." + m in sys.modules)
+print("EAGER", half, "FAULTS", "keystone_tpu_torch.loadgen.faults" in sys.modules,
+      "TORCH", "torch" in sys.modules)
+lg.LoadGenerator, lg.InvariantChecker, lg.trace
+print("LAZY", "keystone_tpu_torch.loadgen.runner" in sys.modules,
+      "keystone_tpu_torch.loadgen.invariants" in sys.modules)
+try:
+    lg.nothing_here
+except AttributeError:
+    print("MISSING ok")
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "keystone_tpu"))
+print("BAD", bad)
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=ROOT, env=env,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "EAGER [] FAULTS True TORCH False" in out.stdout, out.stdout
+    assert "LAZY True True" in out.stdout and "MISSING ok" in out.stdout, out.stdout
+    assert "BAD []" in out.stdout, out.stdout
 
 
 def test_streaming_loader_imports_neither_torch_nor_jax():
@@ -526,3 +574,24 @@ def test_slice12_entry_points_need_cuda_unless_given_the_cpu(monkeypatch, tmp_pa
     (tmp_path / "comp.graphics" / "0").write_text("good words here")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["NewsgroupsPipeline"] + news)
+
+
+def test_loadgen_and_lifecycle_entry_points_need_cuda_unless_given_the_cpu(monkeypatch, capsys):
+    from keystone_tpu_torch.gateway import http as thttp
+    from keystone_tpu_torch.lifecycle.refit import RefitAccumulator
+    from keystone_tpu_torch.loadgen import cli as loadgen_cli
+    from keystone_tpu_torch.serving.bench import build_split_pipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        loadgen_cli.main(["--self-gateway", "--synthetic", "5", "--d", "8"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        thttp.main(["--gateway-port", "0", "--refit", "--d", "8", "--hidden", "8", "--depth", "2"])
+    base, _, _ = build_split_pipeline(d=4, hidden=4, depth=2, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        RefitAccumulator(base, 4, 4)
+    acc = RefitAccumulator(base, 4, 4, device="cpu", chunk=4)
+    assert acc.add(np.zeros((9, 4)), np.zeros((9, 4))) == 7 and acc.solve()[0].device.type == "cpu"
+    assert loadgen_cli.main(["--self-gateway", "--synthetic", "5", "--d", "8", "--buckets", "4"],
+                            device="cpu") == 0
+    assert '"passed": true' in capsys.readouterr().out

@@ -156,10 +156,10 @@ def test_stupid_backoff_main_and_cli_print_what_jax_prints(tmp_path):
 
 
 def test_cli_lists_the_eight_apps_and_refuses_the_plane():
-    """The eight apps, serve-gateway (with --zoo and --register) and
-    serve-router run, and --otlp-* is peeled; the rest of the plane (and
-    serve-gateway's lifecycle, sharding and AOT flags) says "not ported
-    yet" and exits 2."""
+    """The eight apps, serve-gateway (with --zoo, --register and
+    --refit), serve-router, serve-loadgen and serve-lifecycle run, and
+    --otlp-* is peeled; the rest of the plane (and serve-gateway's
+    sharding and AOT flags) says "not ported yet" and exits 2."""
     from keystone_tpu import __main__ as jcli
 
     assert sorted(cli.APPS) == sorted(jcli.APPS)
@@ -167,16 +167,23 @@ def test_cli_lists_the_eight_apps_and_refuses_the_plane():
     assert rc == 0 and all(f"  {app}\n" in out for app in jcli.APPS)
     assert "  serve-gateway" in out and "--admin-port N" in out
     assert "  serve-router" in out and "--otlp-endpoint URL" in out
+    assert "  serve-loadgen" in out and "  serve-lifecycle" in out
     assert _run_main(cli.main, [])[0] == 2
-    for argv in (["serve-bench"], ["bench-diff", "a", "b"], ["serve-loadgen"],
+    for argv in (["serve-bench"], ["bench-diff", "a", "b"], ["serve-autoscale"],
                  ["--gateway-port", "0", "--shard-model"],
-                 ["serve-gateway", "--refit"]):
+                 ["serve-gateway", "--aot-cache", "d"]):
         rc, out = _run_main(cli.main, argv)
         assert rc == 2 and "not ported yet" in out, argv
-    # the fleet and zoo run: serve-router's and serve-gateway's own
+    # --refit runs over the plain demo model only, and says so as the
+    # JAX entry does
+    rc, out = _run_main(cli.main, ["serve-gateway", "--refit", "--zoo", "spec.json"])
+    assert rc == 2 and "--refit wants the plain demo model" in out
+    # the fleet, zoo, load generator and lifecycle run: their own
     # argument checks answer (argparse exits 2 on a bad value, -h 0)
     for argv, want in ((["serve-router", "-h"], 0), (["serve-router", "--router-port", "x"], 2),
                        (["serve-gateway", "--zoo"], 2), (["serve-gateway", "--register"], 2),
+                       (["serve-loadgen", "-h"], 0), (["serve-loadgen", "--rate", "x"], 2),
+                       (["serve-lifecycle", "-h"], 0), (["serve-lifecycle", "status"], 2),
                        (["--otlp-endpoint"], 2), (["--otlp-endpoint", "-x"], 2)):
         try:
             rc, out = _run_main(cli.main, argv)

@@ -271,10 +271,10 @@ def test_fault_catalog_is_the_wired_points():
     assert set(tfaults.FAULT_POINTS) == {
         "gateway.lane.kill", "pipeline.host_prep.stall", "engine.dispatch.error",
         "gateway.swap.force", "otlp.export.blackhole", "router.replica.blackhole",
-        "router.replica.partition", "router.trace.drop"}
-    assert set(tfaults.FAULT_POINTS) <= set(jfaults.FAULT_POINTS)
+        "router.replica.partition", "router.trace.drop", "lifecycle.refit.poison"}
+    assert set(tfaults.FAULT_POINTS) == set(jfaults.FAULT_POINTS)
     for point in ("otlp.export.blackhole", "router.replica.blackhole",
-                  "router.replica.partition", "router.trace.drop"):
+                  "router.replica.partition", "router.trace.drop", "lifecycle.refit.poison"):
         assert tfaults.FAULT_POINTS[point] == jfaults.FAULT_POINTS[point]
 
 
