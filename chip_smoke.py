@@ -58,7 +58,7 @@ Phases, in order; any failure exits non-zero:
    64 single-image requests through ``MicroBatcher`` serial and pipelined
    (``pipeline_depth=2``) and require every future's row bit for bit
    equal across the modes and to ``engine.apply``; drive a closed loop of
-   128 single requests in flight (8 client threads of 16) for 8 s per
+   128 single requests in flight (8 client threads of 16) for 4 s per
    mode, at the batcher's default max_delay_ms of 5 and at 25, and print
    requests/s, request p50/p99, the mean coalesced size, the stage means,
    the bottleneck stage, the overlap efficiency and the staging bytes;
@@ -146,8 +146,8 @@ Phases, in order; any failure exits non-zero:
    featurizer's routes (every document native), and the string-keyed
    pipeline saved, reloaded and scoring the test split bit for bit; (b)
    ``AmazonReviewsPipeline.main`` (threshold 3.5, 2-grams, 100,000
-   features, 20 iterations) on JSON lines of 50,000 + 10,000 reviews
-   string-keyed and 1,000,000 + 200,000 hashed, 100 words each: accuracy,
+   features, 20 iterations) on JSON lines of 25,000 + 5,000 reviews
+   string-keyed and 500,000 + 100,000 hashed, 100 words each: accuracy,
    L-BFGS iterations and value-and-gradient calls, nnz and CSR bytes, fit
    seconds and peak, and the string-keyed fit against a CPU fit; (c)
    ``EllLeastSquaresEstimator`` at bench.py's 65,000,000 x 1,024, nnz 5,
@@ -209,7 +209,7 @@ Phases, in order; any failure exits non-zero:
    stdlib OTLP collector in this process: a routed and a direct answer
    against the eager chain here, the router's stitched ``/debugz`` of a
    routed request (both tiers, not partial, phases summing to the total
-   within 1 ms), 64 clients for 8 s through the router and straight at
+   within 1 ms), 64 clients for 5 s through the router and straight at
    one replica (req/s, p50/p99, each replica's share, every answer
    right), the federated ``/metrics`` count against the replicas' own,
    ``kill -9`` of one replica under load and its restart on its port (no
@@ -252,8 +252,29 @@ Phases, in order; any failure exits non-zero:
    ``memory_allocated`` after it within one version's graph pools of the
    baseline; (c) ``serve-loadgen --self-gateway --synthetic 2000
    --arrivals lognormal --rate 400`` in this process (green), and the
-   same generator over the same gateway three times: open-loop p50/p99
-   of each run.
+   same generator over the same gateway once more: open-loop p50/p99.
+17. cold start, model sharding and elasticity: (a) the start-up split
+   (import, CUDA init, kernel build or load, model, operators, warmup)
+   of phase 4's engine in a fresh process, cold (a fresh build directory:
+   nvcc) and from the AOT store, and of ``serve-gateway
+   --device-featurize flagship --aot-cache DIR`` started twice (cold,
+   then from the store); (b) the AOT round trip: an engine in this
+   process saves both buckets, the fresh process built from the store
+   hits both and answers 64 images bit for bit as it (B1/B2/B3 4 / 1 / 2
+   per replay), a corrupted entry is counted as an error and rebuilt on
+   the card with equal answers, ``serve-aot-build`` fills a store for the
+   gateway's flags, the second gateway start counts its hits on
+   ``/metrics``; (c)
+   ``Gateway(param_sharding=True)`` over phase 4's chain on a (1, 1)
+   mesh (every resolved spec printed) answers as the unsharded gateway,
+   ``serve-gateway --shard-model --mesh-model 1`` as 17b's, ``--mesh-model
+   2`` exits non-zero with its reason; (d) ``serve-autoscale`` (1–2
+   flagship replicas on 17b's store) under ``serve-loadgen --ramp`` of
+   uint8 images through its router: a scale_up, the second replica
+   serving, no failed request, a drain-retired replica after the load
+   drops, SIGTERM draining every child, each replica's start seconds
+   and B1/B2 launches; (e) ``serve-capacity-plan`` over replicas 1,2 x
+   speeds 1,2: a fitted per-replica rate.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then, last, the result line ``{"ok": true, "device": {...}}``.
@@ -337,8 +358,8 @@ FITTED_BEYOND_SHARE, FITTED_MAX_ABS = 0.005, 5e-3
 # phase 7: the closed loop's client threads and requests in flight (each
 # thread keeps its share of them), the batcher's max_delay_ms of each pair
 # of runs (the default, then one that lets a pipelined lane fill its
-# windows), and seconds per run
-STREAM_THREADS, STREAM_IN_FLIGHT, STREAM_DELAYS_MS, STREAM_S = 8, 128, (5.0, 25.0), 8.0
+# windows), and seconds per run (8 before phase 17)
+STREAM_THREADS, STREAM_IN_FLIGHT, STREAM_DELAYS_MS, STREAM_S = 8, 128, (5.0, 25.0), 4.0
 
 # phase 6: ImageNetSiftLcsFV at the serving phase's widths, trained
 TRAIN_CONF = dict(
@@ -2793,7 +2814,9 @@ def timit_at_width(dev, smi, sizes=P11_TIMIT, flags=()):
 # Amazon experiment's shape (bench.py:232-259). Only corpus sizes are cut.
 P12_NEWS = (11_314, 7_532)  # 20 Newsgroups "bydate": train, test
 P12_NEWS_WORDS, P12_REVIEW_WORDS = 250, 100
-P12_AMAZON, P12_AMAZON_HASHED = (50_000, 10_000), (1_000_000, 200_000)
+# Amazon's reviews: half of the earlier runs' 50,000 + 10,000 string-keyed
+# and 1,000,000 + 200,000 hashed, so that phase 17 fits the script's time
+P12_AMAZON, P12_AMAZON_HASHED = (25_000, 5_000), (500_000, 100_000)
 # a Zipf vocabulary of 30,000 words; each word of a document is, with the
 # given chance, one of its class's (or sentiment's) own words instead
 P12_VOCAB, P12_ZIPF = 30_000, 1.07
@@ -3682,9 +3705,13 @@ P14_IN_FLIGHT, P14_SECONDS, P14_POOL = 64, 8.0, 64
 # back; and /profilez's capture during the swap drill
 P14_PROFILE_AT_S, P14_PROFILE_S, P14_PROFILEZ_S = 4.0, 2.0, 2
 P14_ENTRY_EXIT_S = 30.0
+# 14b's clients during the swap drill: 2 (its captures took 72–107 s under
+# 64 JSON clients and 50 s under 8, whose handlers hold the GIL; 14a
+# measures 64)
+P14B_IN_FLIGHT = 2
 # 14c: the fresh entry's clients (in flight, seconds, image pool); its
 # first /profilez opens this long after they start
-P14C_IN_FLIGHT, P14C_SECONDS, P14C_POOL, P14C_PROFILEZ_AT_S = 64, 6.0, 16, 1.0
+P14C_IN_FLIGHT, P14C_SECONDS, P14C_POOL, P14C_PROFILEZ_AT_S = 64, 4.0, 16, 1.0
 # the JAX test's bar for Convolver(fast=True): its largest error against
 # fast=False over the largest feature (tests/ops/test_precision_policy.py)
 P14_FAST_CONV_BAR = 8e-3
@@ -4017,7 +4044,7 @@ def serve_gateway(dev, smi, feat, model, img=IMG, seconds=P14_SECONDS, in_flight
             assert all(launches[k] > 0 for k in KERNEL_NAMES), launches
 
         # -- 14b: swap, profilez, scrape and drain under load ---------------
-        clients = ClientProcess(server.url(), images_path, 600, in_flight,
+        clients = ClientProcess(server.url(), images_path, 600, min(in_flight, P14B_IN_FLIGHT),
                                 os.path.join(root, "drill.json"))
         clients.go()
         time.sleep(min(2.0, seconds / 4))
@@ -4264,7 +4291,7 @@ def gateway_phase(dev, smi, feat, model, solver_xy):
 # clients as phase 14's (requests in flight, seconds of a window, image
 # pool); a server process's start-up bound (CUDA context, the profiler
 # session, graph captures) and exit bound
-P15_IN_FLIGHT, P15_SECONDS, P15_POOL = 64, 8.0, 64
+P15_IN_FLIGHT, P15_SECONDS, P15_POOL = 64, 5.0, 64
 P15_UP_S, P15_EXIT_S = 240.0, 60.0
 # the kill drill: the kill this long into the clients' window, then the
 # bounds on the router seeing it, on the restarted replica serving again,
@@ -4307,7 +4334,7 @@ class ServerProcess:
     CPU, the same entry given ``device="cpu"``), its stdout drained on a
     thread (JSON lines queued), its stderr appended to ``log_path``."""
 
-    def __init__(self, argv, log_path, dev):
+    def __init__(self, argv, log_path, dev, env=None):
         import queue
 
         self.argv = argv
@@ -4315,9 +4342,13 @@ class ServerProcess:
         entry = ["-m", "keystone_tpu_torch"] if dev.type == "cuda" else [
             "-c", "import sys; from keystone_tpu_torch.__main__ import main; "
                   "sys.exit(main(sys.argv[1:], device='cpu'))"]
+        self.started = time.perf_counter()
         self.proc = subprocess.Popen([sys.executable] + entry + argv, cwd=ROOT,
-                                     stdout=subprocess.PIPE, stderr=self._log, text=True)
+                                     stdout=subprocess.PIPE, stderr=self._log, text=True,
+                                     env=None if env is None else {**os.environ, **env})
         self.lines = []
+        # (seconds since the start, doc) of every JSON line, as it arrived
+        self.arrivals = []
         self._docs = queue.Queue()
         threading.Thread(target=self._drain, daemon=True).start()
 
@@ -4326,7 +4357,9 @@ class ServerProcess:
             self.lines.append(line.rstrip())
             if line.startswith("{"):
                 with contextlib.suppress(ValueError):
-                    self._docs.put(json.loads(line))
+                    doc = json.loads(line)
+                    self.arrivals.append((time.perf_counter() - self.started, doc))
+                    self._docs.put(doc)
         self._docs.put(None)
 
     def wait_json(self, key, timeout=P15_UP_S):
@@ -4924,9 +4957,9 @@ P16B_RATE, P16B_FEEDBACK, P16B_HEAD_SEED, P16B_POISON_CHUNKS = 150, 0.5, 7, 16
 # the closed loop's requests a second (the drill's rate), probes
 P16B_ROWS, P16B_PROBES = 400, 8
 # 16c: open-loop lognormal arrivals into --self-gateway's gateway, the
-# same workload run this many times over one gateway (its p99 varied
-# about tenfold between chip runs)
-P16C_REQUESTS, P16C_RATE, P16C_RUNS = 2000, 400.0, 3
+# same workload run this many times over one gateway (three before phase
+# 17; its p99 varied about tenfold between chip runs)
+P16C_REQUESTS, P16C_RATE, P16C_RUNS = 2000, 400.0, 1
 P16_RUN_S = 300.0  # a loadgen process's bound
 
 
@@ -5375,6 +5408,480 @@ def loadgen_and_lifecycle(dev, smi, feat, model, img=IMG, chaos=None, rollout=No
     return rec
 
 
+# -- phase 17: cold start, model sharding and elasticity ----------------------
+
+# the flagship gateway's flags in 17b/c and the autoscaler's replicas (the
+# autoscaler's own defaults for the model: d 64 is ignored under
+# --device-featurize, hidden 64, depth 2; one lane)
+P17_GATEWAY = ["--device-featurize", "flagship", "--buckets", "8,64", "--lanes", "1",
+               "--hidden", "64", "--depth", "2"]
+P17_IMAGES = 64  # images answered by every engine held bit for bit
+P17_UP_S = 240.0  # a start's bound (nvcc included when cold)
+# 17d: the autoscaler's policy over a step of uint8 256² images through its
+# router: RATE_HIGH req/s (over one replica's JSON-bound capacity, 12.6–17.1
+# req/s in phases 14–15) for HIGH_S, then RATE_LOW for LOW_S
+P17_SLO_MS = 1000
+P17_RATE_HIGH, P17_HIGH_S, P17_RATE_LOW, P17_LOW_S = 24, 30, 2, 20
+P17_POLICY = ["--interval", "1", "--up-consecutive", "2", "--up-cooldown", "5",
+              "--down-consecutive", "3", "--down-cooldown", "10", "--slo-fast-window", "10",
+              "--slo-sample-interval", "1"]
+# 17e: serve-capacity-plan over the demo model, its replicas in this
+# process, at 17d's objective: the plan derives the autoscaler's policy.
+# (A 100 ms objective broke in every cell of one run on the card, 133.5 ms
+# at two replicas and 89 req/s, where other runs held it at 24–80 ms: the
+# host's share of a p99 varies from machine to machine.)
+P17_PLAN = ["--synthetic", "200", "--rate", "50", "--replicas", "1,2", "--speeds", "1,2",
+            "--slo-latency-ms", str(P17_SLO_MS), "--d", "32", "--hidden", "32", "--depth", "2",
+            "--buckets", "4"]
+
+
+def phase4_chain(dev, img=IMG):
+    """Phase 4's chain and head (the seeds and draws of ``serve``)."""
+    feat, feat_dim = build_flagship_featurize_pipeline(device=dev, **dict(CONF, img=img))
+    rng = np.random.default_rng(11)
+    W = (rng.standard_normal((feat_dim, CLASSES)) / np.sqrt(feat_dim)).astype(np.float32)
+    icpt = (rng.standard_normal(CLASSES) * 0.01).astype(np.float32)
+    return feat, model_head(W, icpt, TOP_K, dev)
+
+
+def startup_split(args):
+    """In a fresh process (``python3 chip_smoke.py --startup-split JSON``):
+    phase 4's engine at buckets (8, 64) built cold (no store; with a fresh
+    ``$KEYSTONE_CUDA_BUILD_DIR`` nvcc builds the kernels) or from the
+    store at ``args["store"]``, then the images at ``args["images"]``
+    answered and saved to ``args["out"]``. Prints one JSON line: the
+    start's split in seconds, the store's report, the launches of the
+    answering replay."""
+    from keystone_tpu_torch.gateway.http import _process_age_s
+    from keystone_tpu_torch.serving.aot import AotStore
+
+    split = {"import": _process_age_s()}
+    dev = torch.device(args["device"])
+    t = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.init()
+        torch.empty(1, device=dev)
+        torch.cuda.synchronize(dev)
+    split["cuda_init"] = time.perf_counter() - t
+    t = time.perf_counter()
+    feat, model = phase4_chain(dev, args["img"])
+    split["model"] = time.perf_counter() - t
+    store = AotStore(args["store"]) if args.get("store") else None
+    engine = model.compiled(BUCKETS, featurize=feat, device=dev, aot_store=store or False)
+    img = args["img"]
+    if store is None:
+        t = time.perf_counter()
+        if dev.type == "cuda":
+            _cuda.build()
+        split["kernels"] = time.perf_counter() - t
+        t = time.perf_counter()
+        for _, op in engine._operator_nodes():
+            op.operators(img, img, dev)
+        split["operators"] = time.perf_counter() - t
+    t = time.perf_counter()
+    capture_s = engine.warmup(example=np.zeros((img, img, 3), np.uint8))
+    split["warmup"] = time.perf_counter() - t
+    if store is not None:
+        split["kernels"] = engine.aot_libraries_s
+        split["warmup"] -= engine.aot_libraries_s
+    images = np.load(args["images"])
+    _cuda.reset_launches()
+    out = engine.apply(images, sync=True)
+    launches = dict(_cuda.LAUNCHES)
+    np.save(args["out"], out.cpu().numpy())
+    print(json.dumps({"split": split, "capture_s": {str(b): v for b, v in capture_s.items()},
+                      "aot": {str(b): v for b, v in engine.aot_report().items()},
+                      "libraries": engine.aot_libraries, "nvcc_s": dict(_cuda.BUILD_SECONDS),
+                      "store": None if store is None else store.status(), "launches": launches,
+                      "compile_count": engine.metrics.compile_count}), flush=True)
+
+
+def _split_process(dev, root, name, **args):
+    """``startup_split`` in a fresh ``python3`` with a build directory of
+    its own; returns its record with the process's wall seconds."""
+    build = os.path.join(root, f"build-{name}")
+    out = os.path.join(root, f"{name}.npy")
+    doc = dict(device=dev.type, out=out, images=os.path.join(root, "images.npy"), **args)
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--startup-split",
+                           json.dumps(doc)], cwd=ROOT, capture_output=True, text=True,
+                          timeout=P17_UP_S, env={**os.environ, "KEYSTONE_CUDA_BUILD_DIR": build})
+    wall = time.perf_counter() - t
+    assert proc.returncode == 0, (name, proc.stdout[-2000:], proc.stderr[-4000:])
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    rec["wall_s"] = wall
+    rec["outputs"] = np.load(out)
+    return rec
+
+
+def aot_round_trip(dev, smi, feat, model, root, img=IMG):
+    """Phase 17a/b: the start-up split cold and from the store, the AOT
+    round trip of phase 4's engine (in process, a fresh process from the
+    store, a corrupted entry), ``serve-aot-build``, and
+    ``serve-gateway --aot-cache`` started twice with fresh build
+    directories (cold, then from the store)."""
+    from keystone_tpu_torch.observability.registry import MetricsRegistry
+    from keystone_tpu_torch.serving.aot import AotStore
+
+    rec = {}
+    images = np.random.default_rng(31).integers(0, 256, (P17_IMAGES, img, img, 3), dtype=np.uint8)
+    np.save(os.path.join(root, "images.npy"), images)
+    engine_dir = os.path.join(root, "store-engine")
+    # -- the saving engine, in this process
+    store = AotStore(engine_dir, registry=MetricsRegistry())
+    saver = model.compiled(BUCKETS, featurize=feat, device=dev, aot_store=store)
+    t = time.perf_counter()
+    saver.warmup(example=np.zeros((img, img, 3), np.uint8))
+    rec["save_s"] = time.perf_counter() - t
+    assert {b: v["status"] for b, v in saver.aot_report().items()} == {b: "saved" for b in BUCKETS}
+    want = saver.apply(images, sync=True).cpu().numpy()
+    rec["saved"] = store.status()
+    entry_bytes = [os.path.getsize(store.path_for(k)) for k in store.entries()]
+    rec["entry_bytes"] = entry_bytes
+    log(f"17b saved {len(entry_bytes)} entries ({entry_bytes} B) and "
+        f"{store.status()['libraries']} kernel libraries in {rec['save_s']:.3f} s on {smi}")
+    # -- fresh processes: cold (nvcc, operators built), then from the store
+    cold = _split_process(dev, root, "cold", img=img)
+    warm = _split_process(dev, root, "store", img=img, store=engine_dir)
+    for name, r in (("cold", cold), ("store", warm)):
+        rec[name] = {k: v for k, v in r.items() if k != "outputs"}
+        log(f"17a {name} start of phase 4's engine: {r['split']} (process {r['wall_s']:.3f} s; "
+            f"nvcc {r['nvcc_s']}; captures {r['capture_s']}) on {smi}")
+    assert warm["store"]["hits"] == len(BUCKETS), warm["store"]
+    assert warm["store"]["errors"] == 0 and warm["nvcc_s"] == {}, warm
+    if dev.type == "cuda":
+        assert set(warm["libraries"].values()) == {"loaded"}, warm["libraries"]
+        assert cold["nvcc_s"], cold
+        per_replay = {"sift_bin_sample": 4, "plane_sandwich": 1, "fisher_vector_stats": 2}
+        replays = -(-P17_IMAGES // BUCKETS[-1])
+        want_launches = {k: v * replays for k, v in per_replay.items()}
+        assert warm["launches"] == want_launches == cold["launches"], (warm["launches"], cold)
+    assert np.array_equal(warm["outputs"], want), "the engine from the store answered otherwise"
+    assert np.array_equal(cold["outputs"], want), "the cold engine answered otherwise"
+    # -- a corrupted entry: counted, rebuilt on the card, the answers equal
+    key = next(k for k in store.entries() if store.read_meta(k)["bucket"] == BUCKETS[0])
+    with open(store.path_for(key), "r+b") as f:
+        f.seek(os.path.getsize(store.path_for(key)) // 2)
+        f.truncate()
+        f.write(b"\0" * 64)
+    errors = store.errors
+    again = model.compiled(BUCKETS, featurize=feat, device=dev, aot_store=store)
+    again.warmup(example=np.zeros((img, img, 3), np.uint8))
+    report = again.aot_report()
+    rec["corrupted"] = {"report": {str(b): v for b, v in report.items()},
+                        "errors": store.errors - errors}
+    assert report[BUCKETS[0]] == {"status": "error", "fallback": "saved"}, report
+    assert report[BUCKETS[-1]]["status"] == "hit" and store.errors == errors + 1, report
+    assert np.array_equal(again.apply(images, sync=True).cpu().numpy(), want)
+    assert np.array_equal(again.apply(images[:BUCKETS[0]], sync=True).cpu().numpy(),
+                          want[:BUCKETS[0]])
+    log(f"17b corrupted entry of bucket {BUCKETS[0]}: {rec['corrupted']} on {smi}")
+    for e in (saver, again):
+        e.release_graphs()
+    # -- serve-aot-build fills a store for the gateway's flags (the tests
+    # hold a second run to hits)
+    t = time.perf_counter()
+    proc = ServerProcess(["serve-aot-build", "--img", str(img), *P17_GATEWAY[:4], *P17_GATEWAY[6:],
+                          "--aot-cache", os.path.join(root, "store-build")],
+                         os.path.join(root, "servers.log"), dev)
+    rc = proc.proc.wait(timeout=P17_UP_S)
+    time.sleep(0.2)
+    proc.kill()
+    doc = json.loads(next(ln for ln in reversed(proc.lines) if ln.startswith("{")))
+    rec["aot_build"] = {"rc": rc, "s": time.perf_counter() - t, "libraries": doc["libraries"],
+                        "statuses": {b: v["status"] for b, v in doc["aot"].items()}}
+    assert rc == 0 and set(rec["aot_build"]["statuses"].values()) == {"saved"}, proc.lines[-5:]
+    log(f"17b serve-aot-build: {rec['aot_build']} on {smi}")
+    # -- serve-gateway --aot-cache, started twice with fresh build dirs
+    rec["gateway"] = []
+    answers = []
+    gateway_dir = os.path.join(root, "store-gateway")
+    probe = {"instances": [im.tolist() for im in images[:2]]}
+    for n in range(2):
+        srv = ServerProcess(["serve-gateway", "--gateway-port", "0", "--img", str(img),
+                             *P17_GATEWAY, "--aot-cache", gateway_dir],
+                            os.path.join(root, "servers.log"), dev,
+                            env={"KEYSTONE_CUDA_BUILD_DIR": os.path.join(root, f"build-gw{n}")})
+        try:
+            first = srv.wait_json("listening", timeout=P17_UP_S)
+            up_s = time.perf_counter() - srv.started
+            url = first["listening"]
+            hits = metric_sum(url, "keystone_aot_cache_hits_total")
+            code, doc = http_post(url + "/predict", probe)
+            assert code == 200, doc
+            answers.append(doc["predictions"])
+            rc, _ = srv.stop()
+            drained = srv.wait_json("drained")
+        finally:
+            srv.kill()
+        assert rc == 0
+        rec["gateway"].append({"up_s": up_s, "start_s": first["start_s"], "hits": hits,
+                               "launches": drained["launches"]})
+        log(f"17b serve-gateway --aot-cache start {n + 1}: up in {up_s:.3f} s, split "
+            f"{first['start_s']}, keystone_aot_cache_hits_total {hits} on {smi}")
+    assert rec["gateway"][0]["hits"] == 0 and rec["gateway"][1]["hits"] == len(BUCKETS)
+    assert answers[0] == answers[1]
+    rec["gateway_answers"] = answers[1]
+    return rec, gateway_dir
+
+
+def sharded_gateway(dev, smi, feat, model, root, gateway_dir, answers, img=IMG):
+    """Phase 17c: ``Gateway(param_sharding=True)`` over phase 4's chain on
+    a (1, 1) mesh against the unsharded gateway; ``serve-gateway
+    --shard-model --mesh-model 1`` against 17b's unsharded answers (and
+    its own store entries: a sharded engine never shares one); and
+    ``--mesh-model 2`` exits non-zero with its reason."""
+    from keystone_tpu_torch.gateway import Gateway
+    from keystone_tpu_torch.gateway import http as ghttp
+    from keystone_tpu_torch.observability.registry import MetricsRegistry
+    from keystone_tpu_torch.serving import sharding
+
+    rec = {}
+    images = np.load(os.path.join(root, "images.npy"))
+    sharding.set_mesh(sharding.make_mesh(n_model=1, devices=[dev]))
+    outs = {}
+    try:
+        for shard in (True, None):
+            gw = Gateway(model, buckets=BUCKETS, n_lanes=1, device_featurize=feat, device=dev,
+                         param_sharding=shard, warmup_example=np.zeros((img, img, 3), np.uint8),
+                         registry=MetricsRegistry(), name=f"p17c-{shard}")
+            with gw:
+                futs = [gw.predict(im) for im in images]
+                outs[shard] = np.stack([np.asarray(f.result(timeout=120)) for f in futs])
+                engine = gw.pool.lanes[0].engine
+                if shard:
+                    rec["specs"] = {k: str(v) for k, v in engine.param_sharding.items()}
+                    rec["placed_bytes"] = {str(k): v for k, v in sharding.placed_shard_bytes(
+                        engine._placed_params).items()}
+                    rec["mesh"] = sharding.current_mesh().shape
+            engine.release_graphs()
+    finally:
+        sharding.set_mesh(None)
+    assert np.array_equal(outs[True], outs[None])
+    log(f"17c sharded gateway over phase 4's chain: specs {rec['specs']}, placed "
+        f"{rec['placed_bytes']} B, mesh {rec['mesh']}; {P17_IMAGES} answers equal to the "
+        f"unsharded gateway's on {smi}")
+    srv = ServerProcess(["serve-gateway", "--gateway-port", "0", "--img", str(img), *P17_GATEWAY,
+                         "--shard-model", "--mesh-model", "1", "--aot-cache", gateway_dir],
+                        os.path.join(root, "servers.log"), dev)
+    try:
+        first = srv.wait_json("listening", timeout=P17_UP_S)
+        url = first["listening"]
+        code, doc = http_post(url + "/predict", {"instances": [im.tolist() for im in images[:2]]})
+        assert code == 200 and doc["predictions"] == answers, doc
+        rec["cli"] = {"mesh": first["mesh"], "specs": first["sharding"], "start_s": first["start_s"],
+                      "hits": metric_sum(url, "keystone_aot_cache_hits_total"),
+                      "misses": metric_sum(url, "keystone_aot_cache_misses_total")}
+        assert srv.stop()[0] == 0
+    finally:
+        srv.kill()
+    assert rec["cli"]["mesh"] == {"data": 1, "model": 1} and rec["cli"]["hits"] == 0
+    log(f"17c serve-gateway --shard-model --mesh-model 1: {rec['cli']} on {smi}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = ghttp.main(["--shard-model", "--mesh-model", "2", "--img", str(img), *P17_GATEWAY],
+                        device=dev)
+    rec["mesh2"] = {"rc": rc, "out": out.getvalue().strip()}
+    assert rc != 0 and "needs 2 devices" in out.getvalue(), rec["mesh2"]
+    sharding.set_mesh(None)
+    log(f"17c --mesh-model 2: exit {rc}: {rec['mesh2']['out']} on {smi}")
+    return rec
+
+
+def _pid_alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def autoscale_drill(dev, smi, root, gateway_dir, img=IMG, rate_high=P17_RATE_HIGH,
+                    high_s=P17_HIGH_S, rate_low=P17_RATE_LOW, low_s=P17_LOW_S):
+    """Phase 17d: ``serve-autoscale`` (1–2 flagship replicas sharing 17b's
+    store) under ``serve-loadgen --ramp`` of uint8 images through its
+    router: a scale_up, the second replica serving, no failed request, a
+    drain-retired replica after the load drops, SIGTERM draining every
+    child; each replica's start seconds and its B1/B2 launches (from the
+    ``{"drained": ...}`` line in its log)."""
+    rec = {}
+    rdir = os.path.join(root, "replicas")
+    auto = ServerProcess(["serve-autoscale", "--router-port", "0", "--min-replicas", "1",
+                          "--max-replicas", "2", "--slo-latency-ms", str(P17_SLO_MS), *P17_POLICY,
+                          "--buckets", "8,64", "--hidden", "64", "--depth", "2",
+                          "--gateway-arg=--device-featurize=flagship", f"--gateway-arg=--img={img}",
+                          "--aot-cache", gateway_dir, "--replica-log-dir", rdir],
+                         os.path.join(root, "autoscale.log"), dev)
+    lg = None
+
+    def stamped_events():
+        """The autoscaler's events, each stamped with its arrival."""
+        return [dict(doc, t=t) for t, doc in list(auto.arrivals) if "event" in doc]
+
+    def wait_event(pred, timeout):
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            hit = next((e for e in stamped_events() if pred(e)), None)
+            if hit is not None:
+                return hit
+            time.sleep(0.2)
+        raise AssertionError(f"17d: no such event in {timeout} s: {stamped_events()[-10:]}")
+
+    try:
+        router = auto.wait_json("listening", timeout=P17_UP_S)["listening"]
+        first = wait_event(lambda e: e["event"] == "replica_started", P17_UP_S)
+        rec["first_up_s"] = first["t"]
+        t0 = time.perf_counter() - auto.started
+        lg = ServerProcess(["serve-loadgen", "--target", router, "--ramp",
+                            f"{rate_high}:{high_s},{rate_low}:{low_s}", "--payload-dtype", "uint8",
+                            "--payload-shape", f"{img},{img},3", "--max-outstanding", "1024",
+                            "--report", os.path.join(root, "ramp.json")],
+                           os.path.join(root, "loadgen.log"), dev)
+        wait_event(lambda e: e.get("action") == "scale_up", high_s + 60)
+        second = wait_event(lambda e: e["event"] == "replica_started" and e["name"] != first["name"],
+                            P17_UP_S)
+        # the decision's event follows the launch it waited for: the
+        # decision itself came the replica's start seconds before it
+        rec["scale_up_decided_s"] = second["t"] - second["start_s"] - t0
+        rec["second_up_s"] = second["t"] - t0
+        # the second replica serves: ready on the router, and answering
+        deadline = time.perf_counter() + 60
+        served2 = 0
+        while time.perf_counter() < deadline and served2 == 0:
+            served2 = requests_ok(second["url"])
+            time.sleep(1)
+        rec["second_served_during_load"] = served2
+        assert served2 > 0, "17d: the second replica served nothing"
+        rc = lg.proc.wait(timeout=high_s + low_s + 300)
+        rec["loadgen_rc"] = rc
+        verdict = json.load(open(os.path.join(root, "ramp.json")))
+        stats = verdict["stats"]
+        rec["ramp"] = {k: stats.get(k) for k in ("issued", "by_status", "duration_s",
+                                                  "max_behind_ms")}
+        rec["ramp"]["verdict_passed"] = verdict["passed"]
+        assert stats["by_status"] == {"ok": stats["issued"]}, stats["by_status"]
+        down = wait_event(lambda e: e.get("action") == "scale_down", 120)
+        rec["scale_down_s"] = down["t"] - t0
+        retired = wait_event(lambda e: e["event"] == "replica_retired", 90)
+        assert retired.get("drained") is True, retired
+        rec["retired"] = retired
+        t = time.perf_counter()
+        rc, _ = auto.stop(timeout=120)
+        rec["sigterm"] = {"rc": rc, "s": time.perf_counter() - t}
+        assert rc == 0
+    finally:
+        if lg is not None:
+            lg.kill()
+        if auto.proc.poll() is None:
+            # a failure above: SIGTERM first, so that the autoscaler
+            # retires its replicas
+            with contextlib.suppress(Exception):
+                auto.stop(timeout=120)
+        auto.kill()
+        time.sleep(1.0)
+        events = stamped_events()
+        pids = {e["name"]: e["pid"] for e in events if e["event"] == "replica_started"}
+        rec["left_running"] = sorted(n for n, pid in pids.items() if _pid_alive(pid))
+        for name in rec["left_running"]:  # no replica may hold the card past here
+            with contextlib.suppress(OSError):
+                os.kill(pids[name], 9)
+    assert not rec["left_running"], rec["left_running"]
+    rec["starts"] = {e["name"]: e["start_s"] for e in events if e["event"] == "replica_started"}
+    rec["decisions"] = dict(Counter(e["action"] for e in events
+                                    if e["event"] == "autoscale_decision"))
+    # the control loop's ticks, seconds from the load's start
+    rec["timeline"] = [(round(e["t"] - t0, 1), e.get("action", e["event"]), e.get("fleet_p99_ms"),
+                        e.get("burn_fast"), e.get("running")) for e in events]
+    rec["replicas"] = {}
+    for name in sorted(pids):
+        with open(os.path.join(rdir, f"{name}.log")) as f:
+            lines = [ln for ln in f if ln.startswith("{")]
+        drained = next(json.loads(ln) for ln in reversed(lines) if '"drained"' in ln)
+        first_line = next(json.loads(ln) for ln in lines if '"listening"' in ln)
+        rec["replicas"][name] = {"launches": drained["launches"], "start_s": first_line["start_s"]}
+        if dev.type == "cuda":
+            got = drained["launches"]
+            assert got["sift_bin_sample"] > 0 and got["plane_sandwich"] > 0, (name, got)
+    assert len(pids) == 2, pids
+    log(f"17d serve-autoscale: {rec} on {smi}")
+    return rec
+
+
+def capacity_plan(dev, smi, root):
+    """Phase 17e: ``serve-capacity-plan --mode inproc`` over the demo model
+    on the card, replicas 1,2 x speeds 1,2, at 17d's objective: the
+    artifact's fitted per-replica rate, which ``PolicyConfig.from_plan``
+    loads. The planner's output, every cell included, goes to
+    ``plan.log``."""
+    from keystone_tpu_torch.autoscale import PolicyConfig
+    from keystone_tpu_torch.autoscale import planner
+
+    path = os.path.join(root, "plan.json")
+    out = io.StringIO()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = planner.main(P17_PLAN + ["--out", path], device=dev)
+    finally:
+        with open(os.path.join(root, "plan.log"), "w") as f:
+            f.write(out.getvalue())
+    rec = {"s": time.perf_counter() - t, "rc": rc}
+    artifact = json.load(open(path))
+    rec["fit"] = artifact["fit"]
+    rec["capacity_rps_by_replicas"] = artifact["capacity_rps_by_replicas"]
+    rec["rows"] = [{k: r[k] for k in ("replicas", "speed", "offered_rps", "p99_ms", "shed_rate",
+                                      "lost", "errors", "slo_held")}
+                   for r in artifact["rows"]]
+    assert rc == 0 and artifact["fit"]["per_replica_rps"] is not None, rec
+    rec["policy"] = dataclasses.asdict(PolicyConfig.from_plan(path))
+    log(f"17e serve-capacity-plan: {rec} on {smi}")
+    return rec
+
+
+def cold_start_sharding_elasticity(dev, smi, feat, model, img=IMG, autoscale=None):
+    """Phase 17: 17a/b (``aot_round_trip``), 17c (``sharded_gateway``),
+    17d (``autoscale_drill``) and 17e (``capacity_plan``). ``autoscale``
+    overrides 17d's sizes. To rehearse it on the CPU at a small size, with
+    a 48² chain and head (``phase4_chain(torch.device("cpu"), 48)``):
+    ``cold_start_sharding_elasticity(torch.device("cpu"), "cpu", feat,
+    model, img=48, autoscale=dict(rate_high=150, high_s=20, rate_low=2,
+    low_s=30))``."""
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "tmp", "phase17")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rec = {"card": smi}
+    try:
+        t = time.perf_counter()
+        rec["aot"], gateway_dir = aot_round_trip(dev, smi, feat, model, root, img=img)
+        rec["aot"]["phase_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        rec["sharding"] = sharded_gateway(dev, smi, feat, model, root, gateway_dir,
+                                          rec["aot"]["gateway_answers"], img=img)
+        rec["sharding"]["phase_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        rec["autoscale"] = autoscale_drill(dev, smi, root, gateway_dir, img=img,
+                                           **(autoscale or {}))
+        rec["autoscale"]["phase_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        rec["plan"] = capacity_plan(dev, smi, root)
+        rec["plan"]["phase_s"] = time.perf_counter() - t
+    finally:
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        for name in ("servers.log", "autoscale.log", "loadgen.log", "plan.log"):
+            with contextlib.suppress(OSError):
+                shutil.copy(os.path.join(root, name),
+                            os.path.join(ROOT, "chiprun_out", f"phase17_{name}"))
+        with contextlib.suppress(OSError):
+            shutil.copytree(os.path.join(root, "replicas"),
+                            os.path.join(ROOT, "chiprun_out", "phase17_replicas"),
+                            dirs_exist_ok=True)
+        shutil.rmtree(root, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 17 in {rec['phase_s']:.3f} s on {smi}")
+    return rec
+
+
 def _info(info):
     return None if info is None else {k: float(v) for k, v in info.items()}
 
@@ -5523,10 +6030,26 @@ def main():
 
     # -- 16. the load generator and the online model lifecycle ------------
     lifecycle = loadgen_and_lifecycle(dev, smi, feat, model)
-    del feat, model
     for r in rows:
         r["phase16a_launches"] = lifecycle["chaos"]["launches"][r["name"]]
         r["phase16a_launches_per_request"] = lifecycle["chaos"]["launches_per_request"][r["name"]]
+    torch.cuda.empty_cache()
+
+    # -- 17. cold start, model sharding and elasticity ---------------------
+    _cuda.reset_launches()
+    elastic = cold_start_sharding_elasticity(dev, smi, feat, model)
+    del feat, model
+    for r in rows:
+        # this process (17b's in-process engines, 17c's gateways), the fresh
+        # process built from the store (one bucket-64 replay), and the
+        # autoscaled replicas (vocab 16: B1 and B2 only)
+        r["phase17_launches"] = {
+            "this_process": _cuda.LAUNCHES[r["name"]],
+            "fresh_from_store": elastic["aot"]["store"]["launches"][r["name"]],
+            "replicas": {n: v["launches"][r["name"]]
+                         for n, v in elastic["autoscale"]["replicas"].items()},
+        }
+    log(f"launches in phase 17: {[(r['name'], r['phase17_launches']) for r in rows]}")
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -5534,7 +6057,7 @@ def main():
                    "stream": streamed, "files": files, "voc": voc_rec, "random_features": rf,
                    "past_the_card": past, "text": text, "last_app": last,
                    "gateway": gateway, "fleet_zoo": fleet_zoo, "loadgen_lifecycle": lifecycle,
-                   "ptxas": ptxas}, f,
+                   "elastic": elastic, "ptxas": ptxas}, f,
                   indent=1, default=str)
     # the fit's launches and B3's error with the fitted GMMs are in
     # chip_smoke.json beside these
@@ -5551,5 +6074,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--gateway-clients"]:
         gateway_clients(*json.loads(sys.argv[2]))
+    elif sys.argv[1:2] == ["--startup-split"]:
+        startup_split(json.loads(sys.argv[2]))
     else:
         main()

@@ -17,9 +17,12 @@ router over ``serve-gateway`` replicas, host-only;
 ``keystone_tpu_torch/fleet/router.py``), ``serve-loadgen`` (open-loop
 replay, chaos and the invariant verdict; ``loadgen/cli.py``) and
 ``serve-lifecycle`` (status, tick and rollback over HTTP, stdlib only;
-``lifecycle/cli.py``). The rest of the plane — the other ``serve-*``,
-``bench-diff`` and ``keystone-lint`` subcommands — is not ported yet:
-given one, the entry says so and exits 2.
+``lifecycle/cli.py``), ``serve-aot-build`` (fill the AOT store;
+``serving/aot.py``), ``serve-autoscale`` (router, supervised
+``serve-gateway`` replicas and the autoscale loop; ``autoscale/cli.py``)
+and ``serve-capacity-plan`` (``autoscale/planner.py``). The rest of the
+plane — ``serve-bench``, ``bench-diff`` and ``keystone-lint`` — is not
+ported yet: given one, the entry says so and exits 2.
 """
 
 from __future__ import annotations
@@ -39,14 +42,14 @@ APPS = {
 }
 
 # the JAX package's request-plane subcommands not ported yet
-PLANE_APPS = ("serve-bench", "serve-autoscale", "serve-capacity-plan",
-              "serve-aot-build", "bench-diff", "keystone-lint")
+PLANE_APPS = ("serve-bench", "bench-diff", "keystone-lint")
 
 
 def _not_ported(what: str) -> int:
     print(f"{what} is not ported yet: keystone_tpu_torch runs the apps, "
-          "serve-gateway, serve-router, serve-loadgen, serve-lifecycle and "
-          "the admin endpoint")
+          "serve-gateway, serve-router, serve-loadgen, serve-lifecycle, "
+          "serve-aot-build, serve-autoscale, serve-capacity-plan and the "
+          "admin endpoint")
     return 2
 
 
@@ -105,9 +108,10 @@ def _otlp(argv) -> int:
 
 
 def main(argv=None, device=None) -> int:
-    """Run ``argv``'s app. ``device`` goes to ``serve-gateway`` and
-    ``serve-loadgen`` (``None`` means ``cuda``; rehearsals on the CPU
-    pass ``"cpu"``)."""
+    """Run ``argv``'s app. ``device`` goes to ``serve-gateway``,
+    ``serve-loadgen``, ``serve-aot-build``, ``serve-capacity-plan`` and
+    ``serve-autoscale``'s replicas (``None`` means ``cuda``; rehearsals
+    on the CPU pass ``"cpu"``)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--admin-port" in argv:
         # observability plane: /metrics, /varz, /healthz, /tracez, /slz,
@@ -178,6 +182,13 @@ def main(argv=None, device=None) -> int:
               "keystone_tpu_torch/loadgen/)")
         print("  serve-lifecycle (status, tick or rollback of a serve-gateway "
               "--refit lifecycle over HTTP; keystone_tpu_torch/lifecycle/)")
+        print("  serve-aot-build  (fill the AOT store: kernel libraries and "
+              "each bucket's entry; keystone_tpu_torch/serving/aot.py)")
+        print("  serve-autoscale  (a router, supervised serve-gateway replicas "
+              "and the autoscale loop; keystone_tpu_torch/autoscale/)")
+        print("  serve-capacity-plan  (replay a workload against 1..K replicas, "
+              "fit per-replica capacity, write the plan serve-autoscale --plan "
+              "loads)")
         print("options:")
         print("  --gateway-port N shorthand for `serve-gateway --gateway-port N` "
               "(N=0 picks an ephemeral port)")
@@ -209,6 +220,18 @@ def main(argv=None, device=None) -> int:
         from keystone_tpu_torch.lifecycle.cli import main as lifecycle_main
 
         return lifecycle_main(argv[1:])
+    if app == "serve-aot-build":
+        from keystone_tpu_torch.serving.aot import build_main
+
+        return build_main(argv[1:], device=device)
+    if app == "serve-autoscale":
+        from keystone_tpu_torch.autoscale.cli import main as autoscale_main
+
+        return autoscale_main(argv[1:], device=device)
+    if app == "serve-capacity-plan":
+        from keystone_tpu_torch.autoscale.planner import main as plan_main
+
+        return plan_main(argv[1:], device=device)
     if app in PLANE_APPS:
         return _not_ported(app)
     if app not in APPS:

@@ -6,7 +6,11 @@ takes seconds), loaded with ``ctypes``. Builds run at first use, one
 ``nvcc`` per source, all started together, into ``_build/`` beside this
 file; a library's file name carries a digest of its source and of the
 headers (``csrc/*.cuh``), so an edited source is rebuilt and a stale
-library is never loaded.
+library is never loaded. ``$KEYSTONE_CUDA_BUILD_DIR`` names another build
+directory (a fresh one measures a host's first start, nvcc included);
+the AOT store (``serving/aot.py``) keeps built libraries by the same
+digest and the toolchain (``nvcc_version``), so that a host with the
+store skips ``nvcc``.
 
 ``LAUNCHES`` counts the kernel launches of each wrapper: a wrapper adds
 one (``count``) where it launches its kernel, and nowhere else (a call on
@@ -27,13 +31,14 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, Iterable, Optional
 
 import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
-BUILD_DIR = os.path.join(_HERE, "_build")
+BUILD_DIR = os.environ.get("KEYSTONE_CUDA_BUILD_DIR") or os.path.join(_HERE, "_build")
 
 # library name -> source file under csrc/
 SOURCES: Dict[str, str] = {
@@ -79,6 +84,11 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # nvcc's output (ptxas register / shared-memory report) per library
 BUILD_LOGS: Dict[str, str] = {}
+# wall seconds of the last nvcc run of each library this process built
+# (libraries built together share one run's seconds), and the wall
+# seconds of every build this process ran nvcc in, summed
+BUILD_SECONDS: Dict[str, float] = {}
+BUILD_WALL_S = 0.0
 
 
 _count_lock = threading.Lock()
@@ -152,24 +162,61 @@ def source_path(name: str) -> str:
     return os.path.join(CSRC_DIR, SOURCES[name])
 
 
-def _lib_path(name: str) -> str:
+def source_digest(name: str) -> str:
+    """Digest of library ``name``'s source and of every header."""
     digest = hashlib.sha256()
     for path in (source_path(name), *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))):
         with open(path, "rb") as f:
             digest.update(f.read())
-    return os.path.join(BUILD_DIR, f"libks_{name}_{digest.hexdigest()[:12]}.so")
+    return digest.hexdigest()
+
+
+def sources_digest() -> str:
+    """Digest of every kernel source and header under ``csrc/``: a kernel
+    edit changes it."""
+    digest = hashlib.sha256()
+    for path in sorted(glob.glob(os.path.join(CSRC_DIR, "*"))):
+        digest.update(os.path.basename(path).encode() + b"\0")
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return digest.hexdigest()
+
+
+def library_path(name: str) -> str:
+    """Where library ``name`` of the current sources is built."""
+    return os.path.join(BUILD_DIR, f"libks_{name}_{source_digest(name)[:12]}.so")
+
+
+_nvcc_version: Optional[str] = None
+
+
+def nvcc_version() -> Optional[str]:
+    """The last line of ``nvcc --version`` (its build), or None where no
+    nvcc is found; read once a process."""
+    global _nvcc_version
+    if _nvcc_version is None:
+        try:
+            out = subprocess.run(
+                [_nvcc(), "--version"], capture_output=True, text=True, timeout=60,
+            ).stdout.strip().splitlines()
+            _nvcc_version = out[-1] if out else ""
+        except (OSError, RuntimeError, subprocess.SubprocessError):
+            _nvcc_version = ""
+    return _nvcc_version or None
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Compile every named library that is not built yet, all ``nvcc``s in
     parallel, and wait for them. Returns name -> library path; raises with
     the compiler's output if any build fails."""
+    global BUILD_WALL_S
     names = list(SOURCES if names is None else names)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    paths = {n: _lib_path(n) for n in names}
+    paths = {n: library_path(n) for n in names}
     todo = [n for n in names if not os.path.exists(paths[n])]
     if todo:
         nvcc = _nvcc()
+        t0 = time.perf_counter()
         procs = {}
         for n in todo:
             tmp = f"{paths[n]}.{os.getpid()}.tmp"
@@ -185,10 +232,12 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         for n, (proc, tmp) in procs.items():
             out, _ = proc.communicate()
             BUILD_LOGS[n] = out
+            BUILD_SECONDS[n] = time.perf_counter() - t0
             if proc.returncode != 0:
                 failed.append(f"{SOURCES[n]}:\n{out}")
             else:
                 os.replace(tmp, paths[n])
+        BUILD_WALL_S += time.perf_counter() - t0
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return paths

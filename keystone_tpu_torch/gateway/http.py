@@ -102,15 +102,29 @@ closed form; single-model mode only, as in JAX. ``--register ROUTER_URL`` (repea
 replica with a fleet router (``fleet/router.py``; ``--advertise-url``
 names the URL to register), ``--zoo SPEC.json`` serves a model zoo,
 with ``--optimize`` (host under the placement plan) and
-``--max-resident N`` (LRU cap). On SIGTERM a registered replica
+``--max-resident N`` (LRU cap). ``--aot-cache DIR`` starts from the
+AOT store at DIR (``serving/aot.py``: kernel libraries and bucket
+entries; ``$KEYSTONE_AOT_CACHE`` names one too, ``--no-cache`` turns it
+off; without either the port keeps no store, where the JAX package
+defaults to one under the home directory). ``--shard-model`` shards the
+model over a ``(data, model)`` mesh of ``--mesh-model N`` devices
+(``serving/sharding.py``; more than the host has exits 1 with the
+reason). The ``{"listening": ...}`` line carries ``start_s``, the start
+split in seconds (``process_at_main``, ``model``, ``gateway`` with its
+``profiler``, ``lanes`` and ``warmup``, ``kernel_build`` when ``nvcc``
+ran, ``libraries`` from the store), and under ``--shard-model`` every
+parameter's resolved spec. On SIGTERM a registered replica
 deregisters from its routers first and then drains, so the routers
-stop sending before it starts refusing (the JAX package drains first).
+stop sending before it starts refusing (the JAX package drains first);
+after the drain it prints ``{"drained": true, "launches": {...}}``, the
+kernel launches of its life (``_cuda.LAUNCHES``).
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import signal
 import sys
 import threading
@@ -121,6 +135,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
+from keystone_tpu_torch import _cuda
 from keystone_tpu_torch.gateway.admission import Overloaded
 from keystone_tpu_torch.gateway.lifecycle import Gateway
 from keystone_tpu_torch.loadgen import faults
@@ -160,11 +175,6 @@ NO_ZOO_DETAIL = {
     "/driftz": "started without --zoo; /driftz reports live-vs-plan "
                "workload drift and the re-plan recommendation",
 }
-
-# serve-gateway flags of the JAX package that wait for model sharding
-# and the AOT store
-UNPORTED_FLAGS = ("--shard-model", "--mesh-model", "--aot-cache")
-
 
 def _status_for(err: Overloaded) -> int:
     if err.reason == "closed":
@@ -890,7 +900,6 @@ def main(argv=None, device=None) -> int:
     ap = argparse.ArgumentParser(
         prog="keystone_tpu_torch serve-gateway", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,
-        epilog="not ported yet (each exits 2): " + " ".join(UNPORTED_FLAGS),
     )
     ap.add_argument("--gateway-port", "--port", dest="port", type=int,
                     default=0, help="bind port (0 = ephemeral)")
@@ -1015,16 +1024,29 @@ def main(argv=None, device=None) -> int:
                     help="raw image edge length under "
                     "--device-featurize (default: 16 for the demo "
                     "chain, 64 for flagship)")
+    ap.add_argument("--shard-model", action="store_true",
+                    help="shard the MODEL over a (data, model) mesh of "
+                    "the local devices (serving/sharding.py): the "
+                    "default partition rules split every weight matrix "
+                    "over the model axis, and each lane engine runs the "
+                    "model on params it placed. On one card the model "
+                    "axis has size 1 and every param is placed whole")
+    ap.add_argument("--mesh-model", type=int, default=None,
+                    metavar="N",
+                    help="model-axis size under --shard-model "
+                    "(default: all local devices); more than the host "
+                    "has exits 1")
     ap.add_argument("--no-cache", action="store_true",
-                    help="accepted for the JAX package's command lines "
-                    "and does nothing: the port keeps no compile cache "
-                    "(each lane captures its CUDA graphs at warmup)")
-    unported = sorted({a.split("=")[0] for a in argv} & set(UNPORTED_FLAGS))
-    if unported:
-        print(f"{', '.join(unported)}: not ported yet (the port has no "
-              "model sharding or AOT store)", flush=True)
-        return 2
+                    help="run with no AOT store, even if --aot-cache or "
+                    "$KEYSTONE_AOT_CACHE names one")
+    ap.add_argument("--aot-cache", default=None, metavar="DIR",
+                    help="AOT store dir (serving/aot.py): kernel "
+                    "libraries and each bucket's entry; pre-populate "
+                    "with serve-aot-build. Default: $KEYSTONE_AOT_CACHE "
+                    "when set, else no store. Ignored under --no-cache")
     args = ap.parse_args(argv)
+    t_main = time.perf_counter()
+    start_s = {"process_at_main": _process_age_s()}
     if args.refit and (args.zoo or args.device_featurize):
         print(
             "--refit wants the plain demo model (not --zoo / "
@@ -1033,6 +1055,25 @@ def main(argv=None, device=None) -> int:
         )
         return 2
     dev = resolve_device(device)
+    if not args.no_cache and (args.aot_cache or os.environ.get("KEYSTONE_AOT_CACHE")):
+        from keystone_tpu_torch.serving.aot import setup_aot_cache
+
+        setup_aot_cache(args.aot_cache)
+    if args.shard_model:
+        # pin the process mesh so every engine generation (first build,
+        # rebuckets, swaps) places over the same (data, model) topology
+        from keystone_tpu_torch.serving import sharding as sharding_lib
+
+        devices = (sharding_lib.local_devices() if dev.type == "cuda"
+                   else [torch.device("cpu")])
+        try:
+            mesh = sharding_lib.make_mesh(
+                n_model=args.mesh_model or len(devices), devices=devices
+            )
+        except ValueError as e:
+            print(json.dumps({"error": f"--mesh-model: {e}"}), flush=True)
+            return 1
+        sharding_lib.set_mesh(mesh)
 
     if args.slo_latency_ms is not None or args.trace:
         # the forensic chain (exemplars, flight records, burn gauges)
@@ -1119,6 +1160,8 @@ def main(argv=None, device=None) -> int:
             fitted = build_pipeline(
                 d=args.d, hidden=args.hidden, depth=args.depth, device=dev
             )
+        start_s["model"] = time.perf_counter() - t_main
+        t_gateway = time.perf_counter()
         gateway = Gateway(
             fitted,
             buckets=tuple(int(b) for b in args.buckets.split(",")),
@@ -1137,7 +1180,14 @@ def main(argv=None, device=None) -> int:
             ),
             slo_target=args.slo_target,
             flight_capacity=args.flight_capacity,
+            param_sharding=True if args.shard_model else None,
         )
+        start_s["gateway"] = time.perf_counter() - t_gateway
+        start_s.update(gateway.startup_s)
+    if _cuda.BUILD_WALL_S:
+        # nvcc's wall seconds: a gateway builds each library at its first
+        # launch, one after another
+        start_s["kernel_build"] = _cuda.BUILD_WALL_S
     plane = zoo if zoo is not None else gateway
     # chaos experiments can pre-arm fault points from the environment
     # (KEYSTONE_FAULTS="point=k:v,... ..."); absent env is a no-op.
@@ -1209,16 +1259,18 @@ def main(argv=None, device=None) -> int:
     # the machine-parseable bound-address line FIRST: with --port 0
     # (ephemeral — no port races) smoke scripts read the actual
     # address off this one JSON line
-    print(
-        json.dumps(
-            {
-                "listening": server.url().rstrip("/"),
-                "role": "gateway",
-                **({"models": list(zoo.registry.ids())} if zoo is not None else {}),
-            }
-        ),
-        flush=True,
-    )
+    start_s["total"] = time.perf_counter() - t_main
+    listening = {
+        "listening": server.url().rstrip("/"),
+        "role": "gateway",
+        **({"models": list(zoo.registry.ids())} if zoo is not None else {}),
+        "start_s": start_s,
+    }
+    if args.shard_model and gateway is not None:
+        engine = gateway.pool.lanes[0].engine
+        listening["mesh"] = sharding_lib.current_mesh().shape
+        listening["sharding"] = {k: str(v) for k, v in engine.param_sharding.items()}
+    print(json.dumps(listening), flush=True)
     zoo_routes = (
         "POST /predict/<model>, GET /planz, GET /attributionz, "
         "GET /driftz, " if zoo is not None else ""
@@ -1257,4 +1309,18 @@ def main(argv=None, device=None) -> int:
     # wait for the signal's), then stop the listener
     retire()
     server.stop()
+    print(json.dumps({"drained": True, "launches": dict(_cuda.LAUNCHES)}), flush=True)
     return 0
+
+
+def _process_age_s() -> Optional[float]:
+    """Seconds since this process started (Linux ``/proc``), else None:
+    what an interpreter start and the imports took before ``main``."""
+    try:
+        with open("/proc/self/stat") as f:
+            start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as f:
+            uptime = float(f.read().split()[0])
+        return uptime - start_ticks / os.sysconf("SC_CLK_TCK")
+    except (OSError, ValueError, IndexError):
+        return None

@@ -41,10 +41,11 @@ state is surfaced in ``/readyz``'s body (still 200 — burning is a
 "stop sending so fast", not a "stop sending").
 
 - **the online lifecycle's hooks** — ``build_model_batcher`` builds a
-  candidate's own engine (one CUDA graph per bucket, captured at once)
-  and micro-batcher over this gateway's serving config, and
-  ``swap_model`` rotates every lane onto engines built from another
-  fitted pipeline (promotion, and rollback to the incumbent).
+  candidate's own engine (one CUDA graph per bucket, captured at once;
+  on the candidate's own AOT store when given one) and micro-batcher
+  over this gateway's serving config, and ``swap_model`` rotates every
+  lane onto engines built from another fitted pipeline (promotion, and
+  rollback to the incumbent), optionally on another store.
 
 Every swap (``rebucket``, ``swap_engines``, ``swap_model``) retires the
 engines it displaced (``CompiledPipeline.retire``): once the windows
@@ -53,10 +54,11 @@ graphs and private memory pools, without ``empty_cache``, so the memory
 a generation holds does not pile up over the versions a lifecycle walks
 through.
 
-Not ported yet: ``param_sharding`` (one card holds the model whole) and
-``aot_store`` (a CUDA graph cannot be serialized); either one given as
-anything but its default raises ``NotImplementedError``.
-``engine_factory=`` is the zoo's seam (``zoo/host.py`` builds
+``param_sharding`` and ``aot_store`` go to every engine generation the
+factory builds (``serving/sharding.py``, ``serving/aot.py``): on one
+card a sharded model's params are placed whole by each lane's engine,
+and the store gives each engine its kernel libraries and bucket
+entries. ``engine_factory=`` is the zoo's seam (``zoo/host.py`` builds
 shared-prefix engines through it); a gateway on it cannot build engines
 from a fitted pipeline, so its lifecycle hooks raise, as in JAX.
 """
@@ -66,6 +68,7 @@ from __future__ import annotations
 import logging
 import signal
 import threading
+import time
 from concurrent.futures import Future
 from typing import Any, Dict, Optional, Sequence
 
@@ -151,9 +154,19 @@ class Gateway:
                        rebuild lane engines with the same fused stage;
                        ``warmup_example`` must be a RAW example in
                        this mode.
-    param_sharding,
-    aot_store:         not ported yet; anything but the default raises
-                       ``NotImplementedError``.
+    param_sharding:    shard the MODEL over the process mesh's model
+                       axis (serving/sharding.py): ``True`` resolves
+                       the default rule set, a rules sequence or a
+                       ``{name: spec}`` dict partitions explicitly.
+                       Every engine generation carries it, placed over
+                       the mesh current at build time (``serve-gateway
+                       --shard-model`` pins it with ``set_mesh``); on
+                       one card each lane's engine places the params
+                       whole, as its own copy.
+    aot_store:         the store engine builds consult: ``"auto"``
+                       (process-configured), ``None``/``False`` (off),
+                       or an ``AotStore`` (the zoo passes per-model
+                       namespaced stores).
     engine_factory:    optional override, ``callable(buckets) ->
                        (lane_name -> engine)`` — replaces the
                        ``fitted.compiled()`` factory for every engine
@@ -221,12 +234,6 @@ class Gateway:
         slo_pressure: float = SLO_PRESSURE,
         flight_capacity: int = 64,
     ):
-        if param_sharding is not None or aot_store != "auto":
-            raise NotImplementedError(
-                "Gateway(param_sharding=, aot_store=) is not ported yet: the "
-                "port serves one unsharded model per card and keeps no "
-                "executable store"
-            )
         self.name = name
         self.fitted = fitted
         self._device = device
@@ -239,6 +246,8 @@ class Gateway:
         # initial lanes, rebucket replacements, and warm-pool swaps all
         # carry the same device-side featurize stage
         self._device_featurize = device_featurize
+        self._param_sharding = param_sharding
+        self._aot_store = aot_store
         self._engine_factory = engine_factory
         # the lanes' batching config, which a candidate's batcher copies
         self._max_delay_ms = max_delay_ms
@@ -246,10 +255,16 @@ class Gateway:
         self._host_featurize = host_featurize
         self._rebucket_k = rebucket_k or len(self._buckets)
         self.metrics = GatewayMetrics(registry=registry, gateway=name)
+        # seconds of this gateway's start: the profiler session, the
+        # lanes' engines, and their warmup (captures, the AOT store)
+        self.startup_s: Dict[str, float] = {}
+        t0 = time.perf_counter()
         if resolve_device(device).type == "cuda":
             # before the lanes' threads and graphs exist, so that
             # /profilez can see them
             ready_device_tracing()
+        self.startup_s["profiler"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         self.pool = EnginePool(
             self._factory_for(self._buckets),
             n_lanes,
@@ -260,8 +275,19 @@ class Gateway:
             pipeline_depth=pipeline_depth,
             host_featurize=host_featurize,
         )
+        self.startup_s["lanes"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         if warmup_example is not None:
             self.pool.warmup(warmup_example)
+        self.startup_s["warmup"] = time.perf_counter() - t0
+        # where the first lane took each kernel library from (the
+        # later lanes find them built)
+        libraries = {
+            k: v for lane in reversed(self.pool.lanes)
+            for k, v in getattr(lane.engine, "aot_libraries", {}).items()
+        }
+        if libraries:
+            self.startup_s["libraries"] = libraries
         # -- SLO + forensics plane (off unless a latency SLO declared) -
         self.flight: Optional[FlightRecorder] = None
         self.slo_monitor: Optional[SloMonitor] = None
@@ -348,6 +374,8 @@ class Gateway:
                 buckets=buckets, name=lane_name,
                 featurize=self._device_featurize,
                 device=self._device,
+                param_sharding=self._param_sharding,
+                aot_store=self._aot_store,
             )
 
         return factory
@@ -550,24 +578,22 @@ class Gateway:
         candidate serves copies/fractions, never owns routing, and is
         closed by its controller. With a warmup example every bucket's
         graph is captured here, so that no capture lands in the shadow
-        or canary traffic. ``aot_store``: not ported; anything but None
-        raises ``NotImplementedError``."""
+        or canary traffic. ``aot_store`` is the candidate's own (per
+        version namespaced) store; None means none, so that a candidate
+        never fills the incumbent's entries."""
         if self._engine_factory is not None:
             raise RuntimeError(
                 f"gateway {self.name} runs on an engine-factory "
                 "override (zoo CSE plane); its engines aren't "
                 "buildable from a fitted pipeline"
             )
-        if aot_store is not None:
-            raise NotImplementedError(
-                "build_model_batcher(aot_store=) is not ported yet: the port "
-                "keeps no executable store"
-            )
         engine = fitted.compiled(
             buckets=self._buckets,
             name=name,
             featurize=self._device_featurize,
             device=self._device,
+            param_sharding=self._param_sharding,
+            aot_store=aot_store if aot_store is not None else False,
         )
         if self._warmup_example is not None:
             engine.warmup(example=self._warmup_example)
@@ -588,29 +614,27 @@ class Gateway:
         rotated); on a build failure the previous fitted is restored
         and the old engines keep serving. Rolling BACK a promotion is
         just ``swap_model(incumbent)`` — engines recaptured from the
-        identical fitted pipeline. ``aot_store``: not ported; anything
-        but the default raises ``NotImplementedError``."""
+        identical fitted pipeline. ``aot_store``, when given, replaces
+        the store the next engine generations consult (restored with
+        the previous fitted pipeline on a failed build)."""
         if self._engine_factory is not None:
             raise RuntimeError(
                 f"gateway {self.name} runs on an engine-factory "
                 "override (zoo CSE plane); swap_model cannot rebuild "
                 "its engines from a fitted pipeline"
             )
-        if aot_store is not _UNCHANGED:
-            raise NotImplementedError(
-                "swap_model(aot_store=) is not ported yet: the port keeps "
-                "no executable store"
-            )
         with self._swap_lock:
-            prev_fitted = self.fitted
+            prev_fitted, prev_store = self.fitted, self._aot_store
             self.fitted = fitted
+            if aot_store is not _UNCHANGED:
+                self._aot_store = aot_store
             try:
                 ok = self._build_and_swap(self._buckets)
             except Exception:
-                self.fitted = prev_fitted
+                self.fitted, self._aot_store = prev_fitted, prev_store
                 raise
             if not ok:
-                self.fitted = prev_fitted
+                self.fitted, self._aot_store = prev_fitted, prev_store
             return ok
 
     def swap_engines(

@@ -12,11 +12,11 @@ promotion and rollback. One ``tick()`` = one policy decision plus its
 effects; ticks run manually (``POST /lifecyclez {"tick": true}``,
 tests) or on the background interval thread (``interval_s``).
 
-No versioned executable store: the JAX controller builds candidate v
-against an AOT namespace ``<namespace>/v<version>``; the port keeps no
-store (a CUDA graph cannot be serialized), so ``aot_namespace`` is kept
-for the JAX signature only and every version captures its own graphs.
-A closed candidate releases its engine's graphs and pools, and a swap
+Versioned AOT store: candidate v builds against the namespace
+``<aot_namespace>/v<version>`` of the process-configured store
+(``serving/aot.namespaced_store``; none when no store is configured),
+so a candidate never fills the incumbent's entries, and a promotion or
+rollback swaps the store with the model. A closed candidate releases its engine's graphs and pools, and a swap
 retires the engines it displaced (``CompiledPipeline.retire``), so the
 memory the graphs hold does not grow with the versions walked through.
 
@@ -74,6 +74,7 @@ class LifecycleController:
         holdout_cap: int = 512,
     ):
         self._gateway = gateway
+        self._aot_namespace = aot_namespace or name
         self._base = base
         self._head_builder = head_builder
         self.name = name
@@ -100,7 +101,9 @@ class LifecycleController:
         self._version = 0  # guarded-by: _tick_lock
         self._incumbent = gateway.fitted  # guarded-by: _tick_lock
         self._previous = None  # guarded-by: _tick_lock
+        self._previous_store = None  # guarded-by: _tick_lock
         self._candidate = None  # guarded-by: _tick_lock
+        self._candidate_store = None  # guarded-by: _tick_lock
         self._candidate_batcher = None  # guarded-by: _tick_lock
         self._mirror: Optional[ShadowMirror] = None  # guarded-by: _tick_lock
         self._canary: Optional[CanaryRouter] = None  # guarded-by: _tick_lock
@@ -187,12 +190,16 @@ class LifecycleController:
             return self.status()
 
     def _start_candidate_locked(self) -> None:
+        from keystone_tpu_torch.serving.aot import namespaced_store
+
         W, b = self._refit.solve()
         self._version += 1
         self._candidate = self._base.and_then(self._head_builder(W, b))
+        self._candidate_store = namespaced_store(f"{self._aot_namespace}/v{self._version}")
         self._candidate_batcher = self._gateway.build_model_batcher(
             self._candidate,
             name=f"{self.name}-cand-v{self._version}",
+            aot_store=self._candidate_store,
         )
         self._solved_at_n = self._refit.n_accumulated
         self._state = PolicyState("candidate")
@@ -242,11 +249,13 @@ class LifecycleController:
         elif stage == "promoted":
             pool.set_canary(None)
             pool.set_mirror(None)
-            ok = self._gateway.swap_model(self._candidate)
+            prev_store = getattr(self._gateway, "_aot_store", None)
+            ok = self._gateway.swap_model(self._candidate, aot_store=self._candidate_store)
             if not ok:  # close() won the race; nothing rotated
                 self._close_candidate_locked()
                 return
             self._previous = self._incumbent
+            self._previous_store = prev_store
             self._incumbent = self._candidate
             self._last_good = self._refit.snapshot()
             self._metrics.record_promotion()
@@ -284,7 +293,7 @@ class LifecycleController:
                 self._rollback_effects_locked(reason)
                 self._state = PolicyState("rolled_back")
             elif self._previous is not None:
-                ok = self._gateway.swap_model(self._previous)
+                ok = self._gateway.swap_model(self._previous, aot_store=self._previous_store)
                 if ok:
                     self._incumbent = self._previous
                     self._previous = None

@@ -38,6 +38,8 @@ import json
 import sys
 from typing import List, Optional
 
+import numpy as np
+
 from keystone_tpu_torch.loadgen import faults as faults_mod
 from keystone_tpu_torch.loadgen import trace as trace_mod
 from keystone_tpu_torch.loadgen.invariants import (
@@ -94,6 +96,15 @@ def build_parser() -> argparse.ArgumentParser:
                      "(and the default replay example shape)")
     tgt.add_argument("--lanes", type=int, default=2)
     tgt.add_argument("--buckets", default="4,16")
+    tgt.add_argument("--payload-dtype", choices=("float32", "uint8"),
+                     default="float32",
+                     help="instances' dtype against --target: float32 "
+                     "normals (the default), or uint8 bytes, the raw "
+                     "images a --device-featurize gateway takes (a flag "
+                     "of the port)")
+    tgt.add_argument("--payload-shape", default=None, metavar="D,...",
+                     help="one instance's shape against --target, e.g. "
+                     "256,256,3 (default: (--d,); a flag of the port)")
 
     wl = ap.add_argument_group("workload")
     wl.add_argument("--trace", default=None, metavar="FILE",
@@ -221,7 +232,7 @@ def build_workload(args) -> List[trace_mod.TraceEvent]:
         sigma=getattr(args, "sigma", 1.0),
         alpha=getattr(args, "alpha", 1.5),
         size_mix=trace_mod.parse_size_mix(args.size_mix),
-        shape=(args.d,),
+        shape=_payload_shape(args),
         deadline_ms=args.deadline_ms,
         deadline_sigma=getattr(args, "deadline_sigma", 0.0),
         seed=args.seed,
@@ -235,6 +246,12 @@ def build_workload(args) -> List[trace_mod.TraceEvent]:
 
 # the historical private name (serve-loadgen's own entry point)
 _build_events = build_workload
+
+
+def _payload_shape(args) -> tuple:
+    """One instance's shape: ``--payload-shape``, else ``(--d,)``."""
+    spec = getattr(args, "payload_shape", None)
+    return tuple(int(n) for n in spec.split(",")) if spec else (args.d,)
 
 
 def _build_fault_plans(args) -> List[FaultPlan]:
@@ -277,7 +294,8 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         )
         target = InprocTarget(gateway, default_shape=(args.d,))
     elif args.target:
-        target = HttpTarget(args.target, default_shape=(args.d,))
+        target = HttpTarget(args.target, default_shape=_payload_shape(args),
+                            dtype=np.dtype(args.payload_dtype))
     else:
         raise SystemExit("pass --target URL or --self-gateway")
     feedback = None

@@ -170,13 +170,16 @@ class LoadReport:
         }
 
 
-def _payload_for(event: TraceEvent, default_shape) -> np.ndarray:
+def _payload_for(event: TraceEvent, default_shape, dtype=np.float32) -> np.ndarray:
     """Deterministic request data: (n_rows, *shape) standard normal,
     seeded by the event's index-ish identity (its timestamp bits) so a
-    replay issues identical bytes."""
+    replay issues identical bytes. ``dtype=np.uint8`` draws uniform
+    bytes instead (raw images for a ``--device-featurize`` gateway)."""
     shape = tuple(event.shape) if event.shape else tuple(default_shape)
     seed = int(abs(event.ts) * 1e6) & 0x7FFFFFFF
     rng = np.random.default_rng(seed)
+    if np.dtype(dtype) == np.uint8:
+        return rng.integers(0, 256, (event.n_rows,) + shape, dtype=np.uint8)
     return rng.standard_normal(
         (event.n_rows,) + shape
     ).astype(np.float32)
@@ -303,14 +306,16 @@ class HttpTarget:
         base_url: str,
         default_shape: Sequence[int] = (8,),
         feedback: Optional[FeedbackSender] = None,
+        dtype=np.float32,
     ):
         self.base_url = base_url.rstrip("/")
         self.default_shape = tuple(default_shape)
         self.feedback = feedback
+        self.dtype = dtype
 
     def send(self, event: TraceEvent) -> RequestRecord:
         # index/t_* are stamped by the generator; this fills the rest
-        xs = _payload_for(event, self.default_shape)
+        xs = _payload_for(event, self.default_shape, self.dtype)
         if self.feedback is not None:
             self.feedback.offer(xs)
         doc: Dict[str, Any] = {"instances": xs.tolist()}

@@ -36,8 +36,10 @@ detected device table rides in ``/varz``'s build block and as the
 ``DeviceMemorySampler`` publishes per-card in-use/peak/limit memory
 gauges (``observability/device.py``).
 
-The JAX endpoint's AOT block in ``/varz`` and its ``/attributionz``
-route wait for the port's AOT store and attribution ledger.
+``/varz``'s build block carries the AOT store's ``aot_cache`` block
+(``serving/aot.status()``: ``{"dir": None}`` without a store). The JAX
+endpoint's ``/attributionz`` route is not here: a zoo's gateway serves
+it.
 
 Binding defaults to localhost; ``port=0`` picks an ephemeral port
 (``server.port`` reports the real one).
@@ -138,6 +140,14 @@ def build_info() -> Dict:
     info = _static_build_info()
     info["uptime_s"] = round(time.time() - _PROCESS_START_S, 3)
     info["devices"] = device_obs.device_table()
+    try:
+        # late import: observability must not import serving at module
+        # load (serving imports observability)
+        from keystone_tpu_torch.serving import aot
+
+        info["aot_cache"] = aot.status()
+    except Exception:
+        pass
     return info
 
 

@@ -46,9 +46,24 @@ SIFT+LCS→FV chain) in front of the model inside every bucket's graph:
 callers send raw examples (uint8 images), which are padded on the host
 and copied to the device once per dispatch.
 
-Not ported: AOT executables (a CUDA graph cannot be serialized), mesh
-sharding (one card), input donation, and the per-bucket cost model (no
-compiler cost analysis to read).
+``aot_store=`` (``serving/aot.py``): ``warmup`` first takes the kernel
+libraries the build directory lacks from the store (a host with the
+store skips ``nvcc``), then, per bucket, an entry keyed by the bucket's
+fingerprint: the operators the chain prepares for the bucket's shape go
+back on the card before the warm pass and the capture, and a replay of
+a probe batch must give the stored output bit for bit (``aot_report``).
+A miss, a corrupt entry or a probe that disagrees is counted and the
+bucket is built cold, on the same device with the same kernels, and
+saved. A CUDA graph itself cannot be serialized: a hit still captures
+(``compile_count`` counts captures).
+
+``param_sharding=`` (``serving/sharding.py``) resolves the model's
+partition specs over the process mesh and runs the model through a
+``ParamBinder`` on params the engine placed itself; on one card every
+spec places its param whole, and the caller's pipeline is untouched.
+
+Not ported: input donation and the per-bucket cost model (no compiler
+cost analysis to read).
 """
 
 from __future__ import annotations
@@ -134,6 +149,14 @@ class CompiledPipeline:
     metrics:   the ``ServingMetrics`` to record into (a fresh one by
                default); registered into the global registry under
                ``name``.
+    aot_store: ``"auto"`` (the store ``aot.setup_aot_cache`` configured
+               for this process, or none), None/False (off), or an
+               ``aot.AotStore``; consulted by ``warmup`` only.
+    param_sharding: None, True (``sharding.DEFAULT_RULES``), rules, or
+               resolved specs: the model's params placed by the engine
+               over the process mesh (``sharding.current_mesh``);
+               ``param_sharding_unmatched="replicate"`` replicates
+               params no rule matches instead of raising.
     """
 
     def __init__(
@@ -145,6 +168,9 @@ class CompiledPipeline:
         device=None,
         metrics: Optional[ServingMetrics] = None,
         name: Optional[str] = None,
+        aot_store: Any = "auto",
+        param_sharding: Any = None,
+        param_sharding_unmatched: str = "error",
     ):
         if not buckets:
             raise ValueError("need at least one bucket")
@@ -153,6 +179,33 @@ class CompiledPipeline:
         self.device = resolve_device(device)
         self.pipeline = pipeline
         self.featurize = featurize
+        self._binder = None
+        self.param_sharding: Optional[Dict[str, Any]] = None
+        self._placed_params: Optional[Dict[str, torch.Tensor]] = None
+        self.mesh = None
+        if param_sharding:
+            from keystone_tpu_torch.serving import sharding as sharding_lib
+
+            self.mesh = sharding_lib.current_mesh()
+            self._binder = sharding_lib.ParamBinder(pipeline)
+            self.param_sharding = sharding_lib.resolve_param_sharding(
+                param_sharding, pipeline, params=self._binder.params,
+                unmatched=param_sharding_unmatched,
+            )
+            shard_fns = sharding_lib.make_shard_fns(self.param_sharding, self.mesh, self.device)
+            self._placed_params = {
+                name: fn(self._binder.params[name]) for name, fn in shard_fns.items()
+            }
+        self.model_sharded = self._binder is not None
+        # "auto" = the process-configured store (aot.configured_store),
+        # None/False = off, or an AotStore; read by warmup only
+        self._aot_store_cfg = aot_store
+        # bucket -> {"status": "hit"|"saved"|"miss"|"error", ...}
+        self._aot: Dict[int, Dict[str, Any]] = {}
+        # kernel library -> where warmup took it from (aot.install_libraries),
+        # and the seconds that took
+        self.aot_libraries: Dict[str, str] = {}
+        self.aot_libraries_s = 0.0
         self.buckets: Tuple[int, ...] = tuple(sorted(set(int(b) for b in buckets)))
         self.metrics = metrics if metrics is not None else ServingMetrics()
         # every engine is scrapeable through the global MetricsRegistry
@@ -306,9 +359,12 @@ class CompiledPipeline:
     # -- the graph per bucket ----------------------------------------------
 
     def _run_bucket(self, staged: Any) -> Any:
-        """The chain, eagerly: ``featurize`` then ``pipeline``."""
+        """The chain, eagerly: ``featurize`` then ``pipeline`` (through
+        the binder, on the engine's placed params, when sharded)."""
         if self.featurize is not None:
             staged = self.featurize._batch_run(staged)
+        if self._binder is not None:
+            return self._binder.run(self._placed_params, staged)
         return self.pipeline._batch_run(staged)
 
     def _graph(self, bucket: int, staged: Any) -> BucketGraph:
@@ -502,8 +558,11 @@ class CompiledPipeline:
         """Capture every bucket's graph up front, before traffic (zero
         captures at traffic time). The per-example shape/dtype spec comes
         from ``example`` (ONE example, no leading axis) or ``batch``
-        (WITH a leading axis). Returns bucket -> seconds (warm pass,
-        capture and a checking replay; on the CPU, one eager run)."""
+        (WITH a leading axis). With an AOT store, the kernel libraries
+        and each bucket's entry come from the store first (module
+        docstring). Returns bucket -> seconds (warm pass, capture and a
+        checking replay, a hit's load and probe included; on the CPU,
+        one eager run)."""
         if (example is None) == (batch is None):
             raise ValueError("pass exactly one of example= or batch=")
         if isinstance(batch, Dataset):
@@ -516,18 +575,222 @@ class CompiledPipeline:
             raise ValueError(
                 f"unknown bucket(s) {unknown} (have {self.buckets})"
             )
+        store = self._resolve_aot_store()
+        fingerprint = None
+        if store is not None:
+            from keystone_tpu_torch.serving import aot as aot_lib
+
+            try:
+                fingerprint = self._fingerprint(aot_lib)
+            except Exception:
+                # a pipeline that cannot be fingerprinted warms as with
+                # no store: counted, logged, built cold
+                store.record_error()
+                logger.info("aot: could not fingerprint the pipeline; warming "
+                            "without the store", exc_info=True)
+                store = None
+        if store is not None and self.device.type == "cuda":
+            # before anything launches: a library the build directory
+            # lacks comes from the store instead of nvcc
+            t_lib = time.perf_counter()
+            self.aot_libraries = aot_lib.install_libraries(store)
+            self.aot_libraries_s = time.perf_counter() - t_lib
+        specs = _spec_leaves(spec)
         times: Dict[int, float] = {}
         for b in want:
             t0 = time.perf_counter()
-            staged = _spec_map(
-                lambda s: torch.zeros((b,) + s[0], dtype=s[1], device=self.device), spec
-            )
-            if self.device.type == "cuda":
-                self._graph(b, staged)
-            else:
-                self._run_bucket(staged)
+            key = meta = None
+            if store is not None:
+                key, meta = aot_lib.bucket_key(
+                    specs, self.buckets, b, donate=False, shard=False,
+                    namespace=getattr(store, "namespace", None), **fingerprint,
+                )
+                if self._try_install_aot(store, key, meta, b, spec):
+                    times[b] = time.perf_counter() - t0
+                    continue
+            self._warm_bucket(b, spec)
+            if store is not None:
+                self._save_aot(store, key, meta, b, spec)
             times[b] = time.perf_counter() - t0
+        if store is not None and self.device.type == "cuda":
+            aot_lib.save_libraries(store)
         return times
+
+    def _warm_bucket(self, bucket: int, spec: Any) -> None:
+        staged = _spec_map(
+            lambda s: torch.zeros((bucket,) + s[0], dtype=s[1], device=self.device), spec
+        )
+        if self.device.type == "cuda":
+            self._graph(bucket, staged)
+        else:
+            self._run_bucket(staged)
+
+    # -- the AOT store (serving/aot.py) ---------------------------------------
+
+    def _resolve_aot_store(self):
+        """The store warmup consults: the process-configured one for
+        ``"auto"``, None when off, or the ``AotStore`` given."""
+        if self._aot_store_cfg in (None, False):
+            return None
+        if self._aot_store_cfg == "auto":
+            from keystone_tpu_torch.serving import aot as aot_lib
+
+            return aot_lib.configured_store()
+        return self._aot_store_cfg
+
+    def _fingerprint(self, aot_lib) -> Dict[str, Any]:
+        """The warmup-invariant ``bucket_key`` fields: the model's and
+        the featurize chain's tokens, the sharding token, the runtime."""
+        out = {
+            "model_token": aot_lib.pipeline_token(self.pipeline),
+            "featurize_token": (
+                aot_lib.pipeline_token(self.featurize) if self.featurize is not None else None
+            ),
+            "sharding_token": None,
+            "identity": aot_lib.runtime_identity(self.device),
+        }
+        if self.model_sharded:
+            from keystone_tpu_torch.serving import sharding as sharding_lib
+
+            out["sharding_token"] = sharding_lib.sharding_token(self.param_sharding, self.mesh)
+        return out
+
+    def _operator_nodes(self):
+        """``(name, op)`` of every node of the chain that keeps per-shape
+        operators (an ``_operator_cache``: the SIFT and LCS extractors),
+        named by chain, topo position and class."""
+        chains = (("featurize", self.featurize),
+                  ("pipeline", self._binder._pipeline if self._binder is not None
+                   else self.pipeline))
+        for prefix, fitted in chains:
+            if fitted is None:
+                continue
+            for i, nid in enumerate(fitted._topo):
+                op = fitted.graph.operators[nid]
+                if callable(getattr(op, "operators", None)):
+                    yield f"{prefix}/{i}/{type(op).__name__}", op
+
+    def _device_tag(self) -> str:
+        # what a tensor on this engine's device reports as its device:
+        # the operator caches key on it
+        return str(torch.empty(0, device=self.device).device)
+
+    def _export_operators(self) -> Dict[str, Dict[str, Any]]:
+        tag = self._device_tag()
+        out: Dict[str, Dict[str, Any]] = {}
+        for name, op in self._operator_nodes():
+            cache = op.__dict__.get("_operator_cache")
+            if cache is None:
+                continue
+            out[name] = {
+                repr(tuple(k[:-1])): cache.get(k) for k in cache.keys() if k[-1] == tag
+            }
+        return out
+
+    def _install_operators(self, stored: Dict[str, Dict[str, Any]]) -> None:
+        """Put stored operators on this engine's device into the caches
+        of the nodes they were taken from (same dtype and layout)."""
+        import ast
+
+        from keystone_tpu_torch.utils.lru import LRUCache
+
+        tag = self._device_tag()
+        nodes = dict(self._operator_nodes())
+        for name, entries in stored.items():
+            op = nodes.get(name)
+            if op is None:
+                raise ValueError(f"stored operators of {name}, which this chain lacks")
+            cache = op.__dict__.setdefault("_operator_cache", LRUCache())
+            for k, value in entries.items():
+                cache.put(tuple(ast.literal_eval(k)) + (tag,), _tree_to(value, self.device))
+
+    def _clear_operators(self) -> None:
+        """Forget every prepared operator (a graph keeps what it reads)."""
+        for _, op in self._operator_nodes():
+            op.__dict__.pop("_operator_cache", None)
+
+    def _probe(self, bucket: int, spec: Any) -> Any:
+        """The bucket's output, on the CPU, for a probe batch derived
+        from the spec: a fixed pattern of values below 251 (floats
+        scaled into [0, 1)), so that every node sees varied input."""
+        def leaf(s):
+            shape, dtype = (bucket,) + s[0], s[1]
+            n = int(np.prod(shape))
+            v = ((torch.arange(n, dtype=torch.int64) * 40503 + 17) % 251).reshape(shape)
+            v = v.to(dtype) / 251 if dtype.is_floating_point else v.to(dtype)
+            return v.to(self.device)
+
+        probe = _spec_map(leaf, spec)
+        if self.device.type == "cuda":
+            out = self._replay(self._graph(bucket, probe), probe, bucket, None)
+            torch.cuda.current_stream(self.device).synchronize()
+        else:
+            out = self._run_bucket(probe)
+        return _tree_map(lambda a: a.detach().cpu(), out)
+
+    def _drop_graph(self, bucket: int, spec: Any) -> None:
+        key = (bucket, spec)
+        with self._fn_lock, self._replay_lock:
+            g = self._graphs.pop(key, None)
+            if g is not None and self.device.type == "cuda":
+                self._compute_stream.synchronize()
+                g.static_in = g.static_out = None
+                g.refs.clear()
+                g.graph.reset()
+
+    def _try_install_aot(self, store, key, meta, bucket: int, spec: Any) -> bool:
+        """Install one bucket from the store: its operators, its warm
+        pass and capture, then the probe against the stored output.
+        True on a hit; on a miss or an error (counted) False, with the
+        graph and the installed operators dropped. Never raises."""
+        t0 = time.perf_counter()
+        payload, outcome = store.load(key, meta)
+        if payload is None:
+            self._aot[bucket] = {"status": outcome}
+            return False
+        try:
+            self._install_operators(payload.get("operators", {}))
+            self._warm_bucket(bucket, spec)
+            if not _tree_equal(self._probe(bucket, spec), payload["output"]):
+                raise ValueError("the probe's output differs from the stored one")
+        except Exception:
+            store.record_error()
+            self._aot[bucket] = {"status": "error"}
+            logger.info("aot: stored bucket %d failed its check; building cold",
+                        bucket, exc_info=True)
+            self._drop_graph(bucket, spec)
+            self._clear_operators()
+            return False
+        secs = time.perf_counter() - t0
+        store.record_hit(secs)
+        self._aot[bucket] = {"status": "hit", "load_s": round(secs, 6)}
+        return True
+
+    def _save_aot(self, store, key, meta, bucket: int, spec: Any) -> None:
+        """After a cold build: keep the bucket's operators and probe
+        output, so that the next engine starts from them."""
+        try:
+            payload = {"operators": self._export_operators(),
+                       "output": self._probe(bucket, spec)}
+        except Exception:
+            store.record_error()
+            logger.info("aot: could not take bucket %d's entry", bucket, exc_info=True)
+            return
+        if store.save(key, payload, meta) is not None:
+            if self._aot.get(bucket, {}).get("status") == "error":
+                # the report keeps the error visible: a broken entry
+                # was replaced, not cleanly created
+                self._aot[bucket]["fallback"] = "saved"
+            else:
+                self._aot[bucket] = {"status": "saved"}
+
+    def aot_report(self) -> Dict[int, Dict[str, Any]]:
+        """Per-bucket outcome of the last warmup's store pass (empty
+        without a store): ``hit`` (operators from the store, probe equal),
+        ``saved`` (built cold, entry written), ``miss`` (no entry, built
+        cold), ``error`` (entry corrupt, mismatched or disagreeing, built
+        cold; ``fallback: "saved"`` when the cold build replaced it)."""
+        return {b: dict(v) for b, v in self._aot.items()}
 
     __call__ = apply
 
@@ -537,6 +800,42 @@ def _spec_map(fn, spec: Any) -> Any:
     if len(spec) == 2 and isinstance(spec[1], torch.dtype):
         return fn(spec)
     return tuple(_spec_map(fn, s) for s in spec)
+
+
+def _spec_leaves(spec: Any) -> List[Tuple[Tuple[int, ...], torch.dtype]]:
+    if len(spec) == 2 and isinstance(spec[1], torch.dtype):
+        return [spec]
+    return [leaf for s in spec for leaf in _spec_leaves(s)]
+
+
+def _tree_to(tree: Any, device) -> Any:
+    """Tensors of a stored tree moved to ``device`` (dtype and strides
+    kept), containers rebuilt, everything else as it is."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, device) for v in tree)
+    return tree
+
+
+def _tree_equal(a: Any, b: Any) -> bool:
+    """Bit for bit: the same structure, and every leaf of one dtype and
+    shape with the same bytes."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)):
+            return False
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        bx = x.contiguous().reshape(-1).view(torch.uint8)
+        by = y.contiguous().reshape(-1).view(torch.uint8)
+        if not torch.equal(bx, by):
+            return False
+    return True
 
 
 def _zip_cat(outs: List[Any]) -> Any:

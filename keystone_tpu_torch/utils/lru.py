@@ -50,3 +50,16 @@ class LRUCache:
 
     def keys(self):
         return list(self._entries)
+
+    def get(self, key: Hashable) -> Any:
+        """The entry of ``key``, or None; does not make one."""
+        with _lock:
+            return self._entries.get(key)
+
+    def put(self, key: Hashable, value: Any) -> None:
+        """Set ``key``'s entry (what the AOT store hands back), the newest."""
+        with _lock:
+            self._entries[key] = value
+            self._entries.move_to_end(key)
+            while len(self._entries) > self.capacity:
+                self._entries.popitem(last=False)

@@ -494,11 +494,12 @@ class FittedPipeline:
         return out.padded() if isinstance(out, Dataset) else out
 
     def compiled(self, buckets=None, *, featurize=None, device=None,
-                 metrics=None, name=None):
+                 metrics=None, name=None, **kwargs):
         """This pipeline behind the bucketed serving engine
         (``serving/engine.py`` ``CompiledPipeline``), recording into
         ``metrics`` (a fresh ``ServingMetrics`` by default).
-        ``device=None`` means ``cuda``."""
+        ``device=None`` means ``cuda``; ``kwargs`` (``aot_store``,
+        ``param_sharding``, ...) go to the engine."""
         from keystone_tpu_torch.serving.engine import (
             DEFAULT_BUCKETS,
             CompiledPipeline,
@@ -507,6 +508,7 @@ class FittedPipeline:
         return CompiledPipeline(
             self, buckets if buckets is not None else DEFAULT_BUCKETS,
             featurize=featurize, device=device, metrics=metrics, name=name,
+            **kwargs,
         )
 
     def and_then(self, nxt: "FittedPipeline") -> "FittedPipeline":

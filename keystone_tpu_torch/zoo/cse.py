@@ -31,9 +31,12 @@ each PER MODEL.
 analysis to lower the prefix and each head alone, which is the degraded
 path the JAX package documents — per-model attribution over a shared
 engine falls back to pure row-share splitting
-(``observability/attribution.EngineAttribution``). There is no AOT
-store to keep off (a CUDA graph cannot be serialized), and
-``param_sharding`` raises, as in the JAX package.
+(``observability/attribution.EngineAttribution``). The AOT store is
+kept off here, as in the JAX package (a group's entries would key on
+one head's token). ``param_sharding`` binds one pipeline and raises,
+as in the JAX package; ``head_sharding`` (``{model: param_sharding}``)
+shards the heads that ask, each through its own ``ParamBinder`` on
+params the engine placed, over the process mesh.
 """
 
 from __future__ import annotations
@@ -87,6 +90,7 @@ class SharedPrefixEngine(CompiledPipeline):
         featurize,
         heads: Dict[str, Any],
         buckets: Sequence[int],
+        head_sharding: Optional[Dict[str, Any]] = None,
         **kwargs,
     ):
         if featurize is None:
@@ -111,8 +115,24 @@ class SharedPrefixEngine(CompiledPipeline):
             next(iter(self.heads.values())),
             buckets,
             featurize=featurize,
+            aot_store=None,
             **kwargs,
         )
+        # model -> (binder, placed params) of every sharded head
+        self._head_binders: Dict[str, Tuple[Any, Dict[str, Any]]] = {}
+        for mid, spec in (head_sharding or {}).items():
+            if spec and mid in self.heads:
+                from keystone_tpu_torch.serving import sharding as sharding_lib
+
+                mesh = sharding_lib.current_mesh()
+                binder = sharding_lib.ParamBinder(self.heads[mid])
+                specs = sharding_lib.resolve_param_sharding(
+                    spec, self.heads[mid], params=binder.params
+                )
+                fns = sharding_lib.make_shard_fns(specs, mesh, self.device)
+                self._head_binders[mid] = (
+                    binder, {n: fn(binder.params[n]) for n, fn in fns.items()}
+                )
         # row claims enqueued at submit time (by the zoo, or directly
         # when the engine is driven standalone), drained FIFO per
         # dispatched window; the zoo replaces this with a UNIT-level
@@ -142,7 +162,11 @@ class SharedPrefixEngine(CompiledPipeline):
     def _run_bucket(self, staged: Any) -> Any:
         """The shared prefix once, then every head on its output."""
         feat = self.featurize._batch_run(staged)
-        return {mid: head._batch_run(feat) for mid, head in self.heads.items()}
+        out = {}
+        for mid, head in self.heads.items():
+            bound = self._head_binders.get(mid)
+            out[mid] = bound[0].run(bound[1], feat) if bound else head._batch_run(feat)
+        return out
 
 
 __all__ = ["SharedPrefixEngine", "featurize_groups"]

@@ -4,7 +4,11 @@
 Each model (or cross-model CSE group — see ``zoo/cse.py``) is hosted
 as one **unit**: a full ``Gateway`` (admission -> lanes -> micro-batch
 -> engines, one CUDA graph per bucket per lane) under the model's own
-name, its own bucket list and SLO. Lifecycle:
+name, its own bucket list and SLO, and, for a solo unit, a per-model
+**AOT store namespace** (``aot.namespaced_store(model_id)``: two models
+never share an entry, and the store's GC accounts each namespace
+separately; shared-prefix units keep the store off, as in JAX).
+Lifecycle:
 
 - **page-in** — a cold model's first request (or an explicit
   ``host()``) builds its artifacts and gateway OUTSIDE the zoo's
@@ -32,13 +36,11 @@ Zoo-level metrics ride the ``model`` label:
 ``keystone_zoo_evictions_total{model}`` — next to each unit's normal
 gateway/engine families under its own gateway name.
 
-Left out of the port's scope: per-model AOT store namespaces (the
-port's ``Gateway`` keeps no executable store: a CUDA graph cannot be
-serialized) and sharding — a spec or plan that asks for it raises
-``NotImplementedError``, as the port's ``Gateway`` does.
-``profiles()`` sizes params with ``named_params``/``params_nbytes``
-below, the counterparts of the JAX package's
-``serving/sharding.named_params``/``params_nbytes``.
+A spec or plan that shards a model (``param_sharding``) hosts it
+sharded in both kinds of unit: a solo unit's ``Gateway`` and a shared
+unit's ``SharedPrefixEngine`` (every head through its own binder) place
+the params over the process mesh, whole on one card. ``profiles()``
+sizes params with ``serving/sharding.named_params``/``params_nbytes``.
 """
 
 from __future__ import annotations
@@ -50,9 +52,6 @@ import time
 from concurrent.futures import CancelledError, Future
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-import numpy as np
-import torch
-
 from keystone_tpu_torch._device import resolve_device
 from keystone_tpu_torch.gateway.lifecycle import Gateway
 from keystone_tpu_torch.observability.attribution import (
@@ -62,7 +61,8 @@ from keystone_tpu_torch.observability.attribution import (
     attribution_document,
 )
 from keystone_tpu_torch.observability.drift import DriftDetector
-from keystone_tpu_torch.serving.featurize import operator_state
+from keystone_tpu_torch.serving import aot as aot_lib
+from keystone_tpu_torch.serving.sharding import named_params, params_nbytes
 from keystone_tpu_torch.zoo.cse import SharedPrefixEngine, featurize_groups
 from keystone_tpu_torch.zoo.optimizer import (
     ChipBudget,
@@ -79,29 +79,6 @@ from keystone_tpu_torch.zoo.registry import (
 )
 
 logger = logging.getLogger(__name__)
-
-
-def named_params(fitted) -> Dict[str, Any]:
-    """The fitted pipeline's parameters as a flat
-    ``{"<topo#>/<OpClass>/<field>": tensor}`` dict: every tensor- or
-    array-valued field of each operator's ``operator_state`` — the JAX
-    package's ``serving/sharding.named_params`` namespace."""
-    out: Dict[str, Any] = {}
-    for i, nid in enumerate(fitted._topo):
-        op = fitted.graph.operators[nid]
-        for field, value in sorted(operator_state(op).items()):
-            if isinstance(value, (torch.Tensor, np.ndarray, np.generic)):
-                out[f"{i}/{type(op).__name__}/{field}"] = value
-    return out
-
-
-def params_nbytes(params: Dict[str, Any]) -> int:
-    """Total parameter bytes — what a replicated engine holds on the
-    card (the number the placement plan's budget check compares)."""
-    return sum(
-        int(v.nbytes) if isinstance(v, torch.Tensor) else int(np.asarray(v).nbytes)
-        for v in params.values()
-    )
 
 
 def _chain(parent: Future, fn) -> Future:
@@ -188,9 +165,11 @@ class ModelZoo:
     (a ``PlacementPlan``) overrides each spec's buckets/lanes/sharding
     with the optimizer's choices; ``max_resident`` caps how many
     models hold engines at once (None = all); ``cse=False`` disables
-    shared-prefix fusion (every model solo). ``device`` is where every
-    unit's engines run (``None`` means ``cuda`` and raises without it);
-    the registry's models must be built there too."""
+    shared-prefix fusion (every model solo); ``aot_namespaces=False``
+    gives solo units the process store itself instead of per-model
+    namespaces of it. ``device`` is where every unit's engines run
+    (``None`` means ``cuda`` and raises without it); the registry's
+    models must be built there too."""
 
     def __init__(
         self,
@@ -199,6 +178,7 @@ class ModelZoo:
         max_resident: Optional[int] = None,
         plan: Optional[PlacementPlan] = None,
         cse: bool = True,
+        aot_namespaces: bool = True,
         device=None,
         metrics_registry=None,
     ):
@@ -210,6 +190,7 @@ class ModelZoo:
         self.plan = plan
         self.max_resident = max_resident
         self._cse = cse
+        self._aot_namespaces = aot_namespaces
         self.device = resolve_device(device)
         self._lock = threading.Lock()
         self._units: Dict[Tuple[str, ...], _Unit] = {}
@@ -396,6 +377,14 @@ class ModelZoo:
             "param_sharding": param_sharding,
         }
 
+    def _aot_store_for(self, model_id: str):
+        if not self._aot_namespaces:
+            return "auto"
+        store = aot_lib.namespaced_store(model_id)
+        # no store configured means OFF, not "auto": auto would put two
+        # models' entries in one undifferentiated namespace
+        return store if store is not None else None
+
     def _build_unit(self, ids: Tuple[str, ...]) -> _Unit:
         """Build one unit's gateway — engines compiled and warmed —
         entirely outside the zoo's resident lock."""
@@ -414,6 +403,7 @@ class ModelZoo:
                 pipeline_depth=spec.pipeline_depth,
                 device_featurize=built.featurize,
                 param_sharding=place["param_sharding"],
+                aot_store=self._aot_store_for(spec.model_id),
                 device=self.device,
                 name=spec.model_id,
                 slo_latency_s=spec.slo_latency_s,
@@ -424,11 +414,9 @@ class ModelZoo:
                 )
             return _Unit(ids, gw, shared=False, pinned=pinned)
         # -- shared-prefix unit (CSE group) ----------------------------
-        if any(self._placement_kwargs(s)["param_sharding"] for s in specs):
-            raise NotImplementedError(
-                f"zoo group {'+'.join(ids)}: sharding is not ported yet "
-                "(the port serves one unsharded model per card)"
-            )
+        sharding = {
+            s.model_id: self._placement_kwargs(s)["param_sharding"] for s in specs
+        }
         builts = {mid: self._built(mid) for mid in ids}
         featurize = builts[ids[0]].featurize
         heads = {mid: b.fitted for mid, b in builts.items()}
@@ -454,7 +442,7 @@ class ModelZoo:
             def factory(lane_name: str):
                 return SharedPrefixEngine(
                     featurize, heads, eng_buckets, name=lane_name,
-                    device=device,
+                    device=device, head_sharding=sharding,
                 )
 
             return factory

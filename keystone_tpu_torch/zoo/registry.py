@@ -80,9 +80,9 @@ class ModelSpec:
     registering a 100-model zoo must not materialize 100 parameter
     sets). ``expected_sizes`` seeds the placement optimizer before any
     live histogram exists; ``pinned`` exempts the model from LRU
-    eviction. ``param_sharding`` is kept for the JAX package's spec
-    format; hosting a spec that asks for it raises (the port's
-    ``Gateway`` serves one unsharded model per card)."""
+    eviction. ``param_sharding`` (the spec's ``shard_model``) shards
+    the model's params over the process mesh (``serving/sharding.py``;
+    on one card, placed whole)."""
 
     model_id: str
     build: Callable[[], BuiltModel]

@@ -394,11 +394,30 @@ def test_lane_kill_is_absorbed_by_the_pool_retry():
         gw.close(timeout=RESULT_TIMEOUT_S)
 
 
-def test_unported_gateway_options_raise():
+def test_unported_gateway_options_raise(tmp_path):
+    """``param_sharding`` and ``aot_store`` are ported (they raised
+    before): a sharded gateway answers as the plain one, ``aot_store=None``
+    keeps the store off, and a gateway on a store saves every bucket of
+    every lane's engine, the second lane hitting what the first saved."""
+    from keystone_tpu_torch.serving.aot import AotStore
+
     fitted = tbench.build_pipeline(d=D, hidden=8, depth=2, device="cpu")
-    for kw in (dict(param_sharding=True), dict(aot_store=None)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            Gateway(fitted, buckets=(4,), n_lanes=1, device="cpu", **kw)
+    x = np.linspace(-1, 1, D).astype(np.float32)
+    want = fitted._batch_run(torch.as_tensor(np.stack([x] * 4)))[0].numpy()
+    store = AotStore(str(tmp_path / "aot"), registry=MetricsRegistry())
+    for kw in (dict(param_sharding=True), dict(aot_store=None), dict(aot_store=store)):
+        gw = Gateway(fitted, buckets=(4,), n_lanes=2, device="cpu", warmup_example=torch.zeros(D),
+                     registry=MetricsRegistry(), **kw)
+        with gw:
+            assert np.array_equal(gw.predict(x).result(timeout=RESULT_TIMEOUT_S), want)
+            engines = [lane.engine for lane in gw.pool.lanes]
+        if "param_sharding" in kw:
+            assert all(e.model_sharded for e in engines)
+        elif kw["aot_store"] is None:
+            assert [e.aot_report() for e in engines] == [{}, {}]
+        else:
+            assert [e.aot_report()[4]["status"] for e in engines] == ["saved", "hit"]
+            assert store.hits == 1 and store.saves == 1
 
 
 # -- the flagship chain: top-5 equal through both gateways ------------------
@@ -485,16 +504,85 @@ def test_entry_without_a_card_raises():
 
 
 LIFECYCLE_FLAGS = ("--refit", "--refit-interval-s", "--refit-min-samples", "--canary-fraction")
+# serve-gateway's sharding and AOT flags (they exited 2 before the port
+# had serving/sharding.py and serving/aot.py)
+PLANE_FLAGS = ("--shard-model", "--mesh-model", "--aot-cache")
 
 
-@pytest.mark.parametrize("flag", LIFECYCLE_FLAGS + thttp.UNPORTED_FLAGS)
-def test_unported_flags_exit_2(flag, capsys):
-    """The sharding and AOT flags exit 2, not ported yet; the lifecycle's
-    parse, and --refit over the flagship chain exits 2 as JAX's entry
-    does (its message, before any model is built)."""
-    if flag in thttp.UNPORTED_FLAGS:
-        assert thttp.main([flag, "x"], device="cpu") == 2
-        assert "not ported yet" in capsys.readouterr().out
+def _entry(argv, timeout=60):
+    """``serve-gateway argv`` on the CPU in a subprocess: (process, its
+    ``{"listening": ...}`` line)."""
+    code = ("from keystone_tpu_torch.gateway.http import main; import sys; "
+            "sys.exit(main(sys.argv[1:], device='cpu'))")
+    proc = subprocess.Popen([sys.executable, "-c", code, "--gateway-port", "0", *argv],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                            text=True)
+    line = [None]
+    reader = threading.Thread(target=lambda: line.__setitem__(0, proc.stdout.readline()))
+    reader.start()
+    reader.join(timeout)
+    if not line[0]:
+        proc.kill()
+        raise AssertionError(f"no listening line from {argv}")
+    return proc, json.loads(line[0])
+
+
+def _stop(proc):
+    proc.send_signal(signal.SIGTERM)
+    try:
+        out, _ = proc.communicate(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+    return proc.returncode, out
+
+
+@pytest.mark.parametrize("flag", LIFECYCLE_FLAGS + PLANE_FLAGS)
+def test_unported_flags_exit_2(flag, capsys, tmp_path):
+    """The sharding and AOT flags run (they exited 2 before): under
+    ``--shard-model`` the listening line names every param's spec over
+    a (1, 1) mesh and the answers equal the plain model's, ``--mesh-model``
+    past the host's devices exits 1 with its reason, and a second start on
+    one ``--aot-cache`` hits every bucket the first saved (its /metrics
+    counts the hits). The lifecycle's flags parse, and --refit over the
+    flagship chain exits 2 as JAX's entry does (its message, before any
+    model is built)."""
+    model = ["--d", str(D), "--hidden", "8", "--depth", "2", "--buckets", "2,4", "--lanes", "1"]
+    if flag == "--mesh-model":
+        assert thttp.main(["--shard-model", "--mesh-model", "2", *model], device="cpu") == 1
+        assert "needs 2 devices" in capsys.readouterr().out
+        from keystone_tpu_torch.serving import sharding
+
+        sharding.set_mesh(None)
+        return
+    if flag == "--shard-model":
+        proc, first = _entry(["--shard-model", "--mesh-model", "1", *model])
+        try:
+            assert first["mesh"] == {"data": 1, "model": 1}
+            assert first["sharding"]["0/_Affine/W"] == "PartitionSpec(None, 'model')"
+            assert first["sharding"]["0/_Affine/b"] == "PartitionSpec()"
+            x = np.linspace(-1, 1, D).astype(np.float32)
+            fitted = tbench.build_pipeline(d=D, hidden=8, depth=2, device="cpu")
+            want = fitted._batch_run(torch.as_tensor(np.stack([x, 0 * x])))[0].numpy()
+            code_, doc = _post(first["listening"] + "/predict", {"instances": [x.tolist()]})
+            assert code_ == 200 and np.array_equal(np.float32(doc["predictions"][0]), want)
+        finally:
+            rc, out = _stop(proc)
+        assert rc == 0 and json.loads(out.strip().splitlines()[-1])["drained"] is True
+        return
+    if flag == "--aot-cache":
+        hits = []
+        for _ in range(2):
+            proc, first = _entry(["--aot-cache", str(tmp_path / "aot"), *model])
+            try:
+                assert set(first["start_s"]) >= {"model", "gateway", "warmup", "total"}
+                _, text = _get(first["listening"] + "/metrics")
+                hits.append(sum(float(ln.split()[-1]) for ln in text.splitlines()
+                                if ln.startswith("keystone_aot_cache_hits_total")))
+            finally:
+                assert _stop(proc)[0] == 0
+        assert hits == [0.0, 2.0]
         return
     argv = ["--refit", "--device-featurize"] + ([] if flag == "--refit" else [flag, "1"])
     assert thttp.main(argv, device="cpu") == 2

@@ -123,6 +123,16 @@ LOADGEN_LIFECYCLE_MODULES = [
 ]
 
 
+# the AOT store's, sharding's and the autoscaler's modules, which the walk
+# must reach too
+AOT_SHARDING_AUTOSCALE_MODULES = [
+    "keystone_tpu_torch." + m for m in (
+        "serving.aot", "serving.sharding", "autoscale", "autoscale.policy",
+        "autoscale.controller", "autoscale.supervisor", "autoscale.planner", "autoscale.cli",
+    )
+]
+
+
 def _port_sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:
@@ -156,6 +166,8 @@ print("SLICE12", sorted(n for n in {SLICE12_MODULES!r} if n not in sys.modules))
 print("GATEWAY", sorted(n for n in {GATEWAY_MODULES!r} if n not in sys.modules))
 print("FLEETZOO", sorted(n for n in {FLEET_ZOO_MODULES!r} if n not in sys.modules))
 print("LOADGENLIFECYCLE", sorted(n for n in {LOADGEN_LIFECYCLE_MODULES!r} if n not in sys.modules))
+print("AOTSHARDAUTOSCALE", sorted(n for n in {AOT_SHARDING_AUTOSCALE_MODULES!r}
+                                  if n not in sys.modules))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -175,11 +187,13 @@ print("LOADGENLIFECYCLE", sorted(n for n in {LOADGEN_LIFECYCLE_MODULES!r} if n n
     assert "GATEWAY []" in out.stdout, out.stdout
     assert "FLEETZOO []" in out.stdout, out.stdout
     assert "LOADGENLIFECYCLE []" in out.stdout, out.stdout
+    assert "AOTSHARDAUTOSCALE []" in out.stdout, out.stdout
     assert int(re.search(r"LOADED (\d+)", out.stdout).group(1)) >= (
         25 + len(TRAINING_MODULES) + len(SERVING_MODULES) + len(LOADER_MODULES)
         + len(VOC_MODULES) + len(RANDOM_FEATURES_MODULES) + len(HOST_FIT_MODULES)
         + len(TEXT_MODULES) + len(SLICE12_MODULES) + len(GATEWAY_MODULES)
-        + len(FLEET_ZOO_MODULES) + len(LOADGEN_LIFECYCLE_MODULES))
+        + len(FLEET_ZOO_MODULES) + len(LOADGEN_LIFECYCLE_MODULES)
+        + len(AOT_SHARDING_AUTOSCALE_MODULES))
 
 
 def test_importing_the_gateway_loads_no_jax_and_starts_no_cuda():
@@ -230,6 +244,33 @@ print("BAD", bad, "CUDA", torch.cuda.is_initialized(), "IDS", reg.ids())
     )
     assert out.returncode == 0, out.stderr
     assert "BAD [] CUDA False IDS ('m',)" in out.stdout, out.stdout
+
+
+def test_aot_sharding_and_autoscale_load_no_jax_and_start_no_cuda():
+    """The AOT store, sharding and the autoscaler import without JAX,
+    ``keystone_tpu`` or a CUDA context; ``keystone_tpu_torch.autoscale``
+    loads no submodule until one of its names is used, as in JAX."""
+    code = f"""
+import sys
+sys.path.insert(0, {ROOT!r})
+import torch
+import keystone_tpu_torch
+import keystone_tpu_torch.autoscale as autoscale
+print("LAZY", sorted(n for n in sys.modules if n.startswith("keystone_tpu_torch.autoscale.")))
+import keystone_tpu_torch.serving.aot, keystone_tpu_torch.serving.sharding
+autoscale.PolicyEngine, autoscale.Supervisor, autoscale.Autoscaler
+import keystone_tpu_torch.autoscale.planner, keystone_tpu_torch.autoscale.cli
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "keystone_tpu"))
+print("BAD", bad, "CUDA", torch.cuda.is_initialized())
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=ROOT, env=env,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LAZY []" in out.stdout, out.stdout
+    assert "BAD [] CUDA False" in out.stdout, out.stdout
 
 
 def test_loadgen_loads_only_faults_and_the_lifecycle_cli_no_torch():

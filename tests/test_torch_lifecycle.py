@@ -48,7 +48,9 @@ from keystone_tpu_torch.lifecycle import teacher as tteacher
 from keystone_tpu_torch.lifecycle.controller import LifecycleController
 from keystone_tpu_torch.lifecycle.refit import RefitAccumulator
 from keystone_tpu_torch.loadgen import faults
+from keystone_tpu_torch.observability.registry import MetricsRegistry
 from keystone_tpu_torch.serving import bench as tbench
+from keystone_tpu_torch.serving.aot import AotStore
 from keystone_tpu_torch.serving.engine import CompiledPipeline
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -390,7 +392,7 @@ def test_pool_mirror_and_canary_hooks(splits):
         assert np.array_equal(np.asarray(outs[0]), np.asarray(pool.submit(xs[0]).result(RESULT_TIMEOUT_S)))
 
 
-def test_model_batcher_swap_model_and_retired_engines(splits, monkeypatch):
+def test_model_batcher_swap_model_and_retired_engines(splits, monkeypatch, tmp_path):
     """``build_model_batcher`` serves another fitted pipeline on the
     gateway's config; ``swap_model`` rotates every lane onto it and back;
     every engine a swap displaced, and a closed candidate's, is retired
@@ -424,10 +426,18 @@ def test_model_batcher_swap_model_and_retired_engines(splits, monkeypatch):
         assert gw.swap_model(incumbent)
         assert np.array_equal(np.asarray(gw.predict(x).result(timeout=RESULT_TIMEOUT_S)), before)
         assert all(lane.engine._windows == 0 for lane in gw.pool.lanes)
-        with pytest.raises(NotImplementedError):
-            gw.build_model_batcher(other, name="c", aot_store=object())
-        with pytest.raises(NotImplementedError):
-            gw.swap_model(other, aot_store=None)
+        # a candidate on its own store (they raised before the port had
+        # serving/aot.py); swap_model swaps the store with the model
+        store = AotStore(str(tmp_path / "aot"), registry=MetricsRegistry(), namespace="cand/v1")
+        cand = gw.build_model_batcher(other, name="c", aot_store=store)
+        assert {b: v["status"] for b, v in cand.engine.aot_report().items()} == {
+            b: "saved" for b in gw.buckets}
+        cand.close()
+        assert gw.swap_model(other, aot_store=store) and gw._aot_store is store
+        assert all(v["status"] == "hit" for lane in gw.pool.lanes
+                   for v in lane.engine.aot_report().values())
+        assert gw.swap_model(incumbent, aot_store=None) and gw._aot_store is None
+        assert np.array_equal(np.asarray(gw.predict(x).result(timeout=RESULT_TIMEOUT_S)), before)
     assert not gw.swap_model(other) and gw.fitted is incumbent  # closed: nothing rotates
 
 

@@ -333,9 +333,22 @@ def test_serve_loadgen_self_gateway_prints_a_green_verdict(capsys):
 
 
 def test_loadgen_cli_parser_takes_every_jax_flag():
+    """Every flag of JAX's ``serve-loadgen``, and the port's two payload
+    flags (uint8 raw images for a ``--device-featurize`` gateway): the
+    instances' dtype and shape, which synthesized events carry."""
     from keystone_tpu.loadgen import cli as jcli
 
     def flags(parser):
         return sorted(s for a in parser._actions for s in a.option_strings)
 
-    assert flags(tcli.build_parser()) == flags(jcli.build_parser())
+    port_only = ["--payload-dtype", "--payload-shape"]
+    assert flags(tcli.build_parser()) == sorted(flags(jcli.build_parser()) + port_only)
+    args = tcli.build_parser().parse_args(["--ramp", "4:1", "--payload-shape", "5,5,3",
+                                           "--payload-dtype", "uint8"])
+    events = tcli.build_workload(args)
+    assert events and all(tuple(e.shape) == (5, 5, 3) for e in events)
+    from keystone_tpu_torch.loadgen.runner import _payload_for
+
+    xs = _payload_for(events[0], (9,), np.uint8)
+    assert xs.dtype == np.uint8 and xs.shape == (events[0].n_rows, 5, 5, 3) and xs.max() > 0
+    assert _payload_for(events[0], (9,)).dtype == np.float32

@@ -155,11 +155,18 @@ def test_stupid_backoff_main_and_cli_print_what_jax_prints(tmp_path):
     assert _run_main(tpipe.main, argv + ["--n", "2"]) == _run_main(jpipe.main, argv + ["--n", "2"])
 
 
+def partial_cpu(main):
+    """``main`` with ``device="cpu"``."""
+    return lambda argv: main(argv, device="cpu")
+
+
 def test_cli_lists_the_eight_apps_and_refuses_the_plane():
-    """The eight apps, serve-gateway (with --zoo, --register and
-    --refit), serve-router, serve-loadgen and serve-lifecycle run, and
-    --otlp-* is peeled; the rest of the plane (and serve-gateway's
-    sharding and AOT flags) says "not ported yet" and exits 2."""
+    """The eight apps, serve-gateway (with --zoo, --register, --refit,
+    --shard-model and --aot-cache), serve-router, serve-loadgen,
+    serve-lifecycle, serve-aot-build, serve-autoscale and
+    serve-capacity-plan run, and --otlp-* is peeled; the rest of the
+    plane (serve-bench, bench-diff, keystone-lint) says "not ported yet"
+    and exits 2."""
     from keystone_tpu import __main__ as jcli
 
     assert sorted(cli.APPS) == sorted(jcli.APPS)
@@ -169,11 +176,25 @@ def test_cli_lists_the_eight_apps_and_refuses_the_plane():
     assert "  serve-router" in out and "--otlp-endpoint URL" in out
     assert "  serve-loadgen" in out and "  serve-lifecycle" in out
     assert _run_main(cli.main, [])[0] == 2
-    for argv in (["serve-bench"], ["bench-diff", "a", "b"], ["serve-autoscale"],
-                 ["--gateway-port", "0", "--shard-model"],
-                 ["serve-gateway", "--aot-cache", "d"]):
+    assert cli.PLANE_APPS == ("serve-bench", "bench-diff", "keystone-lint")
+    for argv in (["serve-bench"], ["bench-diff", "a", "b"], ["keystone-lint"]):
         rc, out = _run_main(cli.main, argv)
         assert rc == 2 and "not ported yet" in out, argv
+    # serve-autoscale, --shard-model and --aot-cache run (they exited 2
+    # before): their own argument checks answer — serve-autoscale wants
+    # its SLO, --mesh-model past the host's devices exits 1, and
+    # --aot-cache wants a directory
+    for argv, want in ((["serve-autoscale"], 2),
+                       (["--gateway-port", "0", "--shard-model", "--mesh-model", "2"], 1),
+                       (["serve-gateway", "--aot-cache"], 2)):
+        try:
+            rc, out = _run_main(partial_cpu(cli.main), argv)
+        except SystemExit as e:
+            rc, out = e.code, ""
+        assert rc == want and "not ported yet" not in out, argv
+    from keystone_tpu_torch.serving import sharding
+
+    sharding.set_mesh(None)
     # --refit runs over the plain demo model only, and says so as the
     # JAX entry does
     rc, out = _run_main(cli.main, ["serve-gateway", "--refit", "--zoo", "spec.json"])
@@ -184,6 +205,9 @@ def test_cli_lists_the_eight_apps_and_refuses_the_plane():
                        (["serve-gateway", "--zoo"], 2), (["serve-gateway", "--register"], 2),
                        (["serve-loadgen", "-h"], 0), (["serve-loadgen", "--rate", "x"], 2),
                        (["serve-lifecycle", "-h"], 0), (["serve-lifecycle", "status"], 2),
+                       (["serve-aot-build", "-h"], 0), (["serve-aot-build", "--d", "x"], 2),
+                       (["serve-autoscale", "-h"], 0),
+                       (["serve-capacity-plan", "-h"], 0), (["serve-capacity-plan"], 2),
                        (["--otlp-endpoint"], 2), (["--otlp-endpoint", "-x"], 2)):
         try:
             rc, out = _run_main(cli.main, argv)

@@ -384,26 +384,50 @@ def test_lru_eviction_drains_in_the_background_as_jax(tmp_path):
 
 
 def test_zoo_specs_that_ask_for_sharding_raise(tmp_path):
-    doc = {"models": [{"name": "s", "d": 4, "hidden": 4, "depth": 1, "shard_model": True,
-                       "buckets": [2], "lanes": 1}]}
+    """Sharded specs host (they raised before the port had
+    ``serving/sharding.py``): a solo unit with ``shard_model`` and a
+    shared-prefix unit with one sharded head answer exactly as their
+    unsharded counterparts; each sharded engine holds its own placed
+    copy of the head's params, and the caller's pipeline is untouched."""
+    doc = {"models": [{"name": name, "d": 4, "hidden": 4, "depth": 1, "shard_model": shard,
+                       "buckets": [2], "lanes": 1}
+                      for name, shard in (("s", True), ("u", False))]}
     path = tmp_path / "sharded.json"
     path.write_text(json.dumps(doc))
     zoo = ModelZoo(tload(str(path), device="cpu"), device="cpu", metrics_registry=MetricsRegistry())
+    x = np.linspace(-1, 1, 4).astype(np.float32)
     try:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            zoo.host()
+        zoo.host()
+        engine = zoo.gateway_for("s").pool.lanes[0].engine
+        assert engine.model_sharded and set(engine.param_sharding) == {"0/_Affine/W", "0/_Affine/b"}
+        assert zoo.gateway_for("u").pool.lanes[0].engine.model_sharded is False
+        got = np.asarray(zoo.predict(x, "s").result(timeout=60))
+        want = np.asarray(zoo.predict(x, "u").result(timeout=60))
+        assert np.array_equal(got, want)
     finally:
         zoo.close()
     feat, d = tdemo(img=IMG, device="cpu")
     reg = ModelRegistry()
+    heads = {}
     for mid, shard in (("a", None), ("b", True)):
-        head = tbench.build_pipeline(d=d, hidden=4, depth=1, device="cpu")
+        heads[mid] = head = tbench.build_pipeline(d=d, hidden=4, depth=1, seed=ord(mid),
+                                                  device="cpu")
         reg.register(ModelSpec(mid, build=lambda h=head: BuiltModel(h, feat), buckets=(2,),
                                lanes=1, param_sharding=shard, input_dtype=np.uint8))
     zoo = ModelZoo(reg, device="cpu", metrics_registry=MetricsRegistry())
+    image = np.random.default_rng(3).integers(0, 256, (IMG, IMG, 3), dtype=np.uint8)
     try:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            zoo.host()
+        zoo.host()
+        engine = zoo.gateway_for("a").pool.lanes[0].engine
+        assert isinstance(engine, SharedPrefixEngine) and set(engine._head_binders) == {"b"}
+        for mid in ("a", "b"):
+            got = np.asarray(zoo.predict(image, mid).result(timeout=60))
+            # the unsharded head at the unit's bucket of 2 (a zero pad row)
+            padded = torch.as_tensor(np.stack([image, np.zeros_like(image)]))
+            solo = heads[mid]._batch_run(feat._batch_run(padded))
+            assert np.array_equal(got, solo[0].numpy()), mid
+        placed = engine._head_binders["b"][1]["0/_Affine/W"]
+        assert placed.data_ptr() != heads["b"].graph.operators[heads["b"]._topo[0]].W.data_ptr()
     finally:
         zoo.close()
 
