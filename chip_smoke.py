@@ -274,7 +274,12 @@ Phases, in order; any failure exits non-zero:
    serving, no failed request, a drain-retired replica after the load
    drops, SIGTERM draining every child, each replica's start seconds
    and B1/B2 launches; (e) ``serve-capacity-plan`` over replicas 1,2 x
-   speeds 1,2: a fitted per-replica rate.
+   speeds 1,2: a fitted per-replica rate;
+18. the port's tools, host only: ``python -m keystone_tpu_torch
+   keystone-lint --json`` over the checkout must exit 0 and be clean;
+   phase 3's kernel times, written as bench rows (``B1_ms`` ...) to a
+   temporary directory, must pass ``bench-diff`` against themselves and
+   fail it, naming B1 alone, against a copy with B1's time doubled.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then, last, the result line ``{"ok": true, "device": {...}}``.
@@ -5882,6 +5887,61 @@ def cold_start_sharding_elasticity(dev, smi, feat, model, img=IMG, autoscale=Non
     return rec
 
 
+# phase 18: the bench rows' names of phase 3's kernels
+BENCH_TAGS = {"sift_bin_sample": "B1", "plane_sandwich": "B2", "fisher_vector_stats": "B3"}
+
+
+def _port_tool(args, timeout=120):
+    """``python -m keystone_tpu_torch <args>`` from the checkout, as a
+    user runs it: (exit code, stdout)."""
+    out = subprocess.run([sys.executable, "-m", "keystone_tpu_torch", *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout)
+    if out.stderr:
+        log(out.stderr.strip())
+    return out.returncode, out.stdout
+
+
+def lint_and_bench_diff(smi, rows):
+    """Phase 18, host only: the port's keystone-lint over the checkout
+    (exit 0, clean), then ``bench-diff`` over ``rows`` (phase 3's kernel
+    rows) written as bench rows to a temporary directory: against
+    themselves (exit 0), and against a copy with B1's time doubled (exit
+    1, B1 the only regression). To rehearse it on the CPU:
+    ``lint_and_bench_diff("cpu", [{"name": "sift_bin_sample", "ms": 0.7},
+    {"name": "plane_sandwich", "ms": 0.1}, {"name": "fisher_vector_stats",
+    "ms": 0.7}])``."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    rec = {"card": smi}
+    t = time.perf_counter()
+    rc, out = _port_tool(["keystone-lint", "--json"])
+    doc = json.loads(out)
+    rec["lint"] = {"rc": rc, "clean": doc["clean"], "files": doc["files"],
+                   "counts": doc["counts"], "s": time.perf_counter() - t}
+    assert rc == 0 and doc["clean"], (rec, doc["findings"], doc["stale_baseline"])
+    bench = [{"metric": f"{BENCH_TAGS[r['name']]}_ms", "value": r["ms"], "unit": "ms"}
+             for r in rows]
+    slower = [dict(b, value=2 * b["value"]) if b["metric"] == "B1_ms" else b for b in bench]
+    with tempfile.TemporaryDirectory() as d:
+        paths = {}
+        for name, doc_rows in (("this_run", bench), ("b1_doubled", slower)):
+            paths[name] = os.path.join(d, f"{name}.jsonl")
+            with open(paths[name], "w") as f:
+                f.writelines(json.dumps(r) + "\n" for r in doc_rows)
+        t = time.perf_counter()
+        rc_same, _ = _port_tool(["bench-diff", paths["this_run"], paths["this_run"]])
+        rc_slow, out = _port_tool(["bench-diff", paths["this_run"], paths["b1_doubled"], "--json"])
+        report = json.loads(out)
+    rec["bench_diff"] = {"rows": bench, "rc_same": rc_same, "rc_b1_doubled": rc_slow,
+                         "regressions": report["regressions"], "s": time.perf_counter() - t}
+    assert rc_same == 0 and rc_slow == 1 and report["regressions"] == ["B1_ms"], rec
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"18 keystone-lint: {rec['lint']}; bench-diff: {rec['bench_diff']} on {smi}")
+    log(f"phase 18 in {rec['phase_s']:.3f} s on {smi}")
+    return rec
+
+
 def _info(info):
     return None if info is None else {k: float(v) for k, v in info.items()}
 
@@ -6051,13 +6111,16 @@ def main():
         }
     log(f"launches in phase 17: {[(r['name'], r['phase17_launches']) for r in rows]}")
 
+    # -- 18. the port's tools: keystone-lint and bench-diff ---------------
+    tools = lint_and_bench_diff(smi, rows)
+
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": rows, "wide": wide, "serve": served, "train": trained,
                    "stream": streamed, "files": files, "voc": voc_rec, "random_features": rf,
                    "past_the_card": past, "text": text, "last_app": last,
                    "gateway": gateway, "fleet_zoo": fleet_zoo, "loadgen_lifecycle": lifecycle,
-                   "elastic": elastic, "ptxas": ptxas}, f,
+                   "elastic": elastic, "tools": tools, "ptxas": ptxas}, f,
                   indent=1, default=str)
     # the fit's launches and B3's error with the fitted GMMs are in
     # chip_smoke.json beside these

@@ -20,9 +20,10 @@ replay, chaos and the invariant verdict; ``loadgen/cli.py``) and
 ``lifecycle/cli.py``), ``serve-aot-build`` (fill the AOT store;
 ``serving/aot.py``), ``serve-autoscale`` (router, supervised
 ``serve-gateway`` replicas and the autoscale loop; ``autoscale/cli.py``)
-and ``serve-capacity-plan`` (``autoscale/planner.py``). The rest of the
-plane — ``serve-bench``, ``bench-diff`` and ``keystone-lint`` — is not
-ported yet: given one, the entry says so and exits 2.
+and ``serve-capacity-plan`` (``autoscale/planner.py``). The tools
+``keystone-lint`` (``analysis/``) and ``bench-diff`` (``bench_diff.py``)
+are stdlib only and load no torch. ``serve-bench`` is not ported yet:
+given it, the entry says so and exits 2.
 """
 
 from __future__ import annotations
@@ -42,14 +43,14 @@ APPS = {
 }
 
 # the JAX package's request-plane subcommands not ported yet
-PLANE_APPS = ("serve-bench", "bench-diff", "keystone-lint")
+PLANE_APPS = ("serve-bench",)
 
 
 def _not_ported(what: str) -> int:
     print(f"{what} is not ported yet: keystone_tpu_torch runs the apps, "
           "serve-gateway, serve-router, serve-loadgen, serve-lifecycle, "
-          "serve-aot-build, serve-autoscale, serve-capacity-plan and the "
-          "admin endpoint")
+          "serve-aot-build, serve-autoscale, serve-capacity-plan, "
+          "keystone-lint, bench-diff and the admin endpoint")
     return 2
 
 
@@ -189,6 +190,10 @@ def main(argv=None, device=None) -> int:
         print("  serve-capacity-plan  (replay a workload against 1..K replicas, "
               "fit per-replica capacity, write the plan serve-autoscale --plan "
               "loads)")
+        print("  keystone-lint  (the port's contract lint over keystone_tpu_torch/; "
+              "--json, --list-rules; keystone_tpu_torch/analysis/)")
+        print("  bench-diff     (compare two bench rounds' rows, exit 1 on a "
+              "regression; keystone_tpu_torch/bench_diff.py)")
         print("options:")
         print("  --gateway-port N shorthand for `serve-gateway --gateway-port N` "
               "(N=0 picks an ephemeral port)")
@@ -232,6 +237,18 @@ def main(argv=None, device=None) -> int:
         from keystone_tpu_torch.autoscale.planner import main as plan_main
 
         return plan_main(argv[1:], device=device)
+    if app == "bench-diff":
+        # stdlib-only like the linter: regression gating runs in CI
+        # hooks without paying the torch import
+        from keystone_tpu_torch.bench_diff import main as bench_diff_main
+
+        return bench_diff_main(argv[1:])
+    if app == "keystone-lint":
+        # stdlib-only path by design: the linter must run in hooks and
+        # CI without paying the torch import (analysis/ never imports it)
+        from keystone_tpu_torch.analysis.cli import main as lint_main
+
+        return lint_main(argv[1:])
     if app in PLANE_APPS:
         return _not_ported(app)
     if app not in APPS:

@@ -94,6 +94,8 @@ DEFAULT_BUCKETS = (8, 64, 512)
 def _dtype(a: Any) -> torch.dtype:
     if isinstance(a, torch.Tensor):
         return a.dtype
+    # lint: disable=hot-path-host-sync
+    # a leaf that is not a tensor is host data: no device read
     return torch.from_numpy(np.empty(0, np.asarray(a).dtype)).dtype
 
 
@@ -260,6 +262,8 @@ class CompiledPipeline:
 
         def pad_leaf(a):
             if not isinstance(a, torch.Tensor):
+                # lint: disable=hot-path-host-sync
+                # a leaf that is not a tensor is host data: no device read
                 a = torch.as_tensor(np.asarray(a))
             if pad:
                 a = torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
@@ -372,9 +376,15 @@ class CompiledPipeline:
         g = self._graphs.get(key)
         if g is not None:
             return g
-        with self._fn_lock:
+        # a capture records everything enqueued on the compute stream,
+        # so replays (on that stream, under _replay_lock) wait for it
+        with self._fn_lock, self._replay_lock:
             g = self._graphs.get(key)
             if g is None:
+                # lint: disable=blocking-under-lock
+                # captures are serialized on purpose: at most one per
+                # bucket (the compile bound), and none beside a replay;
+                # warmup captures every bucket before traffic
                 g = self._graphs[key] = self._capture(bucket, staged)
             return g
 
@@ -391,14 +401,13 @@ class CompiledPipeline:
             stream.wait_stream(torch.cuda.current_stream(self.device))
             self._run_bucket(static_in)
         stream.synchronize()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
         refs: List[Any] = []
         with _cuda.capture_tally(refs) as launches:
+            # its entry empties the caching allocator first
             with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
                 static_out = self._run_bucket(static_in)
-        pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        pool_bytes = _pool_bytes(graph, self.device)
         with torch.cuda.stream(stream):
             graph.replay()
         _cuda.add_launches(launches)
@@ -447,6 +456,9 @@ class CompiledPipeline:
             graphs = list(self._graphs.values())
             self._graphs.clear()
             if graphs and self.device.type == "cuda":
+                # lint: disable=blocking-under-lock
+                # the engine's own stream, after its last window: no
+                # replay may start between this wait and the reset
                 self._compute_stream.synchronize()
             for g in graphs:
                 g.static_in = g.static_out = None
@@ -518,6 +530,8 @@ class CompiledPipeline:
         else:
             result = _zip_cat(outs)
         if sync:
+            # lint: disable=hot-path-host-sync
+            # the wait the caller asked for
             self.synchronize()
             self.metrics.record_dispatch_complete(time.perf_counter() - t0)
         return result
@@ -544,6 +558,9 @@ class CompiledPipeline:
                     # the copy has read the pinned buffer once `ready` is
                     # done (on the CPU, the eager compute has)
                     if ready is not None:
+                        # lint: disable=hot-path-host-sync
+                        # the H2D copy only (the compute stays queued):
+                        # the pinned buffer goes back to the pool after it
                         ready.synchronize()
                     self._staging.release(key, gen, host)
             self.metrics.record_dispatch_enqueue(time.perf_counter() - t0)
@@ -733,6 +750,9 @@ class CompiledPipeline:
         with self._fn_lock, self._replay_lock:
             g = self._graphs.pop(key, None)
             if g is not None and self.device.type == "cuda":
+                # lint: disable=blocking-under-lock
+                # a graph that failed its warmup check: no replay may
+                # start between this wait and the reset
                 self._compute_stream.synchronize()
                 g.static_in = g.static_out = None
                 g.refs.clear()
@@ -838,11 +858,26 @@ def _tree_equal(a: Any, b: Any) -> bool:
     return True
 
 
+def _pool_bytes(graph: Any, device: torch.device) -> int:
+    """The bytes of ``graph``'s private memory pool: the allocator's
+    segments tagged with its pool id. (A ``memory_reserved`` delta around
+    the capture also counts what the capture's own ``empty_cache`` frees,
+    and what other threads allocate or free meanwhile.)"""
+    pool = tuple(graph.pool())
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if seg["device"] == index and tuple(seg["segment_pool_id"]) == pool)
+
+
 def _zip_cat(outs: List[Any]) -> Any:
     """Concatenate chunked outputs leaf by leaf (tuples, and a shared
     prefix's dict of heads)."""
+    # `o` is one chunk's output dict or tuple: `o[k]` picks leaf k of
+    # each chunk, once per leaf, not per row
     if isinstance(outs[0], dict):
+        # lint: disable=hot-path-host-sync
         return {k: _zip_cat([o[k] for o in outs]) for k in outs[0]}
     if isinstance(outs[0], tuple):
+        # lint: disable=hot-path-host-sync
         return tuple(_zip_cat([o[i] for o in outs]) for i in range(len(outs[0])))
     return torch.cat(outs, dim=0)

@@ -433,6 +433,9 @@ class LanePipeline:
             return
         w.device_tree, w.ready = w.engine.upload_staged(w.host_tree)
         if w.ready is not None:
+            # lint: disable=hot-path-host-sync
+            # this stage's own thread waits for its copy (its seconds are
+            # the copy's) while the compute stage runs the window before
             w.ready.synchronize()
 
     # stage 4: replay the bucket's graph and wait for it; the wait here is
@@ -450,6 +453,9 @@ class LanePipeline:
             return
         w.valid = engine.compute_staged(w.device_tree, w.rows, w.bucket, w.ready)
         w.device_tree = None
+        # lint: disable=hot-path-host-sync
+        # this stage's own thread waits for the replay: the dispatch is
+        # timed to completion, and the pooled buffer is released after it
         engine.synchronize()
         self._drop_engine(w)
         engine.metrics.record_dispatch_complete(

@@ -43,6 +43,9 @@ def ready_device_tracing() -> None:
             return
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
             torch.ones(1, device="cuda").add_(1)
+            # lint: disable=blocking-under-lock
+            # once per process, before the lanes: a second caller must
+            # wait for this profile to end; no request takes the lock
             torch.cuda.synchronize()
         _device_ready = True
 

@@ -3,6 +3,7 @@
 no source imports them, and the entry points run on CUDA unless the
 caller names the CPU."""
 
+import json
 import os
 import re
 import subprocess
@@ -328,6 +329,48 @@ print("BAD", bad)
     )
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+
+
+def test_the_lint_and_bench_diff_entries_load_neither_torch_nor_jax(tmp_path):
+    """``python -m keystone_tpu_torch keystone-lint --json`` and
+    ``bench-diff`` run (neither says "not ported"), and the entry's
+    dispatch to them loads no ``torch``, ``jax`` or ``keystone_tpu``."""
+    a, b = tmp_path / "a.jsonl", tmp_path / "b.jsonl"
+    a.write_text('{"metric": "B1_ms", "value": 1.0, "unit": "ms"}\n')
+    b.write_text('{"metric": "B1_ms", "value": 2.0, "unit": "ms"}\n')
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    lint = subprocess.run(
+        [sys.executable, "-m", "keystone_tpu_torch", "keystone-lint", "--json"],
+        capture_output=True, text=True, timeout=120, cwd=ROOT, env=env,
+    )
+    assert lint.returncode == 0, lint.stdout + lint.stderr
+    assert json.loads(lint.stdout)["clean"] is True
+    diff = subprocess.run(
+        [sys.executable, "-m", "keystone_tpu_torch", "bench-diff", str(a), str(b)],
+        capture_output=True, text=True, timeout=120, cwd=ROOT, env=env,
+    )
+    assert diff.returncode == 1 and "REGRESSED B1_ms" in diff.stdout, diff.stdout + diff.stderr
+    for out in (lint, diff):
+        assert "not ported" not in out.stdout + out.stderr
+    code = f"""
+import runpy, sys
+sys.path.insert(0, {ROOT!r})
+rcs = []
+for argv in (["keystone-lint", "--json"], ["bench-diff", {str(a)!r}, {str(b)!r}]):
+    sys.argv = ["keystone_tpu_torch"] + argv
+    try:
+        runpy.run_module("keystone_tpu_torch", run_name="__main__")
+    except SystemExit as e:
+        rcs.append(e.code)
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("torch", "jax", "keystone_tpu"))
+print("RCS", rcs, "BAD", bad)
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=ROOT, env=env,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "RCS [0, 1] BAD []" in out.stdout, out.stdout[-2000:]
 
 
 def test_no_source_imports_jax_or_the_jax_package():

@@ -39,6 +39,7 @@ from keystone_tpu_torch.serving import (
     suggest_buckets,
 )
 from keystone_tpu_torch.serving import autoscale
+from keystone_tpu_torch.serving import engine as engine_mod
 from keystone_tpu_torch.serving.featurize import (
     build_flagship_featurize_pipeline as torch_build,
 )
@@ -267,6 +268,56 @@ def test_serial_apply_reuses_its_staging_buffer():
     free = eng._staging._free[eng.host_key(xs(1), 4)]
     assert not free[0].is_pinned() and tuple(free[0].shape) == (4, D)
     assert eng.metrics.h2d_bytes.get(4) == 4 * 4 * D * 4
+
+
+def test_a_capture_holds_off_replays_and_runs_once_per_bucket():
+    """A bucket's capture runs under ``_fn_lock`` and ``_replay_lock``:
+    a capture records whatever is enqueued on the compute stream, which
+    replays share, so no replay may start beside it; callers racing to
+    one bucket's first dispatch capture it once."""
+    eng = CompiledPipeline(small_model(), (4,), device="cpu")
+    calls = []
+
+    def capture(bucket, staged):
+        calls.append((bucket, eng._fn_lock.locked(), eng._replay_lock.locked()))
+        time.sleep(0.05)
+        return ("graph", bucket)
+
+    eng._capture = capture
+    staged = torch.zeros(4, D)
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(eng._graph(4, staged)))
+               for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(TIMEOUT)
+    assert not any(t.is_alive() for t in threads)
+    assert calls == [(4, True, True)]
+    assert got == [("graph", 4)] * 4
+    assert not eng._fn_lock.locked() and not eng._replay_lock.locked()
+
+
+def test_a_graphs_pool_bytes_are_its_own_segments(monkeypatch):
+    """``pool_bytes`` sums the allocator's segments tagged with the
+    graph's pool id on the engine's device: segments of other pools, of
+    the default pool and of other devices do not count, so what other
+    threads free or allocate around a capture cannot move it."""
+    segments = [
+        {"device": 0, "segment_pool_id": (0, 3), "total_size": 2 << 20},
+        {"device": 0, "segment_pool_id": [0, 3], "total_size": 20 << 20},
+        {"device": 0, "segment_pool_id": (0, 0), "total_size": 4 << 30},
+        {"device": 0, "segment_pool_id": (0, 4), "total_size": 8 << 20},
+        {"device": 1, "segment_pool_id": (0, 3), "total_size": 64 << 20},
+    ]
+    monkeypatch.setattr(torch.cuda, "memory_snapshot", lambda: segments)
+
+    class Graph:
+        def pool(self):
+            return (0, 3)
+
+    assert engine_mod._pool_bytes(Graph(), torch.device("cuda", 0)) == 22 << 20
+    assert engine_mod._pool_bytes(Graph(), torch.device("cuda", 1)) == 64 << 20
 
 
 # -- the flagship chain behind both batchers ----------------------------------
