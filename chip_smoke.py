@@ -46,8 +46,10 @@ Phases, in order; any failure exits non-zero:
    classify 1,000 held-out ones;
    check that the fit launched every kernel; hold each estimator on the
    card against the port on the CPU on the same inputs (both PCA
-   matrices, both GMMs, the solver on its first 512 rows with PCG and with
-   Cholesky), and B3 against its plain version with the fitted GMMs;
+   matrices, both GMMs, the solver on its first 512 rows with PCG and
+   with Cholesky, the Cholesky fit's CPU side in a process of its own
+   beside phases 7 to 13 and held against the card's after phase 13), and
+   B3 against its plain version with the fitted GMMs;
    require a held-out top-5 error of at most 0.5; serve the trained chain
    through buckets (8, 64) and require the fitted pipeline's top-5. Prints
    the wall time of each stage and the peak device memory;
@@ -139,15 +141,15 @@ Phases, in order; any failure exits non-zero:
 12. the text apps and the ELL solver, which reach no kernel of this repo
    (the launches in the phase are counted and printed: 0): (a)
    ``NewsgroupsPipeline.main`` with the JAX defaults (2-grams, 100,000
-   common features, 20 classes) on 11,314 + 7,532 seeded documents of 250
+   common features, 20 classes) on 5,657 + 3,766 seeded documents of 250
    words written as per-class directories under the gitignored
    ``tmp/phase12``, string-keyed and ``--hashing``: accuracy above 0.9,
    time by node and peak, Naive Bayes card against CPU, the native
    featurizer's routes (every document native), and the string-keyed
    pipeline saved, reloaded and scoring the test split bit for bit; (b)
    ``AmazonReviewsPipeline.main`` (threshold 3.5, 2-grams, 100,000
-   features, 20 iterations) on JSON lines of 25,000 + 5,000 reviews
-   string-keyed and 500,000 + 100,000 hashed, 100 words each: accuracy,
+   features, 20 iterations) on JSON lines of 12,500 + 2,500 reviews
+   string-keyed and 250,000 + 50,000 hashed, 100 words each: accuracy,
    L-BFGS iterations and value-and-gradient calls, nnz and CSR bytes, fit
    seconds and peak, and the string-keyed fit against a CPU fit; (c)
    ``EllLeastSquaresEstimator`` at bench.py's 65,000,000 x 1,024, nnz 5,
@@ -156,18 +158,18 @@ Phases, in order; any failure exits non-zero:
    and the mapper against the dense product.
 13. the last app and the remaining operators, which reach no kernel of
    this repo (the launches in the phase are counted and printed: 0): (a)
-   ``StupidBackoffPipeline.main`` on a seeded Zipf corpus of 40,000 lines
+   ``StupidBackoffPipeline.main`` on a seeded Zipf corpus of 20,000 lines
    of 20 words over 200,000 words written under the gitignored
    ``tmp/phase13``, 1,000 sampled scores against a direct count over the
    corpus, then ``python -m keystone_tpu_torch StupidBackoffPipeline`` in a
    fresh process (exit 0, the same printed line); (b) ``CRFNEREstimator``
-   at the JAX defaults on 14,041 seeded sentences of CoNLL-2003 train's
+   for 50 epochs (the JAX default's quarter) on 14,041 seeded sentences of CoNLL-2003 train's
    203,621 tokens (longest 113, 9 BIO tags), decoded on 3,453: the fit's
    seconds, epochs and steps/s, one training step eager and as a CUDA
    graph replay, decode sentences/s, token accuracy beside
    ``rule_ner_tag``'s (the JAX tests' bars), no BIO-invalid path, the
    parameters after 5 epochs on 512 sentences against the CPU; then
-   ``CRFTaggerEstimator`` at 45 tags on the same shape for 100 epochs,
+   ``CRFTaggerEstimator`` at 45 tags on the same shape for 25 epochs,
    above each word's majority tag; (c) HOG (bin 8) and DAISY on 64 seeded images of 500 x
    375 and on four mixed sizes: images/s, two images against the CPU
    under the golden bar; (d) ``gram`` and ``qr_q`` at 1,048,576 x 1,024
@@ -205,7 +207,7 @@ Phases, in order; any failure exits non-zero:
 15. the fleet tier and the model zoo: (a) ``serve-router`` and two
    ``serve-gateway --device-featurize flagship --img 256 --trace
    --register`` replicas, each a ``python -m keystone_tpu_torch`` process
-   of its own started one after another, every one exporting spans to a
+   of its own, the two started together, every one exporting spans to a
    stdlib OTLP collector in this process: a routed and a direct answer
    against the eager chain here, the router's stitched ``/debugz`` of a
    routed request (both tiers, not partial, phases summing to the total
@@ -231,7 +233,7 @@ Phases, in order; any failure exits non-zero:
    chain and head (B1–B3) behind ``Gateway`` and ``GatewayServer`` with a
    request log, float32 instances (the loadgen's payloads are float32
    normals, which a uint8 server refuses): a trace recorded from 8 of
-   phase 14's uint8 clients, 120 of its POSTs replayed open-loop by
+   phase 14's uint8 clients, 100 of its POSTs replayed open-loop by
    ``python -m keystone_tpu_torch serve-loadgen --target URL --trace
    FILE`` at 2.5 req/s with ``gateway.lane.kill`` armed over ``/chaosz``
    12 s into the run for 10 s (smoke-chaos's other bounds): a green
@@ -243,8 +245,8 @@ Phases, in order; any failure exits non-zero:
    ``serve-loadgen --feedback-fraction 0.5 --teacher
    hidden=512,depth=4,head_seed=7`` at 150 req/s: ``/lifecyclez`` walks
    idle → shadow → canary → promoted, then ``lifecycle.refit.poison``
-   armed over ``/chaosz`` rolls the next candidate back (reason and
-   counter), verdicts green, SIGTERM exit 0; in this process the same
+   armed over ``/chaosz`` rolls back the first candidate solved from
+   poisoned samples (reason and counter), verdicts green, SIGTERM exit 0; in this process the same
    gateway and controller ticked by hand under 150 req/s: a candidate's
    build and each swap's seconds, outputs after a post-promotion
    rollback bitwise equal to the incumbent's, a poisoned candidate
@@ -279,7 +281,17 @@ Phases, in order; any failure exits non-zero:
    keystone-lint --json`` over the checkout must exit 0 and be clean;
    phase 3's kernel times, written as bench rows (``B1_ms`` ...) to a
    temporary directory, must pass ``bench-diff`` against themselves and
-   fail it, naming B1 alone, against a copy with B1's time doubled.
+   fail it, naming B1 alone, against a copy with B1's time doubled;
+19. ``python -m keystone_tpu_torch serve-bench --no-cold-start
+   --no-pipeline-overlap`` (the overlap row's floor is out of reach on
+   the card) and ``--featurize-only`` in fresh processes at the JAX
+   defaults, once each: every row printed and the process exit 0 (so
+   each row's own checks held), the
+   goodput row's cost model and MFU, the flagship row's MFU and roofline
+   for every bucket, and B1–B3 launched in the featurize process.
+   Phase 4 prints its engine's cost model per bucket (FLOPs, bytes and
+   each kernel's FLOPs), and phase 5 requires ``keystone_serving_mfu``
+   and a roofline class per bucket on the engine's ``/metrics``.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then, last, the result line ``{"ok": true, "device": {...}}``.
@@ -376,6 +388,11 @@ TRAIN_CONF = dict(
 TRAIN_PER_CLASS, NOISE_SIGMA = 2, 8.0
 MAX_TOP5_ERR = 0.5
 SOLVER_ROWS = 512
+# the Cholesky solve's CPU side (68.4 s of phase 6 on eight threads of
+# an H100 host) runs in a process of its own on this many threads
+# beside phases 7 to 13; the card's fit is held against it after phase 13
+CPU_SOLVER_THREADS = 2
+P6_CPU_SOLVER_S = 900
 # bars of the JAX package's tests: PCA tests/ops/test_pca_zca.py, GMM
 # tests/ops/test_clustering.py, solvers tests/ops/test_weighted_ls.py
 ATOL_PCA, TOL_GMM, ATOL_SOLVER = 5e-3, 1e-3, 5e-4
@@ -396,10 +413,10 @@ def bound(flops, nbytes):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def fv_flops(B, m, d, k):
-    """B3's operations at B images of m descriptors: the four products
-    (8·d·k a descriptor) and the softmax, threshold and s0 (12·k)."""
-    return B * m * (8 * d * k + 12 * k)
+# the kernels' work formulas, which their wrappers also report to the
+# serving engine's cost model (observability/device.kernel_cost)
+fv_flops = fv_kernel.fv_flops
+band_flops = kernels.band_flops
 
 
 def fv_by_kernel(xs, means, variances, weights, thresh=1e-4):
@@ -474,16 +491,6 @@ def sift_inputs(imgs_u8, dev):
         ayt, ax = torch.as_tensor(a.T.copy(), device=dev), torch.as_tensor(a, device=dev)
         out.append((mag, t, ayt, ax, kernels.operator_bands(ayt, ax)))
     return out
-
-
-def band_flops(row_bands, col_bands, z_cols, t1_rows, reps):
-    """FLOPs of ``reps`` sandwiches ``At · Z · B`` over the operators'
-    bands: 2 · (Σ band widths) · (other extent) per product, with the row
-    bands of At, the column bands of B, Z's column count and T1 = At · Z's
-    row count."""
-    wr = int((row_bands[1] - row_bands[0]).sum())
-    wc = int((col_bands[1] - col_bands[0]).sum())
-    return 2 * reps * (wr * z_cols + wc * t1_rows)
 
 
 def lcs_extractor():
@@ -766,13 +773,10 @@ def check_kernels(dev, gen):
         want = kernels.sift_bin_sample_plain(mag, t, ayt, ax)
         err = max(err, max_abs_err(got, want, RTOL_SANDWICH, ATOL_SANDWICH,
                                    f"sift_bin_sample M={ayt.shape[0]}"))
-    flops = sum(band_flops(bands[0], bands[1], IMG, ayt.shape[0], B * 8)
-                for _, _, ayt, _, bands in scales)
+    flops, nbytes = (sum(w) for w in zip(*(kernels.sift_bin_sample_work(mag, ayt, ax, bands)
+                                           for mag, _, ayt, ax, bands in scales)))
     dense_flops = sum(2 * B * 8 * ayt.shape[0] * IMG * (IMG + ax.shape[1])
                       for _, _, ayt, ax, _ in scales)
-    nbytes = sum(4 * (2 * B * IMG * IMG + ayt.numel() + ax.numel()
-                      + B * 8 * ayt.shape[0] * ax.shape[1])
-                 for _, _, ayt, ax, _ in scales)
     b_ms, b_by = bound(flops, nbytes)
     rows.append(dict(
         name="sift_bin_sample", route="cuda",
@@ -794,9 +798,8 @@ def check_kernels(dev, gen):
     err = max_abs_err(got, want, RTOL_SANDWICH, ATOL_SANDWICH, "plane_sandwich")
     del got, want
     M = at.shape[0]
-    flops = band_flops(bands[0], bands[1], IMG, M, B * 6)
+    flops, nbytes = kernels.plane_sandwich_work(z, at, bm, bands)
     dense_flops = 2 * B * 6 * M * IMG * (IMG + M)
-    nbytes = 4 * (z.numel() + at.numel() + bm.numel() + B * 6 * M * M)
     b_ms, b_by = bound(flops, nbytes)
     rows.append(dict(
         name="plane_sandwich", route="cuda",
@@ -827,8 +830,8 @@ def check_kernels(dev, gen):
         ):
             err = max(err, max_abs_err(g, w, RTOL_FV, ATOL_FV,
                                        f"fisher_vector_stats m={x.shape[2]} {name}"))
-    flops = sum(fv_flops(B, x.shape[2], d, k) for x in xs)
-    nbytes = sum(4 * (x.numel() + 2 * d * k + k + B * (1 + 2 * d) * k) for x in xs)
+    flops, nbytes = (sum(w) for w in zip(*(fv_kernel.fisher_vector_stats_work(x, k)[:2]
+                                           for x in xs)))
     b_ms, b_by = bound(flops, nbytes)
     rows.append(dict(
         name="fisher_vector_stats", route="cuda", **_fv_extra(xs, d, k),
@@ -859,6 +862,11 @@ def serve(dev, smi):
     capture_s = engine.warmup(example=np.zeros((IMG, IMG, 3), np.uint8))
     log(f"built the serving pipeline and captured buckets {capture_s} (s) in "
         f"{time.perf_counter() - t0:.3f} s")
+    cost = cost_models(engine)
+    log(f"phase 4's cost model per bucket (the warm passes' count): {cost} on {smi}")
+    assert sorted(cost) == list(BUCKETS), cost
+    for c in cost.values():
+        assert set(c["kernel_flops"]) == set(_cuda.LAUNCHES) and c["flops"] > 0, c
 
     reqs = [rng.integers(0, 256, (n, IMG, IMG, 3), dtype=np.uint8) for n in REQUESTS]
     _cuda.reset_launches()
@@ -908,10 +916,50 @@ def serve(dev, smi):
     rec = {
         "launches": launches, "dispatches": dispatches, "sift": sift_rec,
         "feature_max_abs_err": feat_err, "top5_equal": top_equal,
-        "capture_s": capture_s, "graphs": engine.graph_report(),
+        "capture_s": capture_s, "graphs": engine.graph_report(), "cost_model": cost,
     }
     rec.update(throughput_and_profile(engine, rng, smi))
+    rec["device_truth"] = device_truth(engine, cost, rec["replay_ms"], smi)
     return rec, feat, model
+
+
+def cost_models(engine):
+    """The engine's cost model per bucket: flops, bytes accessed,
+    transcendentals, and the FLOPs each kernel reported in it."""
+    return {b: {"flops": m["flops"], "bytes_accessed": m["bytes_accessed"],
+                "transcendentals": m["transcendentals"],
+                "kernel_flops": {k: v["flops"] for k, v in engine.kernel_costs[b].items()}}
+            for b, m in sorted(engine.metrics.cost_models.items())}
+
+
+def device_truth(engine, cost, replay_ms, smi):
+    """Phase 5's MFU and roofline: the engine's own ``/metrics`` series
+    (the rolling ``keystone_serving_mfu`` and each bucket's
+    ``keystone_device_roofline_bound``) must be present, and each
+    bucket's replay (CUDA events) gives its FLOPs over the replay time
+    over the card's peak."""
+    from keystone_tpu_torch.observability import device as device_obs
+    from keystone_tpu_torch.observability import prometheus
+    from keystone_tpu_torch.observability.registry import get_global_registry
+
+    text = prometheus.render(get_global_registry().collect())
+    lines = [ln for ln in text.splitlines()
+             if not ln.startswith("#") and f'engine="{engine.name}"' in ln]
+    mfu_lines = [ln for ln in lines if ln.startswith("keystone_serving_mfu{")]
+    roofline = {}
+    for name, labels, v in prometheus.parse_samples("\n".join(lines)):
+        if name == "keystone_device_roofline_bound" and v == 1.0:
+            roofline[int(labels["bucket"])] = labels["bound"]
+    peak_flops, peak_bytes = device_obs.peaks_of(engine.device)
+    replay_mfu = {b: cost[b]["flops"] / (replay_ms[b] / 1e3) / peak_flops for b in cost}
+    rec = {"mfu_gauge": engine.metrics.mfu(), "mfu_lines": mfu_lines, "roofline": roofline,
+           "replay_mfu": replay_mfu, "peaks": [peak_flops, peak_bytes],
+           "intensity": {b: c["flops"] / c["bytes_accessed"] for b, c in cost.items()}}
+    log(f"phase 5 device truth: /metrics {mfu_lines}, roofline {roofline}; a replay's MFU "
+        f"(its FLOPs over the CUDA-event replay time over {peak_flops:.3g} FLOP/s) {replay_mfu}; "
+        f"FLOPs per byte {rec['intensity']} on {smi}")
+    assert mfu_lines and sorted(roofline) == list(BUCKETS), (mfu_lines, roofline)
+    return rec
 
 
 def throughput_and_profile(engine, rng, smi, img=IMG):
@@ -1252,6 +1300,87 @@ def full_fits(captured):
     return [item for item in captured if item[0].n == most]
 
 
+def _solver_fit(solve, block, lam, mixture_weight, Xs, Ys, d):
+    """The weighted solver's fit on ``d``: (W, intercept, seconds, info)."""
+    est = weighted_ls.BlockWeightedLeastSquaresEstimator(block, 1, lam, mixture_weight, solve=solve)
+    t = time.perf_counter()
+    m = est.fit(Dataset.from_array(Xs.to(d)), Dataset.from_array(Ys.to(d)))
+    return m.W.cpu(), m.intercept.cpu(), time.perf_counter() - t, _info(m.solver_info)
+
+
+def solver_check(solve, block, card, cpu, rows, threads=None):
+    """The card's fit against the CPU's: each part within ATOL_SOLVER and
+    ‖card − CPU‖ / ‖CPU‖ within RTOL_SOLVER_NORM."""
+    errs, rel, size = {}, {}, {}
+    for i, part in enumerate(("W", "intercept")):
+        got, want = card[i], cpu[i]
+        errs[part] = max_abs_err(got, want, 0.0, ATOL_SOLVER, f"solver {solve} {part}")
+        # the bar beside the size of what it holds
+        rel[part] = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+        size[part] = float(want.abs().max())
+        assert rel[part] <= RTOL_SOLVER_NORM, (solve, part, rel[part])
+    check = {"max_abs_err": errs, "bar": ATOL_SOLVER, "rel_norm_err": rel,
+             "rel_norm_bar": RTOL_SOLVER_NORM, "max_abs_cpu": size, "card_s": card[2],
+             "cpu_s": cpu[2], "cpu_threads": threads or torch.get_num_threads(), "rows": rows,
+             "cols": int(card[0].shape[0]), "block": block, "info_card": card[3], "info_cpu": cpu[3]}
+    log(f"solver {solve} (block {block}, first {rows} rows, {check['cols']} columns), card vs CPU: "
+        f"max abs err {errs} "
+        f"(atol {ATOL_SOLVER}) on entries up to {size}; relative norm err {rel} (bar "
+        f"{RTOL_SOLVER_NORM}); card {card[2]:.3f} s, CPU {cpu[2]:.3f} s on {check['cpu_threads']} "
+        f"threads")
+    return check
+
+
+def cpu_solver(args):
+    """In a fresh process (``python3 chip_smoke.py --cpu-solver JSON``):
+    the weighted solver's fit on the CPU on ``args["threads"]`` threads,
+    from the inputs saved at ``args["inputs"]``, saved to ``args["out"]``."""
+    torch.set_num_threads(args["threads"])
+    xy = torch.load(args["inputs"])
+    fit = _solver_fit(args["solve"], args["block"], args["lam"], args["mixture_weight"],
+                      xy["X"], xy["Y"], torch.device("cpu"))
+    torch.save(fit, args["out"])
+
+
+def start_cpu_solver(solve, block, lam, mixture_weight, Xs, Ys, threads):
+    """Starts ``cpu_solver`` in a fresh process on ``threads`` threads;
+    returns the process, its paths and what it solves.
+    The process is killed at exit if it still runs."""
+    import atexit
+
+    root = os.path.join(ROOT, "tmp", f"solver_{solve}")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    doc = dict(solve=solve, block=block, lam=lam, mixture_weight=mixture_weight,
+               threads=threads, inputs=os.path.join(root, "inputs.pt"),
+               out=os.path.join(root, "fit.pt"))
+    torch.save({"X": Xs.cpu(), "Y": Ys.cpu()}, doc["inputs"])
+    log_path = os.path.join(root, "cpu_solver.log")
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--cpu-solver",
+                                 json.dumps(doc)], cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+    atexit.register(proc.kill)
+    return dict(proc=proc, out=doc["out"], log=log_path, t0=time.perf_counter(), solve=solve,
+                block=block, threads=threads)
+
+
+def finish_cpu_solver(card, started, rows):
+    """Waits for ``start_cpu_solver``'s process and holds the card's fit
+    against it (``solver_check``)."""
+    t = time.perf_counter()
+    rc = started["proc"].wait(timeout=P6_CPU_SOLVER_S)
+    waited = time.perf_counter() - t
+    assert rc == 0, open(started["log"]).read()[-4000:]
+    cpu_fit = torch.load(started["out"])
+    shutil.rmtree(os.path.dirname(started["out"]), ignore_errors=True)
+    check = solver_check(started["solve"], started["block"], card, cpu_fit, rows,
+                         threads=started["threads"])
+    check["process_s"], check["waited_s"] = time.perf_counter() - started["t0"], waited
+    log(f"solver {started['solve']}'s CPU process: {check['process_s']:.3f} s from its start, "
+        f"{waited:.3f} s of them spent waiting for it")
+    return check
+
+
 def train_then_serve(dev, smi, classes=1000, per_class=TRAIN_PER_CLASS, solver_rows=SOLVER_ROWS,
                      keep=None):
     """Phase 6. Returns the record written to chip_smoke.json; puts the
@@ -1359,30 +1488,21 @@ def train_then_serve(dev, smi, classes=1000, per_class=TRAIN_PER_CLASS, solver_r
                  f"residual {rec['solver']['cg_exit_rel_residual']:.3e}, X {rec['solver']['shape'][:2]}, "
                  f"{rec['solver']['shape'][2]} classes" if stage == "solver" else "")
         log(f"stage {stage}: {sec:.3f} s{extra} on {smi}")
-    for solve, block in (("pcg", 4096), ("chol", 256)):
-        est = weighted_ls.BlockWeightedLeastSquaresEstimator(
-            block, 1, conf.lam, conf.mixture_weight, solve=solve)
-        res = {}
-        for where, d in (("card", dev), ("cpu", cpu)):
-            t = time.perf_counter()
-            m = est.fit(Dataset.from_array(Xs.to(d)), Dataset.from_array(Ys.to(d)))
-            res[where] = (m.W.cpu(), m.intercept.cpu(), time.perf_counter() - t, m.solver_info)
-        errs, rel, size = {}, {}, {}
-        for i, part in enumerate(("W", "intercept")):
-            got, want = res["card"][i], res["cpu"][i]
-            errs[part] = max_abs_err(got, want, 0.0, ATOL_SOLVER, f"solver {solve} {part}")
-            # the bar beside the size of what it holds
-            rel[part] = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
-            size[part] = float(want.abs().max())
-            assert rel[part] <= RTOL_SOLVER_NORM, (solve, part, rel[part])
-        checks[f"solver_{solve}"] = {"max_abs_err": errs, "bar": ATOL_SOLVER, "rel_norm_err": rel,
-                                     "rel_norm_bar": RTOL_SOLVER_NORM, "max_abs_cpu": size,
-                                     "card_s": res["card"][2],
-                                     "cpu_s": res["cpu"][2], "rows": solver_rows, "block": block,
-                                     "info_card": _info(res["card"][3]), "info_cpu": _info(res["cpu"][3])}
-        log(f"solver {solve} (block {block}, first {solver_rows} rows), card vs CPU: max abs err {errs} "
-            f"(atol {ATOL_SOLVER}) on entries up to {size}; relative norm err {rel} (bar "
-            f"{RTOL_SOLVER_NORM}); card {res['card'][2]:.3f} s, CPU {res['cpu'][2]:.3f} s")
+    # PCG's CPU side here; Cholesky's in a process of its own, held against
+    # the card's fit after phase 13 (at once when there is no ``keep``)
+    lam, mw = conf.lam, conf.mixture_weight
+    card = _solver_fit("pcg", 4096, lam, mw, Xs, Ys, dev)
+    checks["solver_pcg"] = solver_check("pcg", 4096, card, _solver_fit("pcg", 4096, lam, mw, Xs, Ys, cpu),
+                                        solver_rows)
+    # (in a rehearsal on the CPU, on this process's thread count, so that
+    # both fits are one computation)
+    threads = CPU_SOLVER_THREADS if dev.type == "cuda" else torch.get_num_threads()
+    chol = (_solver_fit("chol", 256, lam, mw, Xs, Ys, dev),
+            start_cpu_solver("chol", 256, lam, mw, Xs, Ys, threads), solver_rows)
+    if keep is None:
+        checks["solver_chol"] = finish_cpu_solver(*chol)
+    else:
+        keep["solver_chol"] = chol
     rec["checks"] = checks
 
     # -- B3 with the fitted GMMs against its plain version --------------------
@@ -2817,11 +2937,13 @@ def timit_at_width(dev, smi, sizes=P11_TIMIT, flags=()):
 # threshold 3.5 and numIters 20), in both feature modes, on seeded
 # synthetic corpora in the loaders' formats, and the ELL solver at the
 # Amazon experiment's shape (bench.py:232-259). Only corpus sizes are cut.
-P12_NEWS = (11_314, 7_532)  # 20 Newsgroups "bydate": train, test
+# 20 Newsgroups "bydate" (11,314 train, 7,532 test), halved since phase 19
+P12_NEWS = (5_657, 3_766)
 P12_NEWS_WORDS, P12_REVIEW_WORDS = 250, 100
-# Amazon's reviews: half of the earlier runs' 50,000 + 10,000 string-keyed
-# and 1,000,000 + 200,000 hashed, so that phase 17 fits the script's time
-P12_AMAZON, P12_AMAZON_HASHED = (25_000, 5_000), (500_000, 100_000)
+# Amazon's reviews: a quarter of the earlier runs' 50,000 + 10,000
+# string-keyed and 1,000,000 + 200,000 hashed (halved for phase 17, and
+# again for phase 19)
+P12_AMAZON, P12_AMAZON_HASHED = (12_500, 2_500), (250_000, 50_000)
 # a Zipf vocabulary of 30,000 words; each word of a document is, with the
 # given chance, one of its class's (or sentiment's) own words instead
 P12_VOCAB, P12_ZIPF = 30_000, 1.07
@@ -3151,13 +3273,15 @@ def text_apps(dev, smi, news=P12_NEWS, amazon=P12_AMAZON, hashed=P12_AMAZON_HASH
 # phase 13: the last app and the remaining operators (no kernel of this repo)
 # 13a: StupidBackoffPipeline on a seeded Zipf corpus of P13_SB lines of
 # P13_SB_WORDS words over P13_SB_VOCAB words (under 2^20, so the bit-packing
-# indexer takes every id); 1,000 sampled n-grams held against a direct count
-P13_SB, P13_SB_WORDS, P13_SB_VOCAB, P13_SB_CHECK = 40_000, 20, 200_000, 1_000
+# indexer takes every id); 1,000 sampled n-grams held against a direct count;
+# 20,000 lines since phase 19 (40,000 before)
+P13_SB, P13_SB_WORDS, P13_SB_VOCAB, P13_SB_CHECK = 20_000, 20, 200_000, 1_000
 # 13b: CoNLL-2003 English train's shape (sentences, tokens, longest
-# sentence) and testb's sentence count; WSJ's 45 POS tags, fit for half
-# of the JAX default's 200 epochs (the phase's time)
+# sentence) and testb's sentence count; the NER tagger fit for a quarter
+# of the JAX default's 200 epochs and WSJ's 45 POS tags for 25 (the
+# script's time: 200 and 100 before phase 19)
 P13_CONLL, P13_CONLL_TEST = (14_041, 203_621, 113), 3_453
-P13_POS_TAGS, P13_POS_EPOCHS = 45, 100
+P13_NER_EPOCHS, P13_POS_TAGS, P13_POS_EPOCHS = 50, 45, 25
 P13_PARITY_ROWS, P13_PARITY_EPOCHS = 512, 5
 # the CRF's parameters after P13_PARITY_EPOCHS epochs, card against the CPU:
 # the largest entry difference and ‖Δ‖/‖CPU‖ (float32 sums in other orders
@@ -3446,10 +3570,10 @@ def crf_step_times(dev, sentences, feature_fn, constrain_bio, steps=20):
 
 
 def crf_taggers(dev, smi, conll=P13_CONLL, conll_test=P13_CONLL_TEST, parity_rows=P13_PARITY_ROWS,
-                n_epochs=200, pos_epochs=P13_POS_EPOCHS):
-    """13b: CRF NER at CoNLL-2003 train's shape at the JAX defaults, then
-    the POS tagger at 45 tags for ``pos_epochs``; parameters card vs CPU on
-    a slice."""
+                n_epochs=P13_NER_EPOCHS, pos_epochs=P13_POS_EPOCHS):
+    """13b: CRF NER at CoNLL-2003 train's shape for ``n_epochs``, then the
+    POS tagger at 45 tags for ``pos_epochs``; parameters card vs CPU on a
+    slice."""
     from keystone_tpu_torch.ops.nlp import CRFNEREstimator, CRFTaggerEstimator, crf
     from keystone_tpu_torch.ops.nlp.tagging import _emit_features, _emit_ner_features
 
@@ -4532,16 +4656,17 @@ def fleet_drill(dev, smi, root, images_path, collector, img=IMG, seconds=P15_SEC
                  "--device-featurize", "flagship", "--img", str(img), "--buckets", "8,64",
                  "--lanes", "2", "--trace", "--register", rurl], log_path, dev)
 
+        # both replicas start together (one after another, each took
+        # 20.7–21.1 s on an H100)
         replicas = {}
-        for n in ("a", "b"):  # one after another: each takes a CUDA context and captures
+        for n in ("a", "b"):
             replicas[n] = start_replica(n)
             procs.append(replicas[n])
-            if n == "a":
-                assert router.wait_json("listening")["listening"] == rurl
-                rec["router_up_s"] = time.perf_counter() - t
+        assert router.wait_json("listening")["listening"] == rurl
+        rec["router_up_s"] = time.perf_counter() - t
+        for n in ("a", "b"):
             assert replicas[n].wait_json("listening")["listening"] == urls[n]
             rec[f"replica_{n}_up_s"] = time.perf_counter() - t
-            t = time.perf_counter()
         deadline = time.time() + 60
         while time.time() < deadline and sum(r["healthy"] and r["ready"]
                                              for r in fleetz(rurl)["replicas"]) < 2:
@@ -4549,7 +4674,7 @@ def fleet_drill(dev, smi, root, images_path, collector, img=IMG, seconds=P15_SEC
         roster = fleetz(rurl)
         assert [r["state"] for r in roster["replicas"]] == ["healthy"] * 2, roster
         log(f"15a: router up in {rec['router_up_s']:.3f} s, replicas in {rec['replica_a_up_s']:.3f} "
-            f"and {rec['replica_b_up_s']:.3f} s (one after another)")
+            f"and {rec['replica_b_up_s']:.3f} s (started together)")
 
         # -- right answers: the eager chain in this process at both buckets
         from keystone_tpu_torch.serving.bench import build_pipeline
@@ -4947,7 +5072,8 @@ P16A_IN_FLIGHT, P16A_RECORD_S, P16A_POOL, P16A_RATE = 8, 10.0, 16, 2.5
 # and lasts long enough that each window (before, during, after) holds
 # at least P16A_MIN_WINDOW requests; the other chaos bounds are
 # bin/smoke-chaos.sh's
-P16A_POSTS, P16A_MIN_WINDOW = 120, 20
+# (100 since phase 19, 120 before: 30, 25 and 45 requests a window)
+P16A_POSTS, P16A_MIN_WINDOW = 100, 20
 P16A_CHAOS = ["--fault", "gateway.lane.kill=lane:0", "--fault-at", "12", "--fault-for", "10",
               "--settle-s", "4", "--recovery-s", "10", "--p99-factor", "2.0",
               "--max-shed-rate", "0.8"]
@@ -4956,7 +5082,12 @@ P16A_CHAOS = ["--fault", "gateway.lane.kill=lane:0", "--fault-at", "12", "--faul
 P16B_WIDTH = dict(d=256, hidden=512, depth=4)
 P16B_REFIT = ["--buckets", "4,8", "--refit-interval-s", "0.5", "--refit-min-samples", "128",
               "--canary-fraction", "0.25"]
-P16B_LOADS = ((2500, 1), (2500, 2))  # (requests, seed) of the labeled runs, at 150 req/s
+# (requests, seed) of the labeled runs, at 150 req/s, one after another
+# until the rollback: a candidate solved from samples taken before the
+# poison was armed can be promoted first, and the poisoned one after it
+# then needs a third run's traffic to reach its verdict (seen on an
+# H100: v2 promoted at 40.4 s, v3 in shadow when the second run ended)
+P16B_LOADS = ((2500, 1), (2500, 2), (2500, 3))
 P16B_RATE, P16B_FEEDBACK, P16B_HEAD_SEED, P16B_POISON_CHUNKS = 150, 0.5, 7, 16
 # 16b's in-process lifecycle: feedback rows a candidate is solved from,
 # the closed loop's requests a second (the drill's rate), probes
@@ -5435,7 +5566,8 @@ P17_POLICY = ["--interval", "1", "--up-consecutive", "2", "--up-cooldown", "5",
 # (A 100 ms objective broke in every cell of one run on the card, 133.5 ms
 # at two replicas and 89 req/s, where other runs held it at 24–80 ms: the
 # host's share of a p99 varies from machine to machine.)
-P17_PLAN = ["--synthetic", "200", "--rate", "50", "--replicas", "1,2", "--speeds", "1,2",
+# 100 requests a cell since phase 19 (200 before)
+P17_PLAN = ["--synthetic", "100", "--rate", "50", "--replicas", "1,2", "--speeds", "1,2",
             "--slo-latency-ms", str(P17_SLO_MS), "--d", "32", "--hidden", "32", "--depth", "2",
             "--buckets", "4"]
 
@@ -5946,6 +6078,94 @@ def _info(info):
     return None if info is None else {k: float(v) for k, v in info.items()}
 
 
+# phase 19: python -m keystone_tpu_torch serve-bench in fresh processes, at
+# the JAX defaults (the demo chain at d 256, hidden 512, depth 4, buckets
+# 8, 32, 128; the featurize rows at their own shapes), the rows each run
+# must print, in order. The default run leaves out the cold-start row
+# (ROADMAP C8) and the overlap row (C9), whose floors the card misses.
+P19_RUNS = (
+    ("default", ["--no-cold-start", "--no-pipeline-overlap"],
+     ("serving_cold_vs_warm_latency", "serving_bucketed_throughput", "serving_microbatch_p99",
+      "serving_gateway_p99", "serving_swap_blip", "serving_goodput_mfu")),
+    ("featurize", ["--featurize-only"],
+     ("serving_device_featurize", "serving_flagship_featurize")),
+)
+P19_TIMEOUT_S = 300
+
+
+def serve_bench(smi):
+    """Phase 19: ``serve-bench --no-cold-start --no-pipeline-overlap``
+    (the default rows but the overlap row) and ``--featurize-only`` (the
+    two featurize rows), each once in a fresh process with an AOT store
+    under the gitignored ``tmp/phase19_aot``. Each must exit 0 (so every
+    in-row check held) having printed its rows in order; the goodput row
+    must have a cost model and an MFU, the flagship row an MFU and a
+    roofline class for every bucket, and the featurize process's
+    ``kernel_launches`` line B1, B2 and B3 each at least once. On the card
+    only (the children run on ``cuda``; the rows' CPU tests are
+    ``tests/test_torch_serve_bench.py``)."""
+    t_phase = time.perf_counter()
+    aot = os.path.join(ROOT, "tmp", "phase19_aot")
+    shutil.rmtree(aot, ignore_errors=True)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    rec = {}
+    try:
+        for name, flags, want in P19_RUNS:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "keystone_tpu_torch", "serve-bench", *flags, "--aot-cache", aot],
+                capture_output=True, text=True, timeout=P19_TIMEOUT_S, cwd=ROOT,
+            )
+            with open(os.path.join(ROOT, "chiprun_out", f"phase19_{name}.log"), "w") as f:
+                f.write(proc.stdout + proc.stderr)
+            lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+            rows = {r["metric"]: r for r in lines if "metric" in r}
+            launches = next((r["kernel_launches"] for r in lines if "kernel_launches" in r), None)
+            for r in rows.values():
+                log(f"19 {name}: {json.dumps(r)}")
+            rec[name] = {"rc": proc.returncode, "s": time.perf_counter() - t0, "rows": rows,
+                         "launches": launches}
+            log(f"19 {name}: exit {proc.returncode} in {rec[name]['s']:.3f} s, kernel launches "
+                f"{launches} on {smi}")
+            assert proc.returncode == 0, proc.stderr[-4000:]
+            assert tuple(rows) == want, (tuple(rows), want)
+    finally:
+        shutil.rmtree(aot, ignore_errors=True)
+    goodput = rec["default"]["rows"]["serving_goodput_mfu"]
+    assert goodput["cost_analysis_available"] is True and goodput["mfu"] is not None, goodput
+    flagship = rec["featurize"]["rows"]["serving_flagship_featurize"]
+    assert flagship["mfu"] is not None, flagship
+    assert all(v is not None for v in flagship["roofline"].values()), flagship["roofline"]
+    assert all(rec["featurize"]["launches"][k] > 0 for k in _cuda.LAUNCHES), rec["featurize"]
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 19 in {rec['phase_s']:.3f} s on {smi}")
+    return rec
+
+
+def overlap_runs(n):
+    """``python3 chip_smoke.py --overlap-runs N``: the
+    ``serving_pipeline_overlap`` row, as ``serve-bench`` runs it (the demo
+    chain at the JAX defaults, on the card), N times in this process;
+    prints each run's row or the check it failed, then the count that
+    passed. Not a phase: the row's pass rate on the card (ROADMAP C9)."""
+    from keystone_tpu_torch.serving import bench
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    fitted = bench.build_pipeline(256, 512, 4)
+    passed = 0
+    for i in range(n):
+        rows = []
+        try:
+            bench.bench_pipeline_overlap(lambda *a, **k: rows.append(k.get("extra")), fitted,
+                                         (8, 32, 128), 256)
+            passed += 1
+            log(f"overlap run {i + 1}: passed {json.dumps(rows[0])}")
+        except RuntimeError as e:
+            log(f"overlap run {i + 1}: failed: {e}")
+    log(json.dumps({"overlap_runs": n, "passed": passed, "card": smi}))
+
+
 def main():
     # -- 1. the card ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -6003,6 +6223,7 @@ def main():
     t0 = time.perf_counter()
     trained = train_then_serve(dev, smi, keep=keep)
     solver_xy = keep.pop("solver_xy")
+    solver_chol = keep.pop("solver_chol")  # its CPU side runs beside phases 7 to 13
     trained["phase_s"] = time.perf_counter() - t0
     log(f"phase 6 in {trained['phase_s']:.3f} s on {smi}")
     for r in rows:
@@ -6069,6 +6290,9 @@ def main():
         r["phase13_launches"] = _cuda.LAUNCHES[r["name"]]
     log(f"launches in phase 13: {dict(_cuda.LAUNCHES)}")
     torch.cuda.empty_cache()
+    # phase 6's Cholesky solve, card against the CPU process started there
+    trained["checks"]["solver_chol"] = finish_cpu_solver(*solver_chol)
+    del solver_chol
 
     # -- 14. the gateway over HTTP, its entry, and the repairs ------------
     gateway = gateway_phase(dev, smi, feat, model, solver_xy)
@@ -6114,13 +6338,18 @@ def main():
     # -- 18. the port's tools: keystone-lint and bench-diff ---------------
     tools = lint_and_bench_diff(smi, rows)
 
+    # -- 19. serve-bench: the serving benchmark rows ------------------------
+    bench = serve_bench(smi)
+    for r in rows:
+        r["phase19_launches"] = bench["featurize"]["launches"][r["name"]]
+
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": rows, "wide": wide, "serve": served, "train": trained,
                    "stream": streamed, "files": files, "voc": voc_rec, "random_features": rf,
                    "past_the_card": past, "text": text, "last_app": last,
                    "gateway": gateway, "fleet_zoo": fleet_zoo, "loadgen_lifecycle": lifecycle,
-                   "elastic": elastic, "tools": tools, "ptxas": ptxas}, f,
+                   "elastic": elastic, "tools": tools, "serve_bench": bench, "ptxas": ptxas}, f,
                   indent=1, default=str)
     # the fit's launches and B3's error with the fitted GMMs are in
     # chip_smoke.json beside these
@@ -6139,5 +6368,9 @@ if __name__ == "__main__":
         gateway_clients(*json.loads(sys.argv[2]))
     elif sys.argv[1:2] == ["--startup-split"]:
         startup_split(json.loads(sys.argv[2]))
+    elif sys.argv[1:2] == ["--cpu-solver"]:
+        cpu_solver(json.loads(sys.argv[2]))
+    elif sys.argv[1:2] == ["--overlap-runs"]:
+        overlap_runs(int(sys.argv[2]))
     else:
         main()

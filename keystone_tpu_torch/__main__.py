@@ -20,10 +20,10 @@ replay, chaos and the invariant verdict; ``loadgen/cli.py``) and
 ``lifecycle/cli.py``), ``serve-aot-build`` (fill the AOT store;
 ``serving/aot.py``), ``serve-autoscale`` (router, supervised
 ``serve-gateway`` replicas and the autoscale loop; ``autoscale/cli.py``)
-and ``serve-capacity-plan`` (``autoscale/planner.py``). The tools
-``keystone-lint`` (``analysis/``) and ``bench-diff`` (``bench_diff.py``)
-are stdlib only and load no torch. ``serve-bench`` is not ported yet:
-given it, the entry says so and exits 2.
+and ``serve-capacity-plan`` (``autoscale/planner.py``) and ``serve-bench``
+(the serving benchmark rows, one JSON line each; ``serving/bench.py``).
+The tools ``keystone-lint`` (``analysis/``) and ``bench-diff``
+(``bench_diff.py``) are stdlib only and load no torch.
 """
 
 from __future__ import annotations
@@ -41,18 +41,6 @@ APPS = {
     "AmazonReviewsPipeline": "keystone_tpu_torch.pipelines.text.amazon_reviews",
     "StupidBackoffPipeline": "keystone_tpu_torch.pipelines.nlp.stupid_backoff_pipeline",
 }
-
-# the JAX package's request-plane subcommands not ported yet
-PLANE_APPS = ("serve-bench",)
-
-
-def _not_ported(what: str) -> int:
-    print(f"{what} is not ported yet: keystone_tpu_torch runs the apps, "
-          "serve-gateway, serve-router, serve-loadgen, serve-lifecycle, "
-          "serve-aot-build, serve-autoscale, serve-capacity-plan, "
-          "keystone-lint, bench-diff and the admin endpoint")
-    return 2
-
 
 def _otlp(argv) -> int:
     """Peel ``--otlp-endpoint URL`` (and ``--otlp-service``,
@@ -110,8 +98,8 @@ def _otlp(argv) -> int:
 
 def main(argv=None, device=None) -> int:
     """Run ``argv``'s app. ``device`` goes to ``serve-gateway``,
-    ``serve-loadgen``, ``serve-aot-build``, ``serve-capacity-plan`` and
-    ``serve-autoscale``'s replicas (``None`` means ``cuda``; rehearsals
+    ``serve-loadgen``, ``serve-aot-build``, ``serve-capacity-plan``,
+    ``serve-bench`` and ``serve-autoscale``'s replicas (``None`` means ``cuda``; rehearsals
     on the CPU pass ``"cpu"``)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--admin-port" in argv:
@@ -192,6 +180,9 @@ def main(argv=None, device=None) -> int:
               "loads)")
         print("  keystone-lint  (the port's contract lint over keystone_tpu_torch/; "
               "--json, --list-rules; keystone_tpu_torch/analysis/)")
+        print("  serve-bench    (the serving benchmark rows, one JSON line each: "
+              "engine, batcher, gateway, featurize, chaos, fleet, zoo, lifecycle, "
+              "cold start, autoscale; keystone_tpu_torch/serving/bench.py)")
         print("  bench-diff     (compare two bench rounds' rows, exit 1 on a "
               "regression; keystone_tpu_torch/bench_diff.py)")
         print("options:")
@@ -202,7 +193,6 @@ def main(argv=None, device=None) -> int:
         print("  --otlp-endpoint URL  export finished spans to an OTLP/HTTP "
               "collector's /v1/traces (--otlp-service and --otlp-replica name "
               "the process)")
-        print("not ported yet: " + ", ".join(PLANE_APPS))
         return 0 if argv else 2
     app = argv[0]
     if app == "serve-gateway":
@@ -237,6 +227,10 @@ def main(argv=None, device=None) -> int:
         from keystone_tpu_torch.autoscale.planner import main as plan_main
 
         return plan_main(argv[1:], device=device)
+    if app == "serve-bench":
+        from keystone_tpu_torch.serving.bench import main as serve_bench_main
+
+        return serve_bench_main(argv[1:], device=device)
     if app == "bench-diff":
         # stdlib-only like the linter: regression gating runs in CI
         # hooks without paying the torch import
@@ -249,8 +243,6 @@ def main(argv=None, device=None) -> int:
         from keystone_tpu_torch.analysis.cli import main as lint_main
 
         return lint_main(argv[1:])
-    if app in PLANE_APPS:
-        return _not_ported(app)
     if app not in APPS:
         print(f"unknown app {app!r}; run with --help for the list")
         return 2

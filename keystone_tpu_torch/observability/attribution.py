@@ -20,8 +20,8 @@ head's cost goes to its own model. The per-window weights are
 normalized against the ENGINE's dispatch totals, so per-model charges
 sum exactly to the engine totals — the invariant the tests and the
 pin at 1e-6 relative. Engines whose prefix/head cost models are
-absent (the port has no compiler cost analysis) degrade to pure
-row-share splitting — still exactly summing, just less informed.
+absent (a bucket before its counted run, ``zoo/cse.py``) degrade to
+pure row-share splitting — still exactly summing, just less informed.
 
 Exported two ways, same numbers:
 - ``keystone_attr_*{model}`` Prometheus families (``register()``) —

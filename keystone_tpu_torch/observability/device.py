@@ -21,10 +21,22 @@ publishes host RAM (``device="host"``) instead. The admin endpoint and
 the gateway frontend share one sampler thread per registry
 (``acquire_memory_sampler``, ``MemorySamplerHost``).
 
-The JAX module's cost-model extraction (``compiled_cost_model``) is not
-ported: the port has no compiler cost analysis to read, so the MFU and
-roofline series of ``ServingMetrics`` stay absent, as they do in the JAX
-package on hardware it does not know.
+``CostCounter`` is the counterpart of the JAX module's
+``compiled_cost_model``: where JAX reads a bucket program's XLA cost
+analysis, the port counts the aten ops of one eager run of it (the
+serving engine's warm pass) in a ``TorchDispatchMode`` — ``flops`` by
+``torch.utils.flop_counter``'s formulas (mm, addmm, bmm, convolution and
+the like), ``transcendentals`` one per output element of ``tanh``,
+``exp``, ``log``, ``sqrt`` and the like, ``bytes_accessed`` each tensor
+input read once and each output written once (views move nothing) — and
+returns JAX's flat ``{flops, bytes_accessed, transcendentals}`` dict.
+The memory-analysis fields (``temp_bytes`` ...) have no counterpart and
+stay absent. A hand-written kernel's wrapper reports its function's work
+by shape (``kernel_cost``) and pauses the counter inside, so the kernel
+on the card and its plain version on the CPU count the same work. The
+MFU and roofline series of ``ServingMetrics`` read the model with the
+peaks above (``peaks_of``: the table's on a card, the env overrides
+alone on the CPU, as the JAX table gives a CPU backend).
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode, _get_current_dispatch_mode_stack
 
 logger = logging.getLogger(__name__)
 
@@ -127,10 +140,10 @@ def device_table() -> List[Dict[str, Any]]:
 
 
 def peaks_of(device: torch.device) -> Tuple[Optional[float], Optional[float]]:
-    """The table's peaks for ``device``'s kind (``(None, None)`` on the
-    CPU)."""
+    """The table's peaks for ``device``'s kind; on the CPU the env
+    overrides alone (``(None, None)`` without them)."""
     if device.type != "cuda":
-        return None, None
+        return peaks_for("cpu")
     kind = torch.cuda.get_device_name(device)
     row = next(r for r in device_table() if r["kind"] == kind)
     return row["peak_flops"], row["peak_membw_bytes_per_s"]
@@ -228,6 +241,182 @@ def register_device_metrics(registry) -> None:
         "constant 1 labeled with the detected device kind/count/peaks",
         ("kind", "platform", "count", "peak_flops"),
     )
+
+
+# -- the per-bucket cost model ------------------------------------------------
+
+# aten ops (in-place forms included) whose every output element is one
+# transcendental, as XLA's cost analysis counts them
+_TRANSCENDENTAL = frozenset((
+    "tanh", "exp", "exp2", "expm1", "log", "log1p", "log2", "log10", "sin", "cos",
+    "tan", "asin", "acos", "atan", "atan2", "sinh", "cosh", "asinh", "acosh", "atanh",
+    "sqrt", "rsqrt", "sigmoid", "erf", "erfc", "erfinv", "pow", "_softmax",
+    "_log_softmax", "logsumexp", "silu", "gelu", "lgamma", "digamma",
+))
+# ops that read or write no element: allocations without a fill, and
+# aliases (views are found by ``OpOverload.is_view``)
+_NO_DATA = frozenset((
+    "empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided",
+    "detach", "alias", "lift_fresh", "resize_", "set_", "sym_size", "sym_stride",
+    "sym_numel", "sym_storage_offset", "_local_scalar_dense", "record_stream",
+))
+
+def _active_counters() -> List["CostCounter"]:
+    """The counters on this thread's dispatch-mode stack, outermost
+    first."""
+    return [m for m in _get_current_dispatch_mode_stack() if isinstance(m, CostCounter)]
+
+
+def _tensors(tree: Any):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (list, tuple)):
+        for t in tree:
+            yield from _tensors(t)
+    elif isinstance(tree, dict):
+        for t in tree.values():
+            yield from _tensors(t)
+
+
+def _nbytes(tree: Any) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+
+def _matvec_flops(name: str, args) -> int:
+    """mv, addmv and dot, which ``torch.utils.flop_counter`` leaves out."""
+    if name in ("mv", "addmv"):
+        a = args[0] if name == "mv" else args[1]
+        return 2 * a.shape[0] * a.shape[1]
+    if name in ("dot", "vdot"):
+        return 2 * args[0].numel()
+    return 0
+
+
+class CostCounter(TorchDispatchMode):
+    """Counts the work of the aten ops run under it on this thread (a
+    ``TorchDispatchMode`` is per thread): ``model()`` is JAX's flat
+    ``{flops, bytes_accessed, transcendentals}`` cost model of what ran.
+    ``kernels`` holds each hand-written kernel's reported work
+    (``kernel_cost``) and ``sections`` the work inside each
+    ``cost_section``."""
+
+    def __init__(self):
+        super().__init__()
+        from torch.utils.flop_counter import flop_registry
+
+        self._flop_registry = flop_registry
+        self.totals = {"flops": 0.0, "bytes_accessed": 0.0, "transcendentals": 0.0}
+        # kernel name -> {"flops", "bytes_accessed", "transcendentals", "calls"}
+        self.kernels: Dict[str, Dict[str, float]] = {}
+        self.sections: Dict[Any, Dict[str, float]] = {}
+        self._open_sections: List[Any] = []
+        self._paused = 0
+
+    @classmethod
+    def _should_skip_dynamo(cls) -> bool:
+        # the port compiles nothing, so no Dynamo frame needs skipping;
+        # unwrapped, the first counted run of a process does not import
+        # torch._dynamo (about 2 s)
+        return False
+
+    def add(self, flops: float = 0.0, bytes_accessed: float = 0.0,
+            transcendentals: float = 0.0) -> None:
+        work = {"flops": flops, "bytes_accessed": bytes_accessed,
+                "transcendentals": transcendentals}
+        for into in [self.totals] + [self.sections[s] for s in self._open_sections]:
+            for key, v in work.items():
+                into[key] += float(v)
+
+    def model(self) -> Dict[str, float]:
+        return dict(self.totals)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if self._paused:
+            return out
+        packet = func._overloadpacket
+        name = packet.__name__
+        base = name.rstrip("_") if not name.startswith("_") else name
+        if func.is_view or base in _NO_DATA:
+            return out
+        flops = 0
+        formula = self._flop_registry.get(packet)
+        if formula is not None:
+            flops = formula(*args, **kwargs, out_val=out)
+        else:
+            flops = _matvec_flops(base, args)
+        trans = sum(t.numel() for t in _tensors(out)) if base in _TRANSCENDENTAL else 0
+        self.add(flops, _nbytes(args) + _nbytes(kwargs) + _nbytes(out), trans)
+        return out
+
+
+class kernel_cost:
+    """``with kernel_cost(name, work):`` around a hand-written kernel's
+    wrapper body: the counters active on this thread are paused for the
+    block, so whatever implements the function (the kernel or its plain
+    version) counts nothing, and when it ends ``work()`` (``(flops,
+    bytes_accessed[, transcendentals])`` of the function, by shape) is
+    added to each, as kernel ``name``. ``work`` runs after the body, so it
+    sees what the body resolved (the operators' bands). Without a
+    counter, nothing (``work`` is not called)."""
+
+    __slots__ = ("name", "work", "counters")
+
+    def __init__(self, name: str, work):
+        self.name, self.work = name, work
+        self.counters = ()
+
+    def __enter__(self):
+        self.counters = tuple(_active_counters())
+        for c in self.counters:
+            c._paused += 1
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            if self.counters and exc[0] is None:
+                work = tuple(self.work()) + (0.0,)
+                flops, nbytes, trans = work[0], work[1], work[2]
+                for c in self.counters:
+                    c.add(flops, nbytes, trans)
+                    k = c.kernels.setdefault(self.name, {"flops": 0.0, "bytes_accessed": 0.0,
+                                                         "transcendentals": 0.0, "calls": 0})
+                    k["flops"] += flops
+                    k["bytes_accessed"] += nbytes
+                    k["transcendentals"] += trans
+                    k["calls"] += 1
+        finally:
+            for c in self.counters:
+                c._paused -= 1
+            self.counters = ()
+        return False
+
+
+class cost_section:
+    """``with cost_section(key):``: the work counted inside also goes to
+    ``sections[key]`` of every active counter (the zoo's shared prefix
+    and each head). Without a counter, nothing."""
+
+    __slots__ = ("key", "counters")
+
+    def __init__(self, key):
+        self.key = key
+        self.counters = ()
+
+    def __enter__(self):
+        self.counters = tuple(_active_counters())
+        for c in self.counters:
+            c.sections.setdefault(self.key, {"flops": 0.0, "bytes_accessed": 0.0,
+                                             "transcendentals": 0.0})
+            c._open_sections.append(self.key)
+        return self
+
+    def __exit__(self, *exc):
+        for c in self.counters:
+            c._open_sections.remove(self.key)
+        self.counters = ()
+        return False
 
 
 # the device_memory_stats keys the sampler exports, as their `stat` label
@@ -388,13 +577,16 @@ class MemorySamplerHost:
 
 
 __all__ = [
+    "CostCounter",
     "DeviceMemorySampler",
     "MemorySamplerHost",
     "acquire_memory_sampler",
     "chip_hbm_bytes",
+    "cost_section",
     "device_memory_stats",
     "device_table",
     "host_memory_stats",
+    "kernel_cost",
     "peaks_for",
     "peaks_of",
     "register_device_metrics",

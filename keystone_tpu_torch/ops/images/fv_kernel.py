@@ -15,6 +15,10 @@ on the tensor cores in 3xTF32 (each operand split into a TF32 high and low
 part), with one pass for each descriptor's max, softmax sum and
 thresholded sum over all ``k`` and one that forms each k tile's logits once
 and adds q's statistics.
+
+The wrapper reports the function's work to the cost model
+(``observability/device.kernel_cost``) by shape, on both routes
+(``fisher_vector_stats_work``).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import math
 import torch
 
 from keystone_tpu_torch import _cuda
+from keystone_tpu_torch.observability.device import kernel_cost
 
 # Descriptors per block of the d, k <= 64 path, a multiple of its
 # 128-descriptor chunk. Two blocks fit on an SM, so a wave of the H100 is
@@ -73,6 +78,23 @@ def copy_bytes(x: torch.Tensor) -> int:
     return 16 if m % 4 == 0 and p % 16 == 0 else 8 if m % 2 == 0 and p % 8 == 0 else 4
 
 
+def fv_flops(B: int, m: int, d: int, k: int) -> int:
+    """The statistics' operations at B images of m descriptors: the four
+    products (8·d·k a descriptor) and the softmax, threshold and s0
+    (12·k)."""
+    return B * m * (8 * d * k + 12 * k)
+
+
+def fisher_vector_stats_work(x, k: int):
+    """``(flops, bytes, transcendentals)`` of ``fisher_vector_stats`` on
+    x (B, d, m) and k mixtures: ``fv_flops``; x, the GMM's means,
+    variances and weights and the (B, 1 + 2d, k) statistics each moved
+    once; one exp per descriptor and mixture."""
+    B, d, m = x.shape
+    nbytes = 4 * (x.numel() + 2 * d * k + k + B * (1 + 2 * d) * k)
+    return fv_flops(B, m, d, k), nbytes, B * m * k
+
+
 def gmm_terms(means, variances, weights):
     """(inv_var (d, k), proj (d, k), const (k,)) of the logits."""
     inv_var = 1.0 / variances
@@ -117,25 +139,26 @@ def fisher_vector_stats(x, means, variances, weights, weight_threshold=1e-4):
         )
     if m < 1:
         raise ValueError("x holds no descriptors")
-    if not _cuda.on_cuda(x, means, variances, weights):
-        return fisher_vector_stats_plain(x, means, variances, weights, weight_threshold)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rows = rows_per_block(B, d, m, k, sms)
-    n_blocks = -(-m // rows)
-    terms = torch.empty(terms_floats(d, k), dtype=torch.float32, device=x.device)
-    # each descriptor's max, softmax sum and thresholded sum, for the tiled
-    # path (3/d of x's size)
-    norms = torch.empty((B, m, 3) if tiled(d, k) else (0,), dtype=torch.float32, device=x.device)
-    partial = torch.empty((B, n_blocks, 1 + 2 * d, k), dtype=torch.float32, device=x.device)
-    out = torch.empty((B, 1 + 2 * d, k), dtype=torch.float32, device=x.device)
-    lib = _cuda.lib("fv_stats")
-    with torch.cuda.device(x.device):
-        err = lib.ks_fv_stats(
-            x.data_ptr(), means.data_ptr(), variances.data_ptr(), weights.data_ptr(),
-            float(weight_threshold), terms.data_ptr(), norms.data_ptr(), partial.data_ptr(),
-            out.data_ptr(),
-            B, d, m, k, rows, _cuda.stream(x),
-        )
-    _cuda.check(err, "ks_fv_stats")
-    _cuda.count("fisher_vector_stats")
-    return out[:, 0], out[:, 1 : 1 + d], out[:, 1 + d :]
+    with kernel_cost("fisher_vector_stats", lambda: fisher_vector_stats_work(x, k)):
+        if not _cuda.on_cuda(x, means, variances, weights):
+            return fisher_vector_stats_plain(x, means, variances, weights, weight_threshold)
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        rows = rows_per_block(B, d, m, k, sms)
+        n_blocks = -(-m // rows)
+        terms = torch.empty(terms_floats(d, k), dtype=torch.float32, device=x.device)
+        # each descriptor's max, softmax sum and thresholded sum, for the tiled
+        # path (3/d of x's size)
+        norms = torch.empty((B, m, 3) if tiled(d, k) else (0,), dtype=torch.float32, device=x.device)
+        partial = torch.empty((B, n_blocks, 1 + 2 * d, k), dtype=torch.float32, device=x.device)
+        out = torch.empty((B, 1 + 2 * d, k), dtype=torch.float32, device=x.device)
+        lib = _cuda.lib("fv_stats")
+        with torch.cuda.device(x.device):
+            err = lib.ks_fv_stats(
+                x.data_ptr(), means.data_ptr(), variances.data_ptr(), weights.data_ptr(),
+                float(weight_threshold), terms.data_ptr(), norms.data_ptr(), partial.data_ptr(),
+                out.data_ptr(),
+                B, d, m, k, rows, _cuda.stream(x),
+            )
+        _cuda.check(err, "ks_fv_stats")
+        _cuda.count("fisher_vector_stats")
+        return out[:, 0], out[:, 1 : 1 + d], out[:, 1 + d :]

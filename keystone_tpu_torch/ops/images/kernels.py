@@ -17,6 +17,11 @@ Both are CUDA kernels (``csrc/sift_bin.cu``, ``csrc/sandwich.cu``) on CUDA
 tensors and their plain PyTorch versions on CPU tensors; any other device
 raises. The plain versions materialise the planes and use ``matmul`` in
 float32.
+
+Each wrapper reports its function's work to the cost model
+(``observability/device.kernel_cost``) by shape, on both routes:
+``band_flops`` over the operators' bands, and each input read once and the
+output written once (``sift_bin_sample_work``, ``plane_sandwich_work``).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from keystone_tpu_torch import _cuda
+from keystone_tpu_torch.observability.device import kernel_cost
 
 NUM_ORIENTATIONS = 8
 
@@ -68,6 +74,42 @@ def _check_bands(bands, left, right):
             raise ValueError(f"{name} on device {t.device}, operators on {left.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def band_flops(row_bands, col_bands, z_cols: int, t1_rows: int, reps: int) -> int:
+    """FLOPs of ``reps`` sandwiches ``At · Z · B`` over the operators'
+    bands: 2 · (Σ band widths) · (other extent) per product, with the row
+    bands of At, the column bands of B, Z's column count and T1 = At · Z's
+    row count."""
+    wr = int((row_bands[1] - row_bands[0]).sum())
+    wc = int((col_bands[1] - col_bands[0]).sum())
+    return 2 * reps * (wr * z_cols + wc * t1_rows)
+
+
+def sift_bin_sample_work(mag, ayt, ax, bands=None):
+    """``(flops, bytes)`` of ``sift_bin_sample``: the two banded products
+    over the 8 orientation planes of each image, and mag, orient, the
+    operators and the (B, 8, M, N) output each moved once."""
+    B, H, W = mag.shape
+    M, N = ayt.shape[0], ax.shape[1]
+    if bands is None:
+        bands = operator_bands(ayt, ax)
+    flops = band_flops(bands[0], bands[1], W, M, B * NUM_ORIENTATIONS)
+    nbytes = 4 * (2 * B * H * W + ayt.numel() + ax.numel() + B * NUM_ORIENTATIONS * M * N)
+    return flops, nbytes
+
+
+def plane_sandwich_work(planes, at, b, bands=None):
+    """``(flops, bytes)`` of ``plane_sandwich``: the two banded products
+    of each of the B·P planes, and the planes, operators and (B, P, M, N)
+    output each moved once."""
+    B, P, H, W = planes.shape
+    M, N = at.shape[0], b.shape[1]
+    if bands is None:
+        bands = operator_bands(at, b)
+    flops = band_flops(bands[0], bands[1], W, M, B * P)
+    nbytes = 4 * (planes.numel() + at.numel() + b.numel() + B * P * M * N)
+    return flops, nbytes
 
 
 def orientation_planes(mag: torch.Tensor, orient: torch.Tensor) -> torch.Tensor:
@@ -116,23 +158,24 @@ def sift_bin_sample(
         )
     if bands is not None:
         _check_bands(bands, ayt, ax)
-    if not _cuda.on_cuda(mag, orient, ayt, ax):
-        return sift_bin_sample_plain(mag, orient, ayt, ax)
-    if bands is None:
-        bands = operator_bands(ayt, ax)
-    ay_b, ax_b, order = bands
-    out = torch.empty((B, NUM_ORIENTATIONS, M, N), dtype=torch.float32, device=mag.device)
-    lib = _cuda.lib("sift_bin")
-    with torch.cuda.device(mag.device):
-        err = lib.ks_sift_bin_sample(
-            mag.data_ptr(), orient.data_ptr(), ayt.data_ptr(), ax.data_ptr(),
-            ay_b[0].data_ptr(), ay_b[1].data_ptr(), ax_b[0].data_ptr(),
-            ax_b[1].data_ptr(), order.data_ptr(), out.data_ptr(), B, H, W, M, N,
-            _cuda.stream(mag),
-        )
-    _cuda.check(err, f"ks_sift_bin_sample (W={W})")
-    _cuda.count("sift_bin_sample")
-    return out
+    with kernel_cost("sift_bin_sample", lambda: sift_bin_sample_work(mag, ayt, ax, bands)):
+        if not _cuda.on_cuda(mag, orient, ayt, ax):
+            return sift_bin_sample_plain(mag, orient, ayt, ax)
+        if bands is None:
+            bands = operator_bands(ayt, ax)
+        ay_b, ax_b, order = bands
+        out = torch.empty((B, NUM_ORIENTATIONS, M, N), dtype=torch.float32, device=mag.device)
+        lib = _cuda.lib("sift_bin")
+        with torch.cuda.device(mag.device):
+            err = lib.ks_sift_bin_sample(
+                mag.data_ptr(), orient.data_ptr(), ayt.data_ptr(), ax.data_ptr(),
+                ay_b[0].data_ptr(), ay_b[1].data_ptr(), ax_b[0].data_ptr(),
+                ax_b[1].data_ptr(), order.data_ptr(), out.data_ptr(), B, H, W, M, N,
+                _cuda.stream(mag),
+            )
+        _cuda.check(err, f"ks_sift_bin_sample (W={W})")
+        _cuda.count("sift_bin_sample")
+        return out
 
 
 def plane_sandwich(
@@ -156,19 +199,20 @@ def plane_sandwich(
         )
     if bands is not None:
         _check_bands(bands, at, b)
-    if not _cuda.on_cuda(planes, at, b):
-        return plane_sandwich_plain(planes, at, b)
-    if bands is None:
-        bands = operator_bands(at, b)
-    at_b, b_b, order = bands
-    out = torch.empty((B, P, M, N), dtype=torch.float32, device=planes.device)
-    lib = _cuda.lib("sandwich")
-    with torch.cuda.device(planes.device):
-        err = lib.ks_plane_sandwich(
-            planes.data_ptr(), at.data_ptr(), b.data_ptr(), at_b[0].data_ptr(),
-            at_b[1].data_ptr(), b_b[0].data_ptr(), b_b[1].data_ptr(),
-            order.data_ptr(), out.data_ptr(), B, P, H, W, M, N, _cuda.stream(planes),
-        )
-    _cuda.check(err, f"ks_plane_sandwich (W={W})")
-    _cuda.count("plane_sandwich")
-    return out
+    with kernel_cost("plane_sandwich", lambda: plane_sandwich_work(planes, at, b, bands)):
+        if not _cuda.on_cuda(planes, at, b):
+            return plane_sandwich_plain(planes, at, b)
+        if bands is None:
+            bands = operator_bands(at, b)
+        at_b, b_b, order = bands
+        out = torch.empty((B, P, M, N), dtype=torch.float32, device=planes.device)
+        lib = _cuda.lib("sandwich")
+        with torch.cuda.device(planes.device):
+            err = lib.ks_plane_sandwich(
+                planes.data_ptr(), at.data_ptr(), b.data_ptr(), at_b[0].data_ptr(),
+                at_b[1].data_ptr(), b_b[0].data_ptr(), b_b[1].data_ptr(),
+                order.data_ptr(), out.data_ptr(), B, P, H, W, M, N, _cuda.stream(planes),
+            )
+        _cuda.check(err, f"ks_plane_sandwich (W={W})")
+        _cuda.count("plane_sandwich")
+        return out

@@ -17,8 +17,9 @@
   that minimizes padding over the observed request sizes.
 - ``build_flagship_featurize_pipeline`` (featurize.py): the flagship
   SIFT+LCS→FV featurize chain.
-
-Not ported: the AOT store, mesh sharding and the serving bench.
+- the AOT store (aot.py) and model sharding (sharding.py).
+- the serving bench's rows (bench.py): ``python -m keystone_tpu_torch
+  serve-bench``.
 """
 
 from keystone_tpu_torch._lazy import make_getattr

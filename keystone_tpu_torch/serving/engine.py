@@ -62,8 +62,16 @@ partition specs over the process mesh and runs the model through a
 ``ParamBinder`` on params the engine placed itself; on one card every
 spec places its param whole, and the caller's pipeline is untouched.
 
-Not ported: input donation and the per-bucket cost model (no compiler
-cost analysis to read).
+**The per-bucket cost model** is the counterpart of the JAX engine's
+XLA cost analysis: the first eager run of a bucket (the warm pass before
+its capture on the card — an AOT hit captures too —, the first dispatch
+or ``warmup`` on the CPU) runs under ``observability/device.CostCounter``,
+and ``metrics.set_cost_model(bucket, model)`` gets its flat ``{flops,
+bytes_accessed, transcendentals}``; ``kernel_costs`` keeps what the
+hand-written kernels reported of it. Replays count nothing. With the
+card's peaks (``device.peaks_of``) the MFU and roofline series follow.
+
+Not ported: input donation.
 """
 
 from __future__ import annotations
@@ -91,12 +99,21 @@ logger = logging.getLogger(__name__)
 DEFAULT_BUCKETS = (8, 64, 512)
 
 
+# numpy dtype -> torch dtype of host leaves, looked up once per request
+# on the batcher's submit path
+_TORCH_DTYPES: Dict[Any, torch.dtype] = {}
+
+
 def _dtype(a: Any) -> torch.dtype:
     if isinstance(a, torch.Tensor):
         return a.dtype
     # lint: disable=hot-path-host-sync
     # a leaf that is not a tensor is host data: no device read
-    return torch.from_numpy(np.empty(0, np.asarray(a).dtype)).dtype
+    dt = np.asarray(a).dtype
+    t = _TORCH_DTYPES.get(dt)
+    if t is None:
+        t = _TORCH_DTYPES[dt] = torch.from_numpy(np.empty(0, dt)).dtype
+    return t
 
 
 def _row_spec(tree: Any, drop: int = 1) -> Any:
@@ -204,6 +221,9 @@ class CompiledPipeline:
         self._aot_store_cfg = aot_store
         # bucket -> {"status": "hit"|"saved"|"miss"|"error", ...}
         self._aot: Dict[int, Dict[str, Any]] = {}
+        # bucket -> kernel name -> the work the kernel reported in the
+        # bucket's counted run (observability/device.CostCounter.kernels)
+        self.kernel_costs: Dict[int, Dict[str, Dict[str, float]]] = {}
         # kernel library -> where warmup took it from (aot.install_libraries),
         # and the seconds that took
         self.aot_libraries: Dict[str, str] = {}
@@ -350,7 +370,9 @@ class CompiledPipeline:
         if self.device.type == "cuda":
             valid = self._replay(self._graph(bucket, staged), staged, rows, ready)
         else:
-            valid = _tree_map(lambda a: a[:rows].clone(), self._run_bucket(staged))
+            out = (self._run_bucket(staged) if bucket in self.kernel_costs
+                   else self._counted_run(bucket, staged))
+            valid = _tree_map(lambda a: a[:rows].clone(), out)
         self.metrics.record_dispatch(bucket, rows, h2d_bytes=h2d_bytes)
         return valid
 
@@ -371,6 +393,18 @@ class CompiledPipeline:
             return self._binder.run(self._placed_params, staged)
         return self.pipeline._batch_run(staged)
 
+    def _counted_run(self, bucket: int, staged: Any) -> Any:
+        """``_run_bucket`` under a ``CostCounter``: the bucket's cost model
+        goes to the metrics and its kernels' work to ``kernel_costs``."""
+        with device_obs.CostCounter() as counter:
+            out = self._run_bucket(staged)
+        self._set_cost_model(bucket, counter)
+        return out
+
+    def _set_cost_model(self, bucket: int, counter: "device_obs.CostCounter") -> None:
+        self.kernel_costs[bucket] = {k: dict(v) for k, v in counter.kernels.items()}
+        self.metrics.set_cost_model(bucket, counter.model())
+
     def _graph(self, bucket: int, staged: Any) -> BucketGraph:
         key = (bucket, _row_spec(staged))
         g = self._graphs.get(key)
@@ -389,8 +423,9 @@ class CompiledPipeline:
             return g
 
     def _capture(self, bucket: int, staged: Any) -> BucketGraph:
-        """Warm pass, capture and one checking replay of ``bucket``'s
-        graph for ``staged``'s spec, on the compute stream.
+        """Warm pass (counted: the bucket's cost model), capture and one
+        checking replay of ``bucket``'s graph for ``staged``'s spec, on
+        the compute stream.
         ``capture_error_mode="thread_local"``: a capture at a bucket's
         first dispatch runs on the lane's compute thread while the other
         stage threads copy and allocate."""
@@ -399,7 +434,7 @@ class CompiledPipeline:
         static_in = _tree_map(torch.zeros_like, staged)
         with torch.cuda.stream(stream):
             stream.wait_stream(torch.cuda.current_stream(self.device))
-            self._run_bucket(static_in)
+            self._counted_run(bucket, static_in)
         stream.synchronize()
         graph = torch.cuda.CUDAGraph()
         refs: List[Any] = []
@@ -640,7 +675,7 @@ class CompiledPipeline:
         if self.device.type == "cuda":
             self._graph(bucket, staged)
         else:
-            self._run_bucket(staged)
+            self._counted_run(bucket, staged)
 
     # -- the AOT store (serving/aot.py) ---------------------------------------
 

@@ -15,9 +15,9 @@ detected device peaks (``observability/device.py``,
 ``set_device_peaks``). The rolling **MFU** gauge and the per-bucket
 **roofline** classification also need a bucket program's cost model
 (``set_cost_model``: FLOPs and bytes per dispatch); the JAX engine reads
-it from XLA's cost analysis, and the port has no such analysis, so
-those series stay ABSENT — never zeros, never errors — as they do in
-the JAX package on backends that report nothing.
+it from XLA's cost analysis, the port's engine counts it in a bucket's
+first eager run (``observability/device.CostCounter``). Without a cost
+model or peaks those series stay ABSENT — never zeros, never errors.
 
 Pipelined-lane serving (``serving/pipeline.py``) adds per-stage series:
 a seconds recorder per stage (``host_prep``/``upload``/``compute``/
@@ -209,9 +209,9 @@ class ServingMetrics:
 
     def set_cost_model(self, bucket: int, model: Dict[str, float]) -> None:
         """Register one bucket program's static cost model
-        (the JAX engine's warmup calls this with XLA's cost analysis;
-        the port's engine has none). Empty models are dropped — absence
-        of cost analysis must yield absent series."""
+        (the port's engine calls this with its counted run's model, the
+        JAX engine with XLA's cost analysis). Empty models are dropped —
+        absence of cost analysis must yield absent series."""
         if model:
             self.cost_models[int(bucket)] = dict(model)
 

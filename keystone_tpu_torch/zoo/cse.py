@@ -27,11 +27,13 @@ counters are the measurement seam: one capture per bucket and one
 dispatch per window for the whole group, where solo hosting pays one of
 each PER MODEL.
 
-``split_cost_model`` returns None: the port has no compiler cost
-analysis to lower the prefix and each head alone, which is the degraded
-path the JAX package documents — per-model attribution over a shared
-engine falls back to pure row-share splitting
-(``observability/attribution.EngineAttribution``). The AOT store is
+``split_cost_model`` returns ``(prefix_flops, {model: head_flops})`` for
+a bucket, as the JAX package's does: the bucket's counted run (the warm
+pass, ``observability/device.CostCounter``) counts the prefix and each
+head in a ``cost_section`` of their own, where JAX lowers them apart.
+Per-model attribution over a shared engine then weighs each window by
+that split (``observability/attribution.EngineAttribution``); before a
+bucket's counted run it is None and the weights are row shares. The AOT store is
 kept off here, as in the JAX package (a group's entries would key on
 one head's token). ``param_sharding`` binds one pipeline and raises,
 as in the JAX package; ``head_sharding`` (``{model: param_sharding}``)
@@ -45,6 +47,7 @@ import logging
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from keystone_tpu_torch.observability.attribution import RowClaimQueue
+from keystone_tpu_torch.observability.device import cost_section
 from keystone_tpu_torch.serving.engine import CompiledPipeline
 from keystone_tpu_torch.serving.featurize import featurize_token
 
@@ -133,6 +136,8 @@ class SharedPrefixEngine(CompiledPipeline):
                 self._head_binders[mid] = (
                     binder, {n: fn(binder.params[n]) for n, fn in fns.items()}
                 )
+        # bucket -> (prefix flops, {model: head flops}) of its counted run
+        self._split_costs: Dict[int, Tuple[float, Dict[str, float]]] = {}
         # row claims enqueued at submit time (by the zoo, or directly
         # when the engine is driven standalone), drained FIFO per
         # dispatched window; the zoo replaces this with a UNIT-level
@@ -154,18 +159,28 @@ class SharedPrefixEngine(CompiledPipeline):
     def split_cost_model(
         self, bucket: int
     ) -> Optional[Tuple[float, Dict[str, float]]]:
-        """``(prefix_flops, {model: head_flops})`` for one bucket: always
-        None here (no compiler cost analysis), so attribution splits by
-        row share."""
-        return None
+        """``(prefix_flops, {model: head_flops})`` for one bucket, or None
+        before its counted run (attribution then splits by row share)."""
+        return self._split_costs.get(bucket)
+
+    def _set_cost_model(self, bucket: int, counter) -> None:
+        super()._set_cost_model(bucket, counter)
+        prefix = counter.sections.get("prefix", {}).get("flops", 0.0)
+        heads = {mid: counter.sections.get(("head", mid), {}).get("flops", 0.0)
+                 for mid in self.heads}
+        if prefix > 0 and any(heads.values()):
+            self._split_costs[bucket] = (prefix, heads)
 
     def _run_bucket(self, staged: Any) -> Any:
-        """The shared prefix once, then every head on its output."""
-        feat = self.featurize._batch_run(staged)
+        """The shared prefix once, then every head on its output (each a
+        ``cost_section`` of a counted run)."""
+        with cost_section("prefix"):
+            feat = self.featurize._batch_run(staged)
         out = {}
         for mid, head in self.heads.items():
             bound = self._head_binders.get(mid)
-            out[mid] = bound[0].run(bound[1], feat) if bound else head._batch_run(feat)
+            with cost_section(("head", mid)):
+                out[mid] = bound[0].run(bound[1], feat) if bound else head._batch_run(feat)
         return out
 
 

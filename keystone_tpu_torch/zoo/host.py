@@ -461,7 +461,7 @@ class ModelZoo:
         )
         # fair-split attribution: one UNIT-level claim queue shared by
         # every lane, each lane's shared engine bound with its own
-        # prefix/head split cost model (None in the port: row shares)
+        # prefix/head split cost model
         claims = RowClaimQueue()
         for lane in gw.pool.lanes:
             engine = lane.engine

@@ -188,6 +188,10 @@ def test_device_peaks(monkeypatch):
     (row,) = device.device_table()
     assert row["platform"] == "cpu" and row["peak_flops"] is None
     assert device.peaks_of(torch.device("cpu")) == (None, None)
+    # on the CPU the env overrides alone, as the JAX table reads them there
+    monkeypatch.setenv("KEYSTONE_PEAK_FLOPS", "1e12")
+    monkeypatch.setenv("KEYSTONE_PEAK_MEMBW_GBPS", "100")
+    assert device.peaks_of(torch.device("cpu")) == (1e12, 1e11)
 
 
 def test_fault_injector_count_match_and_counter():
@@ -470,6 +474,22 @@ def test_mixed_shape_streams_coalesce_separately(model, depth):
     np.testing.assert_array_equal(np.stack(rows64), expected(model, x64))
     assert eng.metrics.max_coalesced >= 2
     assert eng.metrics.request_latency.count == 2 * n
+
+
+@DEPTHS
+def test_a_full_window_dispatches_before_its_deadline(model, depth):
+    """A full window under a ten-minute deadline dispatches at once (well
+    inside TIMEOUT), as one window."""
+    eng = CompiledPipeline(model, (4, 16), device="cpu")
+    x = xs(16, seed=13)
+    mb = MicroBatcher(eng, max_delay_ms=600_000.0, pipeline_depth=depth)
+    try:
+        futs = [mb.submit(r) for r in x]
+        rows = [f.result(timeout=TIMEOUT) for f in futs]
+    finally:
+        mb.close()
+    np.testing.assert_array_equal(np.stack(rows), expected(model, x))
+    assert eng.metrics.dispatches.total == 1 and eng.metrics.max_coalesced == 16
 
 
 @DEPTHS
