@@ -27,7 +27,7 @@ Phases, in order; any failure exits non-zero:
    old bound on k, at m = 1,500, each timed beside its bound (B3's rows
    also beside a tensor-core bound, with their cp.async copy width; the
    phase-8 pair and the VOC chunk's shape by kernel, from
-   ``torch.profiler``), and ``TopKClassifier`` on tied rows
+   a Kineto session), and ``TopKClassifier`` on tied rows
    against a stable host sort;
 4. serve the ImageNetSiftLcsFV configuration (SIFT step 3 / bin 4 /
    4 scales, LCS 4/16/6, desc_dim 64, vocab 32 → 8,192 features, a
@@ -186,7 +186,7 @@ Phases, in order; any failure exits non-zero:
    ``/metrics``, the JSON decode of one body alone, the mean coalesced
    size, sheds, B1–B3 launches per dispatch (exactly 4 / 1 / 2), the
    graph pools' bytes, and the device's idle share over a 2 s
-   ``torch.profiler`` window of every thread; (b) under the same load
+   Kineto window of every thread (``utils/profiling.trace``); (b) under the same load
    ``POST /swap`` (no failed request across it; the new generation's
    capture seconds and the peak reserved memory of two generations),
    ``/profilez`` (its trace names B1–B3), ``/metrics`` (the gateway
@@ -197,8 +197,9 @@ Phases, in order; any failure exits non-zero:
    --buckets 8,64 --lanes 2`` in a fresh process: one POST, the
    process's first ``/profilez`` under 64 clients (its trace names B1
    and B2, which the entry's chain launches), the admin endpoint's
-   ``/metrics`` and ``/healthz``, SIGTERM, exit 0, and what the
-   profiler session a Gateway opens before its lanes adds to start-up;
+   ``/metrics`` and ``/healthz``, SIGTERM, exit 0, and its start split
+   (the listening line's ``start_s``: no profiler step of 0.5 s or more,
+   and the first ``/profilez``'s own seconds: no step before it either);
    (d) the weighted solver on phase 6's features cast to bf16
    against the float32 fit of the same values, ``Convolver(fast=True)``
    against ``fast=False`` at RandomPatchCifar's shape (8e-3 of the
@@ -283,15 +284,27 @@ Phases, in order; any failure exits non-zero:
    temporary directory, must pass ``bench-diff`` against themselves and
    fail it, naming B1 alone, against a copy with B1's time doubled;
 19. ``python -m keystone_tpu_torch serve-bench --no-cold-start
-   --no-pipeline-overlap`` (the overlap row's floor is out of reach on
-   the card) and ``--featurize-only`` in fresh processes at the JAX
-   defaults, once each: every row printed and the process exit 0 (so
-   each row's own checks held), the
-   goodput row's cost model and MFU, the flagship row's MFU and roofline
-   for every bucket, and B1–B3 launched in the featurize process.
-   Phase 4 prints its engine's cost model per bucket (FLOPs, bytes and
-   each kernel's FLOPs), and phase 5 requires ``keystone_serving_mfu``
-   and a roofline class per bucket on the engine's ``/metrics``.
+   --no-pipeline-overlap`` and ``--featurize-only`` in fresh processes
+   at the JAX defaults, once each: every row printed and the process
+   exit 0 (so each row's own checks held), the goodput row's cost model
+   and MFU, the flagship row's MFU and roofline for every bucket, and
+   B1–B3 launched in the featurize process. The two rows left out miss
+   their floors on the card whatever the port does: the cold-start row's
+   3.0x (a fresh process's import, 8.6–11.2 s on the H100's host, is most of either start,
+   and no store holds it; ROADMAP C8) and the overlap row's 1.2x (its
+   fixed 10 ms prep wait leaves 1 + R/P of about 1.12 there; C9). Phase 4
+   prints its engine's cost model per bucket (FLOPs, bytes and each
+   kernel's FLOPs), and phase 5 requires ``keystone_serving_mfu`` and a
+   roofline class per bucket on the engine's ``/metrics``.
+
+Two options run one bench row N times in this process, each run's row
+or the check it failed, then the count that passed (not phases):
+``--overlap-runs N`` (``serving_pipeline_overlap``, with the lane's host
+split by thread and the garbage collector's pauses, ``lane_split``) and
+``--cold-start-runs N`` (``serving_cold_start_aot``, with each fresh
+``serve-gateway``'s start split). ``--autoscale-runs N`` runs phase 17d's
+drill N times, the autoscaler kept 15 s past each retire, with each
+run's timeline.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then, last, the result line ``{"ok": true, "device": {...}}``.
@@ -419,17 +432,24 @@ fv_flops = fv_kernel.fv_flops
 band_flops = kernels.band_flops
 
 
+def device_profile():
+    """A Kineto session of host and device activity
+    (``torch.autograd.profiler.profile``; ``torch.profiler.profile``
+    would first import ``torch._inductor``, about 8 s on the card's
+    host)."""
+    return torch.autograd.profiler.profile(use_device="cuda", use_kineto=True)
+
+
 def fv_by_kernel(xs, means, variances, weights, thresh=1e-4):
     """Device ms of each B3 kernel (the GMM terms, the tiled path's
     fragment split, norm and statistics passes, the reduction) over one
-    call per x, from torch.profiler."""
+    call per x, from a ``device_profile`` session."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     # host and device activity, as phase 5's profile. Called in phase 3: in
     # phase 9, after the serving phases' sessions and graphs, the profiler
     # saw none of B3's kernels on the card (an empty record, not a failure)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         for x in xs:
             fv_kernel.fisher_vector_stats(x, means, variances, weights, thresh)
         torch.cuda.synchronize()
@@ -986,10 +1006,9 @@ def throughput_and_profile(engine, rng, smi, img=IMG):
 
     batch = rng.integers(0, 256, (64, img, img, 3), dtype=np.uint8)
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     engine.apply(batch, sync=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         t = time.perf_counter()
         engine.apply(batch, sync=True)
         wall_ms = (time.perf_counter() - t) * 1e3
@@ -3523,14 +3542,12 @@ def _rule_bio(tokens):
 
 
 def _profile_step(step, dev, top=6):
-    """One call of ``step`` under ``torch.profiler``: its kernels, their
+    """One call of ``step`` under ``device_profile``: its kernels, their
     device ms, and the ``top`` kernel names by device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         step()
         torch.cuda.synchronize(dev)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in prof.function_events if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name = Counter()
     for e in kernels:
         by_name[e.name[:90]] += e.device_time / 1e3
@@ -3841,6 +3858,8 @@ P14B_IN_FLIGHT = 2
 # 14c: the fresh entry's clients (in flight, seconds, image pool); its
 # first /profilez opens this long after they start
 P14C_IN_FLIGHT, P14C_SECONDS, P14C_POOL, P14C_PROFILEZ_AT_S = 64, 4.0, 16, 1.0
+# the most a profiler step may add to the entry's start (it takes none)
+P14C_PROFILER_S = 0.5
 # the JAX test's bar for Convolver(fast=True): its largest error against
 # fast=False over the largest feature (tests/ops/test_precision_policy.py)
 P14_FAST_CONV_BAR = 8e-3
@@ -3997,7 +4016,7 @@ def check_responses(results, want, t_drain=None):
 
 def device_idle_share(trace_path, window_us):
     """1 − (the union of the card's kernel, copy and set intervals) ÷ the
-    window, from a ``torch.profiler`` Chrome trace."""
+    window, from a Kineto Chrome trace."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
@@ -4234,19 +4253,6 @@ def serve_gateway(dev, smi, feat, model, img=IMG, seconds=P14_SECONDS, in_flight
     return rec
 
 
-def profiler_start_cost():
-    """Seconds of ``profiling.ready_device_tracing`` (the throwaway
-    profiler session a Gateway on the card opens before its lanes) in a
-    fresh process whose CUDA context is up: what it adds to a server's
-    start-up."""
-    code = ("import json, time, torch; torch.ones(1, device='cuda'); torch.cuda.synchronize(); "
-            "from keystone_tpu_torch.utils.profiling import ready_device_tracing; "
-            "t = time.perf_counter(); ready_device_tracing(); print(json.dumps(time.perf_counter() - t))")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
-                         check=True, timeout=120).stdout
-    return json.loads(out.strip().splitlines()[-1])
-
-
 def gateway_entry(img=IMG):
     """Phase 14c: ``python -m keystone_tpu_torch --admin-port 0
     serve-gateway --gateway-port 0 --device-featurize flagship --img 256
@@ -4279,8 +4285,13 @@ def gateway_entry(img=IMG):
             if line.startswith("admin endpoint: "):
                 admin = line.split()[2]
             elif line.startswith("{"):
-                url = json.loads(line)["listening"]
+                listening = json.loads(line)
+                url = listening["listening"]
         rec["up_s"] = time.perf_counter() - t
+        # the start's split: a Gateway takes no profiler step before its
+        # lanes (none is needed for /profilez to see them)
+        rec["start_s"] = listening["start_s"]
+        assert rec["start_s"].get("profiler", 0.0) < P14C_PROFILER_S, rec["start_s"]
         image = np.random.default_rng(29).integers(0, 256, (img, img, 3), dtype=np.uint8)
         t = time.perf_counter()
         code, doc = http_post(url + "/predict", {"instances": [image.tolist()]})
@@ -4291,7 +4302,9 @@ def gateway_entry(img=IMG):
                                 os.path.join(root, "load.json"))
         clients.go()
         time.sleep(P14C_PROFILEZ_AT_S)
+        t = time.perf_counter()
         rec["first_profilez"] = profilez_kernels(admin.rstrip("/") + f"/profilez?seconds={P14_PROFILEZ_S}")
+        rec["first_profilez"]["s"] = time.perf_counter() - t
         load = clients.result()
         statuses = Counter(r[1] for r in load["results"])
         rec["load"] = {"in_flight": P14C_IN_FLIGHT, "statuses": dict(statuses)}
@@ -4319,8 +4332,9 @@ def gateway_entry(img=IMG):
             proc.kill()
             proc.wait()
         shutil.rmtree(root, ignore_errors=True)
-    log(f"14c: the entry up in {rec['up_s']:.3f} s (imports, chain and graph captures), one POST "
-        f"{rec['predict']}, admin {rec['admin']}, SIGTERM -> exit {rec['exit']}")
+    log(f"14c: the entry up in {rec['up_s']:.3f} s (imports, chain and graph captures; split "
+        f"{rec['start_s']}), one POST {rec['predict']}, admin {rec['admin']}, SIGTERM -> exit "
+        f"{rec['exit']}")
     return rec
 
 
@@ -4406,9 +4420,6 @@ def gateway_phase(dev, smi, feat, model, solver_xy):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     rec["entry"] = gateway_entry()
-    rec["entry"]["profiler_start_s"] = profiler_start_cost()
-    log(f"14c: the profiler's start-up session alone {rec['entry']['profiler_start_s']:.3f} s in a "
-        f"fresh process on {smi}")
     rec["repairs"] = repairs_on_card(dev, smi, solver_xy)
     rec["phase_s"] = time.perf_counter() - t
     log(f"phase 14 in {rec['phase_s']:.3f} s on {smi}")
@@ -4418,8 +4429,8 @@ def gateway_phase(dev, smi, feat, model, solver_xy):
 # -- phase 15: the fleet tier and the model zoo -------------------------------
 
 # clients as phase 14's (requests in flight, seconds of a window, image
-# pool); a server process's start-up bound (CUDA context, the profiler
-# session, graph captures) and exit bound
+# pool); a server process's start-up bound (imports, CUDA context, graph
+# captures) and exit bound
 P15_IN_FLIGHT, P15_SECONDS, P15_POOL = 64, 5.0, 64
 P15_UP_S, P15_EXIT_S = 240.0, 60.0
 # the kill drill: the kill this long into the clients' window, then the
@@ -5273,7 +5284,12 @@ def rollout_drill(dev, smi, root, width=P16B_WIDTH, refit=P16B_REFIT, loads=P16B
                 http_post(url + "/chaosz", {"arm": {"point": "lifecycle.refit.poison",
                                                     "count": P16B_POISON_CHUNKS}})
             elif promoted is not None and metric_sum(url, "keystone_lifecycle_rollbacks_total") >= 1:
-                rolled = dict(st, t_s=now)
+                # the state as of the counter: the snapshot above may
+                # predate the rollback the counter shows
+                st = json.loads(http_get(url + "/lifecyclez")[1])["models"]["default"]
+                rolled = dict(st, t_s=round(time.perf_counter() - t0, 3))
+                if seen[-1][0] != st["state"]:
+                    seen.append((st["state"], rolled["t_s"]))
             if current is not None and current.proc.poll() is not None:
                 runs.append(_finished(current, "16b serve-loadgen"))
                 current = start(*pending.pop(0)) if pending else None
@@ -5555,11 +5571,17 @@ P17_IMAGES = 64  # images answered by every engine held bit for bit
 P17_UP_S = 240.0  # a start's bound (nvcc included when cold)
 # 17d: the autoscaler's policy over a step of uint8 256² images through its
 # router: RATE_HIGH req/s (over one replica's JSON-bound capacity, 12.6–17.1
-# req/s in phases 14–15) for HIGH_S, then RATE_LOW for LOW_S
+# req/s in phases 14–15) for HIGH_S, then RATE_LOW for LOW_S. On the H100's
+# host one serve-loadgen issues such bodies at about 17 req/s, so a 30 s
+# step reached the router 10–18 s late, near one replica's capacity; the
+# policy reads latency alone, two replicas held that load at a p99 of
+# 240–380 ms, and a scale-down while it lasted left one replica under it,
+# which scaled straight back up. A 20 s step is served before two
+# replicas read cold, and a scale-down takes 10 cold ticks.
 P17_SLO_MS = 1000
-P17_RATE_HIGH, P17_HIGH_S, P17_RATE_LOW, P17_LOW_S = 24, 30, 2, 20
+P17_RATE_HIGH, P17_HIGH_S, P17_RATE_LOW, P17_LOW_S = 24, 20, 2, 20
 P17_POLICY = ["--interval", "1", "--up-consecutive", "2", "--up-cooldown", "5",
-              "--down-consecutive", "3", "--down-cooldown", "10", "--slo-fast-window", "10",
+              "--down-consecutive", "10", "--down-cooldown", "10", "--slo-fast-window", "10",
               "--slo-sample-interval", "1"]
 # 17e: serve-capacity-plan over the demo model, its replicas in this
 # process, at 17d's objective: the plan derives the autoscaler's policy.
@@ -5754,8 +5776,8 @@ def aot_round_trip(dev, smi, feat, model, root, img=IMG):
         assert rc == 0
         rec["gateway"].append({"up_s": up_s, "start_s": first["start_s"], "hits": hits,
                                "launches": drained["launches"]})
-        log(f"17b serve-gateway --aot-cache start {n + 1}: up in {up_s:.3f} s, split "
-            f"{first['start_s']}, keystone_aot_cache_hits_total {hits} on {smi}")
+        log(f"17b serve-gateway --aot-cache start {n + 1} ({('cold', 'from the store')[n]}): up in "
+            f"{up_s:.3f} s, split {first['start_s']}, keystone_aot_cache_hits_total {hits} on {smi}")
     assert rec["gateway"][0]["hits"] == 0 and rec["gateway"][1]["hits"] == len(BUCKETS)
     assert answers[0] == answers[1]
     rec["gateway_answers"] = answers[1]
@@ -5834,13 +5856,15 @@ def _pid_alive(pid):
 
 
 def autoscale_drill(dev, smi, root, gateway_dir, img=IMG, rate_high=P17_RATE_HIGH,
-                    high_s=P17_HIGH_S, rate_low=P17_RATE_LOW, low_s=P17_LOW_S):
+                    high_s=P17_HIGH_S, rate_low=P17_RATE_LOW, low_s=P17_LOW_S, linger_s=0.0):
     """Phase 17d: ``serve-autoscale`` (1–2 flagship replicas sharing 17b's
     store) under ``serve-loadgen --ramp`` of uint8 images through its
     router: a scale_up, the second replica serving, no failed request, a
     drain-retired replica after the load drops, SIGTERM draining every
     child; each replica's start seconds and its B1/B2 launches (from the
-    ``{"drained": ...}`` line in its log)."""
+    ``{"drained": ...}`` line in its log). ``linger_s`` keeps the
+    autoscaler running that long after the retire, so that a late scale_up
+    shows (``--autoscale-runs``)."""
     rec = {}
     rdir = os.path.join(root, "replicas")
     auto = ServerProcess(["serve-autoscale", "--router-port", "0", "--min-replicas", "1",
@@ -5902,6 +5926,7 @@ def autoscale_drill(dev, smi, root, gateway_dir, img=IMG, rate_high=P17_RATE_HIG
         retired = wait_event(lambda e: e["event"] == "replica_retired", 90)
         assert retired.get("drained") is True, retired
         rec["retired"] = retired
+        time.sleep(linger_s)
         t = time.perf_counter()
         rc, _ = auto.stop(timeout=120)
         rec["sigterm"] = {"rc": rc, "s": time.perf_counter() - t}
@@ -5927,8 +5952,9 @@ def autoscale_drill(dev, smi, root, gateway_dir, img=IMG, rate_high=P17_RATE_HIG
     rec["decisions"] = dict(Counter(e["action"] for e in events
                                     if e["event"] == "autoscale_decision"))
     # the control loop's ticks, seconds from the load's start
-    rec["timeline"] = [(round(e["t"] - t0, 1), e.get("action", e["event"]), e.get("fleet_p99_ms"),
-                        e.get("burn_fast"), e.get("running")) for e in events]
+    rec["timeline"] = [(round(e["t"] - t0, 1), e.get("action", e["event"]), e.get("reason"),
+                        e.get("fleet_p99_ms"), e.get("burn_fast"), e.get("offered_rps"),
+                        e.get("running")) for e in events]
     rec["replicas"] = {}
     for name in sorted(pids):
         with open(os.path.join(rdir, f"{name}.log")) as f:
@@ -5939,7 +5965,7 @@ def autoscale_drill(dev, smi, root, gateway_dir, img=IMG, rate_high=P17_RATE_HIG
         if dev.type == "cuda":
             got = drained["launches"]
             assert got["sift_bin_sample"] > 0 and got["plane_sandwich"] > 0, (name, got)
-    assert len(pids) == 2, pids
+    assert len(pids) == 2, (pids, rec["timeline"])
     log(f"17d serve-autoscale: {rec} on {smi}")
     return rec
 
@@ -6091,6 +6117,8 @@ P19_RUNS = (
      ("serving_device_featurize", "serving_flagship_featurize")),
 )
 P19_TIMEOUT_S = 300
+# the overlap row's fixed prep wait (bench_pipeline_overlap's prep_latency_ms)
+P19_PREP_WAIT_MS = 10.0
 
 
 def serve_bench(smi):
@@ -6142,28 +6170,257 @@ def serve_bench(smi):
     return rec
 
 
-def overlap_runs(n):
+def _thread_cpu_s(thread):
+    """CPU seconds a live thread has run (its own clock)."""
+    return time.clock_gettime(time.pthread_getcpuclockid(thread.ident))
+
+
+@contextlib.contextmanager
+def lane_split():
+    """How a lane's host time splits, by thread, for every ``MicroBatcher``
+    made inside the block (one record per mode, ``serial`` or
+    ``pipelined``, summed over its batchers). Per window: the wall and CPU
+    milliseconds of the prep's assembly (``_assemble``: the host featurize,
+    its fixed wait included), of the serial dispatch (``_dispatch``, the
+    assembly inside it) and of each pipelined stage; ``*_gil_wait_ms`` is
+    wall less CPU less the featurize's fixed wait, the time the step sat
+    off the CPU waiting (for the interpreter lock, a queue or the card).
+    Over the batcher's life: each thread's CPU seconds (the client is the
+    thread that made and closed the batcher; ``coalesce`` its dispatcher;
+    the four stage threads) against the wall seconds, and the cyclic
+    garbage collector's pauses of generations 1 and 2 while the batcher
+    lived (``gc_ms``: every thread stops for them). Only the wrappers it
+    puts on the classes cost anything (two clock reads a step)."""
+    import gc
+
+    from keystone_tpu_torch.serving import batching, pipeline
+
+    split = {}
+    steps = {}
+    patched = []
+    current = [None]
+    gc_started = [0.0]
+
+    def acc(mode, label, wall, cpu):
+        rec = steps.setdefault(mode, {}).setdefault(label, [0.0, 0.0, 0, 0.0])
+        rec[0] += wall
+        rec[1] += cpu
+        rec[2] += 1
+        rec[3] = max(rec[3], wall)
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_started[0] = time.perf_counter()
+        elif current[0] is not None and info["generation"] >= 1:
+            split.setdefault(current[0], {"wall_s": 0.0, "cpu_s": {}}).setdefault("gc_ms", []).append(
+                (info["generation"], round((time.perf_counter() - gc_started[0]) * 1e3, 1)))
+
+    def timed(owner, name, label, mode_of):
+        orig = getattr(owner, name)
+
+        def wrapper(self, *a, **k):
+            w0, c0 = time.perf_counter(), time.thread_time()
+            try:
+                return orig(self, *a, **k)
+            finally:
+                acc(mode_of(self), label, time.perf_counter() - w0, time.thread_time() - c0)
+
+        patched.append((owner, name, orig))
+        setattr(owner, name, wrapper)
+
+    def batcher_mode(mb):
+        return "pipelined" if mb.pipeline_depth else "serial"
+
+    for stage in pipeline.LanePipeline.STAGES:
+        timed(pipeline.LanePipeline, f"_{stage}", stage, lambda self: "pipelined")
+    timed(batching.MicroBatcher, "_assemble", "assemble", batcher_mode)
+    timed(batching.MicroBatcher, "_dispatch", "dispatch", batcher_mode)
+    init, close = batching.MicroBatcher.__init__, batching.MicroBatcher.close
+
+    def init_wrapper(self, *a, **k):
+        init(self, *a, **k)
+        current[0] = batcher_mode(self)
+        self._split_start = (time.perf_counter(), time.thread_time())
+
+    def close_wrapper(self, *a, **k):
+        wall0, client0 = self._split_start
+        threads = {"coalesce": self._worker}
+        if self._pipeline is not None:
+            threads.update(zip(pipeline.LanePipeline.STAGES, self._pipeline._threads))
+        cpu = {name: _thread_cpu_s(t) for name, t in threads.items() if t.is_alive()}
+        cpu["client"] = time.thread_time() - client0
+        rec = split.setdefault(batcher_mode(self), {"wall_s": 0.0, "cpu_s": {}})
+        rec["wall_s"] += time.perf_counter() - wall0
+        for name, s in cpu.items():
+            rec["cpu_s"][name] = rec["cpu_s"].get(name, 0.0) + s
+        try:
+            return close(self, *a, **k)
+        finally:
+            current[0] = None
+
+    patched += [(batching.MicroBatcher, "__init__", init), (batching.MicroBatcher, "close", close)]
+    batching.MicroBatcher.__init__ = init_wrapper
+    batching.MicroBatcher.close = close_wrapper
+    gc.callbacks.append(on_gc)
+    try:
+        yield split
+    finally:
+        gc.callbacks.remove(on_gc)
+        for owner, name, orig in reversed(patched):
+            setattr(owner, name, orig)
+        for mode, labels in steps.items():
+            rec = split.setdefault(mode, {"wall_s": 0.0, "cpu_s": {}})
+            windows = labels["assemble"][2]
+            rec["windows"] = windows
+            for label, (wall, cpu, n, most) in labels.items():
+                rec[f"{label}_ms"] = round(wall / windows * 1e3, 3)
+                rec[f"{label}_cpu_ms"] = round(cpu / windows * 1e3, 3)
+                rec[f"{label}_max_ms"] = round(most * 1e3, 3)
+            rec["wall_s"] = round(rec["wall_s"], 4)
+            rec["cpu_s"] = {k: round(v, 4) for k, v in rec["cpu_s"].items()}
+
+
+class _ListeningTee:
+    """A child's stdout that keeps the ``{"listening": ...}`` line it
+    passes on (``cold_start_runs``)."""
+
+    def __init__(self, stream, into):
+        self._stream, self._into = stream, into
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        line = next(self._stream)
+        if line.startswith('{"listening"'):
+            self._into.append(json.loads(line))
+        return line
+
+    def __getattr__(self, name):
+        return getattr(self._stream, name)
+
+
+def cold_start_runs(n, device=None, **row):
+    """``python3 chip_smoke.py --cold-start-runs N``: the
+    ``serving_cold_start_aot`` row, as ``serve-bench`` runs it (a fresh
+    ``serve-gateway`` of the depth-40 demo chain, 4 lanes, 6 buckets, cold
+    and from the AOT store, exec to first ``/predict``), N times, each in
+    the fresh processes the row starts; prints each run's row or the check
+    it failed, with each child's start split (its listening line's
+    ``start_s``: import up to ``main``, CUDA context, model, the
+    Gateway's lanes and warmup), then the count that passed. Not a phase:
+    the row's pass rate on the card (ROADMAP C8). On the CPU, at a small
+    size: ``cold_start_runs(1, "cpu", depth=2, buckets=(4,), lanes=1)``
+    (about 30 s; the row's 3.0x floor is for the card)."""
+    from keystone_tpu_torch.serving import bench
+
+    smi = "cpu" if device == "cpu" else subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    passed = 0
+    popen = subprocess.Popen
+    for i in range(n):
+        rows, starts = [], []
+
+        class Teeing(popen):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                if self.stdout is not None and "serve-gateway" in a[0]:
+                    self.stdout = _ListeningTee(self.stdout, starts)
+
+        subprocess.Popen = Teeing
+        try:
+            bench.bench_cold_start_aot(lambda *a, **k: rows.append((a, k.get("extra"))),
+                                       device=device, **row)
+            passed += 1
+            outcome = f"passed {json.dumps({'ms_to_first_predict': rows[0][0][1], **rows[0][1]})}"
+        except RuntimeError as e:
+            outcome = f"failed: {e}"
+        finally:
+            subprocess.Popen = popen
+        log(f"cold start run {i + 1}: {outcome}")
+        for name, doc in zip(("cold", "from the store"), starts):
+            log(f"cold start run {i + 1} {name} start split: {json.dumps(doc['start_s'])} on {smi}")
+    log(json.dumps({"cold_start_runs": n, "passed": passed, "card": smi}))
+    return passed
+
+
+def overlap_runs(n, dev=None, fitted=None, window_rows=(8, 32, 128), d=256):
     """``python3 chip_smoke.py --overlap-runs N``: the
     ``serving_pipeline_overlap`` row, as ``serve-bench`` runs it (the demo
     chain at the JAX defaults, on the card), N times in this process;
-    prints each run's row or the check it failed, then the count that
-    passed. Not a phase: the row's pass rate on the card (ROADMAP C9)."""
+    prints each run's row or the check it failed with the lane's host
+    split (``lane_split``: the fixed wait of the prep is
+    ``P19_PREP_WAIT_MS``), then the count that passed. Not a phase: the
+    row's pass rate on the card (ROADMAP C9). On the CPU:
+    ``overlap_runs(2, "cpu", bench.build_pipeline(256, 32, 1,
+    device="cpu"))`` (about 10 s)."""
     from keystone_tpu_torch.serving import bench
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    fitted = bench.build_pipeline(256, 512, 4)
-    passed = 0
+    smi = "cpu" if dev == "cpu" else subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    fitted = fitted or bench.build_pipeline(256, 512, 4)
+    passed, at_least_serial = 0, 0
     for i in range(n):
         rows = []
-        try:
-            bench.bench_pipeline_overlap(lambda *a, **k: rows.append(k.get("extra")), fitted,
-                                         (8, 32, 128), 256)
-            passed += 1
-            log(f"overlap run {i + 1}: passed {json.dumps(rows[0])}")
-        except RuntimeError as e:
-            log(f"overlap run {i + 1}: failed: {e}")
-    log(json.dumps({"overlap_runs": n, "passed": passed, "card": smi}))
+        with lane_split() as split:
+            try:
+                bench.bench_pipeline_overlap(lambda *a, **k: rows.append(k.get("extra")), fitted,
+                                             window_rows, d, device=dev)
+                passed += 1
+                outcome = f"passed {json.dumps(rows[0])}"
+            except RuntimeError as e:
+                outcome = f"failed: {e}"
+        speedup = re.search(r"only ([0-9.]+)x the serial", outcome)
+        speedup = float(speedup.group(1)) if speedup else rows[0]["speedup_vs_serial"] if rows else None
+        at_least_serial += speedup is not None and speedup >= 1.0
+        for mode in ("serial", "pipelined"):
+            s = split.get(mode, {})
+            s["assemble_gil_wait_ms"] = round(s.get("assemble_ms", 0.0) - s.get("assemble_cpu_ms", 0.0)
+                                              - P19_PREP_WAIT_MS, 3)
+        log(f"overlap run {i + 1}: {outcome}")
+        log(f"overlap run {i + 1} host split: {json.dumps(split)} on {smi}")
+    log(json.dumps({"overlap_runs": n, "passed": passed, "at_least_serial": at_least_serial,
+                    "card": smi}))
+    return passed, at_least_serial
+
+
+def autoscale_runs(n, linger_s=15.0):
+    """``python3 chip_smoke.py --autoscale-runs N``: phase 17d's drill N
+    times over one AOT store (17b's, built here), the autoscaler kept
+    ``linger_s`` past each retire; prints each run's outcome and its
+    autoscaler timeline (seconds from the load's start, action, reason,
+    fleet p99 ms, fast burn, offered req/s, replicas running), then the
+    count with two replica starts. Not a phase: the drill's flap rate."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    dev = torch.device("cuda")
+    _cuda.build()
+    root = os.path.join(ROOT, "tmp", "autoscale_runs")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    feat, model = phase4_chain(dev)
+    _, gateway_dir = aot_round_trip(dev, smi, feat, model, root)
+    del feat, model
+    torch.cuda.empty_cache()
+    two = 0
+    try:
+        for i in range(n):
+            shutil.rmtree(os.path.join(root, "replicas"), ignore_errors=True)
+            try:
+                rec = autoscale_drill(dev, smi, root, gateway_dir, linger_s=linger_s)
+                two += 1
+                outcome, timeline = "two starts", rec["timeline"]
+            except AssertionError as e:
+                outcome, timeline = f"failed: {e.args[0] if e.args else e}", None
+            log(f"autoscale run {i + 1}: {outcome}")
+            for row in timeline or ():
+                log(f"autoscale run {i + 1} tick: {json.dumps(row)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(json.dumps({"autoscale_runs": n, "two_starts": two, "card": smi}))
+    return two
 
 
 def main():
@@ -6372,5 +6629,9 @@ if __name__ == "__main__":
         cpu_solver(json.loads(sys.argv[2]))
     elif sys.argv[1:2] == ["--overlap-runs"]:
         overlap_runs(int(sys.argv[2]))
+    elif sys.argv[1:2] == ["--cold-start-runs"]:
+        cold_start_runs(int(sys.argv[2]))
+    elif sys.argv[1:2] == ["--autoscale-runs"]:
+        autoscale_runs(int(sys.argv[2]))
     else:
         main()

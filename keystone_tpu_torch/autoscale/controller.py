@@ -332,12 +332,14 @@ class RouterScraper:
         roster = tuple(sorted(
             r.get("url", "") for r in fleetz.get("replicas", ())
         ))
+        rebased = False
         if roster != self._prev_roster:
             if self._prev_roster is not None:
                 # membership changed: the old cumulative baselines no
                 # longer describe the same federation — rebase rather
                 # than reading churn as zero traffic
                 self._bucket_history = []
+                rebased = True
             self._prev_roster = roster
         metrics_text = slz = None
         try:
@@ -358,6 +360,14 @@ class RouterScraper:
             prev_t=self._prev_t,
             prev_latency_buckets=self._p99_baseline(t),
         )
+        if rebased:
+            # this tick's snapshot is the new baseline, so its window
+            # holds no request yet. Without a baseline the p99 would be
+            # the lifetime quantile of the remaining replicas: after a
+            # scale-down, the overload the fleet has just absorbed
+            # (seconds on a drained surge) read as pressure now, one
+            # hot tick towards scaling straight back up.
+            obs.fleet_p99_s = None
         self._prev_requests = obs.requests_total
         self._prev_t = t
         if obs.latency_buckets:

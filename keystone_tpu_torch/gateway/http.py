@@ -53,7 +53,7 @@ A stdlib ``http.server`` on a background daemon thread, following the
   the per-window ``microbatch.coalesce`` → ``pipeline.host_prep`` /
   ``.upload`` / ``.compute`` / ``.deliver`` stage chains when the
   lanes run pipelined and tracing is on).
-- ``GET /profilez?seconds=N`` — arm a ``torch.profiler`` trace around
+- ``GET /profilez?seconds=N`` — arm a Kineto trace around
   the next N seconds of live traffic and list the capture directory
   (a Chrome trace); 409 while another capture runs — mirrored from the
   admin endpoint (``observability/profilez.py``) so a gateway-only
@@ -110,10 +110,10 @@ defaults to one under the home directory). ``--shard-model`` shards the
 model over a ``(data, model)`` mesh of ``--mesh-model N`` devices
 (``serving/sharding.py``; more than the host has exits 1 with the
 reason). The ``{"listening": ...}`` line carries ``start_s``, the start
-split in seconds (``process_at_main``, ``model``, ``gateway`` with its
-``profiler``, ``lanes`` and ``warmup``, ``kernel_build`` when ``nvcc``
-ran, ``libraries`` from the store), and under ``--shard-model`` every
-parameter's resolved spec. On SIGTERM a registered replica
+split in seconds (``process_at_main``, ``cuda_init`` on the card,
+``model``, ``gateway`` with its ``lanes`` and ``warmup``,
+``kernel_build`` when ``nvcc`` ran, ``libraries`` from the store), and
+under ``--shard-model`` every parameter's resolved spec. On SIGTERM a registered replica
 deregisters from its routers first and then drains, so the routers
 stop sending before it starts refusing (the JAX package drains first);
 after the drain it prints ``{"drained": true, "launches": {...}}``, the
@@ -1055,6 +1055,11 @@ def main(argv=None, device=None) -> int:
         )
         return 2
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        # the CUDA context, apart from the model built on it
+        t = time.perf_counter()
+        torch.empty(1, device=dev)
+        start_s["cuda_init"] = time.perf_counter() - t
     if not args.no_cache and (args.aot_cache or os.environ.get("KEYSTONE_AOT_CACHE")):
         from keystone_tpu_torch.serving.aot import setup_aot_cache
 
@@ -1160,7 +1165,7 @@ def main(argv=None, device=None) -> int:
             fitted = build_pipeline(
                 d=args.d, hidden=args.hidden, depth=args.depth, device=dev
             )
-        start_s["model"] = time.perf_counter() - t_main
+        start_s["model"] = time.perf_counter() - t_main - start_s.get("cuda_init", 0.0)
         t_gateway = time.perf_counter()
         gateway = Gateway(
             fitted,

@@ -87,7 +87,6 @@ from keystone_tpu_torch.serving.autoscale import (
 )
 from keystone_tpu_torch.serving.batching import MicroBatcher
 from keystone_tpu_torch.serving.engine import DEFAULT_BUCKETS
-from keystone_tpu_torch.utils.profiling import ready_device_tracing
 
 logger = logging.getLogger(__name__)
 
@@ -255,15 +254,9 @@ class Gateway:
         self._host_featurize = host_featurize
         self._rebucket_k = rebucket_k or len(self._buckets)
         self.metrics = GatewayMetrics(registry=registry, gateway=name)
-        # seconds of this gateway's start: the profiler session, the
-        # lanes' engines, and their warmup (captures, the AOT store)
+        # seconds of this gateway's start: the lanes' engines, and their
+        # warmup (captures, the AOT store)
         self.startup_s: Dict[str, float] = {}
-        t0 = time.perf_counter()
-        if resolve_device(device).type == "cuda":
-            # before the lanes' threads and graphs exist, so that
-            # /profilez can see them
-            ready_device_tracing()
-        self.startup_s["profiler"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         self.pool = EnginePool(
             self._factory_for(self._buckets),

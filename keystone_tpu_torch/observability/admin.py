@@ -25,7 +25,7 @@ install, nothing running unless ``AdminServer.start()`` (or the
 - ``GET /debugz``   -> the flight recorders' tail-sampled forensic
   records (``?trace_id=`` filters to one request;
   ``&format=chrome`` dumps that request as a Chrome trace)
-- ``GET /profilez`` -> arm a ``torch.profiler`` trace around the next
+- ``GET /profilez`` -> arm a Kineto trace around the next
   ``?seconds=N`` of live traffic and list the capture directory; one
   capture at a time — concurrent requests get 409
   (``observability/profilez.py``)

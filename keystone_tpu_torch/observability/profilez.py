@@ -1,7 +1,7 @@
 """On-demand device profiling: ``GET /profilez?seconds=N`` (counterpart of
 ``keystone_tpu/observability/profilez.py``).
 
-Arms ``utils/profiling.trace`` (a ``torch.profiler`` capture of the host
+Arms ``utils/profiling.trace`` (a Kineto capture of the host
 and, on the card, its kernels) around whatever live traffic flows for
 the next N seconds, then answers with the trace directory listing — a
 Chrome trace, loadable in Perfetto or chrome://tracing. Served by BOTH

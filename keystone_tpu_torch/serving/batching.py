@@ -58,6 +58,7 @@ from keystone_tpu_torch.observability.tracing import get_tracer
 from keystone_tpu_torch.serving.engine import CompiledPipeline, _row_spec
 from keystone_tpu_torch.serving.pipeline import (
     HostFeaturize,
+    LaneFuture,
     LanePipeline,
     resolve_window_futures,
 )
@@ -142,6 +143,9 @@ class MicroBatcher:
         self._pending: dict = {}  # spec -> List[_Entry], insertion-ordered
         self._n_pending = 0
         self._cond = threading.Condition()
+        # the condition every request future of this lane waits on: a
+        # window resolves its futures under one hold of it
+        self._futures_cond = threading.Condition()
         self._closed = False
         self._worker = threading.Thread(
             target=self._loop, name="keystone-microbatcher", daemon=True
@@ -169,7 +173,7 @@ class MicroBatcher:
         window's ``microbatch.coalesce`` span, which runs on the
         dispatcher thread."""
         spec = self._example_spec(example)
-        fut: Future = Future()
+        fut: Future = LaneFuture(self._futures_cond)
         with self._cond:
             if self._closed:
                 raise RuntimeError("MicroBatcher is closed")

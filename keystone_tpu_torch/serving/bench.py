@@ -92,7 +92,7 @@ builds a model takes ``device=`` (``None`` means ``cuda``).
 Callable standalone (``python -m keystone_tpu_torch serve-bench``; tests
 call ``main(argv, device="cpu")``), which prints one JSON row per metric
 and, last, the kernels' launch counts. ``--profile-dir DIR`` wraps the
-whole run in a ``torch.profiler`` trace (``utils/profiling.trace``).
+whole run in a Kineto trace (``utils/profiling.trace``).
 """
 
 from __future__ import annotations
@@ -525,11 +525,12 @@ def bench_pipeline_overlap(
     asserts pipelined sustained >= 1.2x serial. Outputs are asserted
     BIT-identical between the two modes.
 
-    On an H100 the floor is out of reach: a 128-row window of the demo
-    chain replays in about 0.1 ms, so nothing of the device is left for
-    the 10 ms wait to hide, and the lane's other stages share one
-    interpreter lock with the wait's own host assembly and the row's
-    client. ``serve-bench --no-pipeline-overlap`` leaves the row out."""
+    On an H100 the floor is out of reach: the pipelined lane can hide
+    only the serial lane's work beyond the prep (the upload, a replay of
+    about 0.5 ms and the delivery: R of about 1.4 ms a window) behind the
+    prep itself (the 10 ms wait and the assembly: P of about 11.9 ms), so
+    it runs at most 1 + R/P, about 1.12x, of the serial lane there.
+    ``serve-bench --no-pipeline-overlap`` leaves the row out."""
     import os
 
     from keystone_tpu_torch.serving.batching import MicroBatcher
@@ -2638,10 +2639,11 @@ def main(argv=None, device=None) -> int:
                     "gateway subprocesses; the in-process rows are unaffected)")
     ap.add_argument("--no-pipeline-overlap", action="store_true",
                     help="skip the serving_pipeline_overlap row (on a CUDA card its "
-                    "1.2x floor is out of reach: the demo chain's window is host work "
-                    "under one interpreter lock; see the row's docstring)")
+                    "1.2x floor is out of reach: the pipelined lane hides only the "
+                    "serial lane's work beyond the prep, 1 + R/P of about 1.12x on an "
+                    "H100's host; see the row's docstring)")
     ap.add_argument("--profile-dir", default=None, metavar="DIR",
-                    help="wrap the whole bench run in a torch.profiler trace "
+                    help="wrap the whole bench run in a Kineto trace "
                     "written to DIR (a Chrome trace for Perfetto)")
     args = ap.parse_args(argv)
     if not args.no_cache:

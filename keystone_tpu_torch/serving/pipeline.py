@@ -51,6 +51,8 @@ import logging
 import queue
 import threading
 import time
+from concurrent.futures import Future
+from concurrent.futures._base import CANCELLED, CANCELLED_AND_NOTIFIED, FINISHED, PENDING
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -202,21 +204,87 @@ def _to_numpy(a: Any) -> np.ndarray:
     return np.asarray(a)
 
 
+_SETTLED = (CANCELLED, CANCELLED_AND_NOTIFIED, FINISHED)
+
+
+class LaneFuture(Future):
+    """One request's future: a ``concurrent.futures.Future`` that waits
+    on its lane's condition, shared by every request of the lane, and
+    makes its waiter and callback lists only when something uses them.
+
+    A stdlib future allocates eleven objects the cyclic garbage collector
+    tracks (its own condition with its lock, waiter deque and five bound
+    methods, and two lists); a lane's requests live until their window is
+    delivered, so those objects reach the oldest generation, whose full
+    collections (119–150 ms on an H100's host, every thread stopped)
+    came about once every 8,000 requests of the overlap bench row. This
+    one is one tracked object. A shared condition also lets a window resolve
+    all its futures under one hold of the lock with one wake-up
+    (``resolve_window_futures``); since that wake-up reaches every
+    waiter of the lane, a wait loops until its own future is done."""
+
+    def __init__(self, condition: threading.Condition):
+        self._condition = condition
+        self._state = PENDING
+        self._result = None
+        self._exception = None
+        # True once the waiter or the callback list exists
+        self._listened = False
+
+    def __getattr__(self, name: str):
+        if name in ("_waiters", "_done_callbacks"):
+            made: list = []
+            setattr(self, name, made)
+            self._listened = True
+            return made
+        raise AttributeError(name)
+
+    def _wait_settled(self, timeout: Optional[float]) -> None:
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._condition:
+            while self._state not in _SETTLED:
+                remaining = None if deadline is None else deadline - time.monotonic()
+                if remaining is not None and remaining <= 0:
+                    return
+                self._condition.wait(remaining)
+
+    def result(self, timeout: Optional[float] = None) -> Any:
+        self._wait_settled(timeout)
+        return super().result(0)
+
+    def exception(self, timeout: Optional[float] = None) -> Optional[BaseException]:
+        self._wait_settled(timeout)
+        return super().exception(0)
+
+
 def resolve_window_futures(metrics, valid, futures, enqueued) -> None:
     """Deliver one window: copy ``valid`` (a tree of valid-rows outputs)
     to host numpy ONCE, resolve each future with a row VIEW of it, and
     record the completion-timed per-request latency. Shared by the
     serial batcher dispatch and the pipelined deliver stage so the two
-    delivery paths cannot drift."""
+    delivery paths cannot drift. ``futures`` are ``LaneFuture``s of one
+    lane: they are set under one hold of their condition with one
+    wake-up; a future the caller cancelled is skipped, and the rest of
+    the window still gets its results."""
     valid = _tree_map(_to_numpy, valid)
     done = time.perf_counter()
-    for i, fut in enumerate(futures):
-        row = _tree_map(lambda a, i=i: a[i], valid)
-        try:
-            fut.set_result(row)
-        except Exception:
-            continue  # caller cancelled this request; the rest of
-            # the window must still get their results
+    rows = [_tree_map(lambda a, i=i: a[i], valid) for i in range(len(futures))]
+    settled = []
+    condition = futures[0]._condition
+    with condition:
+        for i, fut in enumerate(futures):
+            if fut._state in _SETTLED:
+                continue
+            fut._result = rows[i]
+            fut._state = FINISHED
+            if fut._listened:
+                for waiter in fut._waiters:
+                    waiter.add_result(fut)
+            settled.append(i)
+        condition.notify_all()
+    for i in settled:
+        if futures[i]._listened:
+            futures[i]._invoke_callbacks()
         metrics.record_request(done - enqueued[i])
 
 
@@ -515,5 +583,6 @@ __all__ = [
     "DEFAULT_DEPTH",
     "HostBufferPool",
     "HostFeaturize",
+    "LaneFuture",
     "LanePipeline",
 ]

@@ -2,9 +2,9 @@
 ``keystone_tpu/utils/profiling.py``: ``Counter``, ``LatencyRecorder``,
 ``PhaseTimer`` and ``_interp_percentile`` copied as they are).
 
-- ``trace(dir)``: a ``torch.profiler`` trace (host, and the card's kernels
-  where there is one) around a block of pipeline work, written to ``dir``
-  as a Chrome trace; the JAX module's wraps the JAX profiler.
+- ``trace(dir)``: a Kineto trace (host, and the card's kernels where
+  there is one) around a block of pipeline work, written to ``dir`` as a
+  Chrome trace; the JAX module's wraps the JAX profiler.
 - ``instrument_executor``: per-node wall time through a GraphExecutor's
   ``node_hook`` (the interpret-layer profile).
 """
@@ -22,56 +22,36 @@ from typing import Deque, Dict, Iterator, Optional
 logger = logging.getLogger(__name__)
 
 
-_device_ready = False
-_device_ready_lock = threading.Lock()
-
-
-def ready_device_tracing() -> None:
-    """Open and close one throwaway ``torch.profiler`` session on the
-    card, once per process. A gateway calls it before it builds its
-    lanes: on an H100, device traces of a process whose lanes were built
-    before its first profiler session held none of the lanes' activity,
-    while with this session first they do. (A plain thread replaying a
-    graph made before the first session is traced either way; what in
-    the lanes' set-up hides them is not known.)"""
-    global _device_ready
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with _device_ready_lock:
-        if _device_ready:
-            return
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-            torch.ones(1, device="cuda").add_(1)
-            # lint: disable=blocking-under-lock
-            # once per process, before the lanes: a second caller must
-            # wait for this profile to end; no request takes the lock
-            torch.cuda.synchronize()
-        _device_ready = True
-
-
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[None]:
-    """torch.profiler trace around a block of pipeline work: host activity,
-    and the card's kernels where CUDA is available, of every thread of the
+    """A Kineto trace around a block of pipeline work: host activity, and
+    the card's kernels where CUDA is available, of every thread of the
     process (as the JAX profiler traces the whole process: a serving
     lane's replays run on its own threads), exported as a Chrome trace
     (``trace_<pid>_<ns>.json``, viewable in Perfetto or chrome://tracing)
-    into ``log_dir``, which is made if missing."""
-    import torch
-    from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
+    into ``log_dir``, which is made if missing.
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
+    It drives ``torch.autograd.profiler.profile`` itself rather than
+    ``torch.profiler.profile``, whose start imports ``torch._inductor``
+    (``hasattr(torch, "_inductor")`` in its ``prepare_trace``): about 8 s
+    in a fresh process on an H100 host, which a first ``/profilez`` paid
+    before its window opened. Nothing else is needed first: graphs
+    captured and replayed before the process's first trace show in it."""
+    import torch
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.autograd.profiler import profile
+
     os.makedirs(log_dir, exist_ok=True)
-    prof = profile(activities=activities,
-                   experimental_config=_ExperimentalConfig(profile_all_threads=True))
-    prof.start()
+    prof = profile(
+        use_device="cuda" if torch.cuda.is_available() else None,
+        use_kineto=True,
+        experimental_config=_ExperimentalConfig(profile_all_threads=True),
+    )
+    prof.__enter__()
     try:
         yield
     finally:
-        prof.stop()
+        prof.__exit__(None, None, None)
         prof.export_chrome_trace(
             os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
         )

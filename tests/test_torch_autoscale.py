@@ -342,6 +342,69 @@ def test_autoscaler_tick_converges_the_fleet():
     sup.stop()
 
 
+def _scripted_scraper(mod, states):
+    """A ``RouterScraper`` of ``mod`` whose router answers from
+    ``states``, one (roster, {replica: (fast, slow) requests}) a tick:
+    fast ones under 10 ms, slow ones between 0.5 and 5 s."""
+    class Scripted(mod.RouterScraper):
+        def observe(self):
+            self.state = states.pop(0)
+            return super().observe()
+
+        def _get(self, path):
+            roster, counts = self.state
+            if path == "/fleetz":
+                return json.dumps({"counts": {"healthy": len(roster)},
+                                   "replicas": [{"url": u, "ready": True, "healthy": True}
+                                                for u in roster]}).encode()
+            if path == "/metrics":
+                lines = []
+                for u, (fast, slow) in counts.items():
+                    for le, n in (("0.01", fast), ("0.5", fast), ("5.0", fast + slow),
+                                  ("+Inf", fast + slow)):
+                        lines.append(f'keystone_gateway_request_latency_seconds_bucket'
+                                     f'{{gateway="{u}",le="{le}"}} {n}')
+                return ("\n".join(lines) + "\n").encode()
+            return json.dumps({"spans": []} if path == "/tracez" else {"slos": []}).encode()
+
+    return Scripted("http://127.0.0.1:9")
+
+
+def test_scraper_rebases_on_roster_change_without_the_lifetime_p99():
+    """After a replica leaves (or joins) the roster, the port's scraper
+    starts a new window from that tick's snapshot: the tick reads no
+    p99, the next one windows against it. JAX's reads the lifetime
+    quantile of the remaining replicas on that tick: after a scale-down
+    their drained surge, a hot tick with no traffic at all, and two
+    such ticks scaled a fleet straight back up. Every other tick reads
+    as JAX's."""
+    a, b = "http://127.0.0.1:1", "http://127.0.0.1:2"
+    states = [([a, b], {a: (200, 100), b: (300, 0)}),  # first tick: the lifetime
+              ([a, b], {a: (260, 100), b: (360, 0)}),  # a window of fast ones
+              ([a], {a: (270, 100)}),                  # b retired: rebased
+              ([a], {a: (290, 100)}),                  # fast ones after the rebase
+              ([a], {a: (290, 100)}),                  # the same window
+              ([a, b], {a: (295, 100), b: (5, 0)})]    # b joins: rebased
+    port = _scripted_scraper(tcontroller, list(states))
+    jax = _scripted_scraper(jcontroller, list(states))
+    t_obs = [port.observe() for _ in states]
+    j_obs = [jax.observe() for _ in states]
+    t_p99, j_p99 = [o.fleet_p99_s for o in t_obs], [o.fleet_p99_s for o in j_obs]
+    assert t_p99[2] is None and t_p99[5] is None
+    assert j_p99[2] > 1.0  # JAX: the surge a's lifetime holds
+    for i in (0, 1, 3, 4):
+        assert t_p99[i] == j_p99[i], (i, t_p99, j_p99)
+    assert t_p99[0] > 1.0 and t_p99[1] < 0.01 and t_p99[3] < 0.01 and t_p99[4] < 0.01
+    # the ticks after the scale-down, under 17d's policy: JAX's first is hot
+    config = dict(min_replicas=1, max_replicas=2, slo_latency_s=1.0, up_consecutive=2,
+                  up_cooldown_s=0.0)
+    engine = tpolicy.PolicyEngine(tpolicy.PolicyConfig(**config))
+    jengine = jpolicy.PolicyEngine(jpolicy.PolicyConfig(**config))
+    actions = [engine.decide(1, o).reason for o in t_obs[2:5]]
+    assert jengine.decide(1, j_obs[2]).reason == "hot_streak_building"
+    assert "hot_streak_building" not in actions, actions
+
+
 # -- serve-capacity-plan ------------------------------------------------------------------
 
 

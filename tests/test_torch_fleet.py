@@ -427,6 +427,18 @@ def test_stitched_debugz_spans_both_tiers(fleet, traced):
 # -- the mixed drill: each package's router over the other's replica ------------
 
 
+def _wait_replicas_ready(url, timeout_s=WAIT_S):
+    """Wait, at most ``timeout_s``, until the router at ``url`` lists
+    every replica as ready on ``/fleetz``."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        rows = json.loads(_get(url + "/fleetz")[1])["replicas"]
+        if rows and all(r["ready"] for r in rows):
+            return
+        assert time.monotonic() < deadline, rows
+        time.sleep(0.05)
+
+
 def test_each_router_serves_the_other_packages_replica_alike():
     jfitted = jbench.build_pipeline(d=D, hidden=8, depth=2)
     tfitted = tbench.affine_chain(convert.affine_params(jfitted), device="cpu")
@@ -459,6 +471,11 @@ def test_each_router_serves_the_other_packages_replica_alike():
                            ("/predict", b"")):
             (tc, td, _), (jc, jd, _) = _post(turl + path, body), _post(jurl + path, body)
             assert tc == jc and td == jd, path
+        # a registration is not probed at once: /readyz answers 503 until
+        # the first probe sweep has read the replica's /readyz, which a
+        # loaded host may not have finished yet
+        for url in (turl, jurl):
+            _wait_replicas_ready(url)
         for route in ("/fleetz", "/readyz", "/driftz", "/attributionz", "/chaosz"):
             (tc, tt), (jc, jt) = _get(turl + route), _get(jurl + route)
             assert tc == jc, route
