@@ -295,14 +295,26 @@ Phases, in order; any failure exits non-zero:
    fixed 10 ms prep wait leaves 1 + R/P of about 1.12 there; C9). Phase 4
    prints its engine's cost model per bucket (FLOPs, bytes and each
    kernel's FLOPs), and phase 5 requires ``keystone_serving_mfu`` and a
-   roofline class per bucket on the engine's ``/metrics``.
+   roofline class per bucket on the engine's ``/metrics``. The featurize
+   rows' host path runs ``featurize.jit_batch()``; their host rate and
+   ``speedup_vs_host`` are printed;
+20. ``FittedPipeline.jit_batch`` on phase 4's chain, one CUDA graph per
+   batch shape: calls at 64 images, a ragged 37 and 64 again (captures
+   1, 1, 0), each capture's seconds and pool bytes, B1/B2/B3 launches of
+   4/1/2 a call (the capture tally), the outputs at 64 bit for bit
+   against the engine's bucket-64 featurize graph and within the serving
+   bar of eager ``_batch_run``, the 37 rows against the first 37 at 64,
+   top-5 on phase 4's head equal to the engine's, ``jit()`` on one
+   image, a replay at 64 timed beside the engine's and beside eager, and
+   a chain with an items-mode node raising on the card.
 
-Two options run one bench row N times in this process, each run's row
+Three options run one bench row N times in this process, each run's row
 or the check it failed, then the count that passed (not phases):
 ``--overlap-runs N`` (``serving_pipeline_overlap``, with the lane's host
-split by thread and the garbage collector's pauses, ``lane_split``) and
+split by thread and the garbage collector's pauses, ``lane_split``),
 ``--cold-start-runs N`` (``serving_cold_start_aot``, with each fresh
-``serve-gateway``'s start split). ``--autoscale-runs N`` runs phase 17d's
+``serve-gateway``'s start split) and ``--featurize-runs N``
+(``serving_device_featurize``, its host path ``jit_batch``). ``--autoscale-runs N`` runs phase 17d's
 drill N times, the autoscaler kept 15 s past each retire, with each
 run's timeline.
 
@@ -1033,8 +1045,8 @@ def throughput_and_profile(engine, rng, smi, img=IMG):
         pinned_ms = time_ms(lambda: host.to(engine.device, non_blocking=True))
     replay_ms = {}
     with torch.cuda.stream(engine._compute_stream):
-        for g in engine._graphs.values():
-            replay_ms[g.bucket] = time_ms(g.graph.replay)
+        for (bucket, _), g in engine._graphs.items():
+            replay_ms[bucket] = time_ms(g.graph.replay)
     log(f"profile of one bucket-64 dispatch: wall {wall_ms:.3f} ms, device "
         f"busy {device_ms:.3f} ms ({device_ms - copy_ms:.3f} without copies; "
         f"host-to-device copies seen {h2d_ms:.3f}), idle share "
@@ -5283,6 +5295,10 @@ def rollout_drill(dev, smi, root, width=P16B_WIDTH, refit=P16B_REFIT, loads=P16B
                 promoted = dict(st, t_s=now)
                 http_post(url + "/chaosz", {"arm": {"point": "lifecycle.refit.poison",
                                                     "count": P16B_POISON_CHUNKS}})
+            elif promoted is not None and st["state"] == "rolled_back":
+                # the rollback as polled: the next candidate may start
+                # on the controller's next tick, before a second read
+                rolled = dict(st, t_s=now)
             elif promoted is not None and metric_sum(url, "keystone_lifecycle_rollbacks_total") >= 1:
                 # the state as of the counter: the snapshot above may
                 # predate the rollback the counter shows
@@ -6151,6 +6167,10 @@ def serve_bench(smi):
             launches = next((r["kernel_launches"] for r in lines if "kernel_launches" in r), None)
             for r in rows.values():
                 log(f"19 {name}: {json.dumps(r)}")
+                if "speedup_vs_host" in r:
+                    log(f"19 {r['metric']}: host path (jit_batch) {r['host_examples_per_sec']} ex/s, "
+                        f"device {r['device_examples_per_sec']} ex/s, speedup_vs_host "
+                        f"{r['speedup_vs_host']} on {smi}")
             rec[name] = {"rc": proc.returncode, "s": time.perf_counter() - t0, "rows": rows,
                          "launches": launches}
             log(f"19 {name}: exit {proc.returncode} in {rec[name]['s']:.3f} s, kernel launches "
@@ -6167,6 +6187,116 @@ def serve_bench(smi):
     assert all(rec["featurize"]["launches"][k] > 0 for k in _cuda.LAUNCHES), rec["featurize"]
     rec["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 19 in {rec['phase_s']:.3f} s on {smi}")
+    return rec
+
+
+class _HostNode(api.Transformer):
+    """A node that maps each example on the host (items mode): work one
+    captured program cannot hold."""
+
+    def apply(self, x):
+        return x * 2.0
+
+    def apply_batch(self, ds):
+        return ds.map(self.apply)
+
+
+# phase 20: jit_batch calls at these row counts (captures 1, 1, 0)
+P20_CALLS = (64, 37, 64)
+
+
+def jit_batch_phase(dev, smi, feat, model, img=IMG):
+    """Phase 20: ``feat.jit_batch()`` on phase 4's chain at 64, 37 and 64
+    rows of 256² uint8 images (numpy in, as the bench rows' host path),
+    held against the engine's bucket-64 featurize graph (bit for bit) and
+    eager ``_batch_run`` (the serving bar); ``jit()`` on one image; the
+    replay at 64 timed beside the engine's and beside eager; an
+    items-mode chain must raise."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(20)
+    raw = rng.integers(0, 256, (max(P20_CALLS), img, img, 3), dtype=np.uint8)
+    x = torch.as_tensor(raw).to(dev)
+    f = feat.jit_batch(device=dev)
+    rec = {"calls": []}
+    outs = []
+    for rows in P20_CALLS:
+        before = f.captures
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        out = f(raw[:rows])
+        torch.cuda.synchronize()
+        call = {"rows": rows, "s": time.perf_counter() - t0,
+                "captures": f.captures - before, "launches": dict(_cuda.LAUNCHES)}
+        rec["calls"].append(call)
+        outs.append(out)
+        assert tuple(out.shape) == (rows, 8192) and bool(torch.isfinite(out).all()), out.shape
+    rec["graphs"] = [dict(g, spec=str(g["spec"])) for g in f.graph_report()]
+    log(f"20 jit_batch calls (rows, captures, seconds, launches): "
+        f"{[(c['rows'], c['captures'], round(c['s'], 3), c['launches']) for c in rec['calls']]}; "
+        f"captures (s, pool bytes): {[(g['capture_s'], g['pool_bytes']) for g in rec['graphs']]} on {smi}")
+    assert [c["captures"] for c in rec["calls"]] == [1, 1, 0], rec["calls"]
+    per_call = {"sift_bin_sample": 4, "plane_sandwich": 1, "fisher_vector_stats": 2}
+    # a capture's launches are its tally; a call that captures nothing
+    # launches exactly one replay's
+    assert all(g["launches"] == per_call for g in rec["graphs"]), rec["graphs"]
+    assert rec["calls"][2]["launches"] == per_call, rec["calls"][2]
+    rec["launches_per_call"] = dict(rec["calls"][2]["launches"])
+    out64, out37, again = outs
+    assert torch.equal(again, out64)
+
+    with torch.no_grad():
+        eager = feat._batch_run(x)
+    eng = feat.compiled((64,), device=dev)
+    eng.warmup(example=np.zeros((img, img, 3), np.uint8))
+    rec["engine_graphs"] = eng.graph_report()
+    engine_out = eng.apply(x, sync=True)
+    head = model.compiled((64,), featurize=feat, device=dev)
+    head.warmup(example=np.zeros((img, img, 3), np.uint8))
+    top_engine = head.apply(x, sync=True)
+    with torch.no_grad():
+        top_jit = model._batch_run(out64)
+    rec["max_abs_vs_engine"] = float((out64 - engine_out).abs().max())
+    rec["bit_for_bit_vs_engine"] = bool(torch.equal(out64, engine_out))
+    rec["max_abs_vs_eager"] = max_abs_err(out64, eager, RTOL_FEAT, ATOL_FEAT, "20 jit_batch vs eager")
+    rec["max_abs_37_vs_64"] = max_abs_err(out37, out64[:37], RTOL_FEAT, ATOL_FEAT,
+                                          "20 jit_batch at 37 rows vs the first 37 at 64")
+    rec["top5_equal"] = bool(torch.equal(top_jit, top_engine))
+    log(f"20 the engine's bucket-64 featurize graph: {rec['engine_graphs']}")
+    log(f"20 outputs at 64: vs the engine's bucket-64 graph bit for bit {rec['bit_for_bit_vs_engine']} "
+        f"(max abs {rec['max_abs_vs_engine']}), vs eager max abs {rec['max_abs_vs_eager']}; 37 rows vs "
+        f"the first 37 at 64 max abs {rec['max_abs_37_vs_64']}; top-5 equal {rec['top5_equal']}")
+    assert rec["bit_for_bit_vs_engine"], rec["max_abs_vs_engine"]
+    assert rec["top5_equal"]
+
+    one = feat.jit(device=dev)
+    single = one(raw[0])
+    torch.cuda.synchronize()
+    rec["jit_graphs"] = [dict(g, spec=str(g["spec"])) for g in one.graph_report()]
+    assert one.captures == 1 and tuple(single.shape) == (8192,), rec["jit_graphs"]
+    rec["jit_max_abs_vs_batch"] = max_abs_err(single, out64[0], RTOL_FEAT, ATOL_FEAT,
+                                              "20 jit() of one image vs its row at 64")
+    log(f"20 jit() of one image: capture {rec['jit_graphs']}, max abs vs its row at 64 "
+        f"{rec['jit_max_abs_vs_batch']}")
+
+    rec["replay_ms"] = time_ms(lambda: f(x))
+    rec["engine_replay_ms"] = time_ms(lambda: eng.apply(x))
+    with torch.no_grad():
+        rec["eager_ms"] = time_ms(lambda: feat._batch_run(x))
+    log(f"20 a call at 64 by CUDA events: jit_batch {rec['replay_ms']:.3f} ms, the engine's bucket-64 "
+        f"{rec['engine_replay_ms']:.3f} ms, eager _batch_run {rec['eager_ms']:.3f} ms on {smi}")
+
+    hosted = _HostNode().to_pipeline().fit()
+    try:
+        hosted.jit_batch(device=dev)(torch.ones((3, 2), device=dev))
+    except TypeError as e:
+        rec["items_mode_raises"] = str(e)
+    assert "use apply" in rec.get("items_mode_raises", ""), rec
+    log(f"20 an items-mode chain raises on the card: {rec['items_mode_raises']}")
+    eng.release_graphs()
+    head.release_graphs()
+    del f, one, eng, head
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 20 in {rec['phase_s']:.3f} s on {smi}")
     return rec
 
 
@@ -6386,6 +6516,33 @@ def overlap_runs(n, dev=None, fitted=None, window_rows=(8, 32, 128), d=256):
     return passed, at_least_serial
 
 
+def featurize_runs(n, dev=None):
+    """``python3 chip_smoke.py --featurize-runs N``: the
+    ``serving_device_featurize`` row, as ``serve-bench`` runs it (JAX's
+    defaults; the host path through ``jit_batch``), N times in this
+    process; prints each run's row or the check it failed, then the
+    count that passed. Not a phase: the row's pass rate on the card
+    (ROADMAP C11). On the CPU ``featurize_runs(1, "cpu")`` runs in about
+    2 s; the row's checks are set for the card."""
+    from keystone_tpu_torch.serving import bench
+
+    smi = "cpu" if dev == "cpu" else subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    passed = 0
+    for i in range(n):
+        rows = []
+        try:
+            bench.bench_device_featurize(lambda *a, **k: rows.append(k.get("extra")), device=dev)
+            passed += 1
+            outcome = f"passed {json.dumps(rows[0])}"
+        except RuntimeError as e:
+            outcome = f"failed: {e}"
+        log(f"featurize run {i + 1}: {outcome} on {smi}")
+    log(json.dumps({"featurize_runs": n, "passed": passed, "card": smi}))
+    return passed
+
+
 def autoscale_runs(n, linger_s=15.0):
     """``python3 chip_smoke.py --autoscale-runs N``: phase 17d's drill N
     times over one AOT store (17b's, built here), the autoscaler kept
@@ -6579,7 +6736,6 @@ def main():
     # -- 17. cold start, model sharding and elasticity ---------------------
     _cuda.reset_launches()
     elastic = cold_start_sharding_elasticity(dev, smi, feat, model)
-    del feat, model
     for r in rows:
         # this process (17b's in-process engines, 17c's gateways), the fresh
         # process built from the store (one bucket-64 replay), and the
@@ -6600,13 +6756,20 @@ def main():
     for r in rows:
         r["phase19_launches"] = bench["featurize"]["launches"][r["name"]]
 
+    # -- 20. FittedPipeline.jit_batch: one CUDA graph per batch shape -------
+    jitted = jit_batch_phase(dev, smi, feat, model)
+    del feat, model
+    for r in rows:
+        r["phase20_launches_per_call"] = jitted["launches_per_call"][r["name"]]
+
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": rows, "wide": wide, "serve": served, "train": trained,
                    "stream": streamed, "files": files, "voc": voc_rec, "random_features": rf,
                    "past_the_card": past, "text": text, "last_app": last,
                    "gateway": gateway, "fleet_zoo": fleet_zoo, "loadgen_lifecycle": lifecycle,
-                   "elastic": elastic, "tools": tools, "serve_bench": bench, "ptxas": ptxas}, f,
+                   "elastic": elastic, "tools": tools, "serve_bench": bench, "jit_batch": jitted,
+                   "ptxas": ptxas}, f,
                   indent=1, default=str)
     # the fit's launches and B3's error with the fitted GMMs are in
     # chip_smoke.json beside these
@@ -6633,5 +6796,7 @@ if __name__ == "__main__":
         cold_start_runs(int(sys.argv[2]))
     elif sys.argv[1:2] == ["--autoscale-runs"]:
         autoscale_runs(int(sys.argv[2]))
+    elif sys.argv[1:2] == ["--featurize-runs"]:
+        featurize_runs(int(sys.argv[2]))
     else:
         main()

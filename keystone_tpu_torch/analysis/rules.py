@@ -166,6 +166,10 @@ _BLOCKING_DOTTED = frozenset({
     # a CUDA graph capture (also as a `with` header): its entry
     # synchronizes the card, and the warm kernels run first
     "torch.cuda.graph",
+    # the shared capture core (workflow/cuda_graph.py): warm pass,
+    # capture and a checking replay, with stream waits
+    "capture_graph",
+    "cuda_graph.capture_graph",
 })
 
 # attribute calls that block: futures, sockets/HTTP, and engine

@@ -157,6 +157,11 @@ def io_native_available() -> bool:
     return _IO.load() is not None
 
 
+def native_available() -> bool:
+    """The IO library (CSV parsing, CIFAR records) built and loaded."""
+    return io_native_available()
+
+
 def text_native_available() -> bool:
     return _TEXT.load() is not None
 

@@ -205,6 +205,10 @@ class SIFTExtractor(Transformer):
     def apply(self, img):
         return self.extract(img[None])[0]
 
+    @property
+    def descriptor_dims(self) -> int:
+        return DESCRIPTOR_DIMS
+
     def apply_batch(self, ds: Dataset) -> Dataset:
         if not ds.is_array:  # images of several sizes: one batch per size
             return self._bucketed_batch(ds)

@@ -338,6 +338,7 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
     block_size: int
     num_iter: int = 1
     lam: float = 0.0
+    num_features: Optional[int] = None  # pad/truncate hint, parity only
     solve: str = "device"  # "device" (float32 Cholesky + refinement on
     # the device, one host sync per block) | "host" (float64 LAPACK per
     # block, for badly conditioned systems: the Gram and right-hand side

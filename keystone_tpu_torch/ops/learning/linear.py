@@ -77,6 +77,21 @@ class LinearMapEstimator(LabelEstimator):
             + network_weight * network
         )
 
+    @staticmethod
+    def compute_cost(
+        data: Dataset, labels: Dataset, lam: float, W, intercept=None
+    ) -> float:
+        """0.5·‖AW − b‖² + 0.5·λ‖W‖² (reference: LinearMapper.computeCost),
+        pad rows masked out when there is an intercept."""
+        A = data.padded()
+        b = labels.to_array_mode().padded().to(A.device)
+        W = torch.as_tensor(W, device=A.device)
+        pred = _f32_mm(A, W)
+        if intercept is not None:
+            pred = (pred + torch.as_tensor(intercept, device=A.device)) * data.mask()[:, None]
+        res = torch.sum((pred - b) ** 2)
+        return float(0.5 * res + 0.5 * lam * torch.sum(W * W))
+
 
 @dataclasses.dataclass(eq=False)
 class LocalLeastSquaresEstimator(LabelEstimator):

@@ -10,7 +10,7 @@ the SVD's sign freedom, so the card and the CPU give the same matrix.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -220,10 +220,12 @@ class DistributedColumnPCAEstimator(Estimator, CostModel):
 
 @dataclasses.dataclass(eq=False)
 class ColumnPCAEstimator(Estimator, Optimizable):
-    """Cost-model choice between local and TSQR column PCA, priced for the
-    one device the port runs on."""
+    """Cost-model choice between local and TSQR column PCA, priced at
+    ``num_machines`` machines when given, else for the one device the
+    port runs on."""
 
     dims: int
+    num_machines: Optional[int] = None
 
     def _options(self):
         return [
@@ -242,10 +244,11 @@ class ColumnPCAEstimator(Estimator, Optimizable):
         d = first.shape[0]
         cols_per_item = first.shape[1] if first.ndim > 1 else 1
         n = max(n_total, sample.n) * cols_per_item
+        machines = self.num_machines or 1
         return min(
             self._options(),
             key=lambda o: o.cost(
-                n, d, self.dims, 1.0, 1,
+                n, d, self.dims, 1.0, machines,
                 H100_CPU_WEIGHT, H100_MEM_WEIGHT, H100_NETWORK_WEIGHT,
             ),
         )

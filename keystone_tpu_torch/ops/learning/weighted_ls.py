@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
+from typing import Optional
 
 import numpy as np
 import torch
@@ -309,6 +310,7 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
     num_iter: int
     lam: float
     mixture_weight: float
+    num_features: Optional[int] = None  # pad/truncate hint, parity only
     class_chunk: int = 16  # classes per batched step (chol path)
     solve: str = "auto"  # "chol" | "pcg" | "auto": pcg when the first
     # block is wide (>= 1024, where the C per-class factorizations
@@ -604,6 +606,7 @@ class PerClassWeightedLeastSquaresEstimator(LabelEstimator):
     num_iter: int
     lam: float
     mixture_weight: float
+    num_features: Optional[int] = None  # pad/truncate hint, parity only
 
     def fit(self, data: Dataset, labels: Dataset) -> BlockLinearMapper:
         data = data.to_array_mode()

@@ -89,10 +89,12 @@ class RandomFFTFeatures(Transformer):
     composes per-branch pipelines, MnistRandomFFT.scala:28-37): one
     (num_ffts, d) sign matrix and one batched FFT per chunk of rows
     (``utils.chunks.rows_for`` of the (num_ffts, pad) intermediate a row
-    makes), written into one (n, num_ffts · pad/2) output."""
+    makes, and at most ``row_chunk``), written into one
+    (n, num_ffts · pad/2) output."""
 
     signs: Any  # (num_ffts, d)
     rectify_threshold: float = 0.0
+    row_chunk: int = 8192  # bounds the (chunk, num_ffts, pad) intermediate
 
     def __post_init__(self):
         self.signs = torch.as_tensor(self.signs)
@@ -123,7 +125,7 @@ class RandomFFTFeatures(Transformer):
 
     def apply_batch(self, ds: Dataset) -> Dataset:
         x = ds.padded()
-        rows = rows_for(self.signs.shape[0] * _pad_len(x.shape[-1]) * 4)
+        rows = min(rows_for(self.signs.shape[0] * _pad_len(x.shape[-1]) * 4), self.row_chunk)
         out = map_rows(self._features, x, rows)
         if self.rectify_threshold > 0:
             # pad rows rectify to the threshold: keep them zero

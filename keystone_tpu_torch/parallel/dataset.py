@@ -57,6 +57,16 @@ def _tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     return fn(tree)
 
 
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of a tree of (nested) tuples and dicts, in order (a
+    dict's in its key order, as ``_tree_map`` rebuilds it)."""
+    if isinstance(tree, dict):
+        tree = tuple(tree.values())
+    if isinstance(tree, tuple):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
+    return [tree]
+
+
 def _as_tensor(a: Any) -> Any:
     if isinstance(a, tuple):
         return tuple(_as_tensor(x) for x in a)
@@ -216,6 +226,7 @@ class Dataset:
         self._items = items
         self._host_blocks = host_blocks
         self._device = device
+        self._cached = False
         if arrays is not None:
             self._n = int(n) if n is not None else _leading_dim(arrays)
         elif host_blocks is not None:
@@ -434,6 +445,20 @@ class Dataset:
         """Per-example host map (items mode result)."""
         return Dataset(items=[fn(x) for x in self.items()])
 
+    def map_arrays(self, fn: Callable[[Any], Any]) -> "Dataset":
+        """Whole-batch array transform; ``fn`` must preserve the leading axis
+        and map zero pad rows to values safe to keep as padding."""
+        return Dataset(arrays=fn(self.padded()), n=self._n)
+
+    def flat_map(self, fn: Callable[[Any], Sequence[Any]]) -> "Dataset":
+        out: List[Any] = []
+        for x in self.items():
+            out.extend(fn(x))
+        return Dataset(items=out)
+
+    def filter(self, pred: Callable[[Any], bool]) -> "Dataset":
+        return Dataset(items=[x for x in self.items() if pred(x)])
+
     def zip(self, other: "Dataset") -> "Dataset":
         if self.n != other.n:
             raise ValueError(f"zip length mismatch: {self.n} vs {other.n}")
@@ -448,7 +473,12 @@ class Dataset:
         """The identity (reference: Cacher / rdd.cache): the arrays already
         live on their device, and the executor's memo keeps them. A sparse
         row matrix is cached as it is too."""
+        self._cached = True
         return self
+
+    @property
+    def is_cached(self) -> bool:
+        return self.__dict__.get("_cached", False)
 
     def _pad_to(self, pn: int) -> "Dataset":
         arrs = self.to_array_mode()._arrays

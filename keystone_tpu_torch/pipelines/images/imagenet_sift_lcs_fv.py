@@ -173,12 +173,14 @@ def build_pipeline(
     train_images = on_device(train_images, dev)
     train_labels = on_device(train_labels, dev)
     indicator_labels = ClassLabelIndicators(conf.num_classes)(train_labels)
+    num_features = 2 * 2 * conf.desc_dim * conf.vocab_size
     return (
         build_featurizer(train_images, conf, device=dev)
         .and_then(Cacher())
         .and_then(
             BlockWeightedLeastSquaresEstimator(
                 4096, 1, conf.lam, conf.mixture_weight,
+                num_features=num_features,
             ),
             train_images,
             indicator_labels,

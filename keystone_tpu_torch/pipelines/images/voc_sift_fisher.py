@@ -165,7 +165,10 @@ def build_pipeline(
         ).with_data(sampled)
 
     return _encode(pca_featurizer, fisher).and_then(
-        BlockLeastSquaresEstimator(BLOCK_SIZE, 1, conf.lam),
+        BlockLeastSquaresEstimator(
+            BLOCK_SIZE, 1, conf.lam,
+            num_features=2 * conf.desc_dim * conf.vocab_size,
+        ),
         training_data,
         training_labels,
     )

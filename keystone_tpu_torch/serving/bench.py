@@ -54,7 +54,8 @@ builds a model takes ``device=`` (``None`` means ``cuda``).
   (``--featurize``/``--featurize-only``) — the device-side featurization
   A/B on the demo conv chain and on the flagship SIFT+LCS→FV chain: the
   same chain and model served through a ``host_featurize`` gateway
-  (features made on the prep stage and staged as float32) vs a
+  (features made on the prep stage through ``featurize.jit_batch()``,
+  as the JAX rows' host path does, and staged as float32) vs a
   ``device_featurize`` gateway (raw uint8 staged; cast + featurize +
   predict in one CUDA graph per bucket, B1–B3 launching in the flagship
   chain's). Asserted: outputs allclose, device-path H2D bytes ≤ 1/3 of
@@ -223,13 +224,16 @@ def _gateway_submit(gw, timeout: float):
 
 
 def _host_hook(featurize, dev):
-    """The host path's prep-stage featurizer: one coalesced window of raw
-    uint8 images featurized eagerly (the kernels on the card) and
-    returned to the host as float32 features, which the engine stages."""
+    """The host path's prep-stage featurizer, as the JAX package's: one
+    coalesced window of raw uint8 images through ``featurize.jit_batch()``
+    (one CUDA graph per window size, captured at that size's first
+    window; eager on the CPU) and returned to the host as float32
+    features, which the engine stages."""
+    feat_jit = featurize.jit_batch(device=dev)
+
     def hook(raw):
-        batch = torch.as_tensor(np.stack([np.asarray(r, np.uint8) for r in raw]), device=dev)
-        with torch.no_grad():
-            return featurize._batch_run(batch).cpu().numpy()
+        batch = np.stack([np.asarray(r, np.uint8) for r in raw])
+        return feat_jit(batch).cpu().numpy()
 
     return hook
 
@@ -759,8 +763,8 @@ def bench_device_featurize(
     served two ways through full gateways —
 
     - **host path**: the ``host_featurize`` seam — the prep stage
-      featurizes each coalesced window and the engine stages the
-      resulting float32 features;
+      featurizes each coalesced window through ``featurize.jit_batch()``
+      and the engine stages the resulting float32 features;
     - **device path**: ``device_featurize`` — raw uint8 images stage
       into the pooled staging buffers, and cast + featurize + predict
       ride ONE CUDA graph per bucket.
@@ -850,7 +854,7 @@ def bench_flagship_featurize(
     served two ways through full gateways:
 
     - **host path**: ``host_featurize`` runs the flagship batch
-      featurize per coalesced window and ships the
+      featurize (``jit_batch``) per coalesced window and ships the
       ``(4·desc_dim·vocab,)`` float32 features;
     - **device path**: raw ``(img, img, 3)`` uint8 on the wire; cast +
       both branches + combine + predict ride ONE CUDA graph per bucket.

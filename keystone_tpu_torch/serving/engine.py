@@ -25,8 +25,11 @@ nothing drops back to eager dispatch. On CPU tensors there is no graph:
 the engine runs the chain eagerly there, as the kernels run their plain
 versions there.
 
-The kernels' wrappers count launches in Python, so a replay would count
-nothing: each graph keeps the launches its capture made
+The warm pass, capture, checking replay and every replay go through
+``workflow/cuda_graph.py`` (``capture_graph``, ``replay_graph``), the
+core ``FittedPipeline.jit_batch`` captures with too, so the two cannot
+drift. The kernels' wrappers count launches in Python, so a replay
+would count nothing: each graph keeps the launches its capture made
 (``_cuda.capture_tally``) and adds them to ``_cuda.LAUNCHES`` on every
 replay.
 
@@ -76,7 +79,6 @@ Not ported: input donation.
 
 from __future__ import annotations
 
-import dataclasses
 import logging
 import threading
 import time
@@ -85,7 +87,6 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from keystone_tpu_torch import _cuda
 from keystone_tpu_torch._device import resolve_device
 from keystone_tpu_torch.loadgen import faults
 from keystone_tpu_torch.observability import device as device_obs
@@ -93,6 +94,9 @@ from keystone_tpu_torch.observability.tracing import get_tracer
 from keystone_tpu_torch.parallel.dataset import Dataset, _leading_dim, _tree_map
 from keystone_tpu_torch.serving.metrics import ServingMetrics
 from keystone_tpu_torch.serving.pipeline import HostBufferPool, on_host, tree_leaves
+from keystone_tpu_torch.workflow import cuda_graph
+# the allocator's segments of one graph's pool (its tests reach it here)
+from keystone_tpu_torch.workflow.cuda_graph import graph_pool_bytes as _pool_bytes  # noqa: F401
 
 logger = logging.getLogger(__name__)
 
@@ -128,25 +132,6 @@ def _zip_map(fn, a: Any, b: Any) -> Any:
     if isinstance(a, tuple):
         return tuple(_zip_map(fn, x, y) for x, y in zip(a, b))
     return fn(a, b)
-
-
-@dataclasses.dataclass
-class BucketGraph:
-    """One bucket's captured CUDA graph: its static input and output
-    trees, the kernel launches one replay makes, the seconds the warm
-    pass and capture took, and the device memory its private pool
-    reserved."""
-
-    bucket: int
-    graph: Any
-    static_in: Any
-    static_out: Any
-    launches: Dict[str, int]
-    capture_s: float
-    pool_bytes: int
-    # what the capture's kernels read beside static_in (the SIFT and LCS
-    # operators, out of their bounded caches), kept for the graph's life
-    refs: List[Any] = dataclasses.field(default_factory=list)
 
 
 class CompiledPipeline:
@@ -235,7 +220,7 @@ class CompiledPipeline:
         self.name = self.metrics.register(engine=name)
         self.metrics.set_device_peaks(*device_obs.peaks_of(self.device))
         # (bucket, example spec) -> its captured graph
-        self._graphs: Dict[Any, BucketGraph] = {}
+        self._graphs: Dict[Any, cuda_graph.CapturedGraph] = {}
         # a MicroBatcher's compute thread and direct apply() callers may
         # race to capture a bucket; two captures would break the
         # <= len(buckets) compile bound
@@ -405,7 +390,7 @@ class CompiledPipeline:
         self.kernel_costs[bucket] = {k: dict(v) for k, v in counter.kernels.items()}
         self.metrics.set_cost_model(bucket, counter.model())
 
-    def _graph(self, bucket: int, staged: Any) -> BucketGraph:
+    def _graph(self, bucket: int, staged: Any) -> cuda_graph.CapturedGraph:
         key = (bucket, _row_spec(staged))
         g = self._graphs.get(key)
         if g is not None:
@@ -422,61 +407,29 @@ class CompiledPipeline:
                 g = self._graphs[key] = self._capture(bucket, staged)
             return g
 
-    def _capture(self, bucket: int, staged: Any) -> BucketGraph:
+    def _capture(self, bucket: int, staged: Any) -> cuda_graph.CapturedGraph:
         """Warm pass (counted: the bucket's cost model), capture and one
         checking replay of ``bucket``'s graph for ``staged``'s spec, on
-        the compute stream.
-        ``capture_error_mode="thread_local"``: a capture at a bucket's
-        first dispatch runs on the lane's compute thread while the other
-        stage threads copy and allocate."""
-        t0 = time.perf_counter()
-        stream = self._compute_stream
-        static_in = _tree_map(torch.zeros_like, staged)
-        with torch.cuda.stream(stream):
-            stream.wait_stream(torch.cuda.current_stream(self.device))
-            self._counted_run(bucket, static_in)
-        stream.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        refs: List[Any] = []
-        with _cuda.capture_tally(refs) as launches:
-            # its entry empties the caching allocator first
-            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
-                static_out = self._run_bucket(static_in)
-        pool_bytes = _pool_bytes(graph, self.device)
-        with torch.cuda.stream(stream):
-            graph.replay()
-        _cuda.add_launches(launches)
-        stream.synchronize()
-        self.metrics.record_trace(bucket)
-        return BucketGraph(
-            bucket, graph, static_in, static_out, dict(launches),
-            time.perf_counter() - t0, pool_bytes, refs,
+        the compute stream (``cuda_graph.capture_graph``; its
+        ``capture_error_mode="thread_local"`` lets a capture at a
+        bucket's first dispatch run on the lane's compute thread while the
+        other stage threads copy and allocate)."""
+        g = cuda_graph.capture_graph(
+            self._run_bucket, staged, self._compute_stream, self.device,
+            warm=lambda static_in: self._counted_run(bucket, static_in),
         )
+        self.metrics.record_trace(bucket)
+        return g
 
-    def _replay(self, g: BucketGraph, staged: Any, rows: int, ready) -> Any:
-        stream = self._compute_stream
-        caller = torch.cuda.current_stream(self.device)
-        with self._replay_lock, torch.cuda.stream(stream):
-            # the staged tensors were written on the copy stream (an
-            # upload, ``ready``) or on the caller's stream (a batch padded
-            # on the card)
-            stream.wait_stream(caller)
-            if ready is not None:
-                stream.wait_event(ready)
-            for src, dst in zip(tree_leaves(staged), tree_leaves(g.static_in)):
-                # the caching allocator must not hand src's memory to the
-                # next upload while this stream still reads it
-                src.record_stream(stream)
-                dst.copy_(src)
-            g.graph.replay()
-            _cuda.add_launches(g.launches)
-            valid = _tree_map(lambda a: a[:rows].clone(), g.static_out)
-            done = torch.cuda.Event()
-            done.record(stream)
-        caller.wait_event(done)
-        for a in tree_leaves(valid):
-            a.record_stream(caller)
-        return valid
+    def _replay(self, g: cuda_graph.CapturedGraph, staged: Any, rows: int, ready) -> Any:
+        """The batch's ``rows`` valid rows out of one replay of ``g`` on
+        the compute stream (``cuda_graph.replay_graph``), after ``ready``
+        (an upload's event) and the caller's stream (a batch padded on
+        the card)."""
+        with self._replay_lock:
+            return cuda_graph.replay_graph(
+                g, staged, self._compute_stream, self.device, ready, rows
+            )
 
     def release_graphs(self) -> int:
         """Drop every captured graph and its private memory pool, once no
@@ -496,9 +449,7 @@ class CompiledPipeline:
                 # replay may start between this wait and the reset
                 self._compute_stream.synchronize()
             for g in graphs:
-                g.static_in = g.static_out = None
-                g.refs.clear()
-                g.graph.reset()
+                g.release()
         return len(graphs)
 
     def hold_window(self) -> None:
@@ -531,9 +482,9 @@ class CompiledPipeline:
         pass included), the bytes its private memory pool reserved, and
         the launches of one replay."""
         return [
-            {"bucket": g.bucket, "capture_s": g.capture_s,
+            {"bucket": bucket, "capture_s": g.capture_s,
              "pool_bytes": g.pool_bytes, "launches": dict(g.launches)}
-            for g in self._graphs.values()
+            for (bucket, _), g in self._graphs.items()
         ]
 
     # -- serving entry points ----------------------------------------------
@@ -789,9 +740,7 @@ class CompiledPipeline:
                 # a graph that failed its warmup check: no replay may
                 # start between this wait and the reset
                 self._compute_stream.synchronize()
-                g.static_in = g.static_out = None
-                g.refs.clear()
-                g.graph.reset()
+                g.release()
 
     def _try_install_aot(self, store, key, meta, bucket: int, spec: Any) -> bool:
         """Install one bucket from the store: its operators, its warm
@@ -891,17 +840,6 @@ def _tree_equal(a: Any, b: Any) -> bool:
         if not torch.equal(bx, by):
             return False
     return True
-
-
-def _pool_bytes(graph: Any, device: torch.device) -> int:
-    """The bytes of ``graph``'s private memory pool: the allocator's
-    segments tagged with its pool id. (A ``memory_reserved`` delta around
-    the capture also counts what the capture's own ``empty_cache`` frees,
-    and what other threads allocate or free meanwhile.)"""
-    pool = tuple(graph.pool())
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if seg["device"] == index and tuple(seg["segment_pool_id"]) == pool)
 
 
 def _zip_cat(outs: List[Any]) -> Any:

@@ -60,7 +60,7 @@ import torch
 
 from keystone_tpu_torch.loadgen import faults
 from keystone_tpu_torch.observability.tracing import get_tracer
-from keystone_tpu_torch.parallel.dataset import _tree_map
+from keystone_tpu_torch.parallel.dataset import _tree_map, tree_leaves
 
 logger = logging.getLogger(__name__)
 
@@ -72,16 +72,6 @@ DEFAULT_DEPTH = 2
 HostFeaturize = Callable[[List[Any]], Any]
 
 _SENTINEL = object()
-
-
-def tree_leaves(tree: Any) -> List[Any]:
-    """The leaves of a tree of (nested) tuples and dicts, in order (a
-    dict's in its key order, as ``_tree_map`` rebuilds it)."""
-    if isinstance(tree, dict):
-        tree = tuple(tree.values())
-    if isinstance(tree, tuple):
-        return [leaf for t in tree for leaf in tree_leaves(t)]
-    return [tree]
 
 
 def on_host(tree: Any) -> bool:

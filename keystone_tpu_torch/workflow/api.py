@@ -9,16 +9,21 @@ Counterpart of ``keystone_tpu/workflow/api.py``:
   default ``apply_batch`` (for small user nodes) maps ``apply`` with
   ``vmap`` in array mode and on the host in items mode.
 - ``Pipeline.fit()`` executes estimator fits (memoized by structural prefix
-  across pipelines) and returns a ``FittedPipeline``. PyTorch runs eagerly,
-  so there is no ``jit``: ``FittedPipeline._batch_run`` is the batched
-  apply path the serving engine dispatches. A ``FittedPipeline`` is saved
-  to a file and loaded, onto a device of the loader's choosing, in
-  another process.
+  across pipelines) and returns a ``FittedPipeline``.
+  ``FittedPipeline.jit_batch()`` runs the whole batched apply path
+  (``_batch_run``, the path the serving engine dispatches too) as one
+  CUDA graph per batch shape, and ``jit()`` the single-example path as
+  one graph per example shape: the counterpart of the JAX package's one
+  XLA program per shape (``workflow/cuda_graph.py``, whose capture core
+  the engine shares). On the CPU they run the path eagerly. A
+  ``FittedPipeline`` is saved to a file and loaded, onto a device of the
+  loader's choosing, in another process.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 from typing import Any, Callable, Dict, List, Sequence, Union
 
@@ -237,6 +242,9 @@ class Pipeline(Chainable):
         g, sink = g.add_sink(gather_node)
         return Pipeline(GraphExecutor(g), src, sink)
 
+    def to_dot(self) -> str:
+        return self._graph.to_dot()
+
 
 class PipelineResult:
     """Lazily executed sink value."""
@@ -267,7 +275,11 @@ class PipelineDataset(PipelineResult):
 
 
 class PipelineDatum(PipelineResult):
-    pass
+    @staticmethod
+    def of(datum: Any) -> "PipelineDatum":
+        g, nid = EMPTY_GRAPH.add_node(DatumOperator(datum), ())
+        g, sink = g.add_sink(nid)
+        return PipelineDatum(GraphExecutor(g), sink)
 
 
 class Transformer(Chainable, TransformerOperator):
@@ -454,8 +466,9 @@ class Identity(Transformer):
 
 class FittedPipeline:
     """A train-free, transformer-only pipeline. ``apply`` interprets the
-    graph node by node; ``compiled()`` puts it behind the bucketed serving
-    engine; ``save`` and ``load`` carry it to another process."""
+    graph node by node; ``jit()`` and ``jit_batch()`` replay it as CUDA
+    graphs; ``compiled()`` puts it behind the bucketed serving engine;
+    ``save`` and ``load`` carry it to another process."""
 
     def __init__(self, graph: Graph, source: SourceId, sink: SinkId):
         self.graph = graph
@@ -465,13 +478,23 @@ class FittedPipeline:
             gid for gid in linearize(graph) if isinstance(gid, NodeId)
         ]
 
-    def _run(self, feed: Any, batch: bool) -> Any:
+    def _run(self, feed: Any, batch: bool, arrays_only: bool = False) -> Any:
+        """Every node in topological order; with ``arrays_only``, a node
+        whose batched output is an items-mode dataset (host-side work per
+        example) raises."""
         values: Dict[Any, Any] = {self.source: feed}
         for n in self._topo:
             op = self.graph.operators[n]
             ins = [values[d] for d in self.graph.dependencies[n]]
             if batch:
                 values[n] = op.batch_transform(ins)
+                out = values[n]
+                if arrays_only and isinstance(out, Dataset) and not out.is_array:
+                    raise TypeError(
+                        f"jit_batch: node {n} ({op.label}) runs in items mode, "
+                        "host-side work per example that one captured program "
+                        "cannot hold; use apply for this pipeline"
+                    )
             else:
                 values[n] = op.single_transform(ins)
         return values[self.graph.sink_dependencies[self.sink]]
@@ -485,13 +508,54 @@ class FittedPipeline:
 
     __call__ = apply
 
-    def _batch_run(self, arr: Any) -> Any:
+    def _batch_run(self, arr: Any, arrays_only: bool = False) -> Any:
         """The whole-batch apply path: tensor(s) in, tensor(s) out — the
-        surface the serving engine dispatches. Rows past the valid count
-        are zeros by the Dataset pad discipline; callers slice outputs back
-        to their valid rows."""
-        out = self._run(Dataset.from_array(arr), batch=True)
+        surface the serving engine dispatches and ``jit_batch`` captures
+        (``arrays_only``: an items-mode node raises). Rows past the valid
+        count are zeros by the Dataset pad discipline; callers slice
+        outputs back to their valid rows."""
+        out = self._run(Dataset.from_array(arr), batch=True, arrays_only=arrays_only)
         return out.padded() if isinstance(out, Dataset) else out
+
+    def jit(self, device=None) -> Callable[[Any], Any]:
+        """The single-example apply path as one CUDA graph per example
+        shape and dtype (``jit_batch``'s mechanism over ``apply`` of one
+        example). ``device=None`` means ``cuda``, raising without it; on
+        the CPU the path runs eagerly."""
+        from keystone_tpu_torch._device import resolve_device
+        from keystone_tpu_torch.workflow.cuda_graph import GraphedFunction
+
+        return GraphedFunction(lambda x: self._run(x, batch=False), resolve_device(device))
+
+    def jit_batch(self, donate: bool = False, device=None) -> Callable[[Any], Any]:
+        """The whole batched apply path (``_batch_run``) as one CUDA graph
+        per distinct input spec (shape and dtype of each leaf): the
+        counterpart of the JAX package's one XLA program per batch shape.
+        The callable takes a tensor (tuple) or numpy array(s), moved to
+        the device, and returns the padded-batch output. A new spec is
+        captured once (a warm eager pass on a zero input, the capture, a
+        checking replay); every later call copies its input into the
+        graph's static input, replays, and returns a clone of the static
+        output. A capture or replay that fails raises: nothing falls back
+        to eager dispatch on the card. On the CPU the path runs eagerly.
+
+        Requires an array-mode transformer chain: a node that runs in
+        items mode (host-side work per example, e.g. a string tokenizer)
+        raises ``TypeError``; use ``apply`` for such pipelines. Every new
+        batch size captures anew; for arbitrary request sizes use
+        ``compiled()`` (bucketed, bounded captures).
+
+        ``donate`` is taken for parity with the JAX package and changes
+        nothing: the graph reads its own static input, into which the
+        caller's batch is copied either way, and the caller's tensor is
+        never consumed. ``device=None`` means ``cuda``, raising without
+        it."""
+        from keystone_tpu_torch._device import resolve_device
+        from keystone_tpu_torch.workflow.cuda_graph import GraphedFunction
+
+        return GraphedFunction(
+            functools.partial(self._batch_run, arrays_only=True), resolve_device(device)
+        )
 
     def compiled(self, buckets=None, *, featurize=None, device=None,
                  metrics=None, name=None, **kwargs):

@@ -6,7 +6,8 @@ and goodput_mfu side by side with JAX's on the same seeded model, their
 seeded fields equal), and the microbatch, gateway, swap, pipeline
 overlap and lifecycle rows print the keys of JAX's source; the in-row
 checks raise on a forced failure (goodput's efficiency, the flagship
-row's missing cost model, the overlap row's 1.2x floor);
+row's missing cost model, the overlap row's 1.2x floor); the featurize
+rows' host path runs ``jit_batch`` and their output and H2D checks hold;
 the shard row raises on one device; ``serve-bench --help`` offers JAX's
 options; and the entry runs ``serve-bench`` (exit 0, rows and the
 kernels' launch line), no longer answering exit 2. Small shapes: the
@@ -18,12 +19,18 @@ import io
 import json
 import os
 
+import numpy as np
 import pytest
 
 from keystone_tpu.serving import bench as jbench
 from keystone_tpu_torch import __main__ as cli
 from keystone_tpu_torch.serving import bench as tbench
 from keystone_tpu_torch.serving.engine import CompiledPipeline
+from keystone_tpu_torch.serving.featurize import (
+    build_featurize_pipeline,
+    build_flagship_featurize_pipeline,
+)
+from keystone_tpu_torch.workflow.api import FittedPipeline
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 D, HIDDEN, DEPTH, BUCKETS = 32, 32, 2, (4, 8)
@@ -213,3 +220,40 @@ def test_the_entry_runs_serve_bench():
     assert lines[-1] == {"kernel_launches": {"sift_bin_sample": 0, "plane_sandwich": 0,
                                              "fisher_vector_stats": 0}}
     assert "not ported" not in buf.getvalue()
+
+
+@pytest.mark.parametrize("row", ["serving_device_featurize", "serving_flagship_featurize"])
+def test_featurize_rows_host_path_is_jit_batch(row, monkeypatch):
+    """The two featurize rows' host path featurizes each window through
+    ``featurize.jit_batch()``, as the JAX rows' does, and their output and
+    H2D checks hold through it on the CPU, at the rows' own geometry (the
+    rate check compares two paths that both compute on the CPU here; on
+    the card it is phase 19's)."""
+    made = []
+    jit_batch = FittedPipeline.jit_batch
+
+    def spy(self, *a, **k):
+        made.append(jit_batch(self, *a, **k))
+        return made[-1]
+
+    monkeypatch.setattr(FittedPipeline, "jit_batch", spy)
+    if row == "serving_device_featurize":
+        img, buckets = 16, (8, 32)
+        featurize, feat_d = build_featurize_pipeline(img=img, device="cpu")
+    else:
+        img, buckets = 48, (2, 4)
+        featurize, feat_d = build_flagship_featurize_pipeline(
+            img=img, desc_dim=64, vocab=32, device="cpu")
+    model = tbench.build_pipeline(d=feat_d, hidden=16, depth=2, device="cpu")
+    rng = np.random.default_rng(11)
+    check = list(rng.integers(0, 256, (6, img, img, 3), dtype=np.uint8))
+    raws = list(rng.integers(0, 256, (8, img, img, 3), dtype=np.uint8))
+    host, dev_, maxdiff, _ = tbench._featurize_ab(
+        featurize, model, feat_d, img, buckets, raws, check, 2, (row + "-host", row + "-device"),
+        tbench.resolve_device("cpu"), 120,
+    )
+    assert len(made) == 1 and made[0].device.type == "cpu"
+    tbench._assert_allclose(host, dev_, row)
+    assert maxdiff <= 1e-4
+    assert host["bytes_per_row"] / dev_["bytes_per_row"] >= 3.0
+    assert host["rate"] > 0 and dev_["rate"] > 0
