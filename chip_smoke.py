@@ -316,7 +316,13 @@ split by thread and the garbage collector's pauses, ``lane_split``),
 ``serve-gateway``'s start split) and ``--featurize-runs N``
 (``serving_device_featurize``, its host path ``jit_batch``). ``--autoscale-runs N`` runs phase 17d's
 drill N times, the autoscaler kept 15 s past each retire, with each
-run's timeline.
+run's timeline. ``--featurize-processes N`` runs phase 19's featurize
+process (``serve-bench --featurize-only``: both featurize rows) N times,
+each in a fresh process under the gateway split (``lane_split`` by
+lane: each measured pass's req/s, rows a window, each step's ms a
+window from the batching wait to the window's cycle, each thread's
+CPU ms a window and the collector's pauses), and counts the processes
+that exited 0 (ROADMAP C11).
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then, last, the result line ``{"ok": true, "device": {...}}``.
@@ -6306,80 +6312,158 @@ def _thread_cpu_s(thread):
 
 
 @contextlib.contextmanager
-def lane_split():
+def lane_split(by_lane=False):
     """How a lane's host time splits, by thread, for every ``MicroBatcher``
-    made inside the block (one record per mode, ``serial`` or
-    ``pipelined``, summed over its batchers). Per window: the wall and CPU
-    milliseconds of the prep's assembly (``_assemble``: the host featurize,
-    its fixed wait included), of the serial dispatch (``_dispatch``, the
-    assembly inside it) and of each pipelined stage; ``*_gil_wait_ms`` is
-    wall less CPU less the featurize's fixed wait, the time the step sat
-    off the CPU waiting (for the interpreter lock, a queue or the card).
-    Over the batcher's life: each thread's CPU seconds (the client is the
-    thread that made and closed the batcher; ``coalesce`` its dispatcher;
-    the four stage threads) against the wall seconds, and the cyclic
-    garbage collector's pauses of generations 1 and 2 while the batcher
-    lived (``gc_ms``: every thread stops for them). Only the wrappers it
-    puts on the classes cost anything (two clock reads a step)."""
+    made inside the block: one record per mode, ``serial`` or
+    ``pipelined``, summed over its batchers, or with ``by_lane`` one per
+    lane, named as its engine (a gateway's lanes are ``<gateway>-lane<i>``).
+    Per window: the wall and CPU milliseconds of the prep's assembly
+    (``_assemble``: the host featurize, its fixed wait included), of the
+    serial dispatch (``_dispatch``, the assembly inside it) and of each
+    pipelined stage, and inside the deliver stage of its copy to the host
+    (``d2h``) and of the requests' completion callbacks (``callbacks``:
+    under a gateway, the pool's and the admission's chain);
+    ``*_gil_wait_ms`` is wall less CPU less the featurize's fixed wait, the
+    time the step sat off the CPU waiting (for the interpreter lock, a
+    queue or the card). Over the batcher's life: each thread's CPU seconds
+    (the client is the thread that made and closed the batcher;
+    ``coalesce`` its dispatcher; the four stage threads) against the wall
+    seconds, and the cyclic garbage collector's pauses of generations 1
+    and 2 while the batcher lived (``gc_ms``: every thread stops for them).
+
+    Under a ``Gateway`` the block also records, in ``split["passes"]``,
+    every client pass of the bench rows (``bench._clients``): its
+    gateway, requests, wall seconds and requests/s, the lane's windows in
+    it, the CPU milliseconds per window of each of the gateway's threads
+    (the client threads, the admission router, the coalesce thread and
+    the four stage threads), and every collection of the cyclic collector
+    inside it (generation, milliseconds, the objects it collected, as
+    ``gc.callbacks`` reports them). Only the wrappers it puts on the
+    classes cost anything: two clock reads a step, a window's callbacks
+    and a client's request."""
     import gc
 
-    from keystone_tpu_torch.serving import batching, pipeline
+    from keystone_tpu_torch.gateway import admission
+    from keystone_tpu_torch.serving import batching, bench, pipeline
 
     split = {}
     steps = {}
     patched = []
     current = [None]
+    collections = []  # (start, generation, ms, collected, uncollectable)
     gc_started = [0.0]
+    admissions = {}  # gateway name -> AdmissionController
+    tls = threading.local()
 
-    def acc(mode, label, wall, cpu):
-        rec = steps.setdefault(mode, {}).setdefault(label, [0.0, 0.0, 0, 0.0])
+    def acc(key, label, wall, cpu):
+        rec = steps.setdefault(key, {}).setdefault(label, [0.0, 0.0, 0, 0.0])
         rec[0] += wall
         rec[1] += cpu
         rec[2] += 1
         rec[3] = max(rec[3], wall)
 
     def on_gc(phase, info):
+        now = time.perf_counter()
         if phase == "start":
-            gc_started[0] = time.perf_counter()
-        elif current[0] is not None and info["generation"] >= 1:
+            gc_started[0] = now
+            return
+        ms = (now - gc_started[0]) * 1e3
+        collections.append((gc_started[0], info["generation"], ms, info["collected"],
+                            info["uncollectable"]))
+        if not by_lane and current[0] is not None and info["generation"] >= 1:
             split.setdefault(current[0], {"wall_s": 0.0, "cpu_s": {}}).setdefault("gc_ms", []).append(
-                (info["generation"], round((time.perf_counter() - gc_started[0]) * 1e3, 1)))
+                (info["generation"], round(ms, 1)))
 
-    def timed(owner, name, label, mode_of):
+    def timed(owner, name, label, key_of):
         orig = getattr(owner, name)
 
         def wrapper(self, *a, **k):
+            outer = getattr(tls, "key", None)
+            tls.key = key = key_of(self) if key_of is not None else outer
             w0, c0 = time.perf_counter(), time.thread_time()
             try:
                 return orig(self, *a, **k)
             finally:
-                acc(mode_of(self), label, time.perf_counter() - w0, time.thread_time() - c0)
+                if key is not None:
+                    acc(key, label, time.perf_counter() - w0, time.thread_time() - c0)
+                tls.key = outer
 
         patched.append((owner, name, orig))
         setattr(owner, name, wrapper)
 
-    def batcher_mode(mb):
+    def batcher_key(mb):
+        if by_lane:
+            return mb.engine.name
         return "pipelined" if mb.pipeline_depth else "serial"
 
+    def pipeline_key(pipe):
+        return pipe.name if by_lane else "pipelined"
+
     for stage in pipeline.LanePipeline.STAGES:
-        timed(pipeline.LanePipeline, f"_{stage}", stage, lambda self: "pipelined")
-    timed(batching.MicroBatcher, "_assemble", "assemble", batcher_mode)
-    timed(batching.MicroBatcher, "_dispatch", "dispatch", batcher_mode)
+        timed(pipeline.LanePipeline, f"_{stage}", stage, pipeline_key)
+    timed(batching.MicroBatcher, "_assemble", "assemble", batcher_key)
+    timed(batching.MicroBatcher, "_dispatch", "dispatch", batcher_key)
+    # inside a window's delivery (its key is the stage's, on this thread)
+    to_numpy = pipeline._to_numpy
+
+    def d2h(a):
+        w0, c0 = time.perf_counter(), time.thread_time()
+        try:
+            return to_numpy(a)
+        finally:
+            if getattr(tls, "key", None) is not None:
+                acc(tls.key, "d2h", time.perf_counter() - w0, time.thread_time() - c0)
+
+    patched.append((pipeline, "_to_numpy", to_numpy))
+    pipeline._to_numpy = d2h
+    # a request's callbacks, counted once: the outermost future's (the
+    # lane's), whose callbacks settle the pool's and the caller's
+    invoke = pipeline.LaneFuture._invoke_callbacks
+
+    def callbacks(fut):
+        if getattr(tls, "in_callbacks", False) or getattr(tls, "key", None) is None:
+            return invoke(fut)
+        tls.in_callbacks = True
+        w0, c0 = time.perf_counter(), time.thread_time()
+        try:
+            return invoke(fut)
+        finally:
+            tls.in_callbacks = False
+            acc(tls.key, "callbacks", time.perf_counter() - w0, time.thread_time() - c0)
+
+    patched.append((pipeline.LaneFuture, "_invoke_callbacks", invoke))
+    pipeline.LaneFuture._invoke_callbacks = callbacks
+    # each window: its first request's enqueue to its take (the batching
+    # wait, a full window's or the deadline's), and the previous window's
+    # first enqueue to this one's (the window's cycle, the whole trip
+    # through the plane and back to the clients)
+    started = {}
+    take_batch = batching.MicroBatcher._take_batch
+
+    def take_wrapper(self):
+        batch, engine = take_batch(self)
+        if batch:
+            key, first = batcher_key(self), batch[0][2]
+            acc(key, "batching_wait", time.perf_counter() - first, 0.0)
+            if key in started:
+                acc(key, "cycle", first - started[key], 0.0)
+            started[key] = first
+        return batch, engine
+
+    patched.append((batching.MicroBatcher, "_take_batch", take_batch))
+    batching.MicroBatcher._take_batch = take_wrapper
     init, close = batching.MicroBatcher.__init__, batching.MicroBatcher.close
 
     def init_wrapper(self, *a, **k):
         init(self, *a, **k)
-        current[0] = batcher_mode(self)
+        current[0] = batcher_key(self)
         self._split_start = (time.perf_counter(), time.thread_time())
 
     def close_wrapper(self, *a, **k):
         wall0, client0 = self._split_start
-        threads = {"coalesce": self._worker}
-        if self._pipeline is not None:
-            threads.update(zip(pipeline.LanePipeline.STAGES, self._pipeline._threads))
-        cpu = {name: _thread_cpu_s(t) for name, t in threads.items() if t.is_alive()}
+        cpu = {name: _thread_cpu_s(t) for name, t in _lane_threads(self).items() if t.is_alive()}
         cpu["client"] = time.thread_time() - client0
-        rec = split.setdefault(batcher_mode(self), {"wall_s": 0.0, "cpu_s": {}})
+        rec = split.setdefault(batcher_key(self), {"wall_s": 0.0, "cpu_s": {}})
         rec["wall_s"] += time.perf_counter() - wall0
         for name, s in cpu.items():
             rec["cpu_s"][name] = rec["cpu_s"].get(name, 0.0) + s
@@ -6391,6 +6475,70 @@ def lane_split():
     patched += [(batching.MicroBatcher, "__init__", init), (batching.MicroBatcher, "close", close)]
     batching.MicroBatcher.__init__ = init_wrapper
     batching.MicroBatcher.close = close_wrapper
+
+    admission_init = admission.AdmissionController.__init__
+
+    def admission_wrapper(self, *a, **k):
+        admission_init(self, *a, **k)
+        admissions[self.name] = self
+
+    patched.append((admission.AdmissionController, "__init__", admission_init))
+    admission.AdmissionController.__init__ = admission_wrapper
+    clients = bench._clients
+
+    def clients_wrapper(submit, inputs, n_threads, what):
+        ctrl = admissions.get(what)
+        if ctrl is None:
+            return clients(submit, inputs, n_threads, what)
+        lanes = [lane.batcher for lane in ctrl.pool.lanes]
+        threads = {"router": ctrl._router}
+        for mb in lanes:
+            threads.update(_lane_threads(mb))
+        client_cpu = [0.0]
+        lock = threading.Lock()
+
+        def timed_submit(x):
+            c0 = time.thread_time()
+            try:
+                return submit(x)
+            finally:
+                with lock:
+                    client_cpu[0] += time.thread_time() - c0
+
+        def windows():
+            return sum(steps.get(batcher_key(mb), {}).get("dispatch", [0, 0, 0])[2] for mb in lanes)
+
+        cpu0 = {name: _thread_cpu_s(t) for name, t in threads.items()}
+        keys = [batcher_key(mb) for mb in lanes]
+        for key in keys:
+            started.pop(key, None)  # a pass's first window has no cycle
+        steps0 = {(key, label): rec[0] for key in keys for label, rec in steps.get(key, {}).items()}
+        n0, k0 = windows(), len(collections)
+        t0 = time.perf_counter()
+        try:
+            return clients(timed_submit, inputs, n_threads, what)
+        finally:
+            wall = time.perf_counter() - t0
+            n = max(windows() - n0, 1)
+            cpu = {name: (_thread_cpu_s(t) - cpu0[name]) / n * 1e3 for name, t in threads.items()}
+            cpu["clients"] = client_cpu[0] / n * 1e3
+            gcs = [c for c in collections[k0:] if c[0] >= t0]
+            steps_ms = {}
+            for key in keys:
+                for label, rec in steps.get(key, {}).items():
+                    steps_ms[label] = steps_ms.get(label, 0.0) + rec[0] - steps0.get((key, label), 0.0)
+            split.setdefault("passes", []).append({
+                "gateway": what, "requests": len(inputs), "s": round(wall, 4),
+                "rate": round(len(inputs) / wall, 1), "windows": n,
+                "steps_ms_per_window": {k: round(v / n * 1e3, 3) for k, v in steps_ms.items()},
+                "cpu_ms_per_window": {k: round(v, 3) for k, v in cpu.items()},
+                "gc": [(g, round(ms, 2), collected, uncollectable)
+                       for _, g, ms, collected, uncollectable in gcs if g >= 1],
+                "gc0": [sum(1 for c in gcs if c[1] == 0), round(sum(c[2] for c in gcs if c[1] == 0), 2)],
+            })
+
+    patched.append((bench, "_clients", clients))
+    bench._clients = clients_wrapper
     gc.callbacks.append(on_gc)
     try:
         yield split
@@ -6398,9 +6546,9 @@ def lane_split():
         gc.callbacks.remove(on_gc)
         for owner, name, orig in reversed(patched):
             setattr(owner, name, orig)
-        for mode, labels in steps.items():
-            rec = split.setdefault(mode, {"wall_s": 0.0, "cpu_s": {}})
-            windows = labels["assemble"][2]
+        for key, labels in steps.items():
+            rec = split.setdefault(key, {"wall_s": 0.0, "cpu_s": {}})
+            windows = labels["assemble"][2] if "assemble" in labels else labels["dispatch"][2]
             rec["windows"] = windows
             for label, (wall, cpu, n, most) in labels.items():
                 rec[f"{label}_ms"] = round(wall / windows * 1e3, 3)
@@ -6408,6 +6556,15 @@ def lane_split():
                 rec[f"{label}_max_ms"] = round(most * 1e3, 3)
             rec["wall_s"] = round(rec["wall_s"], 4)
             rec["cpu_s"] = {k: round(v, 4) for k, v in rec["cpu_s"].items()}
+
+
+def _lane_threads(mb):
+    """A batcher's threads by role: its coalesce thread and, pipelined,
+    its four stage threads."""
+    threads = {"coalesce": mb._worker}
+    if mb._pipeline is not None:
+        threads.update(zip(type(mb._pipeline).STAGES, mb._pipeline._threads))
+    return threads
 
 
 class _ListeningTee:
@@ -6540,6 +6697,101 @@ def featurize_runs(n, dev=None):
             outcome = f"failed: {e}"
         log(f"featurize run {i + 1}: {outcome} on {smi}")
     log(json.dumps({"featurize_runs": n, "passed": passed, "card": smi}))
+    return passed
+
+
+# seconds a fresh ``--featurize-process`` child may take (its import,
+# the first child's kernel build and both featurize rows)
+FEATURIZE_PROCESS_TIMEOUT_S = 600
+
+
+def featurize_process(aot):
+    """``python3 chip_smoke.py --featurize-process AOT``: one fresh process
+    of ``serve-bench --featurize-only --aot-cache AOT`` (phase 19's
+    featurize process: both featurize rows) inside ``lane_split`` by lane;
+    prints the rows, the launch line and then the split as one JSON line
+    ``{"lane_split": ...}``, and exits as the rows did (1 if a check
+    raised)."""
+    from keystone_tpu_torch import __main__ as cli
+
+    rc = 1
+    with lane_split(by_lane=True) as split:
+        try:
+            rc = cli.main(["serve-bench", "--featurize-only", "--aot-cache", aot])
+        except RuntimeError as e:
+            print(f"featurize process: {e!r}", file=sys.stderr, flush=True)
+    print(json.dumps({"lane_split": split}), flush=True)
+    sys.exit(rc)
+
+
+def _lane_summary(split, gateway):
+    """One gateway's line of a ``--featurize-process`` split: its measured
+    passes (the row's 384-request ones)."""
+    passes = [p for p in split.get("passes", []) if p["gateway"] == gateway and p["requests"] >= 384]
+    return {
+        "rates": [p["rate"] for p in passes],
+        "window_rows": [round(p["requests"] / p["windows"], 2) for p in passes],
+        "steps_ms_per_window": [p["steps_ms_per_window"] for p in passes],
+        "cpu_ms_per_window": [p["cpu_ms_per_window"] for p in passes],
+        "gc": [p["gc"] for p in passes],
+        "gc0": [p["gc0"] for p in passes],
+    }
+
+
+def featurize_processes(n):
+    """``python3 chip_smoke.py --featurize-processes N``: phase 19's
+    featurize process (``serve-bench --featurize-only``, both featurize
+    rows at JAX's defaults, one AOT store) N times, each in a fresh
+    ``--featurize-process`` child that records the gateway split
+    (``lane_split(by_lane=True)``); prints each run's exit code, both
+    rows' host and device ex/s and ``speedup_vs_host``, and for each lane
+    of the ``serving_device_featurize`` row its measured passes (req/s,
+    rows a window, each step's ms a window: the batching wait, prep,
+    upload, compute, deliver with its copy to the host and the requests'
+    callbacks, the window's cycle; each thread's CPU ms a window;
+    the collector's gen-1/2 pauses with the objects they collected,
+    gen-0's count and ms); then the count that exited 0 and the spread. Each child's whole output goes to
+    ``chiprun_out/featurize_processes/``. Not a phase: the rows' pass rate
+    on the card in fresh processes (ROADMAP C11). On the card only (the
+    children run on ``cuda``); the split rehearses on the CPU inside
+    ``lane_split(by_lane=True)`` around ``bench.bench_device_featurize(...,
+    device="cpu")``."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    aot = os.path.join(ROOT, "tmp", "featurize_processes_aot")
+    out = os.path.join(ROOT, "chiprun_out", "featurize_processes")
+    shutil.rmtree(aot, ignore_errors=True)
+    os.makedirs(out, exist_ok=True)
+    runs = []
+    try:
+        for i in range(n):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--featurize-process", aot],
+                                  capture_output=True, text=True, timeout=FEATURIZE_PROCESS_TIMEOUT_S,
+                                  cwd=ROOT)
+            with open(os.path.join(out, f"run{i + 1}.log"), "w") as f:
+                f.write(proc.stdout + proc.stderr)
+            lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+            rows = {r["metric"]: r for r in lines if "metric" in r}
+            split = next((r["lane_split"] for r in lines if "lane_split" in r), {})
+            run = {"rc": proc.returncode, "s": round(time.perf_counter() - t0, 1)}
+            for metric, row in rows.items():
+                run[metric] = [row["host_examples_per_sec"], row["device_examples_per_sec"],
+                               row["speedup_vs_host"]]
+            if proc.returncode:
+                run["error"] = proc.stderr.strip().splitlines()[-1:] or ["(no stderr)"]
+            runs.append(run)
+            log(f"featurize process {i + 1}: {json.dumps(run)} on {smi}")
+            for side in ("host", "device"):
+                log(f"featurize process {i + 1} {side} lane: "
+                    f"{json.dumps(_lane_summary(split, f'bench-feat-{side}'))}")
+    finally:
+        shutil.rmtree(aot, ignore_errors=True)
+    passed = sum(r["rc"] == 0 for r in runs)
+    speedups = [r["serving_device_featurize"][2] for r in runs if "serving_device_featurize" in r]
+    log(json.dumps({"featurize_processes": n, "passed": passed,
+                    "device_row_speedup": [min(speedups, default=None), max(speedups, default=None)],
+                    "card": smi}))
     return passed
 
 
@@ -6798,5 +7050,9 @@ if __name__ == "__main__":
         autoscale_runs(int(sys.argv[2]))
     elif sys.argv[1:2] == ["--featurize-runs"]:
         featurize_runs(int(sys.argv[2]))
+    elif sys.argv[1:2] == ["--featurize-processes"]:
+        featurize_processes(int(sys.argv[2]))
+    elif sys.argv[1:2] == ["--featurize-process"]:
+        featurize_process(sys.argv[2])
     else:
         main()
