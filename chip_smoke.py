@@ -306,7 +306,24 @@ Phases, in order; any failure exits non-zero:
    bar of eager ``_batch_run``, the 37 rows against the first 37 at 64,
    top-5 on phase 4's head equal to the engine's, ``jit()`` on one
    image, a replay at 64 timed beside the engine's and beside eager, and
-   a chain with an items-mode node raising on the card.
+   a chain with an items-mode node raising on the card;
+21. the data-parallel layer (``parallel/{mesh,runtime,virtual}.py``):
+   ``torch.cuda.device_count()`` processes, one card each, joined by NCCL
+   through ``parallel.virtual.launch`` (the parent's cache emptied
+   first). Each builds only its own rows of TIMIT at its published widths
+   (440 → 40 x 4,096 cosines = 163,840 features, 147 classes) on phase
+   11d's 32,768 seeded frames, each row from its global index, and fits
+   ``BlockLeastSquaresEstimator(4096)`` on its shard in device memory (2
+   sweeps) and from host blocks (1 sweep): W gathered and identical on
+   every process, the training accuracy over every shard; rank 0 then
+   fits the unsharded rows (after the sharded matrix is freed) and W must
+   equal it bit for bit at one process (an ``all_reduce`` over one rank
+   changes no bytes), within rtol 2e-4 / atol 2e-5 at more. Then
+   ``qr_q`` at phase 13's 1,048,576 x 1,024 on sharded rows and
+   ``device_shuffle`` at the world size. Prints the world size, each
+   fit's seconds, the fits' ``all_reduce`` calls and bytes, and one
+   block's ``all_reduce`` timed by CUDA events. ``python3 chip_smoke.py
+   --data-parallel`` runs this phase alone.
 
 Three options run one bench row N times in this process, each run's row
 or the check it failed, then the count that passed (not phases):
@@ -3979,17 +3996,32 @@ class ClientProcess:
             return json.load(f)
 
 
+GET_RESETS = []  # (url, error) of every reset GET that was read again
+
+
 def http_get(url, timeout=30, accept_errors=False):
+    """One GET: (status, body). A read of this script's own (a scrape, a
+    status page) that the peer resets before its answer is logged and
+    sent once more: a server that is gone still fails the second one,
+    and what the phases check is the body. Clients' requests are
+    counted by their own processes, and no POST is sent again."""
     import urllib.error
     import urllib.request
 
-    try:
-        with urllib.request.urlopen(url, timeout=timeout) as r:
-            return r.status, r.read()
-    except urllib.error.HTTPError as e:
-        if not accept_errors:
-            raise
-        return e.code, e.read()
+    for attempt in (0, 1):
+        try:
+            with urllib.request.urlopen(url, timeout=timeout) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            if not accept_errors:
+                raise
+            return e.code, e.read()
+        except ConnectionResetError as e:
+            if attempt:
+                raise
+            GET_RESETS.append((url, repr(e)))
+            log(f"GET {url} reset before its answer ({e!r}); reading it once more")
+            time.sleep(0.2)
 
 
 def http_post(url, doc, timeout=120):
@@ -5094,8 +5126,9 @@ def fleet_and_zoo(dev, smi, img=IMG, seconds=P15_SECONDS, in_flight=P15_IN_FLIGH
 # bodies are float32 JSON, ~4.2 MB a 256² image, which the replaying
 # process encodes at ~0.3 s apiece on one CPU core (and the server
 # decodes at ~0.2 s), so a few per second is what one Python process can
-# offer
-P16A_IN_FLIGHT, P16A_RECORD_S, P16A_POOL, P16A_RATE = 8, 10.0, 16, 2.5
+# offer; 12 s of recording (10 before phase 21: one run on the card
+# recorded 104 POSTs in 10 s, short of the trace's 108)
+P16A_IN_FLIGHT, P16A_RECORD_S, P16A_POOL, P16A_RATE = 8, 12.0, 16, 2.5
 # the replayed trace: this many of the recording's POSTs, after the
 # clients' first ones, which they all send at once; the fault comes late
 # and lasts long enough that each window (before, during, after) holds
@@ -5295,6 +5328,12 @@ def rollout_drill(dev, smi, root, width=P16B_WIDTH, refit=P16B_REFIT, loads=P16B
         while rolled is None and (ended is None or time.perf_counter() - ended < settle_s):
             st = json.loads(http_get(url + "/lifecyclez")[1])["models"]["default"]
             now = round(time.perf_counter() - t0, 3)
+            if (st["promotions"] >= 1 and st["state"] not in ("canary", "promoted")
+                    and all(s != "promoted" for s, _ in seen)):
+                # the controller's own record: its promotion counter moves
+                # at the promoted transition, which the next candidate's
+                # stages can follow within one poll interval
+                seen.append(("promoted", now))
             if not seen or seen[-1][0] != st["state"]:
                 seen.append((st["state"], now))
             if promoted is None and st["promotions"] >= 1:
@@ -5598,10 +5637,13 @@ P17_UP_S = 240.0  # a start's bound (nvcc included when cold)
 # step reached the router 10–18 s late, near one replica's capacity; the
 # policy reads latency alone, two replicas held that load at a p99 of
 # 240–380 ms, and a scale-down while it lasted left one replica under it,
-# which scaled straight back up. A 20 s step is served before two
-# replicas read cold, and a scale-down takes 10 cold ticks.
+# which scaled straight back up. A scale-down takes 10 cold ticks. A 20 s
+# step ended before the second replica (decided about 16 s in, up 9 s
+# later) had load to take: it served 2 requests in one run and none in
+# another, where the scale-down retired it first; a 30 s step lasts past
+# its start, and ends before 10 cold ticks can pass with two replicas.
 P17_SLO_MS = 1000
-P17_RATE_HIGH, P17_HIGH_S, P17_RATE_LOW, P17_LOW_S = 24, 20, 2, 20
+P17_RATE_HIGH, P17_HIGH_S, P17_RATE_LOW, P17_LOW_S = 24, 30, 2, 20
 P17_POLICY = ["--interval", "1", "--up-consecutive", "2", "--up-cooldown", "5",
               "--down-consecutive", "10", "--down-cooldown", "10", "--slo-fast-window", "10",
               "--slo-sample-interval", "1"]
@@ -5931,7 +5973,14 @@ def autoscale_drill(dev, smi, root, gateway_dir, img=IMG, rate_high=P17_RATE_HIG
         deadline = time.perf_counter() + 60
         served2 = 0
         while time.perf_counter() < deadline and served2 == 0:
-            served2 = requests_ok(second["url"])
+            try:
+                served2 = requests_ok(second["url"])
+            except OSError as e:  # retired or dead before it served
+                events = [(round(ev["t"] - t0, 1), ev.get("action", ev["event"]), ev.get("reason"),
+                           ev.get("offered_rps"), ev.get("running")) for ev in stamped_events()]
+                raise AssertionError(f"17d: the second replica stopped answering before it "
+                                     f"served ({e!r}); events, s from the load's start: "
+                                     f"{events}") from e
             time.sleep(1)
         rec["second_served_during_load"] = served2
         assert served2 > 0, "17d: the second replica served nothing"
@@ -6832,6 +6881,271 @@ def autoscale_runs(n, linger_s=15.0):
     return two
 
 
+# phase 21: the data-parallel layer at TIMIT's published widths (the JAX
+# package's timit.py defaults: 40 x 4,096 cosines of 440 dimensions,
+# 147 classes, blocks of 4,096) on phase 11d's 32,768 training frames;
+# the host-block fit on as many rows (21.5 GB of host RAM at one
+# process); qr_q at phase 13's shape; device_shuffle of phase 13's rows
+P21_ROWS = P11_TIMIT[0]
+P21_COSINES, P21_EPOCHS, P21_HOST_EPOCHS = 40, 2, 1
+P21_HOST_ROWS = P11_TIMIT[0]
+P21_MIN_TRAIN_ACC = 0.9
+P21_TIMEOUT_S = 600
+FIT_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_torch_block_ls.py:29
+
+
+def _p21_problem(rows, seed=21):
+    """Phase 11d's recipe of seeded frames (class centres x 3 plus unit
+    noise): every process draws the same (rows, 440) frames and labels
+    and featurizes only its own."""
+    from keystone_tpu_torch.loaders.text_loaders import TIMIT_DIMENSION, TIMIT_NUM_CLASSES
+
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((TIMIT_NUM_CLASSES, TIMIT_DIMENSION)) * 3
+    y = rng.integers(0, TIMIT_NUM_CLASSES, rows)
+    return (centers[y] + rng.standard_normal((rows, TIMIT_DIMENSION))).astype(np.float32), y
+
+
+def _p21_rows(frames, y, lo, per, cosines, dev, host=False):
+    """Rows ``lo .. lo + per`` of the TIMIT features and ±1 labels (rows
+    past the frames zero): 40 ``CosineRandomFeatures`` of the JAX seeds,
+    on the card as one (per, 163,840) matrix, or as one host block each."""
+    from keystone_tpu_torch.loaders.text_loaders import TIMIT_NUM_CLASSES
+    from keystone_tpu_torch.pipelines.speech.timit import NUM_COSINE_FEATURES, TimitConfig
+
+    conf = TimitConfig()
+    have = max(0, min(per, len(frames) - lo))
+    f = torch.as_tensor(frames[lo : lo + have], device=dev)
+    parts = []
+    X = None if host else torch.zeros((per, cosines * NUM_COSINE_FEATURES), device=dev)
+    for i in range(cosines):
+        node = stats_nodes.CosineRandomFeatures.create(
+            f.shape[1], NUM_COSINE_FEATURES, conf.gamma, seed=conf.seed + i, device=dev)
+        block = node.apply(f)
+        if host:
+            h = torch.zeros((per, NUM_COSINE_FEATURES))
+            h[:have] = block.cpu()
+            parts.append(h)
+        else:
+            X[:have, i * NUM_COSINE_FEATURES : (i + 1) * NUM_COSINE_FEATURES] = block
+        del block
+    Y = torch.zeros((per, TIMIT_NUM_CLASSES), device=dev)
+    Y[:have] = ClassLabelIndicators(TIMIT_NUM_CLASSES).apply(torch.as_tensor(y[lo : lo + have]))
+    return (parts if host else X), Y
+
+
+def phase21_worker(rows, host_rows, cosines, epochs, host_epochs, qr_shape, shuffle_rows,
+                   launched_at=None):
+    """One process of phase 21 (``parallel.virtual.launch``): the sharded
+    fits, rank 0's unsharded ones, ``qr_q`` and ``device_shuffle``.
+    Returns this process's record. Rehearse on the CPU at a small size:
+    ``virtual.launch(chip_smoke.phase21_worker, 2, (8192, 8192, 2, 2, 1,
+    (4096, 64), 4096), device="cpu")`` (more rows than a block's 4,096
+    columns: with lambda 0 a block's Gram is singular below that)."""
+    from keystone_tpu_torch.parallel import linalg, runtime, shuffle
+    from keystone_tpu_torch.parallel import mesh as mesh_lib
+
+    rank, world = runtime.process_index(), runtime.process_count()
+    mesh = mesh_lib.current_mesh()
+    dev = mesh_lib.local_device(mesh)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    rec = {"rank": rank, "world": world, "device": str(dev), "backend": torch.distributed.get_backend(),
+           "jax_imported": "jax" in sys.modules,
+           "start_s": None if launched_at is None else time.time() - launched_at}
+    t_worker = time.perf_counter()
+    frames, y = _p21_problem(max(rows, host_rows))
+
+    def fit(data, labels, iters):
+        mesh_lib.reset_stats()
+        sync()
+        t = time.perf_counter()
+        model = block_ls.BlockLeastSquaresEstimator(4096, num_iter=iters).fit(data, labels)
+        sync()
+        return model, time.perf_counter() - t, {k: list(v) for k, v in mesh_lib.STATS.items()}
+
+    def agree(W):
+        """W on every process, gathered: identical bit for bit?"""
+        every = mesh_lib.all_gather_rows(W[None], mesh)
+        return all(torch.equal(w, W) for w in every)
+
+    # the sharded fit in device memory
+    per = -(-rows // world)
+    X, Y = _p21_rows(frames[:rows], y[:rows], rank * per, per, cosines, dev)
+    data = Dataset.from_array(X, n=rows, mesh=mesh)
+    labels = Dataset.from_array(Y, n=rows, mesh=mesh)
+    model, rec["fit_s"], rec["fit_collectives"] = fit(data, labels, epochs)
+    W = model.W.clone()
+    rec["fit_identical_on_every_rank"] = agree(W)
+    pred = model.apply_batch(data).local().argmax(1)
+    right = ((pred == Y.argmax(1)).float() * data.mask()).sum().reshape(1)
+    rec["train_accuracy"] = float(mesh_lib.all_reduce_sum_(right, mesh)) / rows
+    rec["finite"] = bool(torch.isfinite(W).all())
+    w, k = 4096, Y.shape[1]
+    block_elems = w * w + w * k + k  # one block's Gram, right-hand side, residual sum
+    del X, Y, data, labels, model, pred
+    if on_card:
+        torch.cuda.empty_cache()
+        buf = torch.ones(block_elems, device=dev)
+        rec["all_reduce_block_bytes"] = block_elems * 4
+        rec["all_reduce_block_ms"] = time_ms(lambda: mesh_lib.all_reduce_sum_(buf, mesh))
+        del buf
+
+    # the sharded fit from host blocks: this process's rows of each slab
+    hper = -(-host_rows // world)
+    blocks, Yh = _p21_rows(frames[:host_rows], y[:host_rows], rank * hper, hper, cosines, dev,
+                           host=True)
+    hdata = Dataset.from_host_blocks(blocks, n=host_rows, device=dev, mesh=mesh)
+    hmodel, rec["host_fit_s"], rec["host_fit_collectives"] = fit(
+        hdata, Dataset.from_array(Yh, n=host_rows, mesh=mesh), host_epochs)
+    Wh = hmodel.W.clone()
+    rec["host_fit_identical_on_every_rank"] = agree(Wh)
+    del hdata, hmodel
+    if world > 1:
+        del blocks, Yh
+
+    # rank 0: the same fits on the unsharded rows, one matrix at a time
+    if rank == 0:
+        if on_card:
+            torch.cuda.empty_cache()
+        X, Y = _p21_rows(frames[:rows], y[:rows], 0, rows, cosines, dev)
+        ref, rec["unsharded_fit_s"], _ = fit(Dataset.from_array(X), Dataset.from_array(Y), epochs)
+        rec["fit_equal_unsharded"] = bool(torch.equal(W, ref.W))
+        rec["fit_max_abs_diff"] = float((W - ref.W).abs().max())
+        rec["fit_within_tol"] = bool(torch.allclose(W, ref.W, **FIT_TOL))
+        del X, Y, ref
+        if world > 1:
+            blocks, Yh = _p21_rows(frames[:host_rows], y[:host_rows], 0, host_rows, cosines, dev,
+                                   host=True)
+        # on a mesh of this process alone: over several, an unsharded
+        # host-blocks fit shards itself (block_ls.py)
+        with mesh_lib.use_mesh(mesh_lib.make_mesh(ranks=[rank])):
+            href, rec["unsharded_host_fit_s"], _ = fit(
+                Dataset.from_host_blocks(blocks, device=dev), Dataset.from_array(Yh), host_epochs)
+        rec["host_fit_equal_unsharded"] = bool(torch.equal(Wh, href.W))
+        rec["host_fit_max_abs_diff"] = float((Wh - href.W).abs().max())
+        rec["host_fit_within_tol"] = bool(torch.allclose(Wh, href.W, **FIT_TOL))
+        del href
+    blocks = Yh = None
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # qr_q at phase 13's shape on sharded rows, each from its global index
+    n, d = qr_shape
+    qper = -(-n // world)
+    g = torch.Generator(device=dev).manual_seed(134)
+    A = torch.randn((qper * world, d), generator=g, device=dev)[rank * qper : (rank + 1) * qper].clone()
+    sync()
+    qr_q = lambda: linalg.qr_q(A, mesh)  # noqa: E731
+    qr_q()
+    # ~0.34 s a call: the launches hide nothing, so three single calls
+    rec["qr_q_ms"] = time_ms(qr_q, calls=1, rounds=3, warmup=0) if on_card else None
+    Q, R = qr_q()
+    rec["qr_r_identical_on_every_rank"] = agree(R)
+    rec["ortho_err"] = float((linalg.gram(Q, mesh) - torch.eye(d, device=dev)).abs().max())
+    sq = torch.stack([((Q @ R - A) ** 2).sum(), (A ** 2).sum()])
+    rec["qr_rel_err"] = float(mesh_lib.all_reduce_sum_(sq, mesh).sqrt()[0] / sq.sqrt()[1])
+    del A, Q, R
+
+    # device_shuffle at the world size: phase 13's rows and 1,000 pad rows
+    full = torch.randn((shuffle_rows + 1000, 1024), generator=torch.Generator(device=dev).manual_seed(13),
+                       device=dev)
+    full[shuffle_rows:] = 0
+    sh = Dataset.from_array(full, n=shuffle_rows).shard(mesh)
+    out = mesh_lib.all_gather_rows(shuffle.device_shuffle(sh.local(), shuffle_rows, 13, mesh), mesh)
+    perm = torch.as_tensor(np.random.default_rng(13).permutation(shuffle_rows), device=dev)
+    rec["shuffle_equal"] = bool(torch.equal(out[:shuffle_rows], full[perm])
+                                and not out[shuffle_rows:].any())
+    rec["shuffle_padded_rows"] = sh.padded_n
+    rec["jax_imported_after"] = "jax" in sys.modules
+    rec["worker_s"] = time.perf_counter() - t_worker
+    return rec
+
+
+def data_parallel_phase(smi, rows=P21_ROWS, host_rows=P21_HOST_ROWS, cosines=P21_COSINES,
+                        epochs=P21_EPOCHS, host_epochs=P21_HOST_EPOCHS, qr_shape=P13_QR,
+                        shuffle_rows=P13_CHECK_ROWS):
+    """Phase 21: ``phase21_worker`` in one process per card (NCCL)."""
+    from keystone_tpu_torch.parallel import virtual
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    parent_bytes = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    recs = virtual.launch(phase21_worker, world,
+                          (rows, host_rows, cosines, epochs, host_epochs, qr_shape, shuffle_rows,
+                           time.time()),
+                          device="cuda", timeout_s=P21_TIMEOUT_S)
+    r0 = recs[0]
+    out = {"card": smi, "world": world, "rows": rows, "host_rows": host_rows,
+           "features": cosines * 4096, "phase_s": time.perf_counter() - t,
+           "parent_allocated_bytes": parent_bytes, "ranks": recs}
+    log(f"21 data parallel: {world} process(es), {r0['backend']}, one card each "
+        f"(the parent holds {parent_bytes} bytes); TIMIT {rows} x {cosines * 4096} sharded: "
+        f"fit {r0['fit_s']:.3f} s ({P21_EPOCHS} sweeps; all_reduce calls, bytes "
+        f"{r0['fit_collectives'].get('all_reduce')}), unsharded {r0['unsharded_fit_s']:.3f} s, "
+        f"equal bit for bit {r0['fit_equal_unsharded']} (max |diff| {r0['fit_max_abs_diff']:.3g}), "
+        f"identical on every rank {all(r['fit_identical_on_every_rank'] for r in recs)}, "
+        f"training accuracy {r0['train_accuracy']:.4f}; host blocks of {host_rows} rows: "
+        f"{r0['host_fit_s']:.3f} s against {r0['unsharded_host_fit_s']:.3f} s unsharded, equal "
+        f"{r0['host_fit_equal_unsharded']} (max |diff| {r0['host_fit_max_abs_diff']:.3g}; "
+        f"all_reduce {r0['host_fit_collectives'].get('all_reduce')}); one block's all_reduce "
+        f"({r0['all_reduce_block_bytes']} bytes) {r0['all_reduce_block_ms']:.4f} ms; qr_q at "
+        f"{qr_shape} {r0['qr_q_ms']:.3f} ms, max|QᵀQ − I| {r0['ortho_err']:.3g}, ‖QR − A‖/‖A‖ "
+        f"{r0['qr_rel_err']:.3g}; device_shuffle equal {r0['shuffle_equal']}; phase "
+        f"{out['phase_s']:.3f} s (rank 0 up {r0['start_s']:.3f} s after the launch, its work "
+        f"{r0['worker_s']:.3f} s), on {smi}")
+    for r in recs:
+        assert not r["jax_imported"] and not r["jax_imported_after"], r["rank"]
+        assert r["backend"] == "nccl" and r["device"] == f"cuda:{r['rank']}", r
+        assert r["fit_identical_on_every_rank"] and r["host_fit_identical_on_every_rank"], r
+        assert r["qr_r_identical_on_every_rank"] and r["shuffle_equal"] and r["finite"], r
+    assert r0["train_accuracy"] > P21_MIN_TRAIN_ACC, r0["train_accuracy"]
+    assert r0["ortho_err"] <= MAX_ORTHO_ERR and r0["qr_rel_err"] <= RTOL_QR, r0
+    if world == 1:  # an all_reduce over one rank changes no bytes
+        assert r0["fit_equal_unsharded"] and r0["host_fit_equal_unsharded"], r0
+    assert r0["fit_within_tol"] and r0["host_fit_within_tol"], r0
+    return out
+
+
+def data_parallel_only():
+    """``--data-parallel``: phase 21 alone, its record under chiprun_out."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    log(smi)
+    rec = data_parallel_phase(smi)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "data_parallel.json"), "w") as f:
+        json.dump(rec, f, indent=1, default=str)
+
+
+def fail_summary(e):
+    """A failed run's traceback, then one line naming the phase function
+    that ``main`` was in and the script's deepest line, as the last line
+    of stderr; exit 1 at once, so that no thread's later output (a
+    client of a server the phase's cleanup stopped) buries it."""
+    import traceback
+
+    traceback.print_exception(e)
+    frames = traceback.extract_tb(e.__traceback__)
+    here = os.path.abspath(__file__)
+    ours = [f for f in frames if os.path.abspath(f.filename) == here]
+    at_main = next((i for i, f in enumerate(frames) if f.name == "main"
+                    and os.path.abspath(f.filename) == here), None)
+    phase = (frames[at_main + 1].name if at_main is not None and at_main + 1 < len(frames)
+             else "main")
+    where = f"chip_smoke.py:{ours[-1].lineno} ({ours[-1].name})" if ours else "?"
+    sys.stdout.flush()
+    print(f"chip_smoke: failed in {phase}, at {where}: {type(e).__name__}: {str(e)[:2000]}",
+          file=sys.stderr, flush=True)
+    os._exit(1)
+
+
 def main():
     # -- 1. the card ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -7014,6 +7328,9 @@ def main():
     for r in rows:
         r["phase20_launches_per_call"] = jitted["launches_per_call"][r["name"]]
 
+    # -- 21. the data-parallel layer: one process per card, NCCL ------------
+    data_parallel = data_parallel_phase(smi)
+
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": rows, "wide": wide, "serve": served, "train": trained,
@@ -7021,7 +7338,8 @@ def main():
                    "past_the_card": past, "text": text, "last_app": last,
                    "gateway": gateway, "fleet_zoo": fleet_zoo, "loadgen_lifecycle": lifecycle,
                    "elastic": elastic, "tools": tools, "serve_bench": bench, "jit_batch": jitted,
-                   "ptxas": ptxas}, f,
+                   "data_parallel": data_parallel, "ptxas": ptxas,
+                   "get_resets": GET_RESETS}, f,
                   indent=1, default=str)
     # the fit's launches and B3's error with the fitted GMMs are in
     # chip_smoke.json beside these
@@ -7054,5 +7372,10 @@ if __name__ == "__main__":
         featurize_processes(int(sys.argv[2]))
     elif sys.argv[1:2] == ["--featurize-process"]:
         featurize_process(sys.argv[2])
+    elif sys.argv[1:2] == ["--data-parallel"]:
+        data_parallel_only()
     else:
-        main()
+        try:
+            main()
+        except Exception as e:
+            fail_summary(e)

@@ -4,6 +4,10 @@
 Reference: bin/run-pipeline.sh selects the pipeline class by fully
 qualified name as argv[1]; here short app names map to the app modules'
 ``main``, which run on ``cuda`` (StupidBackoffPipeline is host work).
+``torchrun --nproc-per-node N -m keystone_tpu_torch <App>`` (or JAX's
+COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID) runs an app as one
+process per card, joined before the app is imported
+(``parallel/runtime.py``).
 
 The request plane's front door, fleet tier, load generator and online
 lifecycle are ported: ``--admin-port N`` (the observability endpoint),
@@ -99,8 +103,10 @@ def _otlp(argv) -> int:
 def main(argv=None, device=None) -> int:
     """Run ``argv``'s app. ``device`` goes to ``serve-gateway``,
     ``serve-loadgen``, ``serve-aot-build``, ``serve-capacity-plan``,
-    ``serve-bench`` and ``serve-autoscale``'s replicas (``None`` means ``cuda``; rehearsals
-    on the CPU pass ``"cpu"``)."""
+    ``serve-bench`` and ``serve-autoscale``'s replicas, and picks the
+    backend of an app's process group (``runtime.initialize``: NCCL on
+    ``cuda``, gloo on ``"cpu"``) (``None`` means ``cuda``; rehearsals on
+    the CPU pass ``"cpu"``)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--admin-port" in argv:
         # observability plane: /metrics, /varz, /healthz, /tracez, /slz,
@@ -246,7 +252,12 @@ def main(argv=None, device=None) -> int:
     if app not in APPS:
         print(f"unknown app {app!r}; run with --help for the list")
         return 2
-    # the JAX package joins its multi-host runtime here; one card has none
+    # join the process group when launched as one process per card
+    # (torchrun, or JAX's COORDINATOR_ADDRESS / NUM_PROCESSES /
+    # PROCESS_ID); one process otherwise (parallel/runtime.py)
+    from keystone_tpu_torch.parallel.runtime import initialize
+
+    initialize(device=device)
     module = importlib.import_module(APPS[app])
     return module.main(argv[1:])
 

@@ -23,6 +23,18 @@ column slabs (``Dataset.from_host_blocks``): each slab is uploaded through
 a pooled pinned buffer on a copy stream, the next one double-buffered
 against the current block's update.
 
+**Rows sharded over processes** (``Dataset.shard``; JAX's
+``block_ls.py:561-575``). Each process holds a contiguous range of rows
+on its card. The sums over examples — the feature and label means, and
+per block X_bᵀX_b, X_bᵀR⁺ and 1ᵀR⁺ — are taken on the local rows and
+summed in one ``all_reduce`` over the mesh's example axes; the centering
+(with the global ``n``) and the (b × b) solve then run on every process
+from the same reduced bytes, so W comes out identical on every one. The
+residual update and apply stay local. A host-blocks fit uploads only its
+rows of each slab, and when the process group spans several processes
+an unsharded host-blocks dataset is sharded over the current mesh, as
+the JAX package places each slab's rows over the data axis.
+
 Products are float32 ``torch.matmul``s (TF32 off on the card), the
 counterpart of the JAX package's ``Precision.HIGHEST``; bf16 features are
 upcast one block at a time before the product (a product of two bf16
@@ -33,7 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +57,7 @@ from keystone_tpu_torch.ops.learning.cost import (
     CostModel,
 )
 from keystone_tpu_torch.ops.learning.hostsolve import psd_solve_host
+from keystone_tpu_torch.parallel import mesh as mesh_lib
 from keystone_tpu_torch.parallel.dataset import Dataset
 from keystone_tpu_torch.utils.checkpoint import (
     LoopCheckpointer,
@@ -120,21 +133,43 @@ def _add_contribution(R, Xb, Wb, mu_b, mask, sign: float) -> None:
     R.addr_(mask, torch.matmul(mu_b, Wb), alpha=-sign)
 
 
+def _all_reduce_parts(mesh: Optional[mesh_lib.Mesh], *parts: torch.Tensor):
+    """``parts`` summed over ``mesh``'s example axes in one ``all_reduce``
+    (views of the reduced buffer), or as they are without a mesh."""
+    if mesh is None:
+        return parts
+    flat = mesh_lib.all_reduce_sum_(torch.cat([p.reshape(-1) for p in parts]), mesh)
+    out, at = [], 0
+    for p in parts:
+        out.append(flat[at : at + p.numel()].view(p.shape))
+        at += p.numel()
+    return out
+
+
+def _column_sums(X: torch.Tensor, mask: torch.Tensor, mesh) -> torch.Tensor:
+    """Σ over the valid rows of every shard of ``X``, float32."""
+    (s,) = _all_reduce_parts(mesh, torch.matmul(mask, _f32(X)))
+    return s
+
+
 def _block_update(Xb, R, Wb, mu_b, mask, lam: float, n: int, *,
-                  first_pass: bool, last_pass: bool, host_solve: bool = False):
+                  first_pass: bool, last_pass: bool, host_solve: bool = False,
+                  mesh: Optional[mesh_lib.Mesh] = None):
     """One block's update on a float32 (padded_n, w) slab; returns the new
     block model and leaves the new residual in ``R``.
 
     ``first_pass``: the block's model is exactly zero (sweep 0 of a fresh
     fit, or a block a resumed fit never completed), so the matmul that
     undoes its contribution is skipped. ``last_pass``: the residual is
-    never read again, so its update is skipped and ``R`` is left stale."""
+    never read again, so its update is skipped and ``R`` is left stale.
+    ``mesh``: the rows are this process's shard; the Grams are summed over
+    the shards before they are centered and solved."""
     if not first_pass:
         _add_contribution(R, Xb, Wb, mu_b, mask, 1.0)
-    gram = torch.matmul(Xb.T, Xb)
+    gram, rhs, r_sum = _all_reduce_parts(
+        mesh, torch.matmul(Xb.T, Xb), torch.matmul(Xb.T, R), torch.sum(R, dim=0))
     gram.addr_(mu_b, mu_b, alpha=-float(n))
-    rhs = torch.matmul(Xb.T, R)
-    rhs.addr_(mu_b, torch.sum(R, dim=0), alpha=-1.0)
+    rhs.addr_(mu_b, r_sum, alpha=-1.0)
     if host_solve:
         W = torch.as_tensor(
             psd_solve_host(gram.cpu().numpy(), rhs.cpu().numpy(), lam),
@@ -147,13 +182,34 @@ def _block_update(Xb, R, Wb, mu_b, mask, lam: float, n: int, *,
     return W
 
 
-def _prep_labels(Y: torch.Tensor, mask: torch.Tensor, n: int):
-    """Label mean over the valid rows and the centered residual (pad rows
-    zero: upstream nodes such as ClassLabelIndicators may map zero pad
-    rows to nonzero values)."""
+def _prep_labels(Y: torch.Tensor, mask: torch.Tensor, n: int, mesh=None):
+    """Label mean over the valid rows (of every shard) and the centered
+    residual (pad rows zero: upstream nodes such as ClassLabelIndicators
+    may map zero pad rows to nonzero values)."""
     Y = _f32(Y)
-    mu_y = torch.matmul(mask, Y) / n
+    mu_y = _column_sums(Y, mask, mesh) / n
     return mu_y, (Y - mu_y) * mask[:, None]
+
+
+def _sharded_labels(data: Dataset, labels: Dataset) -> torch.Tensor:
+    """The labels' rows beside ``data``'s: this process's when ``data``
+    is sharded, all of them padded to ``data``'s rows otherwise."""
+    lab = labels.to_array_mode()
+    if data.is_sharded:
+        return lab.shard_like(data).local()
+    if lab.padded_n != data.padded_n:
+        lab = lab._pad_to(data.padded_n)
+    return lab.padded()
+
+
+def _checkpointer(path: str, every: int, fp: str, mesh) -> Tuple[LoopCheckpointer, bool]:
+    """The fit's checkpointer and whether this process writes it: with
+    sharded rows the fingerprint joins every shard's probe, every process
+    reads the snapshot and the first shard alone writes it."""
+    if mesh is None:
+        return LoopCheckpointer(path, every, fingerprint=fp), True
+    fp = "|".join(mesh_lib.all_gather_objects(fp, mesh))
+    return LoopCheckpointer(path, every, fingerprint=fp), mesh_lib.shard_index(mesh) == 0
 
 
 class _SlabStream:
@@ -269,14 +325,15 @@ class BlockLinearMapper(Transformer):
         return out if icpt is None else out + icpt
 
     def apply_batch(self, ds: Dataset) -> Dataset:
+        """Predictions; sharded rows are predicted where they are."""
         if ds.is_host:
             return self._apply_host_blocks(ds)
-        out = mm(ds.padded(), self.W)
+        out = mm(ds.local(), self.W)
         icpt = self.intercept
         if icpt is not None:
             # keep pad rows zero
             out = (out + icpt) * ds.mask()[:, None]
-        return Dataset.from_array(out, n=ds.n)
+        return Dataset.from_array(out, n=ds.n, mesh=ds.mesh)
 
     def _apply_host_blocks(self, ds: Dataset) -> Dataset:
         """Predict from host column blocks: each slab is uploaded
@@ -304,15 +361,16 @@ class BlockLinearMapper(Transformer):
         icpt = self.intercept
         if icpt is not None:
             out = (out + icpt) * ds.mask()[:, None]
-        return Dataset.from_array(out, n=ds.n)
+        return Dataset.from_array(out, n=ds.n, mesh=ds.mesh)
 
     def apply_and_evaluate(
         self, ds: Dataset, evaluator: Callable[[torch.Tensor], None]
     ) -> None:
         """Hand ``evaluator`` the predictions of the first 1, 2, ... blocks
         after each block (reference: BlockLinearMapper.applyAndEvaluate
-        :95-137), so a caller can watch the error fall block by block."""
-        X = ds.padded()
+        :95-137), so a caller can watch the error fall block by block
+        (this process's rows when they are sharded)."""
+        X = ds.local()
         D = X.shape[1]
         icpt = self.intercept
         mask = ds.mask()[:, None]
@@ -361,8 +419,9 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
         # BlockLinearMapper.scala:209-215) happens in the Gram algebra:
         # X is never copied, only each bf16 block upcast
         data = data.to_array_mode()
-        X = data.padded()
-        Y = labels.to_array_mode().padded().to(X.device)
+        mesh = data.mesh
+        X = data.local()
+        Y = _sharded_labels(data, labels).to(X.device)
         n = data.n
         D = X.shape[1]
         k = Y.shape[1]
@@ -371,8 +430,10 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
             (s, min(s + self.block_size, D) - s)
             for s in range(0, D, self.block_size)
         ]
-        mu = torch.cat([torch.matmul(mask, _f32(X[:, s : s + w])) for s, w in blocks]) / n
-        mu_y, R = _prep_labels(Y, mask, n)
+        (mu,) = _all_reduce_parts(
+            mesh, torch.cat([torch.matmul(mask, _f32(X[:, s : s + w])) for s, w in blocks]))
+        mu = mu / n
+        mu_y, R = _prep_labels(Y, mask, n, mesh)
         Wb: Dict[int, torch.Tensor] = {
             s: torch.zeros((w, k), dtype=torch.float32, device=X.device)
             for s, w in blocks
@@ -388,8 +449,7 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
                 f"lam={self.lam} solve={self.solve} n={n} D={D} k={k} "
                 f"probe={data_probe(X, Y)}"
             )
-            ckpt = LoopCheckpointer(self.checkpoint_path,
-                                    self.checkpoint_every, fingerprint=fp)
+            ckpt, writes = _checkpointer(self.checkpoint_path, self.checkpoint_every, fp, mesh)
             state = ckpt.load()
             if state is not None:
                 start_it = int(state["it"])
@@ -421,14 +481,14 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
                 _f32(X[:, s : s + w]), R, Wb[s], mu[s : s + w], mask, self.lam, n,
                 first_pass=(it == 0),
                 last_pass=(it == self.num_iter - 1 and pos == len(blocks) - 1),
-                host_solve=self.solve == "host",
+                host_solve=self.solve == "host", mesh=mesh,
             )
             done += 1
-            if ckpt is not None:
+            if ckpt is not None and writes:
                 ckpt.tick(lambda: snapshot(*nxt))
             if self.block_callback is not None:
                 self.block_callback(done)
-        if ckpt is not None:
+        if ckpt is not None and writes:
             ckpt.clear()  # fit completed; stale state must not leak into
             # a later fit at the same path
         W = torch.cat([Wb[s] for s, _ in blocks], dim=0)
@@ -449,17 +509,18 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
         (``block_size`` is not read), as the reference's Seq of feature
         RDDs defines its blocks. Each block's feature mean is taken on
         the slab's first visit."""
+        if not data.is_sharded and torch.distributed.is_initialized():
+            shards = mesh_lib.n_data_shards()
+            if shards > 1 and data.padded_n % shards == 0:
+                data = data.shard()
+        mesh = data.mesh
         blocks = data.host_blocks
         widths = data.block_widths
         n = data.n
-        pn = data.padded_n
         dev = data.device
         mask = data.mask()
-        lab = labels.to_array_mode()
-        if lab.padded_n != pn:
-            lab = lab._pad_to(pn)
-        Y = lab.padded().to(dev)
-        mu_y, R = _prep_labels(Y, mask, n)
+        Y = _sharded_labels(data, labels).to(dev)
+        mu_y, R = _prep_labels(Y, mask, n, mesh)
         k = Y.shape[1]
         nb = len(blocks)
         Wb: List[torch.Tensor] = [
@@ -476,8 +537,7 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
                 f"lam={self.lam} n={n} k={k} "
                 f"probe={_host_blocks_probe(blocks, Y)}"
             )
-            ckpt = LoopCheckpointer(self.checkpoint_path,
-                                    self.checkpoint_every, fingerprint=fp)
+            ckpt, writes = _checkpointer(self.checkpoint_path, self.checkpoint_every, fp, mesh)
             state = ckpt.load()
             if state is not None:
                 start_it = int(state["it"])
@@ -489,7 +549,7 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
                                              device=dev)
                     handle = slabs.put(bi)
                     Xb = _f32(slabs.acquire(handle))
-                    mu_bs[bi] = torch.matmul(mask, Xb) / n
+                    mu_bs[bi] = _column_sums(Xb, mask, mesh) / n
                     _add_contribution(R, Xb, Wb[bi], mu_bs[bi], mask, -1.0)
                     slabs.release(handle)
 
@@ -511,20 +571,20 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
             Xb = _f32(slabs.acquire(cur))
             first = it == 0
             if first:
-                mu_bs[bi] = torch.matmul(mask, Xb) / n
+                mu_bs[bi] = _column_sums(Xb, mask, mesh) / n
             elif mu_bs[bi] is None:
                 mu_bs[bi] = torch.zeros((widths[bi],), dtype=torch.float32, device=dev)
             Wb[bi] = _block_update(
                 Xb, R, Wb[bi], mu_bs[bi], mask, self.lam, n, first_pass=first,
-                last_pass=(it == self.num_iter - 1 and bi == nb - 1),
+                last_pass=(it == self.num_iter - 1 and bi == nb - 1), mesh=mesh,
             )
             slabs.release(cur)
             done += 1
-            if ckpt is not None:
+            if ckpt is not None and writes:
                 ckpt.tick(lambda: snapshot(*nxt_state))
             if self.block_callback is not None:
                 self.block_callback(done)
-        if ckpt is not None:
+        if ckpt is not None and writes:
             ckpt.clear()
         W = torch.cat(Wb, dim=0)
         mu = torch.cat(mu_bs, dim=0)

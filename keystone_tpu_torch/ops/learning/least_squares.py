@@ -5,8 +5,10 @@ Reference: nodes/learning/LeastSquaresEstimator.scala:26-87 — an
 OptimizableLabelEstimator whose physical options are Dense LBFGS,
 Sparsify→Sparse LBFGS, Densify→BlockLS(1000, 3) and Densify→Exact
 NormalEquations; it picks minBy(cost(n, d, k, sparsity, numMachines,
-...)). The default weights are one H100's (``cost.py``); the port runs on
-one card, so ``num_machines`` defaults to 1.
+...)). The default weights are one H100's (``cost.py``); ``num_machines``
+defaults to the data's shards (``Dataset.shard``; one when they are not
+sharded), and the block path (Densify → BlockLS) fits sharded rows where
+they are (``block_ls.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from keystone_tpu_torch.ops.learning.cost import (
 from keystone_tpu_torch.ops.learning.lbfgs import DenseLBFGSwithL2, SparseLBFGSwithL2
 from keystone_tpu_torch.ops.learning.linear import LinearMapEstimator
 from keystone_tpu_torch.ops.util.nodes import Densify, Sparsify
+from keystone_tpu_torch.parallel import mesh as mesh_lib
 from keystone_tpu_torch.parallel.dataset import Dataset
 from keystone_tpu_torch.workflow.api import LabelEstimator
 from keystone_tpu_torch.workflow.chain_utils import TransformerLabelEstimatorChain
@@ -35,7 +38,7 @@ from keystone_tpu_torch.workflow.node_optimization import Optimizable
 @dataclasses.dataclass(eq=False)
 class LeastSquaresEstimator(LabelEstimator, Optimizable):
     lam: float = 0.0
-    num_machines: Optional[int] = None  # None: one card
+    num_machines: Optional[int] = None  # None: the data's shards
     cpu_weight: float = H100_CPU_WEIGHT
     mem_weight: float = H100_MEM_WEIGHT
     network_weight: float = H100_NETWORK_WEIGHT
@@ -78,7 +81,8 @@ class LeastSquaresEstimator(LabelEstimator, Optimizable):
         label = sample_labels.first()
         k = int(np.asarray(label.cpu() if isinstance(label, torch.Tensor) else label)
                 .reshape(-1).shape[0])
-        machines = self.num_machines or 1
+        machines = self.num_machines or (
+            mesh_lib.n_data_shards(sample.mesh) if sample.is_sharded else 1)
         return min(
             self._options(),
             key=lambda o: o[0].cost(

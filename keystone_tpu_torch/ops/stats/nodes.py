@@ -325,9 +325,9 @@ class CosineRandomFeatures(Transformer):
         return torch.cos(mm(x, self.W.T) + self.b)
 
     def apply_batch(self, ds: Dataset) -> Dataset:
-        # cos(0 + b) is not 0: keep the pad rows zero
-        out = self.apply(ds.padded()) * ds.mask()[:, None]
-        return Dataset.from_array(out, n=ds.n)
+        # cos(0 + b) is not 0: keep the pad rows zero (sharded rows where they are)
+        out = self.apply(ds.local()) * ds.mask()[:, None]
+        return Dataset.from_array(out, n=ds.n, mesh=ds.mesh)
 
 
 def identity(x):

@@ -12,6 +12,7 @@ order, so both packages give every feature the same column."""
 from __future__ import annotations
 
 import dataclasses
+import logging
 from collections import Counter
 from itertools import chain, repeat
 from typing import Any, List
@@ -19,6 +20,7 @@ from typing import Any, List
 import numpy as np
 import torch
 
+from keystone_tpu_torch.parallel import mesh as mesh_lib
 from keystone_tpu_torch.parallel.dataset import Dataset, csr_from_coo, is_sparse
 from keystone_tpu_torch.parallel.shuffle import device_shuffle
 from keystone_tpu_torch.workflow.api import Estimator, FunctionNode, Transformer
@@ -61,9 +63,9 @@ class ClassLabelIndicators(Transformer):
         return _indicators(torch.as_tensor(y), self.num_classes)
 
     def apply_batch(self, ds: Dataset) -> Dataset:
-        out = _indicators(ds.padded().to(torch.int64), self.num_classes)
+        out = _indicators(ds.local().to(torch.int64), self.num_classes)
         # the indicator of a zero pad row is (+1, -1, ...): keep pad rows zero
-        return Dataset.from_array(out * ds.mask()[:, None], n=ds.n)
+        return Dataset.from_array(out * ds.mask()[:, None], n=ds.n, mesh=ds.mesh)
 
 
 @dataclasses.dataclass(eq=False)
@@ -177,7 +179,7 @@ class Densify(Transformer):
 
     def apply_batch(self, ds: Dataset) -> Dataset:
         if ds.is_array:
-            x = ds.padded()
+            x = ds.local()
             return Dataset.from_array(x.to_dense(), n=ds.n) if is_sparse(x) else ds
         return ds.map(self.apply)
 
@@ -204,11 +206,13 @@ class Shuffler(Transformer):
     """Random permutation of examples (reference: repartition-based
     Shuffler), ``out[j] = x[perm[j]]`` with ``perm =
     default_rng(seed).permutation(n)`` as in the JAX package.
-    ``device=True`` permutes an array on its device
-    (``parallel/shuffle.device_shuffle``, the pad rows zero, as the JAX
-    package's ``lax.all_to_all`` path leaves them); the default host path
-    permutes on the host and returns the ``n`` valid rows on the array's
-    device. Both give the same rows."""
+    ``device=True`` routes the rows through one exchange over the mesh's
+    shards (``parallel/shuffle.device_shuffle``, the pad rows zero, as the
+    JAX package's ``lax.all_to_all`` path leaves them): sharded rows where
+    they are, an unsharded array sharded over the current mesh first; rows
+    that do not divide over its shards take the logged host path, as in
+    the JAX package. The host path permutes on the host and returns the
+    ``n`` valid rows on the array's device. Both give the same rows."""
 
     def __init__(self, seed: int = 0, device: bool = False):
         self.seed = seed
@@ -218,8 +222,24 @@ class Shuffler(Transformer):
         return x
 
     def apply_batch(self, ds: Dataset) -> Dataset:
-        if ds.is_array and not isinstance(ds.padded(), tuple) and self.device:
-            return Dataset.from_array(device_shuffle(ds.padded(), ds.n, self.seed), n=ds.n)
+        if self.device and ds.is_array and not isinstance(ds.local(), tuple):
+            if ds.is_sharded:
+                return Dataset.from_array(device_shuffle(ds.local(), ds.n, self.seed, ds.mesh),
+                                          n=ds.n, mesh=ds.mesh)
+            mesh = mesh_lib.current_mesh()
+            shards = mesh_lib.n_data_shards(mesh)
+            x = ds.padded()
+            if shards == 1:
+                return Dataset.from_array(device_shuffle(x, ds.n, self.seed, mesh), n=ds.n)
+            if x.shape[0] % shards == 0:
+                sh = ds.shard(mesh)
+                return Dataset.from_array(device_shuffle(sh.local(), ds.n, self.seed, mesh),
+                                          n=ds.n, mesh=mesh)
+            logging.getLogger(__name__).warning(
+                "Shuffler(device=True): %d padded rows not divisible by %d data shards; "
+                "falling back to the host path (full array materializes on host)",
+                x.shape[0], shards,
+            )
         perm = np.random.default_rng(self.seed).permutation(ds.n)
         if ds.is_array and not isinstance(ds.padded(), tuple):
             x = ds.array()

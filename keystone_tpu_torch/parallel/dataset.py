@@ -1,4 +1,4 @@
-"""``Dataset`` — the framework's N-example collection type, on one device.
+"""``Dataset`` — the framework's N-example collection type.
 
 Three physical modes, as in ``keystone_tpu/parallel/dataset.py``:
 
@@ -29,6 +29,19 @@ Three physical modes, as in ``keystone_tpu/parallel/dataset.py``:
 
 Padding discipline: ``n`` is the valid example count; rows past ``n`` are
 zeros. Reductions that care divide by ``n`` or use ``mask()``.
+
+**Sharded rows** (``shard``, or ``from_array``/``from_host_blocks`` given
+a ``mesh``; JAX's ``dataset.py:330-344``). The port runs one process per
+device (``parallel/runtime.py``), and a sharded dataset holds this
+process's contiguous range of rows, padded so that every shard of the
+mesh's example axes holds the same count, on its own device. ``n`` and
+``padded_n`` stay global; ``local()`` is this process's rows and
+``mask()`` covers them. The estimators that reduce over examples
+(``block_ls``, the TSQR PCA, the shuffle) work on the local rows and
+``all_reduce`` their sums. The whole-array views (``padded()``,
+``array()``, ``items()``, ``first()``) gather every shard's rows with
+``all_gather`` (``_gathered``, the one place that does), so every process
+must ask for them together.
 """
 
 from __future__ import annotations
@@ -37,6 +50,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from keystone_tpu_torch.parallel import mesh as mesh_lib
 
 
 def _leading_dim(tree: Any) -> int:
@@ -216,6 +231,7 @@ class Dataset:
         host_blocks: Optional[List[torch.Tensor]] = None,
         n: Optional[int] = None,
         device: Optional[torch.device] = None,
+        mesh: Optional[mesh_lib.Mesh] = None,
     ):
         modes = sum(x is not None for x in (arrays, items, host_blocks))
         if modes != 1:
@@ -227,8 +243,13 @@ class Dataset:
         self._host_blocks = host_blocks
         self._device = device
         self._cached = False
+        self._mesh = mesh
+        if mesh is not None:
+            if items is not None:
+                raise ValueError("items cannot be sharded: shard() makes them an array first")
+            mesh_lib.require_data_parallel(mesh)
         if arrays is not None:
-            self._n = int(n) if n is not None else _leading_dim(arrays)
+            self._n = int(n) if n is not None else self.padded_n
         elif host_blocks is not None:
             if not host_blocks:
                 raise ValueError("host_blocks must be non-empty")
@@ -237,9 +258,11 @@ class Dataset:
                 raise ValueError(
                     f"host blocks disagree on row count: {sorted(rows)}"
                 )
-            self._n = int(n) if n is not None else host_blocks[0].shape[0]
+            self._n = int(n) if n is not None else self.padded_n
         else:
             self._n = len(items)
+        if mesh is not None and self._n > self.padded_n:
+            raise ValueError(f"n = {self._n} valid rows but only {self.padded_n} rows")
 
     # -- constructors ------------------------------------------------------
 
@@ -254,8 +277,12 @@ class Dataset:
         return Dataset(arrays=_as_tensor(data))
 
     @staticmethod
-    def from_array(arrays: Any, n: Optional[int] = None) -> "Dataset":
-        return Dataset(arrays=_as_tensor(arrays), n=n)
+    def from_array(arrays: Any, n: Optional[int] = None,
+                   mesh: Optional[mesh_lib.Mesh] = None) -> "Dataset":
+        """An array-mode dataset; with ``mesh``, ``arrays`` are this
+        process's rows of one sharded over the mesh (every shard the same
+        count, rows past ``n`` zero) and ``n`` the global count."""
+        return Dataset(arrays=_as_tensor(arrays), n=n, mesh=mesh)
 
     @staticmethod
     def from_items(items: Sequence[Any]) -> "Dataset":
@@ -263,19 +290,21 @@ class Dataset:
 
     @staticmethod
     def from_host_blocks(
-        blocks: Sequence[Any], n: Optional[int] = None, device=None
+        blocks: Sequence[Any], n: Optional[int] = None, device=None,
+        mesh: Optional[mesh_lib.Mesh] = None,
     ) -> "Dataset":
         """A column-blocked feature matrix in host RAM whose slabs stream
         to ``device`` (``None`` means ``cuda``) (the cluster-RAM feature
         cache of BlockLinearMapper.scala:50-73). Each block is
         (padded_n, w_i); the solvers upload one slab at a time. Blocks
         are made C-contiguous here, once, so every upload is a straight
-        copy."""
+        copy. With ``mesh``, the blocks hold this process's rows, as
+        ``from_array``'s."""
         from keystone_tpu_torch._device import resolve_device
 
         return Dataset(
             host_blocks=[_host_tensor(b) for b in blocks],
-            n=n, device=resolve_device(device),
+            n=n, device=resolve_device(device), mesh=mesh,
         )
 
     @staticmethod
@@ -369,29 +398,72 @@ class Dataset:
         return _device_of(self.to_array_mode()._arrays)
 
     @property
-    def padded_n(self) -> int:
+    def is_sharded(self) -> bool:
+        return self._mesh is not None
+
+    @property
+    def mesh(self) -> Optional[mesh_lib.Mesh]:
+        """The mesh whose example axes the rows shard over (None: not
+        sharded)."""
+        return self._mesh
+
+    @property
+    def local_n(self) -> int:
+        """This process's rows, padding included (``padded_n`` when not
+        sharded)."""
         if self.is_array:
             return _leading_dim(self._arrays)
         if self.is_host:
             return self._host_blocks[0].shape[0]
         return self._n
 
+    @property
+    def padded_n(self) -> int:
+        if self.is_sharded:
+            return self.local_n * mesh_lib.n_data_shards(self._mesh)
+        return self.local_n
+
+    def _offset(self) -> int:
+        """The global index of this process's first row."""
+        if not self.is_sharded:
+            return 0
+        return mesh_lib.shard_index(self._mesh) * self.local_n
+
     # -- views -------------------------------------------------------------
 
-    def padded(self) -> Any:
-        """Tensors with the (possibly padded) leading axis."""
+    def local(self) -> Any:
+        """This process's rows, padded (the whole padded tensors when not
+        sharded)."""
         return self.to_array_mode()._arrays
 
+    def _gathered(self) -> Any:
+        """Every shard's rows in order: the one place a sharded dataset's
+        rows cross processes whole (an ``all_gather`` per tensor)."""
+        local = self.local()
+        if not self.is_sharded:
+            return local
+        if any(is_sparse(a) for a in tree_leaves(local)):
+            raise ValueError("a sharded sparse matrix cannot be gathered")
+        return _tree_map(lambda a: mesh_lib.all_gather_rows(a, self._mesh), local)
+
+    def padded(self) -> Any:
+        """Tensors with the (possibly padded) leading axis; a sharded
+        dataset's are gathered (``_gathered``)."""
+        return self._gathered()
+
     def array(self) -> Any:
-        """Tensors sliced to exactly ``n`` valid rows."""
-        arrs = self.to_array_mode()._arrays
+        """Tensors sliced to exactly ``n`` valid rows (gathered when
+        sharded)."""
+        arrs = self._gathered()
         if _leading_dim(arrs) == self._n:
             return arrs
         return _tree_map(lambda a: _head(a, self._n), arrs)
 
     def mask(self) -> torch.Tensor:
-        """(padded_n,) float32 validity mask on the dataset's device."""
-        idx = torch.arange(self.padded_n, device=self.device)
+        """float32 validity mask of this process's rows (``local_n``; all
+        ``padded_n`` rows when not sharded), on the dataset's device."""
+        lo = self._offset()
+        idx = torch.arange(lo, lo + self.local_n, device=self.device)
         return (idx < self._n).to(torch.float32)
 
     def items(self) -> List[Any]:
@@ -408,6 +480,9 @@ class Dataset:
     def first(self) -> Any:
         if self._items is not None:
             return self._items[0]
+        if self.is_sharded:  # row 0 of shard 0, without gathering the rest
+            return _tree_map(lambda a: mesh_lib.all_gather_rows(a[:1], self._mesh)[0],
+                             self.local())
         arrs = self.array()
         if is_sparse(arrs):
             return csr_rows(arrs, 1)[0]
@@ -428,7 +503,7 @@ class Dataset:
                 [b.to(self._device) for b in self._host_blocks],
                 dim=1,
             )
-            return Dataset(arrays=full, n=self._n)
+            return Dataset(arrays=full, n=self._n, mesh=self._mesh)
         first = self._items[0]
         if isinstance(first, torch.Tensor) and first.layout == torch.sparse_coo:
             return Dataset(arrays=csr_stack(self._items), n=self._n)
@@ -447,8 +522,9 @@ class Dataset:
 
     def map_arrays(self, fn: Callable[[Any], Any]) -> "Dataset":
         """Whole-batch array transform; ``fn`` must preserve the leading axis
-        and map zero pad rows to values safe to keep as padding."""
-        return Dataset(arrays=fn(self.padded()), n=self._n)
+        and map zero pad rows to values safe to keep as padding. A sharded
+        dataset's rows are mapped where they are."""
+        return Dataset(arrays=fn(self.local()), n=self._n, mesh=self._mesh)
 
     def flat_map(self, fn: Callable[[Any], Sequence[Any]]) -> "Dataset":
         out: List[Any] = []
@@ -462,6 +538,10 @@ class Dataset:
     def zip(self, other: "Dataset") -> "Dataset":
         if self.n != other.n:
             raise ValueError(f"zip length mismatch: {self.n} vs {other.n}")
+        if self.is_sharded or other.is_sharded:
+            like = self if self.is_sharded else other
+            pair = (self.shard_like(like).local(), other.shard_like(like).local())
+            return Dataset(arrays=pair, n=self.n, mesh=like.mesh)
         if self.is_array and other.is_array:
             pn = max(self.padded_n, other.padded_n)
             a = self._pad_to(pn)._arrays
@@ -481,6 +561,10 @@ class Dataset:
         return self.__dict__.get("_cached", False)
 
     def _pad_to(self, pn: int) -> "Dataset":
+        if self.is_sharded:
+            if pn != self.padded_n:
+                raise ValueError(f"cannot repad a sharded dataset of {self.padded_n} rows to {pn}")
+            return self.to_array_mode()
         arrs = self.to_array_mode()._arrays
         cur = _leading_dim(arrs)
         if cur == pn:
@@ -496,15 +580,62 @@ class Dataset:
         )
         return Dataset(arrays=padded, n=self._n)
 
+    # -- placement ---------------------------------------------------------
+
+    def shard(self, mesh: Optional[mesh_lib.Mesh] = None) -> "Dataset":
+        """Pad to a multiple of the mesh's data shards and keep this
+        process's contiguous range of rows (JAX's ``dataset.py:330-344``),
+        on its device in the mesh once the process joined a group (one
+        process alone keeps the rows where they are). ``n`` stays global.
+        Host blocks shard the same way (their rows, still on the host);
+        items become an array first. A model axis above 1 raises
+        ``NotImplementedError`` (ROADMAP A)."""
+        mesh = mesh or mesh_lib.current_mesh()
+        if self._mesh is mesh:
+            return self
+        if self.is_sharded:  # onto another mesh: gathered, then split again
+            return Dataset(arrays=self.padded(), n=self._n).shard(mesh)
+        ns = mesh_lib.n_data_shards(mesh)
+        per = -(-self.padded_n // ns)
+        lo = mesh_lib.shard_index(mesh) * per
+        joined = torch.distributed.is_initialized()
+        if self.is_host:
+            def cut(b):
+                if b.shape[0] < per * ns:
+                    b = torch.cat([b, b.new_zeros((per * ns - b.shape[0], b.shape[1]))])
+                return b[lo : lo + per]
+
+            dev = mesh_lib.local_device(mesh) if joined else self._device
+            return Dataset(host_blocks=[cut(b) for b in self._host_blocks], n=self._n,
+                           device=dev, mesh=mesh)
+        ds = self.to_array_mode()
+        if any(is_sparse(a) for a in tree_leaves(ds._arrays)):
+            raise ValueError("sparse rows cannot be sharded yet")
+        ds = ds._pad_to(per * ns)
+        dev = mesh_lib.local_device(mesh) if joined else ds.device
+        local = _tree_map(lambda a: a[lo : lo + per].to(dev), ds._arrays)
+        return Dataset(arrays=local, n=self._n, mesh=mesh)
+
+    def shard_like(self, other: "Dataset") -> "Dataset":
+        """This dataset's rows sharded as ``other``'s (same mesh, same
+        padded count; labels beside features)."""
+        if not other.is_sharded:
+            return self
+        if self._mesh is other.mesh and self.padded_n == other.padded_n:
+            return self
+        whole = Dataset(arrays=self.padded(), n=self._n) if self.is_sharded else self
+        return whole._pad_to(other.padded_n).shard(other.mesh)
+
     def __repr__(self) -> str:
+        where = "" if self._mesh is None else f", sharded over {self._mesh.shape}"
         if self.is_host:
             return (
                 f"Dataset(host_blocks, n={self._n}, "
-                f"widths={self.block_widths}, device={self._device})"
+                f"widths={self.block_widths}, device={self._device}{where})"
             )
         if self.is_array:
             shapes = _tree_map(lambda a: tuple(a.shape), self._arrays)
-            return f"Dataset(array, n={self._n}, shapes={shapes})"
+            return f"Dataset(array, n={self._n}, shapes={shapes}{where})"
         return f"Dataset(items, n={self._n})"
 
 
@@ -540,6 +671,8 @@ def on_device(ds: Dataset, dev: torch.device) -> Dataset:
             for i, x in zip(idxs, moved.unbind(0)):
                 out[i] = x
         return Dataset.from_items(out)
+    if ds.is_sharded:  # the rows stay on their own device
+        return ds
     x = ds.array()
     if _is_on(_first_leaf(x), dev) and ds.padded_n == ds.n:
         return ds

@@ -1,26 +1,30 @@
-"""Shuffle and repartition on one device (counterpart of
-``keystone_tpu/parallel/shuffle.py`` at one-device scope).
+"""Shuffle and repartition over the mesh's shards (counterpart of
+``keystone_tpu/parallel/shuffle.py``).
 
 Reference: the Spark shuffle behind ``Shuffler`` (nodes/util/Shuffler.scala,
 repartition) and the HashPartitioner ``groupBy`` of the per-class
-solvers. The JAX package packs each shard's rows into fixed-capacity
-per-destination buckets and exchanges them in one ``lax.all_to_all``; on
-one device there is one shard, so the exchange is the identity and what
-remains is the packing: rows sorted stably by destination into buckets
-of a fixed capacity, a validity mask, and a count of the rows that
-overflowed their bucket (callers size the capacity so that it is zero).
-Each function runs on its input's device.
+solvers. As in the JAX package a shuffle is one collective: each shard
+packs its rows into fixed-capacity per-destination buckets, one
+``all_to_all_single`` over the example axes exchanges them, and the
+receivers unpack. Buckets have a fixed capacity; rows that overflow
+theirs are dropped and counted (callers size the capacity so the count
+is zero; ``device_shuffle``'s slot-exact routing needs no slack).
+
+The payload and destinations are this process's rows of a row-sharded
+array (``Dataset.shard``), every shard the same count; the shard count
+is ``n_data_shards(mesh)``. In one process that joined no group the mesh
+is one shard and the exchange is the identity. Each function runs on its
+input's device (NCCL needs it on the card).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-# shards on one device
-N_SHARDS = 1
+from keystone_tpu_torch.parallel import mesh as mesh_lib
 
 
 def _pack_buckets(payload: tuple, dest: torch.Tensor, n_shards: int, capacity: int):
@@ -53,41 +57,70 @@ def _pack_buckets(payload: tuple, dest: torch.Tensor, n_shards: int, capacity: i
 
 
 def all_to_all_repartition(
-    payload: tuple, dest: torch.Tensor, capacity: int
+    payload: tuple, dest: torch.Tensor, capacity: int,
+    mesh: Optional[mesh_lib.Mesh] = None,
 ) -> Tuple[tuple, torch.Tensor, torch.Tensor]:
-    """Route rows to the shard named per row (``>= N_SHARDS`` discards
-    the row). Returns ``(N_SHARDS * capacity, ...)`` received rows
-    (source-major), an int32 validity mask and the overflow count — ``0``
-    when ``capacity`` was enough."""
-    buckets, valid, over = _pack_buckets(payload, dest, N_SHARDS, capacity)
-    flat = tuple(b.reshape((N_SHARDS * capacity,) + tuple(b.shape[2:])) for b in buckets)
-    return flat, valid.reshape(-1), over
+    """Route this shard's rows to the shard named per row (``>=
+    n_shards`` discards the row). Returns ``(n_shards * capacity, ...)``
+    received rows (source-major), an int32 validity mask and the global
+    overflow count — ``0`` when ``capacity`` was enough."""
+    mesh = mesh or mesh_lib.current_mesh()
+    n_shards = mesh_lib.n_data_shards(mesh)
+    buckets, valid, over = _pack_buckets(payload, dest, n_shards, capacity)
+    recv = tuple(mesh_lib.all_to_all_shards(b, mesh) for b in buckets)
+    recv_valid = mesh_lib.all_to_all_shards(valid, mesh)
+    over = mesh_lib.all_reduce_sum_(over.reshape(1), mesh)[0]
+    flat = tuple(b.reshape((n_shards * capacity,) + tuple(b.shape[2:])) for b in recv)
+    return flat, recv_valid.reshape(-1), over
 
 
-def repartition_by_key(payload: tuple, keys: torch.Tensor, capacity: int):
-    """Hash-partition rows onto shards by ``key % N_SHARDS`` — the
+def repartition_by_key(payload: tuple, keys: torch.Tensor, capacity: int,
+                       mesh: Optional[mesh_lib.Mesh] = None):
+    """Hash-partition rows onto shards by ``key % n_shards`` — the
     HashPartitioner ``groupBy`` analogue (negative keys discard)."""
-    dest = torch.where(keys >= 0, keys % N_SHARDS, N_SHARDS)
-    return all_to_all_repartition(payload, dest, capacity)
+    mesh = mesh or mesh_lib.current_mesh()
+    n_shards = mesh_lib.n_data_shards(mesh)
+    dest = torch.where(keys >= 0, keys % n_shards, n_shards)
+    return all_to_all_repartition(payload, dest, capacity, mesh)
 
 
-def device_shuffle(x: torch.Tensor, n: int, seed: int = 0) -> torch.Tensor:
+def device_shuffle(x: torch.Tensor, n: int, seed: int = 0,
+                   mesh: Optional[mesh_lib.Mesh] = None) -> torch.Tensor:
     """Exact random permutation of the first ``n`` (valid) rows of a padded
-    array, on its device: ``out[j] = x[perm[j]]`` with ``perm =
-    default_rng(seed).permutation(n)``, the host ``Shuffler``'s rows. Each
-    row goes to its permuted slot through the repartition; pad rows come
-    out zero."""
-    n_pad = x.shape[0]
+    row-sharded array, on its devices: ``out[j] = x[perm[j]]`` with ``perm =
+    default_rng(seed).permutation(n)``, the host ``Shuffler``'s rows. ``x``
+    is this shard's rows; every row goes to its permuted global slot
+    (destination shard and local slot) in one exchange, and this shard's
+    rows of the result come back. Pad rows come out zero."""
+    mesh = mesh or mesh_lib.current_mesh()
+    n_shards = mesh_lib.n_data_shards(mesh)
+    rows_per_shard = x.shape[0]
+    n_pad = rows_per_shard * n_shards
+    shard = mesh_lib.shard_index(mesh)
+
     perm = np.random.default_rng(seed).permutation(n)
     target = np.full((n_pad,), n_pad, np.int64)  # pad rows -> discard
     target[:n] = np.argsort(perm)  # row g lands at out slot inv[g]
-    dest = torch.as_tensor(np.where(target < n_pad, 0, N_SHARDS), device=x.device)
-    slot = torch.as_tensor(target % n_pad, device=x.device)
-    (rows, slots), valid, over = all_to_all_repartition((x, slot), dest, max(n, 1))
+    dest_h = np.where(target < n_pad, target // rows_per_shard, n_shards)
+    # the permutation is known on the host, so each (src, dst) bucket is
+    # sized at its exact occupancy (~rows_per_shard / n_shards for a random
+    # permutation), never rows_per_shard
+    src = np.arange(n_pad) // rows_per_shard
+    pair_counts = np.zeros((n_shards, n_shards + 1), np.int64)
+    np.add.at(pair_counts, (src, dest_h), 1)
+    capacity = max(int(pair_counts[:, :n_shards].max()), 1)
+
+    mine = slice(shard * rows_per_shard, (shard + 1) * rows_per_shard)
+    dest = torch.as_tensor(dest_h[mine], device=x.device)
+    slot = torch.as_tensor(target[mine] % rows_per_shard, device=x.device)
+    (rows, slots), valid, over = all_to_all_repartition((x, slot), dest, capacity, mesh)
     out = x.new_zeros(x.shape)
     live = valid > 0
     out[slots[live]] = rows[live]
     over_count = int(over)
     if over_count:
-        raise RuntimeError(f"device_shuffle dropped {over_count} rows")
+        raise RuntimeError(
+            f"device_shuffle dropped {over_count} rows: the input's rows are not "
+            "contiguously block-sharded over the mesh"
+        )
     return out

@@ -25,15 +25,14 @@ partitioning without hand-written per-model specs:
   for the AOT store's fingerprint (``aot.bucket_key``): a sharded
   engine never shares an entry with a replicated one.
 
-**One card.** The port has no ``jax.sharding``: ``Mesh`` is a small
-``(data, model)`` grid of torch devices of its own (``make_mesh``,
-``set_mesh``, ``current_mesh``), and ``PartitionSpec`` a tuple of mesh
-axis names (or None) per dimension. On one H100 the model axis has size
-1: every spec resolves and is validated against that size, and each
-param is placed whole on the card, as a copy the engine owns. A mesh
-asking for more devices than the host has raises (``make_mesh``); an
-engine on a model axis wider than 1 raises too (``make_shard_fns``),
-since the port's engine runs one card.
+**One card.** The port has no ``jax.sharding``: ``Mesh``, ``make_mesh``,
+``set_mesh``, ``current_mesh`` and ``PartitionSpec`` (a tuple of mesh
+axis names, or None, per dimension) are the port's own, from
+``parallel/mesh.py``. The engine runs on one card, so its model axis
+has size 1: every spec resolves and is validated against that size, and
+each param is placed whole on the card, as a copy the engine owns. A
+mesh asking for more devices than it is given raises (``make_mesh``);
+an engine on a model axis wider than 1 raises too (``make_shard_fns``).
 """
 
 from __future__ import annotations
@@ -48,43 +47,16 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-DATA_AXIS = "data"
-MODEL_AXIS = "model"
-
-
-class PartitionSpec(tuple):
-    """Per-dimension mesh axis names (``None`` = not split), as
-    ``jax.sharding.PartitionSpec``: ``PartitionSpec()`` is replicated,
-    ``PartitionSpec(None, "model")`` splits the last of two dims over
-    the model axis."""
-
-    def __new__(cls, *entries):
-        return super().__new__(cls, entries)
-
-    def __repr__(self) -> str:
-        return f"PartitionSpec({', '.join(repr(e) for e in self)})"
-
-    __str__ = __repr__
-
-
-@dataclasses.dataclass(frozen=True)
-class Mesh:
-    """A ``(data, model)`` grid of devices: ``devices[i][j]`` sits at
-    data index i, model index j."""
-
-    devices: Tuple[Tuple[torch.device, ...], ...]
-    axis_names: Tuple[str, str] = (DATA_AXIS, MODEL_AXIS)
-
-    @property
-    def shape(self) -> Dict[str, int]:
-        return {
-            self.axis_names[0]: len(self.devices),
-            self.axis_names[1]: len(self.devices[0]) if self.devices else 0,
-        }
-
-    @property
-    def size(self) -> int:
-        return sum(len(row) for row in self.devices)
+from keystone_tpu_torch.parallel import mesh as mesh_lib
+from keystone_tpu_torch.parallel.mesh import (  # noqa: F401  (the serving names)
+    DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    PartitionSpec,
+    current_mesh,
+    make_mesh,
+    set_mesh,
+)
 
 
 def local_devices() -> List[torch.device]:
@@ -92,48 +64,6 @@ def local_devices() -> List[torch.device]:
     if torch.cuda.is_available():
         return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     return [torch.device("cpu")]
-
-
-def make_mesh(
-    n_data: Optional[int] = None,
-    n_model: int = 1,
-    devices: Optional[Sequence[torch.device]] = None,
-) -> Mesh:
-    """A (data, model) mesh over ``devices`` (default: every local
-    card, else the CPU). Raises when the devices cannot fill it."""
-    devs = list(devices) if devices is not None else local_devices()
-    if n_model < 1:
-        raise ValueError(f"model axis must be >= 1, got {n_model}")
-    if n_model > len(devs):
-        raise ValueError(
-            f"a model axis of {n_model} needs {n_model} devices; this host "
-            f"has {len(devs)} ({', '.join(str(d) for d in devs)})"
-        )
-    if n_data is None:
-        n_data = len(devs) // n_model
-    if n_data * n_model != len(devs):
-        raise ValueError(f"mesh {n_data}x{n_model} != {len(devs)} devices")
-    grid = tuple(
-        tuple(devs[i * n_model:(i + 1) * n_model]) for i in range(n_data)
-    )
-    return Mesh(grid)
-
-
-_current_mesh: Optional[Mesh] = None
-
-
-def current_mesh() -> Mesh:
-    """The process mesh: the one ``set_mesh`` pinned, else every local
-    device on the data axis."""
-    global _current_mesh
-    if _current_mesh is None:
-        _current_mesh = make_mesh()
-    return _current_mesh
-
-
-def set_mesh(mesh: Optional[Mesh]) -> None:
-    global _current_mesh
-    _current_mesh = mesh
 
 
 # regex -> PartitionSpec, first match wins, against the
@@ -284,12 +214,12 @@ def make_shard_fns(
 ) -> Dict[str, Callable[[Any], torch.Tensor]]:
     """Per-param placement callables: each validates its spec against
     ``mesh`` and returns the param as a tensor of the engine's own on
-    ``device`` (default: the mesh's first device). With a model axis of
+    ``device`` (default: this process's device in the mesh). With a model axis of
     1 — one card — a spec cuts nothing and the param is placed whole;
     a spec that would cut a param across cards raises, since the port's
     engine runs one card."""
     mesh = mesh or current_mesh()
-    dev = device if device is not None else mesh.devices[0][0]
+    dev = device if device is not None else mesh_lib.local_device(mesh)
 
     def make(name: str, spec: PartitionSpec):
         def shard_fn(value: Any) -> torch.Tensor:

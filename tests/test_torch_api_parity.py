@@ -20,7 +20,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # key -> why the port does without it. Keys: "module" (the whole module),
 # "module:name", "module:Class.member", "module:func(param)",
 # "module:Class.method(param)", "module:Class(param)" (the constructor)
-NO_MESH = "the port runs on one card: there is no device mesh to place over"
+NO_MESH = ("the port's serving engine runs on one card; serving over a mesh of "
+           "processes waits for the model axis across processes (ROADMAP A)")
 DEPARTURES: Dict[str, str] = {
     "ops.images.pallas_kernels": (
         "the Pallas kernels B1 and B2: the port's are csrc/sift_bin.cu and "
@@ -28,19 +29,13 @@ DEPARTURES: Dict[str, str] = {
     "ops.images.fv_pallas": (
         "the Pallas kernel B3: the port's is csrc/fv_stats.cu behind "
         "ops/images/fv_kernel.py"),
-    "parallel.mesh": "JAX device meshes and their shardings; " + NO_MESH,
-    "parallel.virtual": (
-        "provisions XLA's virtual CPU devices for multi-chip tests; the "
-        "port's multi-process tests give torch.distributed its group"),
-    "parallel.runtime": (
-        "jax.distributed's multi-host process group over a mesh; " + NO_MESH),
-    "parallel.dataset:Dataset.shard": (
-        "pads and places the rows over a mesh's data axis; " + NO_MESH),
-    "parallel.linalg:tsqr_r(mesh)": "the mesh the TSQR reduction runs over; " + NO_MESH,
-    "parallel.linalg:qr_q(mesh)": "the mesh the TSQR reduction runs over; " + NO_MESH,
-    "parallel.shuffle:all_to_all_repartition(mesh)": "the mesh of the all-to-all; " + NO_MESH,
-    "parallel.shuffle:repartition_by_key(mesh)": "the mesh of the all-to-all; " + NO_MESH,
-    "parallel.shuffle:device_shuffle(mesh)": "the mesh of the all-to-all; " + NO_MESH,
+    "parallel.runtime:setup_compilation_cache": (
+        "XLA's persistent compilation cache; the port compiles no programs: its "
+        "CUDA libraries build into _build/ (or $KEYSTONE_CUDA_BUILD_DIR) and the AOT "
+        "store keeps them (setup_aot_cache)"),
+    "parallel.virtual:provision_devices": (
+        "gives one process n virtual XLA CPU devices; the port runs one process per "
+        "device, and parallel.virtual.launch starts n processes joined in one group"),
     "utils.precision:hi_if_f32": (
         "XLA's matmul precision argument; the port turns TF32 off once "
         "(_device.py), so float32 products are float32"),
