@@ -322,8 +322,19 @@ Phases, in order; any failure exits non-zero:
    ``qr_q`` at phase 13's 1,048,576 x 1,024 on sharded rows and
    ``device_shuffle`` at the world size. Prints the world size, each
    fit's seconds, the fits' ``all_reduce`` calls and bytes, and one
-   block's ``all_reduce`` timed by CUDA events. ``python3 chip_smoke.py
-   --data-parallel`` runs this phase alone.
+   block's ``all_reduce`` timed by CUDA events. In the same launch, the
+   estimators that fit on sharded rows: (a) the flagship's weighted
+   solver at phase 6's widths (2,000 seeded 256² images, each process
+   featurizing its own through phase 4's chain and ``jit_batch``, 64 at a
+   time, B1/B2/B3 4/1/2 launches a chunk; labels from phase 4's head;
+   ``BlockWeightedLeastSquaresEstimator(4096, 1, 6e-5, 0.25)``, the pcg
+   path), (b) the ELL solve at 12c's widths over 4,194,304 rows and (c)
+   the per-class solver, logistic regression, the sketch PCA, KRR and
+   dense L-BFGS at their CPU tests' sizes: each fit's seconds, its
+   collectives (``all_reduce`` only: no fit gathers X), the model
+   identical on every process and bit for bit rank 0's unsharded fit at
+   one process; (a) also its peak memory and training top-1.
+   ``python3 chip_smoke.py --data-parallel`` runs this phase alone.
 
 Three options run one bench row N times in this process, each run's row
 or the check it failed, then the count that passed (not phases):
@@ -5658,13 +5669,18 @@ P17_PLAN = ["--synthetic", "100", "--rate", "50", "--replicas", "1,2", "--speeds
             "--buckets", "4"]
 
 
-def phase4_chain(dev, img=IMG):
-    """Phase 4's chain and head (the seeds and draws of ``serve``)."""
-    feat, feat_dim = build_flagship_featurize_pipeline(device=dev, **dict(CONF, img=img))
+def phase4_head_weights(feat_dim):
+    """Phase 4's seeded head: W (feat_dim, CLASSES) and the intercept."""
     rng = np.random.default_rng(11)
     W = (rng.standard_normal((feat_dim, CLASSES)) / np.sqrt(feat_dim)).astype(np.float32)
     icpt = (rng.standard_normal(CLASSES) * 0.01).astype(np.float32)
-    return feat, model_head(W, icpt, TOP_K, dev)
+    return W, icpt
+
+
+def phase4_chain(dev, img=IMG):
+    """Phase 4's chain and head (the seeds and draws of ``serve``)."""
+    feat, feat_dim = build_flagship_featurize_pipeline(device=dev, **dict(CONF, img=img))
+    return feat, model_head(*phase4_head_weights(feat_dim), TOP_K, dev)
 
 
 def startup_split(args):
@@ -6892,6 +6908,17 @@ P21_HOST_ROWS = P11_TIMIT[0]
 P21_MIN_TRAIN_ACC = 0.9
 P21_TIMEOUT_S = 600
 FIT_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_torch_block_ls.py:29
+# 21 (a): the flagship's weighted fit on sharded rows at phase 6's widths
+# (2,000 seeded 256² images, 1,000 classes, 8,192 features, the solver's
+# block 4,096, lambda 6e-5, mixture weight 0.25: the pcg path), each
+# process featurizing its own images through phase 4's chain, 64 at a
+# time; (b) the ELL solve at phase 12c's widths over 4,194,304 rows (12c:
+# 65,000,000); (c) the other repaired fits at their CPU tests' sizes
+P21_FLAGSHIP_IMAGES, P21_FEATURIZE_CHUNK = 2000, 64
+P21_WEIGHTED = dict(block_size=4096, num_iter=1, lam=6e-5, mixture_weight=0.25)
+P21_ELL_ROWS = 4_194_304
+# the all_gathers a fit of 21 (c) may run: TSQR's (width, width) R factors
+P21_R_WIDTH = {"approximate_pca": 13, "pca": 16, "zca": 6}
 
 
 def _p21_problem(rows, seed=21):
@@ -6934,14 +6961,184 @@ def _p21_rows(frames, y, lo, per, cosines, dev, host=False):
     return (parts if host else X), Y
 
 
+def _p21_flagship_weighted(images, mesh, dev, sync, agree, img=IMG):
+    """21 (a): every process draws the same seeded images and featurizes
+    its own through phase 4's chain (``jit_batch``, 64 at a time: B1-B3 on
+    the card), labels each with its class under phase 4's head, and the
+    weighted solver fits the sharded rows; rank 0 fits the same features
+    unsharded. Returns the record."""
+    from keystone_tpu_torch.parallel import mesh as mesh_lib
+    from keystone_tpu_torch.parallel.dataset import all_sum
+
+    rank, world = mesh_lib.shard_index(mesh), mesh_lib.n_data_shards(mesh)
+    rec = {"images": images, **P21_WEIGHTED}
+    t = time.perf_counter()
+    feat, feat_dim = build_flagship_featurize_pipeline(device=dev, **dict(CONF, img=img))
+    W_head, icpt = (torch.as_tensor(a, device=dev) for a in phase4_head_weights(feat_dim))
+    f = feat.jit_batch(device=dev)
+    raw = np.random.default_rng(23).integers(0, 256, (images, img, img, 3), dtype=np.uint8)
+    rec["chain_s"] = time.perf_counter() - t
+
+    def featurize(lo, hi, per):
+        """Rows lo .. hi of the features and ±1 labels, zero past ``hi``
+        up to ``per`` rows."""
+        X = torch.zeros((per, feat_dim), device=dev)
+        for s in range(lo, hi, P21_FEATURIZE_CHUNK):
+            e = min(s + P21_FEATURIZE_CHUNK, hi)
+            X[s - lo : e - lo] = f(raw[s:e])
+        cls = torch.argmax(X[: hi - lo] @ W_head + icpt, dim=1)
+        Y = torch.zeros((per, CLASSES), device=dev)
+        Y[: hi - lo] = ClassLabelIndicators(CLASSES).apply(cls)
+        return X, Y, cls
+
+    per = -(-images // world)
+    lo, hi = rank * per, min(images, (rank + 1) * per)
+    _cuda.reset_launches()
+    sync()
+    t = time.perf_counter()
+    X, Y, cls = featurize(lo, hi, per)
+    sync()
+    rec["featurize_s"] = time.perf_counter() - t
+    rec["chunks"] = -(-(hi - lo) // P21_FEATURIZE_CHUNK)
+    rec["captures"] = f.captures
+    rec["launches"] = dict(_cuda.LAUNCHES)
+    est = weighted_ls.BlockWeightedLeastSquaresEstimator(**P21_WEIGHTED)
+
+    def fit(data, labels):
+        mesh_lib.reset_stats()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        sync()
+        t0 = time.perf_counter()
+        model = est.fit(data, labels)
+        sync()
+        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+        return model, time.perf_counter() - t0, {k: list(v) for k, v in mesh_lib.STATS.items()}, peak
+
+    sharded = (Dataset.from_array(X, n=images, mesh=mesh), Dataset.from_array(Y, n=images, mesh=mesh))
+    if dev.type == "cuda":  # warm: the timed fits find the solver libraries set up
+        est.fit(*sharded)
+    model, rec["fit_s"], rec["collectives"], rec["peak_bytes"] = fit(*sharded)
+    rec["pcg_iterations"] = int(model.solver_info["pcg_iterations"])
+    W, b = model.W.clone(), model.intercept.clone()
+    rec["identical_on_every_rank"] = agree(W) and agree(b)
+    right = (torch.argmax(X[: hi - lo] @ W + b, dim=1) == cls).float().sum().reshape(1)
+    (right,) = all_sum(mesh, right)
+    rec["train_top1"] = float(right) / images
+    rec["finite"] = bool(torch.isfinite(W).all() and torch.isfinite(b).all())
+    if rank == 0:
+        if world > 1:
+            X, Y, _ = featurize(0, images, images)
+        with mesh_lib.use_mesh(mesh_lib.make_mesh(ranks=[rank])):
+            ref, rec["unsharded_fit_s"], _, rec["unsharded_peak_bytes"] = fit(
+                Dataset.from_array(X), Dataset.from_array(Y))
+        rec["equal_unsharded"] = bool(torch.equal(W, ref.W) and torch.equal(b, ref.intercept))
+        rec["max_abs_diff"] = float((W - ref.W).abs().max())
+    return rec
+
+
+def _p21_ell(rows, mesh, dev, sync, agree, d=1024, nnz=5, k=2, lam=1e-2):
+    """21 (b): the ELL solve at phase 12c's widths on sharded rows (each
+    process draws the same rows on its card and keeps its own), and rank 0's
+    unsharded fit of all of them."""
+    from keystone_tpu_torch.ops.learning import sparse_ell
+    from keystone_tpu_torch.parallel import mesh as mesh_lib
+
+    rank = mesh_lib.shard_index(mesh)
+    g = torch.Generator(device=dev).manual_seed(21)
+    idx = torch.randint(0, d, (rows, nnz), generator=g, device=dev, dtype=torch.int32)
+    vals = torch.randn((rows, nnz), generator=g, device=dev, dtype=torch.bfloat16)
+    Y = torch.randn((rows, k), generator=g, device=dev, dtype=torch.bfloat16)
+    est = sparse_ell.EllLeastSquaresEstimator(d=d, lam=lam)
+    rec = {"rows": rows, "d": d, "nnz": nnz, "k": k, "lam": lam}
+
+    def fit(data):
+        mesh_lib.reset_stats()
+        sync()
+        t0 = time.perf_counter()
+        W = est.fit(data, Dataset.from_array(Y)).W
+        sync()
+        return W, time.perf_counter() - t0, {k_: list(v) for k_, v in mesh_lib.STATS.items()}
+
+    sharded = sparse_ell.ell_dataset(idx, vals).shard(mesh)
+    if dev.type == "cuda":  # warm, as in (a)
+        est.fit(sharded, Dataset.from_array(Y))
+    W, rec["fit_s"], rec["collectives"] = fit(sharded)
+    rec["identical_on_every_rank"] = agree(W)
+    rec["finite"] = bool(torch.isfinite(W).all())
+    if rank == 0:
+        with mesh_lib.use_mesh(mesh_lib.make_mesh(ranks=[rank])):
+            ref, rec["unsharded_fit_s"], _ = fit(sparse_ell.ell_dataset(idx, vals))
+        rec["equal_unsharded"] = bool(torch.equal(W, ref))
+        rec["max_abs_diff"] = float((W - ref).abs().max())
+    return rec
+
+
+def _p21_other_fits(mesh, dev, sync, agree):
+    """21 (c): a check of the other repaired fits' code paths on the card,
+    at their CPU tests' sizes (too small for their times to say anything of
+    the card, so none is kept), sharded and (rank 0) unsharded: the
+    per-class weighted solver, logistic regression, the sketch and the
+    local PCA, ZCA, KRR and dense L-BFGS."""
+    from keystone_tpu_torch.ops.learning import classifiers, lbfgs, zca
+    from keystone_tpu_torch.parallel import mesh as mesh_lib
+
+    rng = np.random.default_rng(21)
+    cls = rng.integers(0, 4, 50)
+    Xw = ((rng.standard_normal((4, 10)) * 2)[cls] + rng.standard_normal((50, 10))).astype(np.float32)
+    Yw = 2.0 * np.eye(4, dtype=np.float32)[cls] - 1.0
+    Xl = rng.standard_normal((202, 4)).astype(np.float32)
+    yl = (Xl[:, 0] + 0.5 * Xl[:, 1] > 0).astype(np.int32)
+    Xp = (rng.standard_normal((122, 3)) @ rng.standard_normal((3, 16))
+          + 0.01 * rng.standard_normal((122, 16))).astype(np.float32)
+    Xk, Yk = (rng.standard_normal((62, m)).astype(np.float32) for m in (4, 3))
+    Ar, br = (rng.standard_normal((202, m)).astype(np.float32) for m in (6, 2))
+    Xz = (rng.standard_normal((102, 6)) @ rng.standard_normal((6, 6))).astype(np.float32)
+    fits = {
+        "per_class_weighted": lambda sh: weighted_ls.PerClassWeightedLeastSquaresEstimator(
+            4, 2, 0.1, 0.6).fit(sh(Xw), sh(Yw)).W,
+        "logistic_regression": lambda sh: classifiers.LogisticRegressionEstimator(
+            2, num_iters=50).fit(sh(Xl), sh(yl)).W,
+        "approximate_pca": lambda sh: pca.ApproximatePCAEstimator(3, seed=0).fit(sh(Xp)).pca_mat,
+        "pca": lambda sh: pca.PCAEstimator(3).fit(sh(Xp)).pca_mat,
+        "zca": lambda sh: zca.ZCAWhitenerEstimator(eps=1e-6).fit(sh(Xz)).whitener,
+        "kernel_ridge": lambda sh: krr.KernelRidgeRegression(
+            krr.GaussianKernelGenerator(0.5), 0.1, block_size=16, num_epochs=5).fit(
+                sh(Xk), sh(Yk)).model,
+        "dense_lbfgs": lambda sh: lbfgs.DenseLBFGSwithL2(
+            num_iterations=100, reg_param=0.1, fit_intercept=False,
+            convergence_tol=1e-10).fit(sh(Ar), sh(br)).W,
+    }
+    rank = mesh_lib.shard_index(mesh)
+    out = {}
+    for name, fit in fits.items():
+        mesh_lib.reset_stats()
+        W = fit(lambda a: Dataset.from_array(torch.as_tensor(a).to(dev)).shard(mesh))
+        r = {"collectives": {k: list(v) for k, v in mesh_lib.STATS.items()},
+             "local_n": -(-len(Xk) // mesh_lib.n_data_shards(mesh)),
+             "identical_on_every_rank": agree(W), "finite": bool(torch.isfinite(W).all())}
+        if rank == 0:
+            with mesh_lib.use_mesh(mesh_lib.make_mesh(ranks=[rank])):
+                ref = fit(lambda a: Dataset.from_array(torch.as_tensor(a).to(dev)))
+            r["equal_unsharded"] = bool(torch.equal(W, ref))
+            r["max_abs_diff"] = float((W - ref).abs().max())
+        out[name] = r
+    return out
+
+
 def phase21_worker(rows, host_rows, cosines, epochs, host_epochs, qr_shape, shuffle_rows,
-                   launched_at=None):
+                   launched_at=None, flagship_images=P21_FLAGSHIP_IMAGES, ell_rows=P21_ELL_ROWS,
+                   img=IMG):
     """One process of phase 21 (``parallel.virtual.launch``): the sharded
-    fits, rank 0's unsharded ones, ``qr_q`` and ``device_shuffle``.
-    Returns this process's record. Rehearse on the CPU at a small size:
-    ``virtual.launch(chip_smoke.phase21_worker, 2, (8192, 8192, 2, 2, 1,
-    (4096, 64), 4096), device="cpu")`` (more rows than a block's 4,096
-    columns: with lambda 0 a block's Gram is singular below that)."""
+    fits, rank 0's unsharded ones (TIMIT's block solver in memory and from
+    host blocks; then (a) the flagship's weighted solver, (b) the ELL solve
+    and (c) the other repaired estimators), ``qr_q`` and
+    ``device_shuffle``. Returns this process's record. Rehearse on the CPU
+    at a small size: ``virtual.launch(chip_smoke.phase21_worker, 2, (8192,
+    8192, 2, 2, 1, (4096, 64), 4096, None, 96, 65536, 48), device="cpu",
+    timeout_s=900)`` (more TIMIT rows than a block's 4,096 columns: with
+    lambda 0 a block's Gram is singular below that; 96 flagship images of
+    48², 65,536 ELL rows)."""
     from keystone_tpu_torch.parallel import linalg, runtime, shuffle
     from keystone_tpu_torch.parallel import mesh as mesh_lib
 
@@ -7034,6 +7231,17 @@ def phase21_worker(rows, host_rows, cosines, epochs, host_epochs, qr_shape, shuf
     if on_card:
         torch.cuda.empty_cache()
 
+    # (a)-(c): the estimators that fit on sharded rows since the block solver
+    t = time.perf_counter()
+    rec["flagship_weighted"] = _p21_flagship_weighted(flagship_images, mesh, dev, sync, agree, img)
+    if on_card:
+        torch.cuda.empty_cache()
+    rec["ell"] = _p21_ell(ell_rows, mesh, dev, sync, agree)
+    if on_card:
+        torch.cuda.empty_cache()
+    rec["other_fits"] = _p21_other_fits(mesh, dev, sync, agree)
+    rec["estimators_s"] = time.perf_counter() - t
+
     # qr_q at phase 13's shape on sharded rows, each from its global index
     n, d = qr_shape
     qper = -(-n // world)
@@ -7068,7 +7276,8 @@ def phase21_worker(rows, host_rows, cosines, epochs, host_epochs, qr_shape, shuf
 
 def data_parallel_phase(smi, rows=P21_ROWS, host_rows=P21_HOST_ROWS, cosines=P21_COSINES,
                         epochs=P21_EPOCHS, host_epochs=P21_HOST_EPOCHS, qr_shape=P13_QR,
-                        shuffle_rows=P13_CHECK_ROWS):
+                        shuffle_rows=P13_CHECK_ROWS, flagship_images=P21_FLAGSHIP_IMAGES,
+                        ell_rows=P21_ELL_ROWS):
     """Phase 21: ``phase21_worker`` in one process per card (NCCL)."""
     from keystone_tpu_torch.parallel import virtual
 
@@ -7079,7 +7288,7 @@ def data_parallel_phase(smi, rows=P21_ROWS, host_rows=P21_HOST_ROWS, cosines=P21
     t = time.perf_counter()
     recs = virtual.launch(phase21_worker, world,
                           (rows, host_rows, cosines, epochs, host_epochs, qr_shape, shuffle_rows,
-                           time.time()),
+                           time.time(), flagship_images, ell_rows),
                           device="cuda", timeout_s=P21_TIMEOUT_S)
     r0 = recs[0]
     out = {"card": smi, "world": world, "rows": rows, "host_rows": host_rows,
@@ -7100,15 +7309,57 @@ def data_parallel_phase(smi, rows=P21_ROWS, host_rows=P21_HOST_ROWS, cosines=P21
         f"{r0['qr_rel_err']:.3g}; device_shuffle equal {r0['shuffle_equal']}; phase "
         f"{out['phase_s']:.3f} s (rank 0 up {r0['start_s']:.3f} s after the launch, its work "
         f"{r0['worker_s']:.3f} s), on {smi}")
+    fw, ell, other = r0["flagship_weighted"], r0["ell"], r0["other_fits"]
+    log(f"21a the flagship's weighted fit on sharded rows ({fw['images']} images of {IMG}², "
+        f"{CLASSES} classes, 8,192 features, {P21_WEIGHTED}): featurized in {fw['chunks']} chunks "
+        f"of {P21_FEATURIZE_CHUNK} in {fw['featurize_s']:.3f} s (chain built {fw['chain_s']:.3f} s; "
+        f"{fw['captures']} graph captures; launches {fw['launches']}); fit {fw['fit_s']:.3f} s ({fw['pcg_iterations']} CG "
+        f"iterations at most; collectives {fw['collectives']}), peak {fw['peak_bytes']} bytes; "
+        f"unsharded {fw['unsharded_fit_s']:.3f} s (peak {fw['unsharded_peak_bytes']}), equal bit "
+        f"for bit {fw['equal_unsharded']} (max |diff| {fw['max_abs_diff']:.3g}); training top-1 "
+        f"{fw['train_top1']:.4f}; on {smi}")
+    log(f"21b the ELL solve on sharded rows ({ell['rows']} x {ell['d']}, nnz {ell['nnz']}, k "
+        f"{ell['k']}, lambda {ell['lam']}): {ell['fit_s']:.3f} s (collectives "
+        f"{ell['collectives']}), unsharded {ell['unsharded_fit_s']:.3f} s, equal bit for bit "
+        f"{ell['equal_unsharded']} (max |diff| {ell['max_abs_diff']:.3g}); on {smi}")
+    log("21c the other fits' code paths at their CPU tests' sizes, sharded against unsharded "
+        "(equal, max |diff|, collectives): "
+        + "; ".join(f"{k} {v['equal_unsharded']} {v['max_abs_diff']:.3g} {v['collectives']}"
+                    for k, v in other.items()))
     for r in recs:
         assert not r["jax_imported"] and not r["jax_imported_after"], r["rank"]
         assert r["backend"] == "nccl" and r["device"] == f"cuda:{r['rank']}", r
         assert r["fit_identical_on_every_rank"] and r["host_fit_identical_on_every_rank"], r
         assert r["qr_r_identical_on_every_rank"] and r["shuffle_equal"] and r["finite"], r
+        for name, e in [("flagship", r["flagship_weighted"]), ("ell", r["ell"]),
+                        *r["other_fits"].items()]:
+            assert e["identical_on_every_rank"] and e["finite"], e
+            # no fit gathers X: its sums cross processes as all_reduce; the
+            # PCAs' and ZCA's tree QRs gather only (width, width) R factors
+            gathered = e["collectives"].get("all_gather", [0, 0, 0])
+            assert "all_reduce" in e["collectives"], e
+            assert gathered[2] <= P21_R_WIDTH.get(name, 0) ** 2 * 4, e
+            # and no row crosses processes (Dataset.rows_piece), but KRR's:
+            # each of its rows at most once an epoch, and once more for the
+            # cached kernel, with its K_BB and Y_B rows (4 wide, k 3, block 16)
+            moved = e["collectives"].get("rows", [0, 0, 0])[1]
+            assert moved <= (4 * 6 * e["local_n"] * (4 + 2 + 16 + 3)
+                             if name == "kernel_ridge" else 0), e
+    # G and AᵀY together, in one all_reduce smaller than a process's rows
+    assert ell["collectives"]["all_reduce"][0] == 1, ell
+    assert ell["collectives"]["all_reduce"][2] < ell["rows"] // world * ell["nnz"] * 6, ell
+    # B1-B3 ran in the worker's featurize: 4 / 1 / 2 launches a chunk, and
+    # each capture's warm pass and checking replay one chunk's more each
+    # (workflow/cuda_graph.py)
+    calls = fw["chunks"] + 2 * fw["captures"]
+    assert fw["launches"] == {"sift_bin_sample": 4 * calls, "plane_sandwich": calls,
+                              "fisher_vector_stats": 2 * calls}, fw
     assert r0["train_accuracy"] > P21_MIN_TRAIN_ACC, r0["train_accuracy"]
     assert r0["ortho_err"] <= MAX_ORTHO_ERR and r0["qr_rel_err"] <= RTOL_QR, r0
     if world == 1:  # an all_reduce over one rank changes no bytes
         assert r0["fit_equal_unsharded"] and r0["host_fit_equal_unsharded"], r0
+        assert fw["equal_unsharded"] and ell["equal_unsharded"], (fw, ell)
+        assert all(v["equal_unsharded"] for v in other.values()), other
     assert r0["fit_within_tol"] and r0["host_fit_within_tol"], r0
     return out
 
@@ -7118,6 +7369,7 @@ def data_parallel_only():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     log(smi)
+    _cuda.build()  # all nvccs at once; the workers load the libraries
     rec = data_parallel_phase(smi)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "data_parallel.json"), "w") as f:

@@ -282,13 +282,19 @@ def mnist_random_fft_from_numpy(params: dict, *, block_size: int = 2048, device=
 
 def krr_params(fitted) -> dict:
     """numpy parameters of the ``KernelBlockLinearMapper`` a fitted
-    pipeline of the port holds (or of the mapper itself)."""
+    pipeline of the port holds (or of the mapper itself). A model fitted on
+    training rows sharded over processes holds only this process's rows:
+    every shard's rows are brought here (``Dataset.global_rows``) to pair
+    with the whole of ``W``, so every process of the group calls this
+    together, and each gets the same parameters."""
     from keystone_tpu_torch.ops.learning.kernel import KernelBlockLinearMapper
 
     m = fitted if isinstance(fitted, KernelBlockLinearMapper) else _only(
         fitted, KernelBlockLinearMapper)
     kt = m.kernel_transformer
-    return {"train_X": _numpy(kt.train_X), "n_train": int(kt.n_train),
+    rows = kt.train_rows
+    train_X = rows.global_rows(kt.train_X, 0, rows.padded_n)
+    return {"train_X": _numpy(train_X), "n_train": int(kt.n_train),
             "gamma": float(kt.gamma), "W": _numpy(m.model), "block_size": m.block_size}
 
 
@@ -300,10 +306,13 @@ def krr_from_numpy(params: dict, *, device=None):
         GaussianKernelTransformer,
         KernelBlockLinearMapper,
     )
+    from keystone_tpu_torch.parallel.dataset import Dataset
 
     t = _tensors(params, resolve_device(device))
     n = int(params["n_train"])
-    kt = GaussianKernelTransformer(t("train_X"), n, float(params["gamma"]))
+    train_X = t("train_X")
+    kt = GaussianKernelTransformer(train_X, n, float(params["gamma"]),
+                                   train_rows=Dataset.from_array(train_X, n=n))
     return KernelBlockLinearMapper(t("W"), int(params["block_size"]), kt, n).to_pipeline().fit()
 
 

@@ -58,7 +58,7 @@ from keystone_tpu_torch.ops.learning.cost import (
 )
 from keystone_tpu_torch.ops.learning.hostsolve import psd_solve_host
 from keystone_tpu_torch.parallel import mesh as mesh_lib
-from keystone_tpu_torch.parallel.dataset import Dataset
+from keystone_tpu_torch.parallel.dataset import Dataset, all_sum
 from keystone_tpu_torch.utils.checkpoint import (
     LoopCheckpointer,
     data_probe,
@@ -133,22 +133,9 @@ def _add_contribution(R, Xb, Wb, mu_b, mask, sign: float) -> None:
     R.addr_(mask, torch.matmul(mu_b, Wb), alpha=-sign)
 
 
-def _all_reduce_parts(mesh: Optional[mesh_lib.Mesh], *parts: torch.Tensor):
-    """``parts`` summed over ``mesh``'s example axes in one ``all_reduce``
-    (views of the reduced buffer), or as they are without a mesh."""
-    if mesh is None:
-        return parts
-    flat = mesh_lib.all_reduce_sum_(torch.cat([p.reshape(-1) for p in parts]), mesh)
-    out, at = [], 0
-    for p in parts:
-        out.append(flat[at : at + p.numel()].view(p.shape))
-        at += p.numel()
-    return out
-
-
 def _column_sums(X: torch.Tensor, mask: torch.Tensor, mesh) -> torch.Tensor:
     """Σ over the valid rows of every shard of ``X``, float32."""
-    (s,) = _all_reduce_parts(mesh, torch.matmul(mask, _f32(X)))
+    (s,) = all_sum(mesh, torch.matmul(mask, _f32(X)))
     return s
 
 
@@ -166,7 +153,7 @@ def _block_update(Xb, R, Wb, mu_b, mask, lam: float, n: int, *,
     the shards before they are centered and solved."""
     if not first_pass:
         _add_contribution(R, Xb, Wb, mu_b, mask, 1.0)
-    gram, rhs, r_sum = _all_reduce_parts(
+    gram, rhs, r_sum = all_sum(
         mesh, torch.matmul(Xb.T, Xb), torch.matmul(Xb.T, R), torch.sum(R, dim=0))
     gram.addr_(mu_b, mu_b, alpha=-float(n))
     rhs.addr_(mu_b, r_sum, alpha=-1.0)
@@ -189,17 +176,6 @@ def _prep_labels(Y: torch.Tensor, mask: torch.Tensor, n: int, mesh=None):
     Y = _f32(Y)
     mu_y = _column_sums(Y, mask, mesh) / n
     return mu_y, (Y - mu_y) * mask[:, None]
-
-
-def _sharded_labels(data: Dataset, labels: Dataset) -> torch.Tensor:
-    """The labels' rows beside ``data``'s: this process's when ``data``
-    is sharded, all of them padded to ``data``'s rows otherwise."""
-    lab = labels.to_array_mode()
-    if data.is_sharded:
-        return lab.shard_like(data).local()
-    if lab.padded_n != data.padded_n:
-        lab = lab._pad_to(data.padded_n)
-    return lab.padded()
 
 
 def _checkpointer(path: str, every: int, fp: str, mesh) -> Tuple[LoopCheckpointer, bool]:
@@ -421,7 +397,7 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
         data = data.to_array_mode()
         mesh = data.mesh
         X = data.local()
-        Y = _sharded_labels(data, labels).to(X.device)
+        Y = labels.local_like(data).to(X.device)
         n = data.n
         D = X.shape[1]
         k = Y.shape[1]
@@ -430,7 +406,7 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
             (s, min(s + self.block_size, D) - s)
             for s in range(0, D, self.block_size)
         ]
-        (mu,) = _all_reduce_parts(
+        (mu,) = all_sum(
             mesh, torch.cat([torch.matmul(mask, _f32(X[:, s : s + w])) for s, w in blocks]))
         mu = mu / n
         mu_y, R = _prep_labels(Y, mask, n, mesh)
@@ -519,7 +495,7 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
         n = data.n
         dev = data.device
         mask = data.mask()
-        Y = _sharded_labels(data, labels).to(dev)
+        Y = labels.local_like(data).to(dev)
         mu_y, R = _prep_labels(Y, mask, n, mesh)
         k = Y.shape[1]
         nb = len(blocks)

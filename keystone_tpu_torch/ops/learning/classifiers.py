@@ -10,7 +10,10 @@ gradients are float32 products on the device, sparse rows through CSR
 SpMM; LDA's eigenproblem is float64 on the host, as in the JAX package.
 The estimators fit on the labels' device and move the data there (the
 text apps' sparse rows are made on the host); the models score on their
-parameters' device.
+parameters' device. On dense rows sharded over processes
+(``Dataset.shard``) the labels are the label dataset's rows beside this
+process's, and the counts, sums, losses and gradients are this process's
+rows' plus an ``all_sum``; every process then holds the same model.
 """
 
 from __future__ import annotations
@@ -24,7 +27,15 @@ import torch
 
 from keystone_tpu_torch.ops.learning.lbfgs import host_vg, run_lbfgs, run_lbfgs_device
 from keystone_tpu_torch.ops.learning.linear import rows_times
-from keystone_tpu_torch.parallel.dataset import Dataset, csr_transpose, is_sparse, spmm
+from keystone_tpu_torch.parallel import mesh as mesh_lib
+from keystone_tpu_torch.parallel.dataset import (
+    Dataset,
+    all_sum,
+    csr_transpose,
+    is_sparse,
+    on_every_shard,
+    spmm,
+)
 from keystone_tpu_torch.utils.precision import mm
 from keystone_tpu_torch.workflow.api import LabelEstimator, Transformer
 from keystone_tpu_torch.workflow.operators import cached_on
@@ -45,9 +56,10 @@ class NaiveBayesModel(Transformer):
         return self.pi + rows_times(x, self._theta_t())
 
     def apply_batch(self, ds: Dataset) -> Dataset:
-        scores = self.pi + rows_times(ds.padded(), self._theta_t())
+        """Scores; sharded rows are scored where they are."""
+        scores = self.pi + rows_times(ds.local(), self._theta_t())
         mask = ds.mask().to(scores.device)
-        return Dataset.from_array(scores * mask[:, None], n=ds.n)
+        return Dataset(arrays=scores * mask[:, None], n=ds.n, mesh=ds.mesh)
 
 
 def _pad_rows(a: torch.Tensor, n: int) -> torch.Tensor:
@@ -73,9 +85,10 @@ class NaiveBayesEstimator(LabelEstimator):
     lam: float = 1.0
 
     def fit(self, data: Dataset, labels: Dataset) -> NaiveBayesModel:
+        data = data.to_array_mode()
         # float labels train as their integer part, as in the JAX package
-        y = labels.to_array_mode().array().reshape(-1).to(torch.int32)
-        x = data.to_array_mode().padded().to(y.device)
+        y = labels.local_like(data).reshape(-1)[: data.local_valid].to(torch.int32)
+        x = data.local().to(y.device)
         onehot = _onehot(y, self.num_classes)
         bad = torch.any((y < 0) | (y >= self.num_classes))
         onehot = torch.where(bad, torch.full_like(onehot, float("nan")), onehot)
@@ -84,24 +97,27 @@ class NaiveBayesEstimator(LabelEstimator):
             counts = spmm(csr_transpose(x), ys).T
         else:
             counts = mm(ys.T, x)
-        class_counts = onehot.sum(dim=0)
+        # a NaN of one process's bad label reaches every process's sums
+        counts, class_counts = data.all_sum(counts, onehot.sum(dim=0))
         pi = torch.log(class_counts + self.lam) - np.log(
-            y.shape[0] + self.num_classes * self.lam
+            labels.n + self.num_classes * self.lam
         )
         totals = torch.sum(counts, dim=1, keepdim=True)
         theta = torch.log(counts + self.lam) - torch.log(totals + self.lam * counts.shape[1])
         return NaiveBayesModel(pi, theta.contiguous())
 
 
-def _logistic_vg(W, x, onehot, mask, n, reg, xt=None):
+def _logistic_vg(W, x, onehot, mask, n, reg, xt=None, mesh=None):
     """Softmax cross-entropy mean loss + L2 and its gradient, the
     ``vg(W, *data)`` the L-BFGS drivers take. ``xt`` is the CSR of ``xᵀ``
-    for sparse ``x``."""
+    for sparse ``x``; ``x`` is this process's rows when ``mesh`` is given,
+    and the sums are added over the shards."""
     logits = spmm(x, W) if xt is not None else mm(x, W)
     logz = torch.logsumexp(logits, dim=1)
     ll = torch.sum((logz - torch.sum(logits * onehot, dim=1)) * mask)
     p = torch.exp(logits - logz[:, None]) * mask[:, None]
     g = spmm(xt, p - onehot) if xt is not None else mm(x.T, p - onehot)
+    ll, g = all_sum(mesh, ll, g)
     return ll / n + 0.5 * reg * torch.sum(W * W), g / n + reg * W
 
 
@@ -116,7 +132,8 @@ class LogisticRegressionModel(Transformer):
         return torch.argmax(rows_times(x, self.W), dim=-1)
 
     def apply_batch(self, ds: Dataset) -> Dataset:
-        return Dataset.from_array(torch.argmax(rows_times(ds.padded(), self.W), dim=-1), n=ds.n)
+        return Dataset(arrays=torch.argmax(rows_times(ds.local(), self.W), dim=-1), n=ds.n,
+                       mesh=ds.mesh)
 
 
 @dataclasses.dataclass(eq=False)
@@ -137,18 +154,21 @@ class LogisticRegressionEstimator(LabelEstimator):
     def fit(self, data: Dataset, labels: Dataset) -> LogisticRegressionModel:
         if self.driver not in ("device", "host"):
             raise ValueError(f"driver must be 'device' or 'host', got {self.driver!r}")
-        y_dev = labels.to_array_mode().array().reshape(-1)
+        data = data.to_array_mode()
+        y_dev = labels.local_like(data).reshape(-1)[: data.local_valid]
         y = y_dev.cpu().numpy().astype(np.int64)
-        if y.size and (y.min() < 0 or y.max() >= self.num_classes):
+        bad = bool(y.size and (y.min() < 0 or y.max() >= self.num_classes))
+        # every process raises together (one that went on would wait in
+        # the fit's first all_reduce)
+        if not on_every_shard(data.mesh, not bad, y_dev.device):
             # an eye(k)[y] would wrap negatives (e.g. -1/+1 binary labels)
             # into valid classes and corrupt the fit
             raise ValueError(
                 f"labels must be class ids in [0, {self.num_classes}); "
-                f"got range [{y.min()}, {y.max()}]"
+                + (f"got range [{y.min()}, {y.max()}]" if bad else "another shard's are not")
             )
         dev = y_dev.device
-        data = data.to_array_mode()
-        x = data.padded().to(dev)
+        x = data.local().to(dev)
         n = data.n
         d = x.shape[1]
         k = self.num_classes
@@ -156,7 +176,7 @@ class LogisticRegressionEstimator(LabelEstimator):
                            x.shape[0])
         mask = data.mask().to(dev)
         xt = csr_transpose(x) if is_sparse(x) else None
-        vg_data = (x, onehot, mask, float(n), float(self.reg_param), xt)
+        vg_data = (x, onehot, mask, float(n), float(self.reg_param), xt, data.mesh)
         if self.driver == "device":
             self.fit_stats = {}
             W = run_lbfgs_device(
@@ -175,28 +195,39 @@ class LogisticRegressionEstimator(LabelEstimator):
 class LinearDiscriminantAnalysis(LabelEstimator):
     """Multi-class LDA: project onto the top eigenvectors of S_w⁻¹ S_b
     (reference: LinearDiscriminantAnalysis.scala:17,39, a local eig),
-    float64 on the host; the projection on the data's device."""
+    float64 on the host; the projection on the data's device. On sharded
+    rows the class counts and sums, then the within-class scatter about
+    the class means, are this process's rows' plus an ``all_sum``."""
 
     num_dimensions: int
 
     def fit(self, data: Dataset, labels: Dataset):
         from keystone_tpu_torch.ops.learning.linear import LinearMapper
 
-        arr = data.to_array_mode().array()
-        X = arr.detach().cpu().numpy().astype(np.float64)
-        y = labels.to_array_mode().array().cpu().numpy().reshape(-1).astype(np.int64)
+        data = data.to_array_mode()
+        arr = data.local()
+        here = data.local_valid
+        X = arr[:here].detach().cpu().numpy().astype(np.float64)
+        y = labels.local_like(data).reshape(-1)[:here].cpu().numpy().astype(np.int64)
         classes = np.unique(y)
+        if data.is_sharded:
+            classes = np.unique(np.concatenate(mesh_lib.all_gather_objects(classes, data.mesh)))
         d = X.shape[1]
-        overall_mean = X.mean(axis=0)
-        Sw = np.zeros((d, d))
+
+        def summed(*parts):  # float64 host sums over every shard's rows
+            got = data.all_sum(*(torch.as_tensor(p, device=arr.device) for p in parts))
+            return [g.cpu().numpy() for g in got]
+
+        counts, sums = summed(np.array([np.sum(y == c) for c in classes], np.float64),
+                              np.stack([X[y == c].sum(axis=0) for c in classes]))
+        means = sums / counts[:, None]
+        overall_mean = sums.sum(axis=0) / data.n
+        (Sw,) = summed(sum((X[y == c] - means[i]).T @ (X[y == c] - means[i])
+                           for i, c in enumerate(classes)))
         Sb = np.zeros((d, d))
-        for c in classes:
-            Xc = X[y == c]
-            mu_c = Xc.mean(axis=0)
-            centered = Xc - mu_c
-            Sw += centered.T @ centered
-            diff = (mu_c - overall_mean)[:, None]
-            Sb += Xc.shape[0] * (diff @ diff.T)
+        for i in range(len(classes)):
+            diff = (means[i] - overall_mean)[:, None]
+            Sb += counts[i] * (diff @ diff.T)
         evals, evecs = scipy.linalg.eig(Sb, Sw)
         order = np.argsort(-evals.real)
         W = evecs[:, order[: self.num_dimensions]].real

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from keystone_tpu_torch.ops.learning.kmeans import KMeansPlusPlusEstimator
-from keystone_tpu_torch.parallel.dataset import Dataset
+from keystone_tpu_torch.parallel.dataset import Dataset, require_unsharded
 from keystone_tpu_torch.utils.precision import mm
 from keystone_tpu_torch.workflow.api import Estimator, Transformer
 from keystone_tpu_torch.workflow.node_optimization import Optimizable
@@ -59,6 +59,7 @@ def _thresholded_posteriors(llh, weight_threshold):
 
 
 def _as_matrix(data) -> torch.Tensor:
+    require_unsharded(data, "GaussianMixtureModelEstimator")
     X = data.array() if isinstance(data, Dataset) else torch.as_tensor(data)
     return X.to(torch.float32)
 
@@ -89,8 +90,8 @@ class GaussianMixtureModel(Transformer):
         return self._posteriors(x[None, :])[0]
 
     def apply_batch(self, ds: Dataset) -> Dataset:
-        q = self._posteriors(ds.padded())
-        return Dataset.from_array(q * ds.mask()[:, None], n=ds.n)
+        q = self._posteriors(ds.local())
+        return Dataset(arrays=q * ds.mask()[:, None], n=ds.n, mesh=ds.mesh)
 
     @staticmethod
     def load(mean_file: str, vars_file: str, weights_file: str,

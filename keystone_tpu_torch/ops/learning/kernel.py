@@ -23,6 +23,17 @@ the factor's success once per block; ``solve="host"`` solves it in
 float64 on the host. ``cache_kernel`` keeps the whole n × n train kernel on
 the device with every diagonal block factored once (the reference's
 cacheKernel mode), so epochs after the first regenerate nothing.
+
+**Training rows sharded over processes** (``Dataset.shard``). The
+transformer keeps this process's rows; a kernel block K(:, B) needs B's
+training rows against every row, so B's rows (block × d) come from the
+processes that hold them (``Dataset.global_rows``) and each process forms
+its own rows of the block. The Gauss-Seidel step's K_BᵀW is a sum over
+rows (this process's plus an ``all_sum``), K_BB and Y_B are B's rows; the
+dual model W is kept whole on every process and updated there from the
+same reduced bytes, so it is identical on every one, and one process
+gives the unsharded fit bit for bit. A test-time apply forms the same
+blocks against its own rows.
 """
 
 from __future__ import annotations
@@ -35,14 +46,14 @@ import numpy as np
 import torch
 
 from keystone_tpu_torch.ops.learning.block_ls import (
+    _checkpointer,
     _f32_mm,
     _psd_solve_device,
     _psd_solve_with_factor,
 )
 from keystone_tpu_torch.ops.learning.hostsolve import psd_solve_host
-from keystone_tpu_torch.parallel.dataset import Dataset
+from keystone_tpu_torch.parallel.dataset import Dataset, on_every_shard
 from keystone_tpu_torch.utils.checkpoint import (
-    LoopCheckpointer,
     data_probe,
     two_level_schedule,
 )
@@ -66,52 +77,69 @@ class GaussianKernelTransformer(Transformer):
     """Holds the train set; produces kernel blocks against it (reference:
     KernelGenerator.scala:49)."""
 
-    train_X: Any  # (n_pad, d) tensor, pad rows zero
+    train_X: Any  # (local rows, d) tensor: the training rows
+    # ``train_rows`` holds here, pad rows zero
     n_train: int
     gamma: float
-    train_mask: Any = None
+    train_mask: Any = None  # ``train_rows.mask()`` when not given
+    train_rows: Optional[Dataset] = None  # the training set (sharded or
+    # not) whose local rows ``train_X`` holds; None: ``train_X`` itself
 
     def __post_init__(self):
+        if self.train_rows is None:
+            self.train_rows = Dataset.from_array(self.train_X, n=self.n_train)
         if self.train_mask is None:
-            self.train_mask = (
-                torch.arange(self.train_X.shape[0], device=self.train_X.device)
-                < self.n_train
-            ).to(torch.float32)
+            self.train_mask = self.train_rows.mask().to(self.train_X.device)
         self._norms = torch.sum(self.train_X.to(torch.float32) ** 2, dim=1)
 
+    def _rows(self, start: int, stop: int):
+        """Training rows ``start .. stop``, their squared norms and mask, on
+        every process: from the processes that hold them when sharded."""
+        rows = self.train_rows
+        return rows.all_sum(rows.rows_piece(self.train_X, start, stop),
+                            rows.rows_piece(self._norms, start, stop),
+                            rows.rows_piece(self.train_mask, start, stop))
+
     def apply(self, x):
-        """kernel row of a single test point vs the whole train set."""
+        """kernel row of a single test point vs the whole train set (each
+        process's part of it added in, when the training rows are
+        sharded)."""
         x = x.to(torch.float32)
         d2 = torch.sum(x * x) + self._norms - 2.0 * torch.matmul(self.train_X, x)
-        return torch.exp(-self.gamma * torch.clamp(d2, min=0.0)) * self.train_mask
+        k = torch.exp(-self.gamma * torch.clamp(d2, min=0.0)) * self.train_mask
+        return self.train_rows.global_rows(k, 0, self.train_rows.padded_n)
 
     def apply_batch(self, ds: Dataset) -> Dataset:
-        """Kernel rows vs the train set as a Dataset (pipeline contract);
-        KRR uses ``kernel_matrix`` for the lazy block view instead."""
+        """Kernel rows vs the train set as a Dataset (pipeline contract),
+        one training shard's columns at a time; KRR uses
+        ``kernel_matrix`` for the lazy block view instead."""
         ds = ds.to_array_mode()
         km = self.kernel_matrix(ds)
-        return Dataset.from_array(km.block(0, self.train_X.shape[0]), n=ds.n)
+        per = self.train_X.shape[0]
+        out = torch.cat([km.block(s, per) for s in range(0, self.train_rows.padded_n, per)],
+                        dim=1)
+        return Dataset(arrays=out, n=ds.n, mesh=ds.mesh)
 
     def kernel_matrix(self, ds: Dataset) -> "KernelMatrix":
         return KernelMatrix(self, ds.to_array_mode())
 
     def train_block(self, start: int, width: int) -> torch.Tensor:
-        """K(train, B) for the train block [start, start + width)."""
-        e = start + width
+        """K(train, B) for the train block [start, start + width): this
+        process's training rows against B's."""
         return _rbf_block(self.train_X, self._norms, self.train_mask,
-                          self.train_X[start:e], self._norms[start:e],
-                          self.train_mask[start:e], self.gamma)
+                          *self._rows(start, start + width), self.gamma)
 
 
 class KernelMatrix:
     """Lazy column-block view of K(rows, train) with optional block cache
-    (reference: KernelMatrix.scala:17 / BlockKernelMatrix:50)."""
+    (reference: KernelMatrix.scala:17 / BlockKernelMatrix:50); a sharded
+    ``ds``'s blocks hold this process's rows."""
 
     def __init__(self, transformer: GaussianKernelTransformer, ds: Dataset,
                  cache_blocks: bool = False):
         self.transformer = transformer
         self.ds = ds
-        self._X = ds.padded().to(torch.float32)
+        self._X = ds.local().to(torch.float32)
         self._norms = torch.sum(self._X * self._X, dim=1)
         self._mask = ds.mask()
         self.cache_blocks = cache_blocks
@@ -122,18 +150,17 @@ class KernelMatrix:
         if key in self._cache:
             return self._cache[key]
         t = self.transformer
-        e = start + width
-        out = _rbf_block(self._X, self._norms, self._mask, t.train_X[start:e],
-                         t._norms[start:e], t.train_mask[start:e], t.gamma)
+        out = _rbf_block(self._X, self._norms, self._mask, *t._rows(start, start + width),
+                         t.gamma)
         if self.cache_blocks:
             self._cache[key] = out
         return out
 
     def diag_block(self, start: int, width: int) -> torch.Tensor:
         """K_BB of a train-set kernel matrix (the square view only)."""
-        if self._X.shape[0] < start + width:
+        if self.ds.padded_n < start + width:
             raise ValueError("diag_block requires a square (train) kernel matrix")
-        return self.block(start, width)[start : start + width]
+        return self.ds.global_rows(self.block(start, width), start, start + width)
 
     def unpersist(self, start: int, width: int) -> None:
         self._cache.pop((start, width), None)
@@ -148,9 +175,8 @@ class GaussianKernelGenerator(Estimator):
 
     def fit(self, data: Dataset) -> GaussianKernelTransformer:
         ds = data.to_array_mode()
-        mask = ds.mask()
-        X = ds.padded().to(torch.float32) * mask[:, None]
-        return GaussianKernelTransformer(X, ds.n, self.gamma, mask)
+        X = ds.local().to(torch.float32) * ds.mask()[:, None]
+        return GaussianKernelTransformer(X, ds.n, self.gamma, train_rows=ds)
 
 
 @dataclasses.dataclass(eq=False)
@@ -167,23 +193,30 @@ class KernelBlockLinearMapper(Transformer):
         return torch.matmul(self.kernel_transformer.apply(x), self.model)
 
     def apply_batch(self, ds: Dataset) -> Dataset:
+        """Predictions of ``ds``'s rows (this process's when sharded)."""
         ds = ds.to_array_mode()
         km = self.kernel_transformer.kernel_matrix(ds)
-        n_pad = self.kernel_transformer.train_X.shape[0]
-        out = torch.zeros((ds.padded_n, self.model.shape[1]), dtype=torch.float32,
+        n_pad = self.kernel_transformer.train_rows.padded_n
+        out = torch.zeros((ds.local_n, self.model.shape[1]), dtype=torch.float32,
                           device=self.model.device)
         for start in range(0, n_pad, self.block_size):
             width = min(self.block_size, n_pad - start)
             out += _f32_mm(km.block(start, width), self.model[start : start + width])
-        return Dataset.from_array(out, n=ds.n)
+        return Dataset(arrays=out, n=ds.n, mesh=ds.mesh)
 
 
-def _gauss_seidel_rhs(Kcol: torch.Tensor, W: torch.Tensor, Y: torch.Tensor,
-                      s: int, w: int) -> torch.Tensor:
-    """Y_B − (K_BᵀW − K_BBᵀW_B): block B's right-hand side with its own
-    old contribution taken back out."""
-    K_bb = Kcol[s : s + w]
-    return Y[s : s + w] - (torch.matmul(Kcol.T, W) - torch.matmul(K_bb.T, W[s : s + w]))
+def _gauss_seidel_rhs(t: GaussianKernelTransformer, Kcol: torch.Tensor, W: torch.Tensor,
+                      Y: torch.Tensor, s: int, w: int):
+    """Y_B − (K_BᵀW − K_BBᵀW_B), block B's right-hand side with its own
+    old contribution taken back out, and K_BB. ``Kcol`` and ``Y`` hold the
+    training rows ``t`` holds: K_BᵀW is their sum plus an ``all_sum``, and
+    K_BB and Y_B come from the processes that hold B's rows, in the same
+    ``all_reduce``. Unsharded, K_BB is a view of ``Kcol``."""
+    rows = t.train_rows
+    lo = rows.offset
+    ktw, K_bb, Y_b = rows.all_sum(torch.matmul(Kcol.T, W[lo : lo + Kcol.shape[0]]),
+                                  rows.rows_piece(Kcol, s, s + w), rows.rows_piece(Y, s, s + w))
+    return Y_b - (ktw - torch.matmul(K_bb.T, W[s : s + w])), K_bb
 
 
 @dataclasses.dataclass(eq=False)
@@ -229,14 +262,11 @@ class KernelRidgeRegression(LabelEstimator):
         # path's phases include its one sync per block
         timer = PhaseTimer("krr_fit")
         data = data.to_array_mode()
-        labels = labels.to_array_mode()
         transformer = self.kernel_generator.fit(data)
         X = transformer.train_X
         n = data.n
-        n_pad = X.shape[0]
-        if labels.padded_n < n_pad:
-            labels = labels._pad_to(n_pad)
-        Y = labels.padded().to(device=X.device, dtype=torch.float32)
+        n_pad = transformer.train_rows.padded_n
+        Y = labels.local_like(data).to(device=X.device, dtype=torch.float32)
         k = Y.shape[1]
         blocks = [
             (s, min(s + self.block_size, n_pad) - s)
@@ -254,8 +284,8 @@ class KernelRidgeRegression(LabelEstimator):
                 f"solve={self.solve} "
                 f"probe={data_probe(X, Y)}"
             )
-            ckpt = LoopCheckpointer(self.checkpoint_path,
-                                    self.checkpoint_every, fingerprint=fp)
+            ckpt, writes = _checkpointer(self.checkpoint_path, self.checkpoint_every, fp,
+                                         data.mesh)
             state = ckpt.load()
             if state is not None:
                 W = torch.as_tensor(state["W"], dtype=torch.float32, device=X.device)
@@ -274,12 +304,13 @@ class KernelRidgeRegression(LabelEstimator):
                 # factors, and one (n_pad, b) transient
                 width = blocks[0][1]
                 cache_bytes = 4 * (
-                    n_pad * n_pad + 2 * len(blocks) * width * width + n_pad * width
+                    X.shape[0] * n_pad + 2 * len(blocks) * width * width + X.shape[0] * width
                 )
-                use_cached = (
+                # one choice on every process: they must reduce the same blocks
+                use_cached = on_every_shard(data.mesh, (
                     self.num_epochs > 1
                     and cache_bytes <= 0.6 * _device_memory_limit(X.device)
-                )
+                ), X.device)
         if use_cached:
             order = [
                 i
@@ -310,32 +341,30 @@ class KernelRidgeRegression(LabelEstimator):
             if self.solve == "device":
                 with timer.phase("block_step"):
                     Kcol = transformer.train_block(s, wd)
-                    rhs = _gauss_seidel_rhs(Kcol, W, Y, s, wd)
-                    # the diagonal block's rows of Kcol become K_BB + λI
-                    # in place: Kcol is not read again
-                    W[s : s + wd] = _psd_solve_device(Kcol[s : s + wd], rhs, self.lam,
-                                                      refine=1)
+                    rhs, K_bb = _gauss_seidel_rhs(transformer, Kcol, W, Y, s, wd)
+                    # K_BB becomes K_BB + λI in place: a view of Kcol's
+                    # rows (unsharded), and Kcol is not read again
+                    W[s : s + wd] = _psd_solve_device(K_bb, rhs, self.lam, refine=1)
             else:
                 with timer.phase("kernel_block"):
                     Kcol = transformer.train_block(s, wd)  # (n_pad, b)
                 with timer.phase("residual"):
-                    rhs = _gauss_seidel_rhs(Kcol, W, Y, s, wd)
+                    rhs, K_bb = _gauss_seidel_rhs(transformer, Kcol, W, Y, s, wd)
                 # pad rows inside the block: K_bb row/col is zero there,
                 # λI makes the system nonsingular, W stays 0 via rhs=0
                 with timer.phase("host_solve"):
-                    Wb_new = psd_solve_host(Kcol[s : s + wd].cpu().numpy(),
-                                            rhs.cpu().numpy(), self.lam)
+                    Wb_new = psd_solve_host(K_bb.cpu().numpy(), rhs.cpu().numpy(), self.lam)
                 with timer.phase("model_update"):
                     W[s : s + wd] = torch.as_tensor(Wb_new, dtype=torch.float32,
                                                     device=W.device)
             done += 1
-            if ckpt is not None:
+            if ckpt is not None and writes:
                 ckpt.tick(lambda: {
                     "W": W.cpu().numpy(), "epoch": nxt[0], "pos": nxt[1],
                 })
             if self.block_callback is not None:
                 self.block_callback(done)
-        if ckpt is not None:
+        if ckpt is not None and writes:
             ckpt.clear()
         timer.publish()
         return KernelBlockLinearMapper(W, self.block_size, transformer, n)
@@ -355,7 +384,7 @@ class KernelRidgeRegression(LabelEstimator):
             cols = [transformer.train_block(s, w) for s, w in blocks]
             ridged, factors, good = [], [], []
             for (s, w), Kcol in zip(blocks, cols):
-                A = Kcol[s : s + w].clone()
+                A = transformer.train_rows.global_rows(Kcol, s, s + w).clone()
                 A.diagonal().add_(self.lam)
                 L, info = torch.linalg.cholesky_ex(A)
                 ridged.append(A)
@@ -365,7 +394,7 @@ class KernelRidgeRegression(LabelEstimator):
         with timer.phase("epoch_scan"):
             for bi in order:
                 s, w = blocks[bi]
-                rhs = _gauss_seidel_rhs(cols[bi], W, Y, s, w)
+                rhs, _ = _gauss_seidel_rhs(transformer, cols[bi], W, Y, s, w)
                 W[s : s + w] = _psd_solve_with_factor(ridged[bi], factors[bi], rhs,
                                                       refine=1, ok=ok[bi])
         return W

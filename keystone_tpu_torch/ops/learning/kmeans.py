@@ -16,7 +16,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from keystone_tpu_torch.parallel.dataset import Dataset
+from keystone_tpu_torch.parallel.dataset import Dataset, require_unsharded
 from keystone_tpu_torch.utils.precision import mm
 from keystone_tpu_torch.workflow.api import Estimator, Transformer
 
@@ -45,8 +45,8 @@ class KMeansModel(Transformer):
         return _assign_one_hot(x[None, :], self.means)[0]
 
     def apply_batch(self, ds: Dataset) -> Dataset:
-        out = _assign_one_hot(ds.padded(), self.means)
-        return Dataset.from_array(out * ds.mask()[:, None], n=ds.n)
+        out = _assign_one_hot(ds.local(), self.means)
+        return Dataset(arrays=out * ds.mask()[:, None], n=ds.n, mesh=ds.mesh)
 
 
 def kmeans_plus_plus_centers(X: np.ndarray, num_means: int,
@@ -81,6 +81,7 @@ class KMeansPlusPlusEstimator(Estimator):
     seed: int = 0
 
     def fit(self, data) -> KMeansModel:
+        require_unsharded(data, "KMeansPlusPlusEstimator")
         X = data.array() if isinstance(data, Dataset) else torch.as_tensor(data)
         return self.fit_matrix(X.to(torch.float32))
 

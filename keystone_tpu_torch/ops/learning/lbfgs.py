@@ -22,6 +22,13 @@ transpose's CSR made once per fit. Two drivers, as in the JAX package:
   fit, a few tens, each a wait for the device's queue to drain.
 - ``run_lbfgs``: the float64 host driver (the Breeze driver's stand-in),
   one device round trip per value-and-gradient call.
+
+On dense rows sharded over processes (``Dataset.shard``) the loss and
+gradient are this process's rows' plus one ``all_sum`` per call (the
+reference's treeReduce); the L-BFGS loop then runs on every process from the
+same reduced bytes, so every process takes the same steps. Sparse rows
+are not sharded (``Dataset.shard`` refuses a CSR matrix), as the JAX
+package fits its sparse L-BFGS on unsharded rows.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ import torch
 from keystone_tpu_torch.ops.learning.cost import CostModel
 from keystone_tpu_torch.ops.learning.linear import LinearMapper, SparseLinearMapper
 from keystone_tpu_torch.ops.stats.nodes import StandardScaler
-from keystone_tpu_torch.parallel.dataset import Dataset, csr_transpose, is_sparse, spmm
+from keystone_tpu_torch.parallel.dataset import Dataset, all_sum, csr_transpose, is_sparse, spmm
 from keystone_tpu_torch.utils.precision import mm
 from keystone_tpu_torch.workflow.api import LabelEstimator
 
@@ -55,10 +62,12 @@ class Gradient:
     def value_and_grad(self, A, b, W, At=None) -> Tuple[torch.Tensor, torch.Tensor]:
         raise NotImplementedError
 
-    def regularized_vg(self, W, A, b, reg, n, At=None):
+    def regularized_vg(self, W, A, b, reg, n, At=None, mesh=None):
         """Mean loss + L2 and its gradient, in the ``vg(W, *data)`` shape
-        the drivers take."""
-        loss, g = self.value_and_grad(A, b, W, At)
+        ``run_lbfgs`` and ``run_lbfgs_device`` take; ``A`` is this
+        process's rows when ``mesh`` is given, and the sums are added
+        over the shards."""
+        loss, g = all_sum(mesh, *self.value_and_grad(A, b, W, At))
         return loss / n + 0.5 * reg * torch.sum(W * W), g / n + reg * W
 
 
@@ -262,10 +271,11 @@ class LBFGSwithL2(LabelEstimator, CostModel):
         if self.driver not in ("device", "host"):
             raise ValueError(f"driver must be 'device' or 'host', got {self.driver!r}")
         data = data.to_array_mode()
-        labels = labels.to_array_mode()
-        b = labels.padded().to(torch.float32)
-        A = data.padded().to(b.device)
-        data = Dataset.from_array(A, n=data.n)
+        mesh = data.mesh
+        b = labels.local_like(data).to(torch.float32)
+        A = data.local().to(b.device)
+        data = Dataset(arrays=A, n=data.n, mesh=mesh)
+        labels = Dataset(arrays=b, n=data.n, mesh=mesh)
         sparse_rows = is_sparse(A)
         d = A.shape[1]
         k = b.shape[1]
@@ -277,10 +287,10 @@ class LBFGSwithL2(LabelEstimator, CostModel):
             label_scaler = StandardScaler(normalize_std_dev=False).fit(labels)
             data = feat_scaler.apply_batch(data)
             labels = label_scaler.apply_batch(labels)
-            A = data.padded()
-            b = labels.padded().to(torch.float32)
+            A = data.local()
+            b = labels.local().to(torch.float32)
         At = csr_transpose(A) if sparse_rows else None
-        vg_data = (A, b, float(self.reg_param), float(n), At)
+        vg_data = (A, b, float(self.reg_param), float(n), At, mesh)
         w0 = torch.zeros((d, k), dtype=torch.float32, device=b.device)
         if self.driver == "device":
             self.fit_stats = {}

@@ -7,6 +7,12 @@ OLS for d >> n). The Gram matrices are float32 products on the data's
 device (TF32 off on the card, the JAX package's ``Precision.HIGHEST``);
 the small (d, d) or (n, n) system is solved on the host in float64
 (``hostsolve.py``), as the reference solves it on one node.
+
+On rows sharded over processes (``Dataset.shard``) the Grams are this
+process's rows' plus an ``all_sum``, and every process solves the same
+reduced system. The dual solver's (n, n) Gram pairs every row with every
+row, so it is built one shard's rows at a time (``global_rows``: those
+rows cross processes, as a kernel block's training rows do).
 """
 
 from __future__ import annotations
@@ -41,12 +47,13 @@ class LinearMapper(Transformer):
         return out
 
     def apply_batch(self, ds: Dataset) -> Dataset:
+        """Predictions; sharded rows are predicted where they are."""
         if self.feature_scaler is not None:
             ds = self.feature_scaler.apply_batch(ds)
-        out = mm(ds.padded(), self.W)
+        out = mm(ds.local(), self.W)
         if self.intercept is not None:
             out = (out + self.intercept) * ds.mask()[:, None]
-        return Dataset.from_array(out, n=ds.n)
+        return Dataset(arrays=out, n=ds.n, mesh=ds.mesh)
 
 
 @dataclasses.dataclass(eq=False)
@@ -58,10 +65,9 @@ class LinearMapEstimator(LabelEstimator):
     lam: float = 0.0
 
     def fit(self, data: Dataset, labels: Dataset) -> LinearMapper:
-        A = data.padded()
-        b = labels.to_array_mode().padded().to(A.device)
-        gram = _f32_mm(A.T, A)
-        rhs = _f32_mm(A.T, b)
+        A = data.local()
+        b = labels.local_like(data).to(A.device)
+        gram, rhs = data.all_sum(_f32_mm(A.T, A), _f32_mm(A.T, b))
         W = psd_solve_host(gram.cpu().numpy(), rhs.cpu().numpy(), self.lam)
         return LinearMapper(torch.as_tensor(W, dtype=A.dtype, device=A.device))
 
@@ -83,13 +89,13 @@ class LinearMapEstimator(LabelEstimator):
     ) -> float:
         """0.5·‖AW − b‖² + 0.5·λ‖W‖² (reference: LinearMapper.computeCost),
         pad rows masked out when there is an intercept."""
-        A = data.padded()
-        b = labels.to_array_mode().padded().to(A.device)
+        A = data.local()
+        b = labels.local_like(data).to(A.device)
         W = torch.as_tensor(W, device=A.device)
         pred = _f32_mm(A, W)
         if intercept is not None:
             pred = (pred + torch.as_tensor(intercept, device=A.device)) * data.mask()[:, None]
-        res = torch.sum((pred - b) ** 2)
+        (res,) = data.all_sum(torch.sum((pred - b) ** 2))
         return float(0.5 * res + 0.5 * lam * torch.sum(W * W))
 
 
@@ -103,13 +109,24 @@ class LocalLeastSquaresEstimator(LabelEstimator):
     lam: float = 0.0
 
     def fit(self, data: Dataset, labels: Dataset) -> LinearMapper:
-        A = data.array()
-        b = labels.to_array_mode().array()
-        n = A.shape[0]
-        K = _f32_mm(A, A.T)
+        data = data.to_array_mode()
+        X = data.local()
+        n, per = data.n, data.local_n
+        A = X[: data.local_valid]
+        shards = range(0, data.padded_n, per)
+        # K's columns one shard's valid rows at a time, then its rows from
+        # every process; b and K are (n, ·), never X
+        K_here = torch.cat([
+            _f32_mm(A, data.global_rows(X, lo, lo + per)[: max(0, min(per, n - lo))].T)
+            for lo in shards], dim=1)
+        K_here = torch.cat([K_here, K_here.new_zeros((per - A.shape[0], n))])
+        K = data.global_rows(K_here, 0, data.padded_n)[:n]
+        b = data.global_rows(labels.local_like(data).to(X.device), 0, data.padded_n)[:n]
         alpha = psd_solve_host(K.cpu().numpy(), b.cpu().numpy(), self.lam * n)
-        W = A.cpu().numpy().T @ alpha
-        return LinearMapper(torch.as_tensor(W, dtype=A.dtype, device=A.device))
+        lo = data.offset
+        (W,) = data.all_sum(torch.as_tensor(A.cpu().numpy().T @ alpha[lo : lo + A.shape[0]],
+                                            device=X.device))
+        return LinearMapper(W.to(A.dtype))
 
 
 def rows_times(x, W: torch.Tensor) -> torch.Tensor:

@@ -5,10 +5,15 @@ column variant, and the randomized sketch (counterpart of
 Every fit runs on the data's device: the SVD and QR are
 ``torch.linalg``'s (cuSOLVER on the card), and the sign convention removes
 the SVD's sign freedom, so the card and the CPU give the same matrix.
-The TSQR PCA takes rows sharded over processes (``Dataset.shard``): the
-column means are one ``all_reduce`` and R one tree over the shards
-(``parallel/linalg.tsqr_r``); the column variant shards its columns over
-the current mesh, as the JAX package's does.
+The local and the TSQR PCA take rows sharded over processes
+(``Dataset.shard``): the column means are one ``all_reduce`` and R one
+tree over the shards (``parallel/linalg.tsqr_r``), whose SVD gives the
+centred rows' right singular vectors, so no row leaves its process (the
+local PCA takes the rows themselves where one shard holds them all);
+the column variant shards its columns over
+the current mesh, as the JAX package's does. So does the sketch PCA: its
+tall QRs are trees (``tsqr_q``) and its products over rows (AᵀQ, QᵀA)
+sums over the shards (``all_sum``).
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from keystone_tpu_torch.ops.learning.cost import (
 )
 from keystone_tpu_torch.parallel import linalg as plinalg
 from keystone_tpu_torch.parallel import mesh as mesh_lib
-from keystone_tpu_torch.parallel.dataset import Dataset
+from keystone_tpu_torch.parallel.dataset import Dataset, all_sum
 from keystone_tpu_torch.utils.chunks import map_rows
 from keystone_tpu_torch.utils.precision import mm
 from keystone_tpu_torch.workflow.api import Estimator, Transformer
@@ -52,7 +57,9 @@ class PCATransformer(Transformer):
         return mm(x, self.pca_mat)
 
     def apply_batch(self, ds: Dataset) -> Dataset:
-        return Dataset.from_array(mm(ds.padded(), self.pca_mat), n=ds.n)
+        """This process's rows, projected (pad rows stay zero)."""
+        ds = ds.to_array_mode()
+        return Dataset(arrays=mm(ds.local(), self.pca_mat), n=ds.n, mesh=ds.mesh)
 
 
 @dataclasses.dataclass(eq=False)
@@ -75,21 +82,45 @@ class BatchPCATransformer(Transformer):
         return Dataset.from_array(out, n=ds.n)
 
 
-def _compute_pca(data_mat: torch.Tensor, dims: int) -> torch.Tensor:
+def _centered_rows(data: Dataset, dtype: Optional[torch.dtype] = None):
+    """``data`` in array mode, the column means of its valid rows over
+    every shard, and this process's rows centred (pad rows zero); ``dtype``
+    casts the rows first."""
+    ds = data.to_array_mode()
+    x = ds.local()
+    x = x.to(dtype) if dtype is not None else x
+    (s,) = ds.row_sum(x)
+    mu = s / ds.n
+    return ds, mu, (x - mu) * ds.mask().to(x.device, x.dtype)[:, None]
+
+
+def centered_factor(data: Dataset, dtype: Optional[torch.dtype] = None):
+    """The column means of ``data``'s valid rows over every shard, and a
+    matrix with the centred rows' Gram, so their singular values and right
+    singular vectors: the centred rows themselves where one shard holds
+    them all, else their TSQR R factor (``tsqr_r``), so that no row leaves
+    its process. ``dtype`` casts the rows first."""
+    ds, mu, centered = _centered_rows(data, dtype)
+    if ds.is_sharded and mesh_lib.n_data_shards(ds.mesh) > 1:
+        return mu, plinalg.tsqr_r(centered, ds.mesh)
+    return mu, centered
+
+
+def _compute_pca(data: Dataset, dims: int) -> torch.Tensor:
     """Center, SVD, sign convention, truncate."""
-    centered = data_mat - torch.mean(data_mat, dim=0)
-    vt = torch.linalg.svd(centered, full_matrices=False).Vh
+    vt = torch.linalg.svd(centered_factor(data)[1], full_matrices=False).Vh
     return enforce_matlab_pca_sign_convention(vt.T)[:, :dims]
 
 
 @dataclasses.dataclass(eq=False)
 class PCAEstimator(Estimator, CostModel):
-    """Local PCA: one SVD of the whole sample."""
+    """Local PCA: one SVD of the whole sample (of its TSQR R factor when
+    its rows are sharded over processes)."""
 
     dims: int
 
     def fit(self, data: Dataset) -> PCATransformer:
-        return PCATransformer(_compute_pca(data.array(), self.dims))
+        return PCATransformer(_compute_pca(data, self.dims))
 
     def cost(self, n, d, k, sparsity, num_machines, cpu_weight, mem_weight,
              network_weight):
@@ -111,14 +142,7 @@ class DistributedPCAEstimator(Estimator, CostModel):
     dims: int
 
     def fit(self, data: Dataset) -> PCATransformer:
-        ds = data.to_array_mode()
-        x = ds.local()
-        mask = ds.mask()
-        s = torch.sum(x * mask[:, None], dim=0)
-        if ds.is_sharded:
-            mesh_lib.all_reduce_sum_(s, ds.mesh)
-        mu = s / ds.n
-        centered = (x - mu) * mask[:, None]
+        ds, _, centered = _centered_rows(data)
         r = plinalg.tsqr_r(centered, ds.mesh)
         vt = torch.linalg.svd(r, full_matrices=False).Vh
         pca = enforce_matlab_pca_sign_convention(vt.T)
@@ -138,18 +162,22 @@ class DistributedPCAEstimator(Estimator, CostModel):
         )
 
 
-def approximate_pca(A: torch.Tensor, omega: torch.Tensor, q: int, dims: int) -> torch.Tensor:
+def approximate_pca(A: torch.Tensor, omega: torch.Tensor, q: int, dims: int,
+                    mesh: Optional[mesh_lib.Mesh] = None) -> torch.Tensor:
     """The randomized sketch PCA of a centered (n, d) ``A`` given its test
     matrix ``omega`` (d, l): the range finder with ``q`` power iterations
     (Halko, Martinsson and Tropp, algorithms 4.4 and 5.1), the SVD of the
     small projection, the sign convention, the first ``dims`` columns. A
     plain function of its inputs, so that a test can hand it the JAX
-    package's draw."""
-    Q = torch.linalg.qr(mm(A, omega)).Q
+    package's draw. ``A`` is this process's rows when ``mesh`` is given:
+    Q's rows stay beside A's, and AᵀQ and QᵀA are summed over the shards."""
+    Q = plinalg.tsqr_q(mm(A, omega), mesh)
     for _ in range(q):  # power iterations, for a slowly decaying spectrum
-        Z = torch.linalg.qr(mm(A.T, Q)).Q
-        Q = torch.linalg.qr(mm(A, Z)).Q
-    vt = torch.linalg.svd(mm(Q.T, A), full_matrices=False).Vh
+        (AtQ,) = all_sum(mesh, mm(A.T, Q))
+        Z = torch.linalg.qr(AtQ).Q
+        Q = plinalg.tsqr_q(mm(A, Z), mesh)
+    (B,) = all_sum(mesh, mm(Q.T, A))
+    vt = torch.linalg.svd(B, full_matrices=False).Vh
     return enforce_matlab_pca_sign_convention(vt.T)[:, :dims]
 
 
@@ -159,7 +187,8 @@ class ApproximatePCAEstimator(Estimator, CostModel):
     dims + p) sketch with ``q`` power iterations. The JAX package draws its
     Gaussian test matrix with ``jax.random``, which PyTorch cannot
     reproduce; here it comes from a CPU ``torch.Generator`` seeded by
-    ``seed`` (the same draw on every device), then ``approximate_pca``."""
+    ``seed`` (the same draw on every device and every process), then
+    ``approximate_pca``, on sharded rows too."""
 
     dims: int
     p: int = 10  # oversampling
@@ -168,14 +197,15 @@ class ApproximatePCAEstimator(Estimator, CostModel):
 
     def fit(self, data: Dataset) -> PCATransformer:
         ds = data.to_array_mode()
-        x = ds.padded()
+        x = ds.local()
         mask = ds.mask()
-        mu = torch.sum(x * mask[:, None], dim=0) / ds.n
+        (s,) = ds.row_sum(x)
+        mu = s / ds.n
         A = (x - mu) * mask[:, None]
         d = A.shape[1]
         l = min(self.dims + self.p, d)
         omega = torch.randn((d, l), generator=torch.Generator().manual_seed(self.seed))
-        return PCATransformer(approximate_pca(A, omega.to(A.device), self.q, self.dims))
+        return PCATransformer(approximate_pca(A, omega.to(A.device), self.q, self.dims, ds.mesh))
 
     def cost(self, n, d, k, sparsity, num_machines, cpu_weight, mem_weight,
              network_weight):

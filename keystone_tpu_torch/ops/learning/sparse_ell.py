@@ -27,8 +27,15 @@ dispatches short enough for a remote TPU worker's watchdog: the chunks of
 one segment are queued, then the host waits for the device. On the GPU
 each chunk is its own few kernels and no single launch runs long, so a
 segment only bounds how far the host runs ahead; at the Amazon shape
-(65M x 1,024) the default bound is one segment. The multi-device
-``_sharded_normal_eq`` is not ported: the port runs on one card.
+(65M x 1,024) the default bound is one segment.
+
+Rows sharded over processes (the JAX package's ``_sharded_normal_eq``, a
+shard_map of the pass and a psum): each process runs the pass over its
+own rows and G and AᵀY are added over the shards in one ``all_reduce``
+(``all_sum``); the (d, d) solve then runs on every process. As in the
+JAX package, a fit under a mesh of several shards shards unsharded rows
+itself (``Dataset.shard`` pads them to a shard multiple with zero rows,
+which add nothing).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import torch
 
 from keystone_tpu_torch.ops.learning.block_ls import _psd_solve_device
 from keystone_tpu_torch.ops.learning.linear import LinearMapper
+from keystone_tpu_torch.parallel import mesh as mesh_lib
 from keystone_tpu_torch.parallel.dataset import Dataset
 from keystone_tpu_torch.workflow.api import LabelEstimator
 
@@ -105,8 +113,11 @@ class EllLeastSquaresEstimator(LabelEstimator):
 
     def fit(self, data: Dataset, labels: Dataset) -> "EllLinearMapper":
         data = data.to_array_mode()
-        idx, vals = data.padded()
-        Y = labels.to_array_mode().padded().to(idx.device)
+        if (not data.is_sharded and torch.distributed.is_initialized()
+                and mesh_lib.n_data_shards() > 1):
+            data = data.shard()
+        idx, vals = data.local()
+        Y = labels.local_like(data).to(idx.device)
         n = data.n
         chunk = min(self.chunk, idx.shape[0])
         seg_rows = int(self.segment_flops / (2.0 * self.d * self.d))
@@ -118,6 +129,7 @@ class EllLeastSquaresEstimator(LabelEstimator):
                                     d=self.d, chunk=chunk, G=G, AY=AY)
             if s + seg < idx.shape[0]:
                 G[0, 0].item()  # wait for the segment's chunks
+        G, AY = data.all_sum(G, AY)
         return EllLinearMapper(_psd_solve_device(G, AY, self.lam * n))
 
     @property
@@ -133,7 +145,7 @@ class EllLinearMapper(LinearMapper):
 
     def apply_batch(self, ds: Dataset) -> Dataset:
         ds = ds.to_array_mode()
-        x = ds.padded()
+        x = ds.local()
         if isinstance(x, tuple):
             if self.feature_scaler is not None:
                 raise NotImplementedError(
@@ -146,5 +158,5 @@ class EllLinearMapper(LinearMapper):
                                W[idx.to(W.device, torch.int64)])
             if self.intercept is not None:
                 out = (out + self.intercept) * ds.mask().to(out.device)[:, None]
-            return Dataset.from_array(out, n=ds.n)
+            return Dataset(arrays=out, n=ds.n, mesh=ds.mesh)
         return super().apply_batch(ds)

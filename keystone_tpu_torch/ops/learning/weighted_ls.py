@@ -34,6 +34,18 @@ through ``block_ls``'s pooled pinned buffers and copy stream, at most
 ``PerClassWeightedLeastSquaresEstimator`` solves the same objective class by
 class, as reweighted single-output block coordinate descent.
 
+**Rows sharded over processes** (``Dataset.shard``, in memory or as host
+blocks): every sum over rows — the class counts, the population and
+per-class sums, the Grams and Xᵀ·R, the CG products — is taken over this
+process's rows and added over the shards with ``all_sum`` (one
+``all_reduce`` per step: per block in the statistics, per iteration in
+the CG, per chunk of classes in the chol path); the small solves then run
+on every process from the same reduced bytes, so the model is identical
+on every one, and with one process it is the unsharded fit bit for bit
+(the same code, with sums that are not reduced). The chol path lays out
+each process's own rows (grouped or gathered by class): its per-class
+covariances are summed over the shards, and no row crosses processes.
+
 All products are float32 ``torch.matmul``s (TF32 off on the card), the
 counterpart of the JAX package's ``Precision.HIGHEST``. bf16 and fp16
 features stay in their dtype in storage (in memory, in the class-grouped
@@ -55,7 +67,7 @@ import torch
 
 from keystone_tpu_torch.observability.device import device_memory_stats, host_memory_stats
 from keystone_tpu_torch.ops.learning.block_ls import BlockLinearMapper, _SlabStream
-from keystone_tpu_torch.parallel.dataset import Dataset
+from keystone_tpu_torch.parallel.dataset import Dataset, all_sum, on_every_shard
 from keystone_tpu_torch.workflow.api import LabelEstimator
 
 
@@ -69,49 +81,45 @@ def _block(X, start, width):
     return X[:, start : start + width].to(torch.float32)
 
 
-def _chunk_moments(Xc, r_g, inv):
-    """Per-chunk moments: classMean (G, b), classXTR (G, b), resLocalMean
-    (G,). Padded slots of Xc and r_g are zero, so plain sums are
-    per-class sums."""
-    cmean = torch.sum(Xc, dim=1) * inv[:, None]
-    cxtr = torch.einsum("gmb,gm->gb", Xc, r_g) * inv[:, None]
-    rlm = torch.sum(r_g, dim=1) * inv
-    return cmean, cxtr, rlm
+def _chunk_sums(Xc, r_g):
+    """Per-class sums over a chunk's rows: Σx (G, b), Σx·r (G, b), Σr (G,)
+    and Σxxᵀ (G, b, b). Padded slots of Xc and r_g are zero, so plain sums
+    are per-class sums."""
+    return (torch.sum(Xc, dim=1), torch.einsum("gmb,gm->gb", Xc, r_g),
+            torch.sum(r_g, dim=1), torch.matmul(Xc.transpose(1, 2), Xc))
 
 
-def _class_cov(Xc, cmean, inv):
-    return (
-        torch.matmul(Xc.transpose(1, 2), Xc) * inv[:, None, None]
-        - cmean[:, :, None] * cmean[:, None, :]
-    )
+def _chunk_moments(sums, inv):
+    """classCov (G, b, b), classMean (G, b), classXTR (G, b) and
+    resLocalMean (G,) from the chunk's sums over every shard's rows."""
+    sx, sxr, sr, sxx = sums
+    cmean = sx * inv[:, None]
+    cxtr = sxr * inv[:, None]
+    rlm = sr * inv
+    cov = sxx * inv[:, None, None] - cmean[:, :, None] * cmean[:, None, :]
+    return cov, cmean, cxtr, rlm
 
 
-def _class_chunk_stats(Xg, R, wt, counts, class_ids, c0, start, *, G, m, width):
-    """Per-class covariance and XTR for one chunk of G classes starting at
-    class ``c0``, from the class-grouped layout (class c in rows
-    [c·m, (c+1)·m) of ``Xg`` and ``R``, padded slots zero). Returns
-    classCov (G, b, b), classMean (G, b), classXTR (G, b), resLocalMean
-    (G,)."""
+def _class_chunk_stats(Xg, R, wt, class_ids, c0, start, *, G, m, width):
+    """``_chunk_sums`` for one chunk of G classes starting at class
+    ``c0``, from the class-grouped layout (class c in rows [c·m, (c+1)·m)
+    of ``Xg`` and ``R``, padded slots zero)."""
     D = Xg.shape[1]
     C = R.shape[1]
     Xc = Xg.reshape(-1, m, D)[c0 : c0 + G, :, start : start + width].to(torch.float32)
     wc = wt[c0 : c0 + G]
-    inv = 1.0 / counts[c0 : c0 + G]
     Rc = R.reshape(-1, m, C)[c0 : c0 + G]
     # resLocal_c = R[rows of c, c]
     r_g = Rc[torch.arange(G, device=R.device), :, class_ids] * wc
-    cmean, cxtr, rlm = _chunk_moments(Xc, r_g, inv)
-    return _class_cov(Xc, cmean, inv), cmean, cxtr, rlm
+    return _chunk_sums(Xc, r_g)
 
 
-def _class_chunk_stats_gathered(X, R, idx_c, wt_c, counts_c, class_ids, start, *, width):
+def _class_chunk_stats_gathered(X, R, idx_c, wt_c, class_ids, start, *, width):
     """``_class_chunk_stats`` on the original layout: the chunk's rows are
     gathered, padded only to the chunk's own largest class."""
     Xc = _block(X, start, width)[idx_c] * wt_c[:, :, None]
-    inv = 1.0 / counts_c
     r_g = R[idx_c, class_ids[:, None]] * wt_c
-    cmean, cxtr, rlm = _chunk_moments(Xc, r_g, inv)
-    return _class_cov(Xc, cmean, inv), cmean, cxtr, rlm
+    return _chunk_sums(Xc, r_g)
 
 
 def _group_rows(X, Y, idx, wt, joint_label_mean):
@@ -125,12 +133,15 @@ def _group_rows(X, Y, idx, wt, joint_label_mean):
     return Xg, R
 
 
-def _pop_stats(X, R, mask, start, *, width, n):
+def _pop_stats(X, R, mask, start, *, width, n, mesh=None):
+    """popMean, popCov, popXTR and residualMean over every shard's rows."""
     Xb = _block(X, start, width)
-    pop_mean = torch.sum(Xb * mask[:, None], dim=0) / n
-    pop_cov = torch.matmul(Xb.T, Xb) / n - torch.outer(pop_mean, pop_mean)
-    pop_xtr = torch.matmul(Xb.T, R) / n
-    return pop_mean, pop_cov, pop_xtr
+    s, gram, xtr, r_sum = all_sum(
+        mesh, torch.sum(Xb * mask[:, None], dim=0), torch.matmul(Xb.T, Xb),
+        torch.matmul(Xb.T, R), torch.sum(R, dim=0))
+    pop_mean = s / n
+    pop_cov = gram / n - torch.outer(pop_mean, pop_mean)
+    return pop_mean, pop_cov, xtr / n, r_sum / n
 
 
 def _batched_psd_solve(A, B, lam):
@@ -185,9 +196,10 @@ def _precond_inverse(pop_cov, w, lam):
     return (Minv + Minv.T) * 0.5
 
 
-def _pcg_setup_core(Y, mask, w, n):
-    """0/1 class membership P (n, C), per-class inverse counts, the
-    validity of each class, the joint label mean and the initial residual.
+def _pcg_setup_core(Y, mask, w, n, mesh=None):
+    """0/1 class membership P (n, C), per-class inverse counts (over every
+    shard), the validity of each class, the joint label mean and the
+    initial residual.
     A row's class is its FIRST positive entry: for ±1 indicator labels
     every positive entry ties at +1, so this is the argmax with
     first-index tie-breaking that the chol path (and the reference)
@@ -195,7 +207,7 @@ def _pcg_setup_core(Y, mask, w, n):
     pos = Y > 0
     first_pos = pos & (torch.cumsum(pos.to(torch.int32), dim=1) == 1)
     P = first_pos.to(torch.float32) * mask[:, None]
-    counts = torch.sum(P, dim=0)
+    (counts,) = all_sum(mesh, torch.sum(P, dim=0))
     inv_counts = 1.0 / torch.clamp(counts, min=1.0)
     valid = (counts > 0).to(torch.float32)
     # jointLabelMean[c] = 2w + 2(1-w)·n_c/n − 1
@@ -205,27 +217,31 @@ def _pcg_setup_core(Y, mask, w, n):
 
 
 def _pcg_block_core(X, R, P, Wb, inv_counts, valid, start, w, lam,
-                    *, width, n, max_iters=96, tol=1e-6):
+                    *, width, n, max_iters=96, tol=1e-6, mesh=None):
     """One weighted-BCD block update for all classes at once: population
     stats, the preconditioner's inverse, batched matrix-free PCG over the
     C per-class systems, and the residual update. The matvec is
         A_c v = (1−w)·popCov·v + w·(X_cᵀ(X_c v)/n_c − μ_c(μ_cᵀv))
                 + w(1−w)·δ_c(δ_cᵀv) + λv
-    so no (C, b, b) covariance is formed. Returns (Wb_new, R_new,
-    jointMeans (C, b), exit max relative residual, CG iterations)."""
+    so no (C, b, b) covariance is formed. The sums over rows (the
+    statistics once, X_bᵀ(P∘z) once per CG iteration) are this process's
+    rows' plus an ``all_sum``. Returns (Wb_new, R_new, jointMeans (C, b),
+    exit max relative residual, CG iterations)."""
     Xb = _block(X, start, width)
-    gram = torch.matmul(Xb.T, Xb)
-    pop_xtr = torch.matmul(Xb.T, R) / n  # (b, C)
-    cmean = torch.matmul(P.T, Xb) * inv_counts[:, None]  # (C, b)
     r = torch.sum(R * P, dim=1)  # own-class residual per row
-    cxtr = torch.matmul(Xb.T, P * r[:, None]).T * inv_counts[:, None]
+    gram, xtr, csum, cxtr, r_sum, rl = all_sum(
+        mesh, torch.matmul(Xb.T, Xb), torch.matmul(Xb.T, R), torch.matmul(P.T, Xb),
+        torch.matmul(Xb.T, P * r[:, None]), torch.sum(R, dim=0), torch.matmul(r, P))
+    pop_xtr = xtr / n  # (b, C)
+    cmean = csum * inv_counts[:, None]  # (C, b)
+    cxtr = cxtr.T * inv_counts[:, None]
     # popMean = Σ_c n_c·classMean_c / n: P excludes pad rows, and empty
     # classes contribute zero
     counts = valid / inv_counts
     pop_mean = torch.matmul(counts, cmean) / n
     pop_cov = gram / n - torch.outer(pop_mean, pop_mean)
-    residual_mean = torch.sum(R, dim=0) / n
-    rlm = torch.matmul(r, P) * inv_counts
+    residual_mean = r_sum / n
+    rlm = rl * inv_counts
 
     Minv = _precond_inverse(pop_cov, w, lam)
 
@@ -239,7 +255,8 @@ def _pcg_block_core(X, R, P, Wb, inv_counts, valid, start, w, lam,
         pv = (1.0 - w) * torch.matmul(v, pop_cov)
         T = torch.matmul(Xb, v.T)  # (n, C): X_b·v_c for every class c
         z = torch.sum(T * P, dim=1)  # each row's own-class entry
-        xxv = torch.matmul(Xb.T, P * z[:, None]).T  # (C, b)
+        (xxv,) = all_sum(mesh, torch.matmul(Xb.T, P * z[:, None]))
+        xxv = xxv.T  # (C, b)
         ccov_v = xxv * inv_counts[:, None] - cmean * torch.sum(cmean * v, dim=1)[:, None]
         dd = mean_diff * torch.sum(mean_diff * v, dim=1)[:, None] * (w * (1.0 - w))
         return pv + w * ccov_v + dd + lam * v
@@ -277,11 +294,13 @@ def _pcg_block_core(X, R, P, Wb, inv_counts, valid, start, w, lam,
             rel_res(res), it)
 
 
-def _pcg_fit_full(X, Y, mask, blocks, w, lam, *, n, num_iter, max_iters=96, tol=1e-5):
+def _pcg_fit_full(X, Y, mask, blocks, w, lam, *, n, num_iter, max_iters=96, tol=1e-5,
+                  mesh=None):
     """The whole PCG fit: label setup, then every epoch's block updates in
-    order. Returns (per-block W, per-block joint means, joint label mean,
-    max exit relative residual, max CG iterations)."""
-    P, inv_counts, valid, jlm, R = _pcg_setup_core(Y, mask, w, n)
+    order (``X`` this process's rows when ``mesh`` is given). Returns
+    (per-block W, per-block joint means, joint label mean, max exit
+    relative residual, max CG iterations)."""
+    P, inv_counts, valid, jlm, R = _pcg_setup_core(Y, mask, w, n, mesh)
     C = Y.shape[1]
     Wb = {s: torch.zeros((wd, C), dtype=torch.float32, device=X.device) for s, wd in blocks}
     joint_means = {}
@@ -290,7 +309,7 @@ def _pcg_fit_full(X, Y, mask, blocks, w, lam, *, n, num_iter, max_iters=96, tol=
         for s, wd in blocks:
             Wb[s], R, joint_means[s], rel_b, its = _pcg_block_core(
                 X, R, P, Wb[s], inv_counts, valid, s, w, lam,
-                width=wd, n=n, max_iters=max_iters, tol=tol,
+                width=wd, n=n, max_iters=max_iters, tol=tol, mesh=mesh,
             )
             rel = rel_b if rel is None else torch.maximum(rel, rel_b)
             iters = max(iters, its)
@@ -351,11 +370,10 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
                 )
             return self._fit_pcg_host(data, labels)
         data = data.to_array_mode()
-        labels = labels.to_array_mode()
-        X = data.padded()
+        X = data.local()
         # float32 products of each block, as the JAX package computes
         # with x64 off; X itself keeps its dtype
-        Y = labels.padded().to(device=X.device, dtype=torch.float32)
+        Y = labels.local_like(data).to(device=X.device, dtype=torch.float32)
         n = data.n
         D = X.shape[1]
         blocks = [
@@ -374,7 +392,7 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
     def _fit_pcg(self, data, X, Y, n, blocks):
         Wb, joint_means, jlm, rel, iters = _pcg_fit_full(
             X, Y, data.mask(), blocks, self.mixture_weight, self.lam,
-            n=n, num_iter=self.num_iter, tol=self.pcg_tol,
+            n=n, num_iter=self.num_iter, tol=self.pcg_tol, mesh=data.mesh,
         )
         self._check_convergence(rel, iters)
         return self._finish(blocks, Wb, joint_means, jlm, {
@@ -399,10 +417,8 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
         the next slab's upload."""
         blocks_host = data.host_blocks
         dev = data.device
-        lab = labels.to_array_mode()
-        if lab.padded_n != data.padded_n:
-            lab = lab._pad_to(data.padded_n)
-        Y = lab.padded().to(device=dev, dtype=torch.float32)
+        mesh = data.mesh
+        Y = labels.local_like(data).to(device=dev, dtype=torch.float32)
         n = data.n
         w = self.mixture_weight
         widths = data.block_widths
@@ -410,7 +426,7 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
         blocks = list(zip(starts, widths))
         C = Y.shape[1]
 
-        P, inv_counts, valid, jlm, R = _pcg_setup_core(Y, data.mask(), w, n)
+        P, inv_counts, valid, jlm, R = _pcg_setup_core(Y, data.mask(), w, n, mesh)
         Wb = {s: torch.zeros((wd, C), dtype=torch.float32, device=dev) for s, wd in blocks}
         joint_means = {}
         rel, iters = None, 0
@@ -425,7 +441,7 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
             Xb = slabs.acquire(cur).to(torch.float32)
             Wb[s], R, joint_means[s], rel_b, its = _pcg_block_core(
                 Xb, R, P, Wb[s], inv_counts, valid, 0, w, self.lam,
-                width=wd, n=n, tol=self.pcg_tol,
+                width=wd, n=n, tol=self.pcg_tol, mesh=mesh,
             )
             slabs.release(cur)
             rel = rel_b if rel is None else torch.maximum(rel, rel_b)
@@ -455,22 +471,31 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
     def _fit_chol(self, data, X, Y, n, blocks):
         """Exact batched per-class Cholesky. The class index building runs
         on the host; the weighted solve is row-permutation invariant, so
-        the layout changes nothing numerically."""
+        the layout changes nothing numerically. On sharded rows each
+        process lays out its own rows, the layout's choice is the one
+        every process can hold, and the per-chunk class sums are added
+        over the shards before the solve."""
         w = self.mixture_weight
         D = X.shape[1]
         C = Y.shape[1]
         dev = X.device
-        class_of = torch.argmax(Y, dim=1)[:n].cpu().numpy()
-        counts = np.bincount(class_of, minlength=C).astype(np.int64)
+        mesh = data.mesh
+        n_here = data.local_valid
+        class_of = torch.argmax(Y, dim=1)[:n_here].cpu().numpy()
+        counts_here = np.bincount(class_of, minlength=C).astype(np.int64)
+        (counts,) = all_sum(mesh, torch.as_tensor(counts_here, device=dev))
+        counts = counts.cpu().numpy()
         # classes with no examples get no model update
         valid_class = counts > 0
-        m = int(counts.max())
+        m = max(int(counts_here.max()), 1)
         grouped_bytes = (C * m) * (D * X.element_size() + C * 4)
         if self.layout == "auto":
-            use_grouped = (
-                C * m <= int(1.5 * n) + 4096
+            fits = (
+                C * m <= int(1.5 * n_here) + 4096
                 and grouped_bytes <= 0.33 * _device_memory_limit(dev)
             )
+            # one layout on every process: they must reduce the same chunks
+            use_grouped = on_every_shard(mesh, fits, dev)
         else:
             use_grouped = self.layout == "grouped"
         # clamp to 1 so empty-class divisions stay finite; their zero wt
@@ -487,8 +512,8 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
             idx = np.zeros((C, m), np.int64)
             wt = np.zeros((C, m), np.float32)
             for c in range(C):
-                idx[c, : counts[c]] = rows_of[c]
-                wt[c, : counts[c]] = 1.0
+                idx[c, : counts_here[c]] = rows_of[c]
+                wt[c, : counts_here[c]] = 1.0
             wt = torch.as_tensor(wt, device=dev)
             XX, R = _group_rows(X, Y, torch.as_tensor(idx, device=dev), wt, joint_label_mean)
             mask = wt.reshape(-1)
@@ -504,38 +529,36 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
         chunks = [chunk_order[g : g + self.class_chunk] for g in range(0, C, self.class_chunk)]
         if not use_grouped:
             # per-chunk gather indices, padded to the chunk's own largest
-            # class rounded up to a power of two
+            # class (on this process) rounded up to a power of two
             chunk_idx = {}
             for ci, chunk in enumerate(chunks):
-                mc = max(1, max(int(counts[c]) for c in chunk))
+                mc = max(1, max(int(counts_here[c]) for c in chunk))
                 mc = 1 << (mc - 1).bit_length()
                 ic = np.zeros((len(chunk), mc), np.int64)
                 wc = np.zeros((len(chunk), mc), np.float32)
                 for g, c in enumerate(chunk):
-                    ic[g, : counts[c]] = rows_of[c]
-                    wc[g, : counts[c]] = 1.0
+                    ic[g, : counts_here[c]] = rows_of[c]
+                    wc[g, : counts_here[c]] = 1.0
                 chunk_idx[ci] = (torch.as_tensor(ic, device=dev), torch.as_tensor(wc, device=dev))
 
         Wb = {s: torch.zeros((wd, C), dtype=torch.float32, device=dev) for s, wd in blocks}
         joint_means = {}  # per block: (C, b)
         for _ in range(self.num_iter):
             for s, wd in blocks:
-                pop_mean, pop_cov, pop_xtr = _pop_stats(XX, R, mask, s, width=wd, n=n)
-                residual_mean = torch.sum(R, dim=0) / n
+                pop_mean, pop_cov, pop_xtr, residual_mean = _pop_stats(
+                    XX, R, mask, s, width=wd, n=n, mesh=mesh)
                 delta = torch.zeros((wd, C), dtype=torch.float32, device=dev)
                 jm_block = torch.zeros((C, wd), dtype=torch.float32, device=dev)
                 for ci, chunk in enumerate(chunks):
                     cids = torch.as_tensor(np.asarray(chunk, np.int64), device=dev)
                     if use_grouped:
-                        ccov, cmean, cxtr, rlm = _class_chunk_stats(
-                            XX, R, wt, counts_j, cids, int(chunk[0]), s,
-                            G=len(chunk), m=m, width=wd,
-                        )
+                        sums = _class_chunk_stats(XX, R, wt, cids, int(chunk[0]), s,
+                                                 G=len(chunk), m=m, width=wd)
                     else:
                         ic, wc = chunk_idx[ci]
-                        ccov, cmean, cxtr, rlm = _class_chunk_stats_gathered(
-                            XX, R, ic, wc, counts_j[cids], cids, s, width=wd,
-                        )
+                        sums = _class_chunk_stats_gathered(XX, R, ic, wc, cids, s, width=wd)
+                    ccov, cmean, cxtr, rlm = _chunk_moments(all_sum(mesh, *sums),
+                                                          1.0 / counts_j[cids])
                     mean_diff = cmean - pop_mean[None, :]
                     joint_xtx = (
                         pop_cov[None] * (1.0 - w)
@@ -570,7 +593,8 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
         return (3 * self.num_iter) + 1
 
 
-def _rwls_block_step(X, mu_b, B, y_zm, res, Wb, aTa, lam, start, *, width, first_pass):
+def _rwls_block_step(X, mu_b, B, y_zm, res, Wb, aTa, lam, start, *, width, first_pass,
+                     mesh=None):
     """One reweighted least-squares block update for one class
     (ReWeightedLeastSquares.scala:80-137):
         aTa   = X̃ᵀ(B ∘ X̃)               (first pass, kept)
@@ -579,14 +603,16 @@ def _rwls_block_step(X, mu_b, B, y_zm, res, Wb, aTa, lam, start, *, width, first
         W_new = (aTa + λI) \\ aTb          (Cholesky; no raise on failure)
         res   = res' + B ∘ (X̃ W_new)
     with X̃ the block centered by the class's joint feature mean and its
-    pad rows (B = 0) zeroed."""
+    pad rows (B = 0) zeroed; aTa and aTb summed over every shard's rows."""
     Xb = _block(X, start, width)
     Xzm = (Xb - mu_b[None, :]) * (B > 0).to(Xb.dtype)[:, None]
     BX = Xzm * B[:, None]
-    if first_pass:
-        aTa = torch.matmul(Xzm.T, BX)
     res_upd = res - torch.matmul(BX, Wb)
     aTb = torch.matmul(Xzm.T, (y_zm * B)[:, None] - res_upd)
+    if first_pass:
+        aTa, aTb = all_sum(mesh, torch.matmul(Xzm.T, BX), aTb)
+    else:
+        (aTb,) = all_sum(mesh, aTb)
     L = torch.linalg.cholesky_ex(aTa + lam * _eye(width, aTa)).L
     Wb_new = torch.cholesky_solve(aTb, L)
     return Wb_new, res_upd + torch.matmul(BX, Wb_new), aTa
@@ -600,7 +626,8 @@ class PerClassWeightedLeastSquaresEstimator(LabelEstimator):
     are (1−w)/n everywhere plus w/n_c on its own rows; features are centered
     by the class's joint mean w·classMean_c + (1−w)·popMean, labels by the
     joint label mean 2w + 2(1−w)·n_c/n − 1. The loop over classes, epochs
-    and blocks runs on the data's device."""
+    and blocks runs on the data's device; on sharded rows each sum over
+    rows is this process's plus an ``all_sum``."""
 
     block_size: int
     num_iter: int
@@ -610,17 +637,19 @@ class PerClassWeightedLeastSquaresEstimator(LabelEstimator):
 
     def fit(self, data: Dataset, labels: Dataset) -> BlockLinearMapper:
         data = data.to_array_mode()
-        X = data.padded()
+        mesh = data.mesh
+        X = data.local()
         dev = X.device
-        Y = labels.to_array_mode().padded().to(device=dev, dtype=torch.float32)
+        Y = labels.local_like(data).to(device=dev, dtype=torch.float32)
         n = data.n
         pn, D = X.shape
         C = Y.shape[1]
         w = self.mixture_weight
         mask = data.mask()
 
-        class_of = torch.argmax(Y, dim=1)[:n]
-        counts = torch.bincount(class_of, minlength=C).to(torch.float64)
+        n_here = data.local_valid
+        class_of = torch.argmax(Y, dim=1)[:n_here]
+        (counts,) = all_sum(mesh, torch.bincount(class_of, minlength=C).to(torch.float64))
         if bool((counts == 0).any()):
             raise ValueError("every class needs at least one example")
 
@@ -628,9 +657,11 @@ class PerClassWeightedLeastSquaresEstimator(LabelEstimator):
         # the means in float64, as the JAX package takes them in numpy;
         # the sums in float32, one block at a time
         onehot = torch.zeros((pn, C), dtype=torch.float32, device=dev)
-        onehot[torch.arange(n, device=dev), class_of] = 1.0
-        pop_sum = torch.cat([torch.sum(_block(X, s, wd) * mask[:, None], dim=0) for s, wd in blocks])
-        class_sums = torch.cat([torch.matmul(onehot.T, _block(X, s, wd)) for s, wd in blocks], dim=1)
+        onehot[torch.arange(n_here, device=dev), class_of] = 1.0
+        pop_sum, class_sums = all_sum(
+            mesh,
+            torch.cat([torch.sum(_block(X, s, wd) * mask[:, None], dim=0) for s, wd in blocks]),
+            torch.cat([torch.matmul(onehot.T, _block(X, s, wd)) for s, wd in blocks], dim=1))
         pop_mean = pop_sum / n
         class_means = class_sums.to(torch.float64) / counts[:, None]
         jfm = class_means * w + pop_mean.to(torch.float64)[None, :] * (1.0 - w)
@@ -653,7 +684,7 @@ class PerClassWeightedLeastSquaresEstimator(LabelEstimator):
                 for s, wd in blocks:
                     Wb[s], res, aTa[s] = _rwls_block_step(
                         X, mu[s], B, y_zm, res, Wb[s], aTa[s], self.lam, s,
-                        width=wd, first_pass=(it == 0),
+                        width=wd, first_pass=(it == 0), mesh=mesh,
                     )
             W[:, c] = torch.cat([Wb[s][:, 0] for s, _ in blocks])
 

@@ -5,7 +5,10 @@ stacked sample matrix via LAPACK sgesvd; whitener =
 V diag((s²/(n−1) + ε)^−½) Vᵀ; apply = (x − means) · whitener. Here the SVD
 is ``torch.linalg.svd`` of the float32 centred sample on its device
 (cuSOLVER on the card); the whitener does not depend on the singular
-vectors' signs.
+vectors' signs. On rows sharded over processes the means are one
+``all_reduce`` and the SVD is of the centred rows' TSQR R factor
+(``pca.centered_factor``), which has the same singular values and right
+singular vectors, so no row leaves its process.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Any
 
 import torch
 
+from keystone_tpu_torch.ops.learning.pca import centered_factor
 from keystone_tpu_torch.parallel.dataset import Dataset
 from keystone_tpu_torch.utils.precision import mm
 from keystone_tpu_torch.workflow.api import Estimator, Transformer
@@ -30,9 +34,9 @@ class ZCAWhitener(Transformer):
         return mm(x - self.means.to(x.device), self.whitener.to(x.device))
 
     def apply_batch(self, ds: Dataset) -> Dataset:
-        out = self.apply(ds.padded())
+        out = self.apply(ds.local())
         out = out * ds.mask()[:, None] if out.ndim == 2 else out
-        return Dataset.from_array(out, n=ds.n)
+        return Dataset(arrays=out, n=ds.n, mesh=ds.mesh)
 
 
 @dataclasses.dataclass(eq=False)
@@ -42,13 +46,18 @@ class ZCAWhitenerEstimator(Estimator):
     eps: float = 0.1
 
     def fit(self, data) -> ZCAWhitener:
-        x = data.array() if isinstance(data, Dataset) else torch.as_tensor(data)
-        return self.fit_single(x)
+        if not isinstance(data, Dataset):
+            return self.fit_single(data)
+        means, factor = centered_factor(data, torch.float32)
+        return self._whitener(factor, means, data.n)
 
     def fit_single(self, x: torch.Tensor) -> ZCAWhitener:
         x = torch.as_tensor(x).to(torch.float32)
-        n = x.shape[0]
         means = torch.mean(x, dim=0)
-        _, s, vt = torch.linalg.svd(x - means, full_matrices=False)
+        return self._whitener(x - means, means, x.shape[0])
+
+    def _whitener(self, factor: torch.Tensor, means: torch.Tensor, n: int) -> ZCAWhitener:
+        """From the centred rows (or a factor with their Gram) and means."""
+        _, s, vt = torch.linalg.svd(factor, full_matrices=False)
         scale = 1.0 / torch.sqrt(s * s / (n - 1.0) + self.eps)
         return ZCAWhitener(mm(vt.T * scale[None, :], vt), means)

@@ -124,13 +124,13 @@ class RandomFFTFeatures(Transformer):
         return self._features(x)
 
     def apply_batch(self, ds: Dataset) -> Dataset:
-        x = ds.padded()
+        x = ds.local()
         rows = min(rows_for(self.signs.shape[0] * _pad_len(x.shape[-1]) * 4), self.row_chunk)
         out = map_rows(self._features, x, rows)
         if self.rectify_threshold > 0:
             # pad rows rectify to the threshold: keep them zero
             out *= ds.mask()[:, None]
-        return Dataset.from_array(out, n=ds.n)
+        return Dataset(arrays=out, n=ds.n, mesh=ds.mesh)
 
 
 @dataclasses.dataclass(eq=False)
@@ -145,11 +145,11 @@ class LinearRectifier(Transformer):
         return torch.clamp(x - self.alpha, min=self.max_val)
 
     def apply_batch(self, ds: Dataset) -> Dataset:
-        out = self.apply(ds.padded())
+        out = self.apply(ds.local())
         if self.max_val > 0 or self.alpha < 0:
             # rectified zero pad rows would be nonzero: keep the invariant
             out = out * ds.mask()[:, None]
-        return Dataset.from_array(out, n=ds.n)
+        return Dataset(arrays=out, n=ds.n, mesh=ds.mesh)
 
 
 @dataclasses.dataclass(eq=False)
@@ -243,8 +243,8 @@ class StandardScalerModel(Transformer):
         return out
 
     def apply_batch(self, ds: Dataset) -> Dataset:
-        out = self.apply(ds.padded()) * ds.mask()[:, None]
-        return Dataset.from_array(out, n=ds.n)
+        """Sharded rows are scaled where they are."""
+        return ds.map_arrays(lambda x: self.apply(x) * ds.mask()[:, None])
 
 
 @dataclasses.dataclass(eq=False)
@@ -253,16 +253,15 @@ class StandardScaler(Estimator):
     nodes/stats/StandardScaler.scala:38, a treeAggregate of a
     MultivariateOnlineSummarizer): float32 sums of x and x², unbiased
     variance (n − 1), a std below ``eps`` taken as 1, as in the JAX
-    package."""
+    package. Sharded rows: each process's sums plus an ``all_sum``."""
 
     normalize_std_dev: bool = True
     eps: float = 1e-12
 
     def fit(self, data: Dataset) -> StandardScalerModel:
-        x = data.padded().to(torch.float32)
+        x = data.local().to(torch.float32)
         n = data.n
-        s1 = torch.sum(x, dim=0)  # pad rows are zero — exact
-        s2 = torch.sum(x * x, dim=0)
+        s1, s2 = data.row_sum(x, x * x)
         mean = s1 / n
         if not self.normalize_std_dev:
             return StandardScalerModel(mean, None)

@@ -36,9 +36,13 @@ device (``parallel/runtime.py``), and a sharded dataset holds this
 process's contiguous range of rows, padded so that every shard of the
 mesh's example axes holds the same count, on its own device. ``n`` and
 ``padded_n`` stay global; ``local()`` is this process's rows and
-``mask()`` covers them. The estimators that reduce over examples
-(``block_ls``, the TSQR PCA, the shuffle) work on the local rows and
-``all_reduce`` their sums. The whole-array views (``padded()``,
+``mask()`` covers them. The estimators that reduce over examples work
+on the local rows and add their sums over the shards with ``all_sum``
+(``Dataset.all_sum``, ``Dataset.row_sum``): one ``all_reduce`` for all
+the sums a step needs, the identity when the rows are not sharded, so
+that one code path serves both. Where an algorithm needs rows another
+process holds (a kernel block's training rows), ``global_rows`` moves
+just those rows. The whole-array views (``padded()``,
 ``array()``, ``items()``, ``first()``) gather every shard's rows with
 ``all_gather`` (``_gathered``, the one place that does), so every process
 must ask for them together.
@@ -216,6 +220,48 @@ def spmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     on ``a``'s device (cuSPARSE SpMM on the card; float32 arithmetic, as
     the JAX package's BCOO products)."""
     return torch.matmul(a, b.to(device=a.device, dtype=torch.float32).contiguous())
+
+
+def all_sum(mesh: Optional[mesh_lib.Mesh], *parts: torch.Tensor) -> List[torch.Tensor]:
+    """``parts``, each this process's sum over its own rows, summed over
+    ``mesh``'s example axes: one ``all_reduce`` for all of them (one per
+    dtype), returned as views of the reduced buffer in their shapes. With
+    no mesh (rows not sharded) the parts themselves, untouched."""
+    if mesh is None:
+        return list(parts)
+    out: List[Optional[torch.Tensor]] = [None] * len(parts)
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, p in enumerate(parts):
+        by_dtype.setdefault(p.dtype, []).append(i)
+    for idxs in by_dtype.values():
+        flat = mesh_lib.all_reduce_sum_(
+            torch.cat([parts[i].reshape(-1) for i in idxs]), mesh)
+        at = 0
+        for i in idxs:
+            out[i] = flat[at : at + parts[i].numel()].view(parts[i].shape)
+            at += parts[i].numel()
+    return out
+
+
+def on_every_shard(mesh: Optional[mesh_lib.Mesh], flag: bool, device=None) -> bool:
+    """Whether ``flag`` holds on every process of ``mesh``'s example axes
+    (one ``all_reduce``; ``flag`` itself without a mesh): a choice that
+    decides which collectives follow must be the same on every process."""
+    if mesh is None:
+        return bool(flag)
+    dev = device if device is not None else mesh_lib.local_device(mesh)
+    (votes,) = all_sum(mesh, torch.full((1,), float(bool(flag)), device=dev))
+    return int(votes) == mesh_lib.n_data_shards(mesh)
+
+
+def require_unsharded(data: Any, what: str) -> None:
+    """Raise where a fit of one whole sample (the reference collects it to
+    one node: the k-means++ seeding, the GMM) is given rows sharded over
+    processes, rather than gather them."""
+    if isinstance(data, Dataset) and data.is_sharded:
+        raise NotImplementedError(
+            f"{what} fits one whole sample; on rows sharded over processes it is not "
+            f"ported ({mesh_lib.ONE_SAMPLE_ITEM}): fit it on an unsharded sample")
 
 
 def _head(a: torch.Tensor, n: int) -> torch.Tensor:
@@ -423,11 +469,19 @@ class Dataset:
             return self.local_n * mesh_lib.n_data_shards(self._mesh)
         return self.local_n
 
-    def _offset(self) -> int:
-        """The global index of this process's first row."""
+    @property
+    def offset(self) -> int:
+        """The global index of this process's first row (0 when not
+        sharded)."""
         if not self.is_sharded:
             return 0
         return mesh_lib.shard_index(self._mesh) * self.local_n
+
+    @property
+    def local_valid(self) -> int:
+        """How many of this process's rows are valid: the first ones (a
+        shard past ``n`` holds none)."""
+        return max(0, min(self.local_n, self._n - self.offset))
 
     # -- views -------------------------------------------------------------
 
@@ -462,9 +516,57 @@ class Dataset:
     def mask(self) -> torch.Tensor:
         """float32 validity mask of this process's rows (``local_n``; all
         ``padded_n`` rows when not sharded), on the dataset's device."""
-        lo = self._offset()
+        lo = self.offset
         idx = torch.arange(lo, lo + self.local_n, device=self.device)
         return (idx < self._n).to(torch.float32)
+
+    # -- sums over the rows of every shard ----------------------------------
+
+    def all_sum(self, *parts: torch.Tensor) -> List[torch.Tensor]:
+        """``parts``, each a sum over this process's rows (a Gram, Xᵀ·R, a
+        loss), summed over every shard in one ``all_reduce`` (module
+        ``all_sum``); the parts themselves when the rows are not sharded."""
+        return all_sum(self._mesh, *parts)
+
+    def row_sum(self, *xs: torch.Tensor) -> List[torch.Tensor]:
+        """Σ over the valid rows of every shard of each ``x`` (a tensor of
+        this process's ``local_n`` rows, such as ``local()`` or one made
+        from it): ``Σ mask()·x`` here, then ``all_sum``."""
+        mask = self.mask()
+        return self.all_sum(*(
+            torch.sum(x * mask.to(x.device, x.dtype).view((-1,) + (1,) * (x.ndim - 1)), dim=0)
+            for x in xs))
+
+    def rows_piece(self, t: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+        """This process's share of the global rows ``start .. stop`` of a
+        tensor whose local rows ``t`` holds: those rows it holds, in place,
+        zeros elsewhere, so that ``all_sum`` of the pieces is the rows
+        themselves (a slice of ``t`` when not sharded)."""
+        if not self.is_sharded:
+            return t[start:stop]
+        lo = self.offset
+        out = t.new_zeros((stop - start,) + tuple(t.shape[1:]))
+        a, b = max(start, lo), min(stop, lo + self.local_n)
+        if a < b:
+            out[a - start : b - start] = t[a - lo : b - lo]
+            mesh_lib.count_rows(out[a - start : b - start])
+        return out
+
+    def global_rows(self, t: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+        """The global rows ``start .. stop`` of a tensor whose local rows
+        ``t`` holds, on every process: only those rows cross processes."""
+        return self.all_sum(self.rows_piece(t, start, stop))[0]
+
+    def local_like(self, other: "Dataset") -> Any:
+        """This dataset's rows beside ``other``'s local ones (labels beside
+        features): this process's when ``other`` is sharded, all of them
+        padded to ``other``'s rows otherwise."""
+        ds = self.to_array_mode()
+        if other.is_sharded:
+            return ds.shard_like(other).local()
+        if ds.padded_n != other.padded_n:
+            ds = ds._pad_to(other.padded_n)
+        return ds.padded()
 
     def items(self) -> List[Any]:
         if self._items is not None:

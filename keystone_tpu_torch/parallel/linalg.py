@@ -13,6 +13,9 @@ axes; without one, ``A`` is the whole matrix, as in one process.
   of R's diagonal, which makes R unique for a full-rank matrix; with one
   shard the tree has one leaf and R is its local QR.
 - ``qr_q``: each shard's rows of Q = A R⁻¹ (CholeskyQR with the TSQR R).
+- ``tsqr_q``: each shard's rows of the tree's own Q (the local Q times
+  its block of the stacked R's Q), as orthogonal as a Householder QR
+  whatever A's conditioning; one shard's is ``torch.linalg.qr``'s Q.
 
 ``gram`` accumulates and returns float32 whatever the input's type (JAX's
 ``preferred_element_type``); float32 products run with TF32 off
@@ -53,6 +56,23 @@ def tsqr_r(A: torch.Tensor, mesh: Optional[mesh_lib.Mesh] = None) -> torch.Tenso
     if mesh is None or mesh_lib.n_data_shards(mesh) == 1:
         return r
     return _fix_sign(torch.linalg.qr(mesh_lib.all_gather_rows(r, mesh), mode="r").R)
+
+
+def tsqr_q(A: torch.Tensor, mesh: Optional[mesh_lib.Mesh] = None) -> torch.Tensor:
+    """Explicit thin Q of an (n, l) matrix, this shard's rows of it when
+    ``mesh`` is given: A_i = Q1_i R_i on each shard, the stacked R's
+    [R_1; ...; R_s] = Q2 R, and Q_i = Q1_i · (Q2's block i). Only the
+    (l, l) R factors cross processes."""
+    if mesh is None or mesh_lib.n_data_shards(mesh) == 1:
+        return torch.linalg.qr(A).Q
+    l = A.shape[1]
+    q1, r1 = torch.linalg.qr(A)
+    if r1.shape[0] < l:  # fewer rows than columns here: pad to (l, l)
+        q1 = torch.cat([q1, q1.new_zeros((q1.shape[0], l - r1.shape[0]))], dim=1)
+        r1 = torch.cat([r1, r1.new_zeros((l - r1.shape[0], l))])
+    q2 = torch.linalg.qr(mesh_lib.all_gather_rows(r1, mesh)).Q
+    i = mesh_lib.shard_index(mesh)
+    return q1 @ q2[i * l : (i + 1) * l]
 
 
 def qr_q(A: torch.Tensor, mesh: Optional[mesh_lib.Mesh] = None) -> Tuple[torch.Tensor, torch.Tensor]:

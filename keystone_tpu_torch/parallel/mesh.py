@@ -43,6 +43,8 @@ DCN_AXIS = "dcn"
 
 # the ROADMAP item a model axis across processes waits for
 MODEL_AXIS_ITEM = "ROADMAP A9, the model axis across processes"
+# and the one the fits of one whole sample on sharded rows wait for
+ONE_SAMPLE_ITEM = "ROADMAP A12, the one-sample fits on sharded rows"
 
 
 class PartitionSpec(tuple):
@@ -285,14 +287,25 @@ def example_group(mesh: Mesh):
 
 # -- collectives over the example axes --------------------------------------
 
-# calls and bytes of each collective this process ran (read by chip_smoke.py)
+# calls, bytes and the largest call's bytes of each collective this
+# process ran (read by chip_smoke.py)
 STATS: Dict[str, List[int]] = {}
 
 
 def _count(name: str, t: torch.Tensor) -> None:
-    s = STATS.setdefault(name, [0, 0])
+    s = STATS.setdefault(name, [0, 0, 0])
+    nbytes = t.numel() * t.element_size()
     s[0] += 1
-    s[1] += t.numel() * t.element_size()
+    s[1] += nbytes
+    s[2] = max(s[2], nbytes)
+
+
+def count_rows(t: torch.Tensor) -> None:
+    """Count rows of a tensor this process holds that ``Dataset.rows_piece``
+    places in a piece for another process (STATS ``rows``: the one way rows
+    cross processes in an ``all_reduce``)."""
+    if dist.is_initialized():
+        _count("rows", t)
 
 
 def reset_stats() -> None:
